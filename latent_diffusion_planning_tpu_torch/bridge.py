@@ -1,0 +1,207 @@
+"""Flax parameter pytrees → the port's modules.
+
+The input is what the JAX package's checkpoints hold: nested dicts of
+arrays (numpy or anything ``np.asarray`` takes), for example the
+``{planner_params, idm_params, vae_params}`` snapshot that
+``Checkpointer.restore_raw`` returns. This module never reads a checkpoint
+itself; the caller does.
+
+Mapping rules:
+- Dense kernels (in, out) are transposed to torch's (out, in);
+- Conv kernels (k, Cin, Cout) and NHWC (kh, kw, Cin, Cout) become torch's
+  (Cout, Cin, k...);
+- ConvTranspose taps are flipped: Flax maps ``x[t] w[j] → y[2t+2-j]``,
+  torch's ``conv_transpose1d`` ``x[t] w[j] → y[2t+j-p]``;
+- GroupNorm/LayerNorm ``scale`` becomes ``weight``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import resolve_device
+from .models.agents import common
+from .models.agents.ldp import LDPAgent
+from .models.nets.mlp import MLPDiffusion
+from .models.nets.unet1d import ConditionalUnet1D
+from .models.vae import KLVAE
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _copy(param: torch.Tensor, value: torch.Tensor) -> None:
+    if tuple(param.shape) != tuple(value.shape):
+        raise ValueError(f"shape mismatch: {tuple(param.shape)} vs "
+                         f"{tuple(value.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def _dense(lin: nn.Linear, p: Mapping) -> None:
+    _copy(lin.weight, _t(p["kernel"]).t())
+    _copy(lin.bias, _t(p["bias"]))
+
+
+def _conv1d(conv: nn.Conv1d, p: Mapping) -> None:
+    _copy(conv.weight, _t(p["kernel"]).permute(2, 1, 0))
+    _copy(conv.bias, _t(p["bias"]))
+
+
+def _conv2d(conv: nn.Conv2d, p: Mapping) -> None:
+    _copy(conv.weight, _t(p["kernel"]).permute(3, 2, 0, 1))
+    _copy(conv.bias, _t(p["bias"]))
+
+
+def _conv_transpose1d(conv: nn.ConvTranspose1d, p: Mapping) -> None:
+    _copy(conv.weight, _t(p["kernel"]).flip(0).permute(1, 2, 0))
+    _copy(conv.bias, _t(p["bias"]))
+
+
+def _norm(norm: nn.Module, p: Mapping) -> None:
+    _copy(norm.weight, _t(p["scale"]))
+    _copy(norm.bias, _t(p["bias"]))
+
+
+# ---------------------------------------------------------------------------
+# nets
+# ---------------------------------------------------------------------------
+
+def load_unet1d(net: ConditionalUnet1D, params: Mapping) -> ConditionalUnet1D:
+    _dense(net.time_dense0, params["Dense_0"])
+    _dense(net.time_dense1, params["Dense_1"])
+    for i, blk in enumerate(net.blocks):
+        p = params[f"FiLMResBlock1D_{i}"]
+        for mine, name in ((blk.block0, "ConvBlock1D_0"),
+                           (blk.block1, "ConvBlock1D_1")):
+            _conv1d(mine.conv, p[name]["Conv_0"])
+            _norm(mine.norm, p[name]["GroupNorm_0"])
+        _dense(blk.film, p["Dense_0"])
+        if blk.proj is not None:
+            _conv1d(blk.proj, p["Conv_0"])
+    for i, conv in enumerate(net.downs):
+        _conv1d(conv, params[f"Conv_{i}"])
+    for i, up in enumerate(net.ups):
+        _conv_transpose1d(up, params[f"ConvTranspose_{i}"])
+    _conv1d(net.final_block.conv, params["ConvBlock1D_0"]["Conv_0"])
+    _norm(net.final_block.norm, params["ConvBlock1D_0"]["GroupNorm_0"])
+    _conv1d(net.final_conv, params[f"Conv_{len(net.downs)}"])
+    return net
+
+
+def unet1d_from_flax(params: Mapping, *, input_dim: int, global_cond_dim: int,
+                     diffusion_step_embed_dim: int = 256,
+                     down_dims=(256, 512, 1024), kernel_size: int = 5,
+                     n_groups: int = 8) -> ConditionalUnet1D:
+    net = ConditionalUnet1D(input_dim, global_cond_dim,
+                            diffusion_step_embed_dim, down_dims, kernel_size,
+                            n_groups)
+    return load_unet1d(net, params)
+
+
+def load_mlp_diffusion(net: MLPDiffusion, params: Mapping) -> MLPDiffusion:
+    if net.learnable_time:
+        _copy(net.time.kernel, _t(params["FourierFeatures_0"]["kernel"]))
+    for i, lin in enumerate(net.cond.dense):
+        _dense(lin, params["MLP_0"][f"Dense_{i}"])
+    trunk = params["MLPResNet_0"]
+    _dense(net.trunk.dense0, trunk["Dense_0"])
+    for i, blk in enumerate(net.trunk.blocks):
+        p = trunk[f"MLPResNetBlock_{i}"]
+        if "Dense_2" in p:
+            raise ValueError("projection blocks are not ported")
+        if net.use_layer_norm:
+            _norm(blk.norm, p["LayerNorm_0"])
+        _dense(blk.dense0, p["Dense_0"])
+        _dense(blk.dense1, p["Dense_1"])
+    _dense(net.trunk.dense1, trunk["Dense_1"])
+    return net
+
+
+def mlp_diffusion_from_flax(params: Mapping, *, s_dim: int, out_dim: int,
+                            **cfg) -> MLPDiffusion:
+    """``cfg``: MLPDiffusion's remaining fields (time_dim, n_blocks, ...)."""
+    cfg = dict(cfg)
+    cfg.setdefault("learnable_time", "FourierFeatures_0" in params)
+    return load_mlp_diffusion(MLPDiffusion(s_dim, out_dim, **cfg), params)
+
+
+def _resblock2d(blk, p: Mapping) -> None:
+    _norm(blk.norm0, p["GroupNorm_0"])
+    _conv2d(blk.conv0, p["Conv_0"])
+    _norm(blk.norm1, p["GroupNorm_1"])
+    _conv2d(blk.conv1, p["Conv_1"])
+    if blk.shortcut is not None:
+        _conv2d(blk.shortcut, p["shortcut"])
+
+
+def load_klvae_encoder(vae: KLVAE, params: Mapping) -> KLVAE:
+    """``params``: the KLVAE's full tree ({encoder, decoder}) or the
+    encoder's alone."""
+    p = params.get("encoder", params)
+    enc = vae.encoder
+    n_conv = 0
+    if "patch_stem" in p:
+        _conv2d(enc.stem, p["patch_stem"])
+    else:
+        _conv2d(enc.stem, p["Conv_0"])
+        n_conv = 1
+    n_res = 0
+    for i, blocks in enumerate(enc.levels):
+        for blk in blocks:
+            _resblock2d(blk, p[f"ResBlock2D_{n_res}"])
+            n_res += 1
+        if i < len(enc.downs):
+            _conv2d(enc.downs[i], p[f"Conv_{n_conv}"])
+            n_conv += 1
+    _resblock2d(enc.mid0, p[f"ResBlock2D_{n_res}"])
+    if enc.attn is not None:
+        a = p["MidAttention_0"]
+        _norm(enc.attn.norm, a["GroupNorm_0"])
+        for lin, name in ((enc.attn.q, "Dense_0"), (enc.attn.k, "Dense_1"),
+                          (enc.attn.v, "Dense_2"), (enc.attn.out, "Dense_3")):
+            _dense(lin, a[name])
+    _resblock2d(enc.mid1, p[f"ResBlock2D_{n_res + 1}"])
+    _norm(enc.norm_out, p["GroupNorm_0"])
+    _conv2d(enc.conv_out, p[f"Conv_{n_conv}"])
+    _conv2d(enc.quant_conv, p["quant_conv"])
+    return vae
+
+
+# ---------------------------------------------------------------------------
+# the agent
+# ---------------------------------------------------------------------------
+
+def ldp_agent_from_flax(snapshot: Mapping, config: Mapping,
+                        shape_meta: Mapping,
+                        device: torch.device | str | None = None) -> LDPAgent:
+    """An LDPAgent from a ``{planner_params, idm_params, vae_params}``
+    snapshot and the agent config dict (``configs.BENCH_AGENT``'s keys)."""
+    dev = resolve_device(device)
+    obs_dim, action_dim = common.obs_dims(shape_meta, config["rgb_obs"],
+                                          config["lowdim_obs"],
+                                          config["vae_feature_dim"])
+    p = config["planner"]
+    planner = unet1d_from_flax(
+        snapshot["planner_params"], input_dim=obs_dim,
+        global_cond_dim=obs_dim * config["obs_horizon"],
+        diffusion_step_embed_dim=p.get("diffusion_step_embed_dim", 256),
+        down_dims=p.get("down_dims", (256, 512, 1024)),
+        kernel_size=p.get("kernel_size", 5), n_groups=p.get("n_groups", 8))
+    i = config["idm_net"]
+    idm = mlp_diffusion_from_flax(
+        snapshot["idm_params"], s_dim=2 * obs_dim, out_dim=action_dim,
+        time_dim=i.get("time_dim", 64),
+        cond_hidden_dims=i.get("cond_hidden_dims", (128, 128)),
+        cond_activation=i.get("cond_activation", "swish"),
+        n_blocks=i.get("n_blocks", 3), hidden_dim=i.get("hidden_dim", 256),
+        use_layer_norm=i.get("use_layer_norm", True))
+    vae = load_klvae_encoder(KLVAE(**config.get("vae", {})),
+                             snapshot["vae_params"])
+    return LDPAgent.assemble(planner, idm, vae, config, obs_dim, action_dim,
+                             dev)

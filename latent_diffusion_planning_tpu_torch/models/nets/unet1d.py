@@ -1,0 +1,140 @@
+"""1-D conditional U-Net, the planner's denoiser.
+
+Counterpart of ``latent_diffusion_planning_tpu/models/nets/unet1d.py``. The
+public layout is the JAX package's (B, T, C); inside, the net runs in
+torch's (B, C, T). Two Flax semantics are reproduced exactly:
+
+- the stride-2 k=3 downsample pads (0, 1) (Flax ``SAME``), not (1, 1):
+  ``y[t'] = Σ_j x[2t'+j] w[j]``;
+- the k=4 s=2 ConvTranspose maps ``x[t] w[j] → y[2t+2-j]``. Torch's
+  ``conv_transpose1d`` maps ``x[t] w[j] → y[2t+j-p]``, so the bridge stores
+  the taps flipped and the layer uses padding 1.
+
+GroupNorm eps is 1e-6 (Flax), and FiLM is ``scale·h + bias`` with
+``[scale, bias] = Dense(mish(cond))``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .embeddings import SinusoidalPosEmb, mish
+
+GN_EPS = 1e-6
+
+
+class ConvBlock1D(nn.Module):
+    """Conv1d(k, SAME) → GroupNorm → Mish."""
+
+    def __init__(self, cin: int, channels: int, kernel_size: int = 5,
+                 n_groups: int = 8):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, channels, kernel_size,
+                              padding=kernel_size // 2)
+        self.norm = nn.GroupNorm(n_groups, channels, eps=GN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mish(self.norm(self.conv(x)))
+
+
+class FiLMResBlock1D(nn.Module):
+    def __init__(self, cin: int, channels: int, cond_dim: int,
+                 kernel_size: int = 5, n_groups: int = 8):
+        super().__init__()
+        self.channels = channels
+        self.block0 = ConvBlock1D(cin, channels, kernel_size, n_groups)
+        self.film = nn.Linear(cond_dim, 2 * channels)
+        self.block1 = ConvBlock1D(channels, channels, kernel_size, n_groups)
+        self.proj = nn.Conv1d(cin, channels, 1) if cin != channels else None
+
+    def forward(self, x: torch.Tensor, mcond: torch.Tensor) -> torch.Tensor:
+        """x: (B, Cin, T); mcond: mish(cond), (B, cond_dim)."""
+        h = self.block0(x)
+        film = self.film(mcond)[:, :, None]
+        h = film[:, :self.channels] * h + film[:, self.channels:]
+        h = self.block1(h)
+        return h + (self.proj(x) if self.proj is not None else x)
+
+
+class ConditionalUnet1D(nn.Module):
+    """ε(sample (B, T, input_dim), timestep, global_cond (B, Dc))."""
+
+    def __init__(self, input_dim: int, global_cond_dim: int,
+                 diffusion_step_embed_dim: int = 256,
+                 down_dims: Sequence[int] = (256, 512, 1024),
+                 kernel_size: int = 5, n_groups: int = 8,
+                 downsample: bool = True):
+        super().__init__()
+        if not downsample:
+            raise NotImplementedError("only downsample=True is ported")
+        d = diffusion_step_embed_dim
+        self.input_dim = input_dim
+        self.global_cond_dim = global_cond_dim
+        self.dsed = d
+        self.down_dims = tuple(down_dims)
+        self.kernel_size = kernel_size
+        self.n_groups = n_groups
+        self.time_emb = SinusoidalPosEmb(d)
+        self.time_dense0 = nn.Linear(d, 4 * d)
+        self.time_dense1 = nn.Linear(4 * d, d)
+        cond_dim = d + global_cond_dim
+        blocks = []
+        cin = input_dim
+        for ch in self.down_dims:
+            blocks += [FiLMResBlock1D(cin, ch, cond_dim, kernel_size, n_groups),
+                       FiLMResBlock1D(ch, ch, cond_dim, kernel_size, n_groups)]
+            cin = ch
+        mid = self.down_dims[-1]
+        blocks += [FiLMResBlock1D(mid, mid, cond_dim, kernel_size, n_groups)
+                   for _ in range(2)]
+        for ch, skip in zip(reversed(self.down_dims[:-1]),
+                            reversed(self.down_dims[1:])):
+            blocks += [FiLMResBlock1D(cin + skip, ch, cond_dim, kernel_size,
+                                      n_groups),
+                       FiLMResBlock1D(ch, ch, cond_dim, kernel_size, n_groups)]
+            cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.downs = nn.ModuleList(nn.Conv1d(ch, ch, 3, stride=2)
+                                   for ch in self.down_dims[:-1])
+        self.ups = nn.ModuleList(
+            nn.ConvTranspose1d(ch, ch, 4, stride=2, padding=1)
+            for ch in reversed(self.down_dims[:-1]))
+        self.final_block = ConvBlock1D(self.down_dims[0], self.down_dims[0],
+                                       kernel_size, n_groups)
+        self.final_conv = nn.Conv1d(self.down_dims[0], input_dim, 1)
+
+    def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
+                global_cond: torch.Tensor) -> torch.Tensor:
+        B, T, _ = sample.shape
+        factor = 2 ** (len(self.down_dims) - 1)
+        if T % factor:
+            raise ValueError(f"sequence length {T} must be divisible by "
+                             f"{factor} (downsample levels)")
+        t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
+        temb = self.time_emb(t.expand(B))
+        temb = self.time_dense1(mish(self.time_dense0(temb)))
+        mcond = mish(torch.cat([temb, global_cond.float()], -1))
+
+        x = sample.float().transpose(1, 2)
+        blocks = iter(self.blocks)
+        skips = []
+        L = len(self.down_dims)
+        for i in range(L):
+            x = next(blocks)(x, mcond)
+            x = next(blocks)(x, mcond)
+            skips.append(x)
+            if i < L - 1:
+                x = self.downs[i](F.pad(x, (0, 1)))
+        x = next(blocks)(x, mcond)
+        x = next(blocks)(x, mcond)
+        for up in self.ups:
+            x = torch.cat([x, skips.pop()], 1)
+            x = next(blocks)(x, mcond)
+            x = next(blocks)(x, mcond)
+            x = up(x)
+        x = self.final_conv(self.final_block(x))
+        return x.transpose(1, 2)
