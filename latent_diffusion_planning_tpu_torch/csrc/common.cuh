@@ -14,13 +14,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// softplus as jax.nn.softplus computes it: max(x, 0) + log1p(exp(-|x|))
-__device__ __forceinline__ float softplusf(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
+// mish(x) = x tanh(softplus(x)) = x u / (u + 2) with u = e^x (e^x + 2): one
+// exponential and one division, every term positive (no cancellation).
 __device__ __forceinline__ float mishf(float x) {
-  return x * tanhf(softplusf(x));
+  if (x > 20.f) return x;
+  const float w = expf(x);
+  const float u = w * (w + 2.f);
+  return x * (u / (u + 2.f));
 }
 
 __device__ __forceinline__ float swishf(float x) {

@@ -1,258 +1,445 @@
-// Fused reverse-diffusion sampler for the MLP IDM (MLPDiffusion), fp32.
+// Fused reverse-diffusion sampler for the MLP IDM (MLPDiffusion): fp32
+// results, the three large products of a residual block on the tensor cores
+// as error-compensated (3x) TF32.
 //
 // Replaces the TPU kernel latent_diffusion_planning_tpu/ops/pallas/
 // diffusion_mlp.py (fused_mlp_diffusion_sample -> _sampler_kernel): the
-// whole DDPM/DDIM reverse process in one launch. Per step and row:
+// whole DDPM/DDIM reverse process in one call. Per step and row:
 //   Fourier features [cos, sin](2*pi*t*W) -> cond MLP (Dense, swish, Dense)
 //   -> Dense([x, s, cond]) -> n_blocks x [LayerNorm(1e-6) -> Dense(4h) ->
 //   ReLU -> Dense(h) + skip] -> ReLU -> Dense(A) = eps, then
 //   x0 = clip(c0 (x - c1 eps)), x = c2 x0 + c3 x + c4 noise[step].
 //
-// What bounds it on H100: fp32 FMAs on the CUDA cores (about 3.2 MFLOP per
-// row and step at the bench widths; the weights, 6.6 MB, sit in L2). The
-// design keeps every activation of a ROWS-row tile in shared memory for all
-// steps, so nothing but the final sample goes back to device memory; each
-// weight read from L2 feeds ROWS rows, and the 4h-wide inner layer runs in
-// chunks of h columns so the whole 4h activation is never held. One thread
-// owns one output column and keeps ROWS accumulators in registers;
-// activations are read from shared memory as float4 broadcasts.
+// The function is fp32 in the JAX package, so the products cannot simply
+// drop to TF32 (three decimal digits). Each operand is split a = hi + lo,
+// hi = tf32(a), lo = tf32(a - hi), and hi*hi + hi*lo + lo*hi is summed in
+// fp32 by mma.sync m16n8k8: about 2^-21 relative error a product. The
+// tensor core truncates when it adds into its accumulator, which over a
+// K = 256 chain costs more than the split saves (1.9e-4 against the fp32
+// twin, measured), so each stage's 16 K-rows are summed from zero on the
+// tensor core and that partial sum is added to the running fp32 sum on the
+// CUDA cores, which round to nearest: 3e-6 against the twin, inside the
+// tolerances it is held to (1e-4 DDIM-10, 1e-3 DDPM-50).
 //
-// Weights arrive packed in one fp32 buffer, Dense kernels as (in, out):
-//   ff(half) cw0(2half x C0) cb0 cw1(C0 x C1) cb1 tw0((A+S+C1) x H) tb0
-//   n_blocks x [ln_s(H) ln_b(H) w0(H x 4H) b0(4H) w1(4H x H) b1(H)]
-//   ow(H x A) ob(A)
+// What bounds it on H100: three TF32 mma passes over 2*N*K*M FLOPs (783
+// GFLOP of tensor-core work for DDIM-10 at 8192 rows, bench widths) and,
+// about as long, the weight stream: every 64-row block reads all 6.4 MB of
+// fp32 weights from L2 once per step. The design:
+//  * A block owns 64 rows for all steps. The residual h (64 x H) never
+//    leaves registers: it is the accumulator of the H-wide products, in mma
+//    C-fragment layout, warp w holding columns [w H/8, (w+1) H/8) of all 64
+//    rows. LayerNorm reduces it across warps through a few hundred bytes of
+//    shared memory. Only the A operands (x|s, the LayerNorm output, one
+//    H-column chunk of the 4H layer, so the 4H activation is never held
+//    whole) are in shared memory, at a row stride of 4 mod 32 floats so
+//    that fragment loads hit 32 distinct banks.
+//  * Weights arrive pre-tiled (ops/kernels/diffusion_mlp.py): stages of 16
+//    K-rows x H columns in B-fragment order, in the order they are consumed,
+//    through a ring of cp.async stages (stream.cuh) that runs ahead across
+//    chunk, block and step boundaries. They are stored unsplit and split
+//    into hi/lo in the kernel (three instructions an element, amortised over
+//    four row tiles): pre-split weights would double the stream. ROWS stays
+//    64: the residual and one chunk's accumulator are 128 registers a thread
+//    (255 in all, no spill), and 128 rows would need twice that.
+//  * The time conditioning is the same for every row of a step: a prologue
+//    kernel of the same call computes, per step, the cond MLP and its share
+//    of the trunk's input layer (+ bias) on the CUDA cores into scratch; the
+//    7-wide output layer, LayerNorm and the update stay on the CUDA cores.
+//
+// Packed buffer (fp32): [ stream | vectors ]. Stream, per step: the trunk
+// input layer's [x|s] rows (K padded to 16), then per block and per chunk c
+// of H columns of the 4H layer: w0[:, c], w1[c, :]. Vectors:
+//   ff(half) cw0(2half x C0) cb0 cw1(C0 x C1) cb1 twc(C1 x H) tb0(H)
+//   n_blocks x [ln_s(H) ln_b(H) b0(4H) b1(H)]  ow(H x A) ob(A)
+#include <cstdint>
+
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
 constexpr float kLnEps = 1e-6f;
+constexpr int kRows = 64;       // rows per block
+constexpr int kMt = kRows / 16; // m16 row tiles
+constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kStageK = 16;     // K-rows per ring stage
 
-template <int ROWS>
-__global__ void __launch_bounds__(256, 1) mlp_sampler_kernel(
-    const float* __restrict__ s, const float* __restrict__ x_init,
-    const int* __restrict__ ts, const float* __restrict__ coefs,
-    const float* __restrict__ noise, const float* __restrict__ w,
-    float* __restrict__ out, int N, int S, int A, int T, int half, int C0,
-    int C1, int H, int n_blocks, float clip, int kxs) {
+struct Dims {
+  int N, S, A, T, half, C0, C1, H, n_blocks, kxs, stages, stream_stages,
+      vec_base, smem_main, smem_pro;
+};
+constexpr int kNDims = 15;
+
+struct Vecs {
+  const float *ff, *cw0, *cb0, *cw1, *cb1, *twc, *tb0, *blocks, *ow, *ob;
+  int blk_size;
+};
+
+__device__ __forceinline__ Vecs vecs(const float* v, const Dims& d) {
+  Vecs o;
+  o.ff = v;
+  o.cw0 = o.ff + d.half;
+  o.cb0 = o.cw0 + 2 * d.half * d.C0;
+  o.cw1 = o.cb0 + d.C0;
+  o.cb1 = o.cw1 + d.C0 * d.C1;
+  o.twc = o.cb1 + d.C1;
+  o.tb0 = o.twc + d.C1 * d.H;
+  o.blocks = o.tb0 + d.H;
+  o.blk_size = 2 * d.H + 4 * d.H + d.H;
+  o.ow = o.blocks + d.n_blocks * o.blk_size;
+  o.ob = o.ow + d.H * d.A;
+  return o;
+}
+
+// Per step: what the time contributes to the trunk's input layer,
+// cbias[step][n] = tb0[n] + sum_k cond(t)[k] twc[k][n].
+__global__ void __launch_bounds__(kThreads) mlp_time_kernel(
+    const int* __restrict__ ts, const float* __restrict__ w,
+    float* __restrict__ cbias, Dims d) {
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int NT = blockDim.x;  // == H
-  const int row0 = blockIdx.x * ROWS;
+  float* tff = reinterpret_cast<float*>(smem4);  // 2 half
+  float* cv0 = tff + 2 * d.half;                 // C0
+  float* cv1 = cv0 + d.C0;                       // C1
+  const Vecs v = vecs(w + d.vec_base, d);
+  const int tid = threadIdx.x, NT = blockDim.x, step = blockIdx.x;
+  const float t = static_cast<float>(ts[step]);
+  for (int i = tid; i < d.half; i += NT) {
+    const float f = (2.f * ldp::kPi * t) * v.ff[i];
+    tff[i] = cosf(f);
+    tff[d.half + i] = sinf(f);
+  }
+  __syncthreads();
+  for (int n = tid; n < d.C0; n += NT) {
+    float a = v.cb0[n];
+    for (int k = 0; k < 2 * d.half; ++k)
+      a = fmaf(tff[k], v.cw0[k * d.C0 + n], a);
+    cv0[n] = ldp::swishf(a);
+  }
+  __syncthreads();
+  for (int n = tid; n < d.C1; n += NT) {
+    float a = v.cb1[n];
+    for (int k = 0; k < d.C0; ++k) a = fmaf(cv0[k], v.cw1[k * d.C1 + n], a);
+    cv1[n] = a;
+  }
+  __syncthreads();
+  for (int n = tid; n < d.H; n += NT) {
+    float a = v.tb0[n];
+    for (int k = 0; k < d.C1; ++k) a = fmaf(cv1[k], v.twc[k * d.H + n], a);
+    cbias[step * d.H + n] = a;
+  }
+}
 
-  float* xs = sm;                 // ROWS x kxs: [x (A) | s (S) | pad]
-  float* h = xs + ROWS * kxs;     // ROWS x H
-  float* ln = h + ROWS * H;       // ROWS x H
-  float* act = ln + ROWS * H;     // ROWS x H   (one chunk of the 4H layer)
-  float* tff = act + ROWS * H;    // 2 half
-  float* cv0 = tff + 2 * half;    // C0
-  float* cv1 = cv0 + C0;          // C1
-  float* cb = cv1 + C1;           // H: cond part of the trunk input + bias
-  float* eps = cb + H;            // ROWS x A
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = ldp::to_tf32(x);
+  lo = ldp::to_tf32(x - __uint_as_float(hi));
+}
 
-  const float* ff = w;
-  const float* cw0 = ff + half;
-  const float* cb0 = cw0 + 2 * half * C0;
-  const float* cw1 = cb0 + C0;
-  const float* cb1 = cw1 + C0 * C1;
-  const float* tw0 = cb1 + C1;
-  const float* tb0 = tw0 + (A + S + C1) * H;
-  const float* blocks = tb0 + H;
-  const int H4 = 4 * H;
-  const int blk_size = 2 * H + H * H4 + H4 + H4 * H + H;
-  const float* ow = blocks + n_blocks * blk_size;
-  const float* ob = ow + H * A;
-
-  for (int i = tid; i < ROWS * kxs; i += NT) {
-    const int r = i / kxs, k = i % kxs, row = row0 + r;
-    float v = 0.f;
-    if (row < N) {
-      if (k < A) v = x_init[row * A + k];
-      else if (k < A + S) v = s[row * S + (k - A)];
+// acc[mt][nt] += A (64 rows x K, shared, stride lda) * W (K x H, the next
+// K / 16 stages of the stream), as hi*hi + hi*lo + lo*hi in TF32. Warp w
+// computes columns [8 NT w, 8 NT (w + 1)).
+template <int NT, typename Ring>
+__device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
+                                      int lda, int K, Ring& ring, int warp,
+                                      int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += kStageK) {
+    const float* st = reinterpret_cast<const float*>(ring.enter());
+    uint32_t bh[2][NT][2], bl[2][NT][2];
+#pragma unroll
+    for (int k8 = 0; k8 < 2; ++k8)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 wv = *reinterpret_cast<const float2*>(
+            st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
+        split_tf32(wv.x, bh[k8][nt][0], bl[k8][nt][0]);
+        split_tf32(wv.y, bh[k8][nt][1], bl[k8][nt][1]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      // the tensor core truncates when it adds into its accumulator: sum
+      // a stage's products from zero there and add the
+      // partial sum on the CUDA cores, which round to nearest
+      float part[NT][4];
+#pragma unroll
+      for (int k8 = 0; k8 < 2; ++k8) {
+        const float* ap = A + (mt * 16 + g) * lda + k0 + k8 * 8 + tq;
+        uint32_t ah[4], al[4];
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8 * lda], ah[1], al[1]);
+        split_tf32(ap[4], ah[2], al[2]);
+        split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (k8 == 0)
+            ldp::mma_tf32_zero(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+          else
+            ldp::mma_tf32(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+          ldp::mma_tf32(part[nt], ah, bl[k8][nt][0], bl[k8][nt][1]);
+          ldp::mma_tf32(part[nt], ah, bh[k8][nt][0], bh[k8][nt][1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
     }
-    xs[i] = v;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
+    const float* __restrict__ s, const float* __restrict__ x_init,
+    const float* __restrict__ coefs, const float* __restrict__ noise,
+    const float* __restrict__ w, const float* __restrict__ cbias,
+    float* __restrict__ out, Dims d, float clip) {
+  constexpr int H = 64 * NT;
+  constexpr int kStageBytes = kStageK * H * 4;
+  constexpr int lda = H + 4;
+  extern __shared__ float4 smem4[];
+  char* smc = reinterpret_cast<char*>(smem4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * kRows;
+  const int N = d.N, S = d.S, A = d.A, kxs = d.kxs;
+
+  float* xs = reinterpret_cast<float*>(smc + d.stages * kStageBytes);
+  float* ln = xs + kRows * kxs;      // 64 x lda: LayerNorm output, relu(h)
+  float* act = ln + kRows * lda;     // 64 x lda: one chunk of the 4H layer
+  float* part = act + kRows * lda;   // 64 x 8 partial row sums
+  float* eps = part + kRows * kWarps;  // 64 x A
+
+  const Vecs v = vecs(w + d.vec_base, d);
+  ldp::WeightRing<kStageBytes> ring;
+  ring.start(w, smc, d.stages, d.stream_stages, d.stream_stages * d.T);
+
+  for (int i = tid; i < kRows * kxs; i += kThreads) {
+    const int r = i / kxs, k = i - r * kxs, row = row0 + r;
+    float val = 0.f;
+    if (row < N) {
+      if (k < A) val = x_init[static_cast<size_t>(row) * A + k];
+      else if (k < A + S) val = s[static_cast<size_t>(row) * S + (k - A)];
+    }
+    xs[i] = val;
   }
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31, n_warps = NT >> 5;
-  for (int step = 0; step < T; ++step) {
-    // ---- time conditioning: identical for every row of the step ----
-    const float t = static_cast<float>(ts[step]);
-    for (int i = tid; i < half; i += NT) {
-      const float f = (2.f * ldp::kPi * t) * ff[i];
-      tff[i] = cosf(f);
-      tff[half + i] = sinf(f);
-    }
-    __syncthreads();
-    for (int n = tid; n < C0; n += NT) {
-      float a = cb0[n];
-      for (int k = 0; k < 2 * half; ++k) a = fmaf(tff[k], cw0[k * C0 + n], a);
-      cv0[n] = ldp::swishf(a);
-    }
-    __syncthreads();
-    for (int n = tid; n < C1; n += NT) {
-      float a = cb1[n];
-      for (int k = 0; k < C0; ++k) a = fmaf(cv0[k], cw1[k * C1 + n], a);
-      cv1[n] = a;
-    }
-    __syncthreads();
-    for (int n = tid; n < H; n += NT) {
-      float a = tb0[n];
-      for (int k = 0; k < C1; ++k)
-        a = fmaf(cv1[k], tw0[(A + S + k) * H + n], a);
-      cb[n] = a;
-    }
-    __syncthreads();
+  const int col0 = warp * 8 * NT + 2 * tq;   // + 8 nt + e
+  const int Kin = kxs - 4;                   // A + S padded to 16
+  float h[kMt][NT][4];
 
-    // ---- trunk input layer over [x, s] ----
-    {
-      const int n = tid;
-      float acc[ROWS];
+  for (int step = 0; step < d.T; ++step) {
+    // ---- trunk input layer: h = [x|s] W + (time share + bias) ----
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = cb[n];
-      for (int k = 0; k < A + S; ++k) {
-        const float wv = tw0[k * H + n];
+    for (int nt = 0; nt < NT; ++nt) {
+      const float c0 = cbias[step * H + col0 + 8 * nt];
+      const float c1 = cbias[step * H + col0 + 8 * nt + 1];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          acc[r] = fmaf(xs[r * kxs + k], wv, acc[r]);
+      for (int mt = 0; mt < kMt; ++mt) {
+        h[mt][nt][0] = c0; h[mt][nt][1] = c1;
+        h[mt][nt][2] = c0; h[mt][nt][3] = c1;
       }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) h[r * H + n] = acc[r];
     }
-    __syncthreads();
+    gemm3<NT>(h, xs, kxs, Kin, ring, warp, lane);
 
     // ---- residual blocks ----
-    for (int b = 0; b < n_blocks; ++b) {
-      const float* ln_s = blocks + b * blk_size;
+    for (int b = 0; b < d.n_blocks; ++b) {
+      const float* ln_s = v.blocks + b * v.blk_size;
       const float* ln_b = ln_s + H;
-      const float* w0 = ln_b + H;
-      const float* b0 = w0 + H * H4;
-      const float* w1 = b0 + H4;
-      const float* b1 = w1 + H4 * H;
+      const float* b0 = ln_b + H;
+      const float* b1 = b0 + 4 * H;
 
-      for (int r = warp; r < ROWS; r += n_warps) {
-        const float* hr = h + r * H;
-        float sum = 0.f;
-        for (int k = lane; k < H; k += 32) sum += hr[k];
-        const float mu = ldp::warp_sum(sum) / H;
-        float sq = 0.f;
-        for (int k = lane; k < H; k += 32) {
-          const float d = hr[k] - mu;
-          sq = fmaf(d, d, sq);
+      // LayerNorm over the row, two passes, rows spread over the warps
+      float mu[kMt][2], rstd[kMt][2];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            sum += h[mt][nt][2 * hf] + h[mt][nt][2 * hf + 1];
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sum;
         }
-        const float rstd = rsqrtf(ldp::warp_sum(sq) / H + kLnEps);
-        for (int k = lane; k < H; k += 32)
-          ln[r * H + k] = (hr[k] - mu) * rstd * ln_s[k] + ln_b[k];
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
+          float sum = 0.f;
+#pragma unroll
+          for (int q = 0; q < kWarps; ++q) sum += p[q];
+          mu[mt][hf] = sum / H;
+        }
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float sq = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float d0 = h[mt][nt][2 * hf] - mu[mt][hf];
+            const float d1 = h[mt][nt][2 * hf + 1] - mu[mt][hf];
+            sq = fmaf(d0, d0, sq);
+            sq = fmaf(d1, d1, sq);
+          }
+          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+          sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+          if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sq;
+        }
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
+          float sq = 0.f;
+#pragma unroll
+          for (int q = 0; q < kWarps; ++q) sq += p[q];
+          rstd[mt][hf] = rsqrtf(sq / H + kLnEps);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = col0 + 8 * nt;
+        const float s0 = ln_s[c], s1 = ln_s[c + 1];
+        const float o0 = ln_b[c], o1 = ln_b[c + 1];
+        const float r0 = b1[c], r1 = b1[c + 1];
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float& h0 = h[mt][nt][2 * hf];
+            float& h1 = h[mt][nt][2 * hf + 1];
+            float2 y;
+            y.x = (h0 - mu[mt][hf]) * rstd[mt][hf] * s0 + o0;
+            y.y = (h1 - mu[mt][hf]) * rstd[mt][hf] * s1 + o1;
+            *reinterpret_cast<float2*>(ln + (mt * 16 + g + 8 * hf) * lda + c)
+                = y;
+            h0 += r0;   // the second layer's bias joins the residual now
+            h1 += r1;
+          }
       }
       __syncthreads();
 
-      float acc2[ROWS];
+      for (int c4 = 0; c4 < 4; ++c4) {
+        float a1[kMt][NT][4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc2[r] = 0.f;
-      for (int c0 = 0; c0 < H4; c0 += H) {
-        const int n1 = c0 + tid;
-        float acc1[ROWS];
+        for (int nt = 0; nt < NT; ++nt) {
+          const float c0 = b0[c4 * H + col0 + 8 * nt];
+          const float c1 = b0[c4 * H + col0 + 8 * nt + 1];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc1[r] = b0[n1];
-        for (int k = 0; k < H; k += 4) {
-          const float wa = w0[(k + 0) * H4 + n1], wb = w0[(k + 1) * H4 + n1];
-          const float wc = w0[(k + 2) * H4 + n1], wd = w0[(k + 3) * H4 + n1];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float4 v = *reinterpret_cast<const float4*>(ln + r * H + k);
-            acc1[r] = fmaf(v.x, wa, acc1[r]);
-            acc1[r] = fmaf(v.y, wb, acc1[r]);
-            acc1[r] = fmaf(v.z, wc, acc1[r]);
-            acc1[r] = fmaf(v.w, wd, acc1[r]);
+          for (int mt = 0; mt < kMt; ++mt) {
+            a1[mt][nt][0] = c0; a1[mt][nt][1] = c1;
+            a1[mt][nt][2] = c0; a1[mt][nt][3] = c1;
           }
         }
+        gemm3<NT>(a1, ln, lda, H, ring, warp, lane);
+        // every warp is past its reads of `act` from the chunk before: the
+        // ring's barriers inside the product above saw to that
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) act[r * H + tid] = fmaxf(acc1[r], 0.f);
-        __syncthreads();
-        for (int k = 0; k < H; k += 4) {
-          const float wa = w1[(c0 + k + 0) * H + tid];
-          const float wb = w1[(c0 + k + 1) * H + tid];
-          const float wc = w1[(c0 + k + 2) * H + tid];
-          const float wd = w1[(c0 + k + 3) * H + tid];
+        for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float4 v = *reinterpret_cast<const float4*>(act + r * H + k);
-            acc2[r] = fmaf(v.x, wa, acc2[r]);
-            acc2[r] = fmaf(v.y, wb, acc2[r]);
-            acc2[r] = fmaf(v.z, wc, acc2[r]);
-            acc2[r] = fmaf(v.w, wd, acc2[r]);
-          }
-        }
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float2 y;
+              y.x = fmaxf(a1[mt][nt][2 * hf], 0.f);
+              y.y = fmaxf(a1[mt][nt][2 * hf + 1], 0.f);
+              *reinterpret_cast<float2*>(
+                  act + (mt * 16 + g + 8 * hf) * lda + col0 + 8 * nt) = y;
+            }
         __syncthreads();
+        gemm3<NT>(h, act, lda, H, ring, warp, lane);
       }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) h[r * H + tid] += acc2[r] + b1[tid];
-      __syncthreads();
     }
 
-    // ---- output layer and the sampler update ----
-    for (int i = tid; i < ROWS * A; i += NT) {
-      const int r = i / A, a = i % A;
-      float e = ob[a];
-      for (int k = 0; k < H; ++k)
-        e = fmaf(fmaxf(h[r * H + k], 0.f), ow[k * A + a], e);
+    // ---- output layer and the sampler update (CUDA cores) ----
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float2 y;
+          y.x = fmaxf(h[mt][nt][2 * hf], 0.f);
+          y.y = fmaxf(h[mt][nt][2 * hf + 1], 0.f);
+          *reinterpret_cast<float2*>(
+              ln + (mt * 16 + g + 8 * hf) * lda + col0 + 8 * nt) = y;
+        }
+    __syncthreads();
+    for (int i = tid; i < kRows * A; i += kThreads) {
+      const int r = i / A, a = i - r * A;
+      const float* hr = ln + r * lda;
+      float e = v.ob[a];
+      for (int k = 0; k < H; ++k) e = fmaf(hr[k], v.ow[k * A + a], e);
       eps[i] = e;
     }
     __syncthreads();
     const float k0 = coefs[step * 5 + 0], k1 = coefs[step * 5 + 1];
     const float k2 = coefs[step * 5 + 2], k3 = coefs[step * 5 + 3];
     const float k4 = coefs[step * 5 + 4];
-    for (int i = tid; i < ROWS * A; i += NT) {
-      const int r = i / A, a = i % A, row = row0 + r;
+    for (int i = tid; i < kRows * A; i += kThreads) {
+      const int r = i / A, a = i - r * A, row = row0 + r;
       const float x = xs[r * kxs + a];
       const float x0 = fminf(fmaxf(k0 * (x - k1 * eps[i]), -clip), clip);
       float xn = k2 * x0 + k3 * x;
       if (noise != nullptr && row < N)
-        xn += k4 * noise[(static_cast<long long>(step) * N + row) * A + a];
+        xn += k4 * noise[(static_cast<size_t>(step) * N + row) * A + a];
       xs[r * kxs + a] = xn;
     }
     __syncthreads();
   }
+  ring.drain();
 
-  for (int i = tid; i < ROWS * A; i += NT) {
-    const int r = i / A, a = i % A, row = row0 + r;
-    if (row < N) out[row * A + a] = xs[r * kxs + a];
+  for (int i = tid; i < kRows * A; i += kThreads) {
+    const int r = i / A, a = i - r * A, row = row0 + r;
+    if (row < N) out[static_cast<size_t>(row) * A + a] = xs[r * kxs + a];
   }
 }
 
-template <int ROWS>
-int launch(const float* s, const float* x_init, const int* ts,
-           const float* coefs, const float* noise, const float* w, float* out,
-           int N, int S, int A, int T, int half, int C0, int C1, int H,
-           int n_blocks, float clip, int kxs, int smem_bytes,
-           cudaStream_t stream) {
-  auto kernel = mlp_sampler_kernel<ROWS>;
-  cudaError_t err = ldp::allow_smem(kernel, smem_bytes);
+template <int NT>
+int launch(const float* s, const float* x_init, const float* coefs,
+           const float* noise, const float* w, const float* cbias, float* out,
+           const Dims& d, float clip, cudaStream_t stream) {
+  auto kernel = mlp_sampler_kernel<NT>;
+  cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (N + ROWS - 1) / ROWS;
-  kernel<<<grid, H, smem_bytes, stream>>>(s, x_init, ts, coefs, noise, w, out,
-                                          N, S, A, T, half, C0, C1, H,
-                                          n_blocks, clip, kxs);
+  const int grid = (d.N + kRows - 1) / kRows;
+  kernel<<<grid, kThreads, d.smem_main, stream>>>(s, x_init, coefs, noise, w,
+                                                  cbias, out, d, clip);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// rows: 64 or 32 rows per block; H must be a multiple of 32 in [32, 256];
-// noise may be null (DDIM). Returns a cudaError_t.
+// `dims` is kNDims host ints in the order of Dims; H must be 64, 128, 192 or
+// 256; noise may be null (DDIM); cbias (T x H) is scratch. Returns a
+// cudaError_t.
 extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
                                const int* ts, const float* coefs,
-                               const float* noise, const float* w, float* out,
-                               int N, int S, int A, int T, int half, int C0,
-                               int C1, int H, int n_blocks, float clip,
-                               int rows, int kxs, int smem_bytes,
-                               void* stream) {
+                               const float* noise, const float* w,
+                               float* cbias, float* out, const int* dims,
+                               int n_dims, float clip, void* stream) {
+  if (n_dims != kNDims) return static_cast<int>(cudaErrorInvalidValue);
+  Dims d;
+  int* fields = reinterpret_cast<int*>(&d);
+  for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
+  if (d.H % 64 || d.H < 64 || d.H > 256 || d.stages < 2 || d.stages > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (rows == 64)
-    return launch<64>(s, x_init, ts, coefs, noise, w, out, N, S, A, T, half,
-                      C0, C1, H, n_blocks, clip, kxs, smem_bytes, st);
-  if (rows == 32)
-    return launch<32>(s, x_init, ts, coefs, noise, w, out, N, S, A, T, half,
-                      C0, C1, H, n_blocks, clip, kxs, smem_bytes, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  mlp_time_kernel<<<d.T, kThreads, d.smem_pro, st>>>(ts, w, cbias, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (d.H / 64) {
+    case 1: return launch<1>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
+    case 2: return launch<2>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
+    case 3: return launch<3>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
+    default: return launch<4>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
+  }
 }

@@ -1,9 +1,10 @@
-// Fused DDIM (eta = 0) reverse process of ConditionalUnet1D: bf16 weights,
-// fp32 activations and accumulation.
+// Fused DDIM (eta = 0) reverse process of ConditionalUnet1D on the tensor
+// cores: bf16 weights and bf16 activation operands, fp32 accumulation, fp32
+// GroupNorm / Mish / FiLM / DDIM update.
 //
 // Replaces the TPU kernel latent_diffusion_planning_tpu/ops/pallas/
 // diffusion_unet1d.py (fused_unet1d_ddim_sample -> _kernel), both its
-// VMEM-resident and its streamed-weights mode: one launch runs every step of
+// VMEM-resident and its streamed-weights mode: one call runs every step of
 // the reverse process for a tile of `nb` samples. Per step:
 //   sinusoidal t-embedding -> Dense(4d) -> Mish -> Dense(d); concat global
 //   cond; Mish. Then the U-Net: FiLM residual blocks (conv k SAME -> GN ->
@@ -12,47 +13,79 @@
 //   upsample (x[t] w[j] -> y[2t+2-j]), skip concat, final conv block, 1x1
 //   conv to eps; x0 = clip(c0 (x - c1 eps)), x = c2 x0 + c3 x.
 //
-// What bounds it on H100: the function is bf16 products with fp32
-// accumulation (about 21 MFLOP per sample and step at the bench widths), so
-// its bound is the bf16 tensor-core rate. This first design runs them as
-// fp32 FMAs on the CUDA cores, which is what limits it now, then the L2
-// reads of the bf16 weights (10.7 MB per step and block). Every activation and skip of the
-// tile stays in shared memory for all steps; only the final sample is
-// written back. Convolutions accumulate over taps (the 5-tap concatenation
-// is never materialised): a work item is 4 output channels x 4 rows, so
-// each 8-byte weight load from L2 feeds 16 FMAs and each activation read,
-// a shared-memory broadcast across the warp, feeds 4. Taps outside a
-// sample read a zero row, so the inner loop carries no masks. (Staging the
-// weights through shared memory was tried and measured slower: the limit
-// is instruction issue in this loop, not L2 latency.) GroupNorm statistics
-// are two-pass fp32 per sample and group.
+// What bounds it on H100: by its operations the bf16 tensor-core rate, by
+// its shape the weight stream. A block holds few GEMM rows (nb x T, at most
+// 128, and T halves with every level), and every block reads every conv
+// weight once per step from L2 (from HBM when the net outgrows L2): 9.8 GB a
+// call at the bench widths. This design hides that stream behind the block's
+// own work (measured: switching the copies off saves a tenth); what it has not
+// removed is the latency of that work, short dependent chains (ldmatrix ->
+// mma -> add) and the fp32 GroupNorm/Mish passes between them, which is why
+// a block runs 16 warps: at 8 every phase was latency-bound and the kernel
+// took 10.3 ms where it now takes about 7 (bench widths, 1024 samples). The
+// design:
+//  * Every conv is an implicit GEMM, M = nb*Tout rows, N = Cout, K = taps x
+//    Cin, on mma.sync m16n8k16 (wgmma's 64-row tile would idle at the deep
+//    levels, where M is 16 or 32 and most of the weights are). Warp w of 16
+//    owns columns [8w, 8w+8) of a 128-column group for all rows; a tap is a row
+//    offset, applied to the per-lane ldmatrix row address, and a tap outside
+//    its sample reads a zero row. Stride-2, transpose and 1x1 convs and the
+//    prologue's dense layers run through the same routine. The tensor core
+//    truncates when it adds into its accumulator; a few tiles' products are
+//    summed from zero there and added to the fp32 sum on the CUDA cores,
+//    which round to nearest (that took the median error against the
+//    rounding twin after one step from 3e-3 to 2e-7).
+//  * Weights arrive pre-tiled (ops/kernels/diffusion_unet1d.py, tile_matrix):
+//    8 KB tiles of 32 K-rows x 128 columns in B-fragment order, in exactly
+//    the order they are consumed, so the kernel never seeks: a ring of
+//    24 KB cp.async stages (stream.cuh), as deep as shared memory allows,
+//    runs ahead of the GEMMs across op and step boundaries, and a lane fetches both B fragments of a tile with
+//    one conflict-free 16-byte load.
+//  * Activations are rounded to bf16 once, when written, into operand
+//    buffers beside the fp32 ones GroupNorm and the residual need; skips
+//    are kept as bf16 operands only. All of it stays in shared memory for
+//    all steps; only the final sample is written back.
+//  * The time MLP and the FiLM projections leave the per-step stream (28%
+//    of it at the bench widths): FiLM's input is [mish(temb(step)) |
+//    mish(gcond(sample))] and the projection is linear, so a prologue kernel
+//    in the same call computes the time half once per step and the
+//    condition half once per sample into scratch, and the main kernel adds
+//    the two.
 //
-// The net arrives as a program of 8-int records (built by
-// ops/kernels/diffusion_unet1d.py) that index one packed bf16 buffer, so any
-// down_dims / n_groups / embedding width runs through the same kernel.
+// The net arrives as a program of 12-int records (build_program) over the
+// packed buffer, so any down_dims / n_groups / embedding width runs through
+// the same kernel.
 #include <cuda_bf16.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 enum Op : int {
-  kFilm = 0,        // cin, ch, Tl, off_conv1, off_conv2, off_film, off_proj
-  kSave = 1,        // skip_off, C, Tl
-  kConcat = 2,      // skip_off, C_h, C_skip, Tl
-  kDown = 3,        // ch, Tl_in, off
-  kUp = 4,          // ch, Tl_in, off
-  kFinalBlock = 5,  // cin, ch, Tl, off
-  kFinalConv = 6,   // cin, D, Tl, off
+  kFilm = 0,        // cin ch Tl t1 t2 film_off tproj v1 v2 vproj
+  kSave = 1,        // skip_off C Tl
+  kConcat = 2,      // skip_off C_h C_skip Tl
+  kDown = 3,        // ch Tl_in tile vec
+  kUp = 4,          // ch Tl_in tile vec
+  kFinalBlock = 5,  // cin ch Tl tile vec
+  kFinalConv = 6,   // cin D Tl tile vec
 };
-constexpr int kRec = 8;
-constexpr int kRT = 4;      // rows per conv work item
-constexpr int kCT = 4;      // output channels per conv work item
-constexpr int kNbMax = 8;   // samples per block, upper bound
+constexpr int kRec = 12;
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroupN = 8 * kWarps;             // columns of a tile: 8 a warp
+constexpr int kTileElems = 32 * kGroupN;        // 32 K-rows x kGroupN columns
+constexpr int kTileBytes = 2 * kTileElems;
+constexpr int kStageTiles = 3;
+constexpr int kChunk = 3;          // tiles a warp takes at a time
+constexpr int kStageBytes = kStageTiles * kTileBytes;
+constexpr int kMtCap = 8;          // most m16 row tiles a warp accumulates
+constexpr int kCondRows = 64;      // samples per prologue block
 constexpr float kGnEps = 1e-6f;
 
 enum ConvMode { kSame = 0, kStride2 = 1, kTranspose = 2 };
@@ -60,129 +93,213 @@ enum ConvMode { kSame = 0, kStride2 = 1, kTranspose = 2 };
 __device__ __forceinline__ float bf(const bf16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ int pad32(int c) { return (c + 31) & ~31; }
+__device__ __forceinline__ int padn(int c) {
+  return (c + kGroupN - 1) / kGroupN * kGroupN;
+}
+__device__ __forceinline__ int ldb(int c) { return pad32(c) + 8; }
+__device__ __forceinline__ int ld32(int c) { return c + 8; }
 
-// out[r][co] (+)= bias[co] + sum_j sum_ci in[src(r, j)][ci] W[j][ci][co]
-// rows are (sample, time) with Tin / Tout time steps per sample. A work
-// item is kCT output channels x kRT rows. A tap that falls outside its
-// sample reads `zrow` (Cin zeros in shared memory), so the inner loop is
-// loads and FMAs only.
-template <int MODE>
-__device__ void conv_rows(const float* in, int Cin, int Tin, float* out,
-                          int Cout, int Tout, int nb, const bf16* W,
-                          const bf16* bias, int K, bool accumulate,
-                          const float* zrow) {
-  const int rows = nb * Tout;
-  const int ncg = (Cout + kCT - 1) / kCT;
-  const int n_items = ncg * ((rows + kRT - 1) / kRT);
-  const int pad = K >> 1;
-  // kCT bf16 weights load as one 8-byte word when every group is aligned
-  const bool vec = !(Cout % kCT) && !(reinterpret_cast<uintptr_t>(W) & 7);
-  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-    const int co = kCT * (item % ncg);
-    const int r0 = (item / ncg) * kRT;
-    float acc[kCT][kRT];
-#pragma unroll
-    for (int c = 0; c < kCT; ++c) {
-      const float b = co + c < Cout ? bf(bias + co + c) : 0.f;
-#pragma unroll
-      for (int q = 0; q < kRT; ++q) acc[c][q] = b;
+// The packed stream, tile by tile, through the ring.
+struct Tiles {
+  ldp::WeightRing<kStageBytes> ring;
+  const char* stage;
+  int pos;
+
+  __device__ void start(const bf16* stream, void* smem, int stages, int cycle,
+                        int total) {
+    ring.start(stream, smem, stages, cycle, total);
+    pos = kStageTiles;
+  }
+  // Tiles left in the current stage (entering the next one when it is
+  // used up), and a pointer to the next n of them.
+  __device__ int avail() {
+    if (pos == kStageTiles) {
+      stage = ring.enter();
+      pos = 0;
     }
-    for (int j = 0; j < K; ++j) {
-      const float* rp[kRT];
+    return kStageTiles - pos;
+  }
+  __device__ const char* take(int n) {
+    const char* p = stage + pos * kTileBytes;
+    pos += n;
+    return p;
+  }
+  // Skip the zero tiles that pad the stream to whole stages.
+  __device__ void align() { pos = kStageTiles; }
+};
+
+// Source row of output row r for one tap, or -1 (reads zeros).
+__device__ __forceinline__ int src_row(int mode, int r, int rows, int Tin,
+                                       int Tout, int tap, int pad) {
+  if (r >= rows) return -1;
+  const int b = r / Tout, t = r - b * Tout;
+  int s;
+  if (mode == kSame) {
+    s = t + tap - pad;
+    if (s < 0 || s >= Tin) return -1;
+  } else if (mode == kStride2) {
+    s = 2 * t + tap;
+    if (s >= Tin) return -1;
+  } else {
+    s = t + tap - 2;
+    if (s < 0 || (s & 1) || (s >> 1) >= Tin) return -1;
+    s >>= 1;
+  }
+  return b * Tin + s;
+}
+
+struct Gemm {
+  const bf16* A;    // operand rows in shared memory
+  int lda;          // its row stride, elements
+  int cin_pad;      // channels per tap, padded to 32
+  int taps, mode, Tin, Tout;
+  int rows;         // nb * Tout
+  int N;            // output columns
+  const bf16* bias; // padn(N) values, or null
+  float* out32;     // fp32 result (shared or global), or null
+  int ld32;
+  bool accum;       // add to what out32 holds
+  bool mish;
+  bf16* outb;       // bf16 copy of the result (operand of the next GEMM)
+  int ldob;
+  int nb_cols;      // columns of outb to write (zeros from N on)
+};
+
+// out[r][n] = bias[n] + sum_tap sum_c A[src(r, tap)][c] W[tap][c][n], the
+// weights taken tile by tile from the stream. Every thread of the block
+// takes part in every tile.
+template <int kMtMax>
+__device__ void gemm(const Gemm& g, Tiles& tiles, uint32_t zero_addr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int MT = (g.rows + 15) >> 4;
+  const int n_groups = (g.N + kGroupN - 1) / kGroupN;
+  const int kt_per_tap = g.cin_pad >> 5;
+  const uint32_t a_base = ldp::smem_u32(g.A) + (lane >> 4) * 16;
+  const int pad = g.taps >> 1;
+  for (int ng = 0; ng < n_groups; ++ng) {
+    const int col = ng * kGroupN + warp * 8 + 2 * tq;
+    float acc[kMtMax][4];
+    const float b0 = g.bias != nullptr ? bf(g.bias + col) : 0.f;
+    const float b1 = g.bias != nullptr ? bf(g.bias + col + 1) : 0.f;
 #pragma unroll
-      for (int q = 0; q < kRT; ++q) {
-        const int r = r0 + q;
-        int sr = -1;
-        if (r < rows) {
-          const int b = r / Tout, t = r - b * Tout;
-          if (MODE == kSame) {
-            const int s = t + j - pad;
-            if (s >= 0 && s < Tin) sr = b * Tin + s;
-          } else if (MODE == kStride2) {
-            const int s = 2 * t + j;
-            if (s < Tin) sr = b * Tin + s;
-          } else {
-            const int s = t + j - 2;
-            if (s >= 0 && !(s & 1) && (s >> 1) < Tin) sr = b * Tin + (s >> 1);
+    for (int mt = 0; mt < kMtMax; ++mt) {
+      acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
+    }
+    for (int tap = 0; tap < g.taps; ++tap) {
+      uint32_t raddr[kMtMax];
+      uint32_t live = 0;
+#pragma unroll
+      for (int mt = 0; mt < kMtMax; ++mt) {
+        raddr[mt] = zero_addr;
+        if (mt < MT) {
+          const int sr = src_row(g.mode, mt * 16 + (lane & 15), g.rows, g.Tin,
+                                 g.Tout, tap, pad);
+          if (sr >= 0) {
+            raddr[mt] = a_base + static_cast<uint32_t>(sr * g.lda) * 2;
+            live |= 1u << mt;
           }
         }
-        rp[q] = sr >= 0 ? in + sr * Cin : zrow;
       }
-      const bf16* wj = W + static_cast<size_t>(j) * Cin * Cout + co;
-#pragma unroll 4
-      for (int ci = 0; ci < Cin; ++ci) {
-        float w[kCT];
-        if (vec) {
-          const uint2 u = *reinterpret_cast<const uint2*>(wj + ci * Cout);
-          const float2 lo = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-          const float2 hi = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-          w[0] = lo.x; w[1] = lo.y; w[2] = hi.x; w[3] = hi.y;
-        } else {
+      // up to kChunk tiles at a time: all their loads are
+      // started before the products that need them, and the products run in
+      // two independent chains, so a warp with one row tile (the deep
+      // levels) is not a single chain of dependent instructions
+      for (int kt = 0; kt < kt_per_tap;) {
+        const int n = min(min(tiles.avail(), kChunk), kt_per_tap - kt);
+        const char* tile = tiles.take(n) + warp * 512 + lane * 16;
+        uint4 bq[kChunk];
 #pragma unroll
-          for (int c = 0; c < kCT; ++c)
-            w[c] = co + c < Cout ? bf(wj + ci * Cout + c) : 0.f;
+        for (int j = 0; j < kChunk; ++j)
+          if (j < n)
+            bq[j] = *reinterpret_cast<const uint4*>(tile + j * kTileBytes);
+        const uint32_t k0 = kt * 64;
+#pragma unroll
+        for (int mt = 0; mt < kMtMax; ++mt) {
+          if (mt < MT) {
+            const bool on = (live >> mt) & 1;
+            const uint32_t ad = raddr[mt] + (on ? k0 : 0u);
+            uint32_t a[kChunk][2][4];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (j < n) {
+                ldp::ldmatrix_x4(a[j][0], ad + (on ? 64u * j : 0u));
+                ldp::ldmatrix_x4(a[j][1], ad + (on ? 64u * j + 32u : 0u));
+              }
+            // the tensor core truncates when it adds into its accumulator;
+            // sum these tiles' products from zero there and add the partial
+            // sums on the CUDA cores, which round to nearest
+            float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (j < n) {
+                ldp::mma_bf16(p0, a[j][0], bq[j].x, bq[j].y);
+                ldp::mma_bf16(p1, a[j][1], bq[j].z, bq[j].w);
+              }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][e] += p0[e] + p1[e];
+          }
         }
-#pragma unroll
-        for (int q = 0; q < kRT; ++q) {
-          const float v = rp[q][ci];
-#pragma unroll
-          for (int c = 0; c < kCT; ++c) acc[c][q] = fmaf(v, w[c], acc[c][q]);
-        }
+        kt += n;
       }
     }
 #pragma unroll
-    for (int q = 0; q < kRT; ++q) {
-      const int r = r0 + q;
-      if (r >= rows) break;
-      float* o = out + r * Cout + co;
+    for (int mt = 0; mt < kMtMax; ++mt) {
+      if (mt < MT) {
 #pragma unroll
-      for (int c = 0; c < kCT; ++c)
-        if (co + c < Cout) o[c] = accumulate ? o[c] + acc[c][q] : acc[c][q];
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + gq + 8 * h;
+          if (r < g.rows) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = col + e;
+              float v = acc[mt][2 * h + e];
+              if (c < g.N) {
+                if (g.accum) v += g.out32[static_cast<size_t>(r) * g.ld32 + c];
+                if (g.mish) v = ldp::mishf(v);
+                if (g.out32 != nullptr)
+                  g.out32[static_cast<size_t>(r) * g.ld32 + c] = v;
+              } else {
+                v = 0.f;
+              }
+              if (g.outb != nullptr && c < g.nb_cols)
+                g.outb[r * g.ldob + c] = __float2bfloat16(v);
+            }
+          }
+        }
+      }
     }
   }
 }
 
-// out[b][n] = bias[n] + sum_k in[b][k] W[k][n] for b < nb, optional Mish.
-__device__ void dense_rows(const float* in, int K, const bf16* W,
-                           const bf16* bias, float* out, int Nout, int nb,
-                           bool mish) {
-  for (int n = threadIdx.x; n < Nout; n += blockDim.x) {
-    float acc[kNbMax];
-    const float b0 = bf(bias + n);
-#pragma unroll
-    for (int b = 0; b < kNbMax; ++b) acc[b] = b0;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float wv = bf(W + static_cast<size_t>(k) * Nout + n);
-#pragma unroll
-      for (int b = 0; b < kNbMax; ++b)
-        if (b < nb) acc[b] = fmaf(in[b * K + k], wv, acc[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < kNbMax; ++b)
-      if (b < nb) out[b * Nout + n] = mish ? ldp::mishf(acc[b]) : acc[b];
-  }
-}
+struct Film {
+  const float* __restrict__ t;  // this step's time half (scale [c], bias [C+c])
+  const float* __restrict__ g;  // per-sample condition half, row stride ld
+  int ld, b0, B;
+};
 
-// In place on x (nb*Tl rows x C): GroupNorm(G, eps 1e-6) -> Mish, then
-// FiLM (scale * y + bias) when film is given (nb x 2C).
-__device__ void group_norm_mish(float* x, int C, int Tl, int nb, int G,
-                                const bf16* gs, const bf16* gb, float* stats,
-                                const float* film) {
+// GroupNorm(G, eps 1e-6) -> Mish over y (nb*Tl rows x C, stride ldy), then
+// FiLM when given, then + res when given. Writes the fp32 result to out32
+// (stride ldy; may be y itself) and its bf16 rounding, channels zero-padded
+// to 32, to outb, each where given.
+__device__ void group_norm_mish(const float* y, int ldy, int C, int Tl, int nb,
+                                int G, const bf16* gs, const bf16* gb,
+                                float* stats, const Film* film,
+                                const float* res, int ldr, float* out32,
+                                bf16* outb, int ldob) {
   const int Cg = C / G, n = Tl * Cg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int p = warp; p < nb * G; p += n_warps) {
     const int b = p / G, g = p - b * G;
-    const float* xb = x + b * Tl * C + g * Cg;
+    const float* yb = y + b * Tl * ldy + g * Cg;
     float s = 0.f;
-    for (int i = lane; i < n; i += 32) s += xb[(i / Cg) * C + i % Cg];
+    for (int i = lane; i < n; i += 32) s += yb[(i / Cg) * ldy + i % Cg];
     const float mu = ldp::warp_sum(s) / n;
     float sq = 0.f;
     for (int i = lane; i < n; i += 32) {
-      const float d = xb[(i / Cg) * C + i % Cg] - mu;
+      const float d = yb[(i / Cg) * ldy + i % Cg] - mu;
       sq = fmaf(d, d, sq);
     }
     const float var = ldp::warp_sum(sq) / n;
@@ -192,203 +309,325 @@ __device__ void group_norm_mish(float* x, int C, int Tl, int nb, int G,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nb * Tl * C; i += blockDim.x) {
-    const int r = i / C, c = i - r * C, b = r / Tl, p = b * G + c / Cg;
-    float y = (x[i] - stats[2 * p]) * stats[2 * p + 1] * bf(gs + c)
-              + bf(gb + c);
-    y = ldp::mishf(y);
-    if (film != nullptr) y = film[b * 2 * C + c] * y + film[b * 2 * C + C + c];
-    x[i] = y;
+  const int Cp = pad32(C);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nb * Tl * Cp; i += blockDim.x) {
+    const int r = i / Cp, c = i - r * Cp;
+    float v = 0.f;
+    if (c < C) {
+      const int b = r / Tl, p = b * G + c / Cg;
+      v = (y[r * ldy + c] - stats[2 * p]) * stats[2 * p + 1] * bf(gs + c)
+          + bf(gb + c);
+      v = ldp::mishf(v);
+      if (film != nullptr) {
+        const float* fg = film->g
+            + static_cast<size_t>(min(film->b0 + b, film->B - 1)) * film->ld;
+        v = (__ldg(film->t + c) + __ldg(fg + c)) * v
+            + (__ldg(film->t + C + c) + __ldg(fg + C + c));
+      }
+      if (res != nullptr) v += res[r * ldr + c];
+      if (out32 != nullptr) out32[r * ldy + c] = v;
+    }
+    if (outb != nullptr) outb[r * ldob + c] = __float2bfloat16(v);
   }
   __syncthreads();
 }
 
 struct Dims {
-  int B, T, D, Dc, dsed, K, G, nb, maxs, skip_total, film_max, n_ops,
-      n_steps, cin_max;
-  float clip;
+  int B, T, D, Dc, dsed, K, G, nb, max32, maxb, skip_total, n_ops, n_steps,
+      film_total, film_ld, main_stages, time_tile_base, time_stages,
+      cond_tile_base, cond_stages, vec_base, v_time0, v_time1, v_film_t,
+      smem_main, smem_pro, stages_main, stages_pro, tile_n;
 };
+constexpr int kNDims = 29;
 
-__global__ void __launch_bounds__(256, 1) unet1d_sampler_kernel(
-    const float* __restrict__ gcond, const float* __restrict__ x_init,
-    const int* __restrict__ ts, const float* __restrict__ coefs,
-    const bf16* __restrict__ W, const int* __restrict__ prog,
-    float* __restrict__ out, Dims d) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+__device__ __forceinline__ Gemm dense(const bf16* A, int K, int rows, int N,
+                                      const bf16* bias) {
+  Gemm g{};
+  g.A = A; g.lda = ldb(K); g.cin_pad = pad32(K); g.taps = 1; g.mode = kSame;
+  g.Tin = 1; g.Tout = 1; g.rows = rows; g.N = N; g.bias = bias;
+  return g;
+}
+
+// What does not depend on the sample, or not on the step. Blocks [0, S):
+// step s's time embedding -> time MLP -> Mish -> the time half of every
+// FiLM projection (+ bias) into film_t[s]. Blocks from S on: the condition
+// half for 64 samples each into film_g.
+__global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
+    const float* __restrict__ gcond, const int* __restrict__ ts,
+    const bf16* __restrict__ W, float* __restrict__ film_t,
+    float* __restrict__ film_g, Dims d) {
+  constexpr int kMt = kCondRows / 16;
+  extern __shared__ uint4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
   const int tid = threadIdx.x, NT = blockDim.x;
-  const int nb = d.nb, T = d.T, D = d.D;
+  const int hb = max(16 * ldb(4 * d.dsed), kCondRows * ldb(d.Dc));
+  bf16* Pb = reinterpret_cast<bf16*>(sm + d.stages_pro * kStageBytes);
+  bf16* Qb = Pb + hb;
+  bf16* zero = Qb + hb;
+  if (tid < 16) zero[tid] = __float2bfloat16(0.f);
+  const uint32_t zero_addr = ldp::smem_u32(zero);
+  const bf16* V = W + d.vec_base;
+  Tiles tiles;
+
+  if (static_cast<int>(blockIdx.x) < d.n_steps) {
+    const int step = blockIdx.x;
+    tiles.start(W + static_cast<size_t>(d.time_tile_base) * kTileElems, sm,
+                d.stages_pro, d.time_stages, d.time_stages);
+    const float t = static_cast<float>(ts[step]);
+    const int half = d.dsed / 2;
+    for (int i = tid; i < pad32(d.dsed); i += NT) {
+      float v = 0.f;
+      if (i < d.dsed) {
+        const int k = i < half ? i : i - half;
+        const float ang = t * expf(-logf(10000.f) * k / (half - 1));
+        v = i < half ? sinf(ang) : cosf(ang);
+      }
+      Pb[i] = __float2bfloat16(v);
+    }
+    __syncthreads();
+    Gemm g = dense(Pb, d.dsed, 1, 4 * d.dsed, V + d.v_time0);
+    g.mish = true; g.outb = Qb; g.ldob = ldb(4 * d.dsed);
+    g.nb_cols = pad32(4 * d.dsed);
+    gemm<kMt>(g, tiles, zero_addr);
+    __syncthreads();
+    g = dense(Qb, 4 * d.dsed, 1, d.dsed, V + d.v_time1);
+    g.mish = true; g.outb = Pb; g.ldob = ldb(d.dsed); g.nb_cols = pad32(d.dsed);
+    gemm<kMt>(g, tiles, zero_addr);
+    __syncthreads();
+    g = dense(Pb, d.dsed, 1, d.film_total, V + d.v_film_t);
+    g.out32 = film_t + static_cast<size_t>(step) * d.film_ld;
+    g.ld32 = d.film_ld;
+    gemm<kMt>(g, tiles, zero_addr);
+  } else {
+    const int s0 = (blockIdx.x - d.n_steps) * kCondRows;
+    const int rows = min(kCondRows, d.B - s0);
+    tiles.start(W + static_cast<size_t>(d.cond_tile_base) * kTileElems, sm,
+                d.stages_pro, d.cond_stages, d.cond_stages);
+    const int ld = ldb(d.Dc), Cp = pad32(d.Dc);
+    for (int i = tid; i < kCondRows * Cp; i += NT) {
+      const int r = i / Cp, c = i - r * Cp;
+      float v = 0.f;
+      if (r < rows && c < d.Dc)
+        v = ldp::mishf(gcond[static_cast<size_t>(s0 + r) * d.Dc + c]);
+      Pb[r * ld + c] = __float2bfloat16(v);
+    }
+    __syncthreads();
+    Gemm g = dense(Pb, d.Dc, rows, d.film_total, nullptr);
+    g.out32 = film_g + static_cast<size_t>(s0) * d.film_ld;
+    g.ld32 = d.film_ld;
+    gemm<kMt>(g, tiles, zero_addr);
+  }
+  tiles.ring.drain();
+}
+
+template <int kMt>
+__global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
+    const float* __restrict__ x_init, const float* __restrict__ coefs,
+    const bf16* __restrict__ W, const int* __restrict__ prog,
+    const float* __restrict__ film_t, const float* __restrict__ film_g,
+    float* __restrict__ out, Dims d, float clip) {
+  extern __shared__ uint4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int nb = d.nb, T = d.T, D = d.D, K = d.K, G = d.G;
   const int b0 = blockIdx.x * nb;
   const int n_valid = min(nb, d.B - b0);
-  const int cond_dim = d.dsed + d.Dc;
-  const int half = d.dsed / 2;
 
-  float* xcur = sm;                         // nb*T x D
-  float* bufs = xcur + nb * T * D;          // 3 x nb*maxs
-  float* skip = bufs + 3 * nb * d.maxs;     // skip_total
-  float* gc = skip + d.skip_total;          // nb x Dc
-  float* emb = gc + nb * d.Dc;              // dsed
-  float* hid = emb + d.dsed;                // 4 dsed
-  float* temb = hid + 4 * d.dsed;           // dsed
-  float* mcond = temb + d.dsed;             // nb x cond_dim
-  float* film = mcond + nb * cond_dim;      // nb x film_max
-  float* stats = film + nb * d.film_max;    // nb x G x 2
-  float* zrow = stats + nb * d.G * 2;       // cin_max zeros
+  float* X32 = reinterpret_cast<float*>(sm + d.stages_main * kStageBytes);
+  float* Y32 = X32 + d.max32;
+  float* xcur = Y32 + d.max32;                  // nb*T x D
+  float* stats = xcur + nb * T * D;             // nb x G x 2
+  const int n_floats = (2 * d.max32 + nb * T * D + 2 * nb * G + 3) & ~3;
+  bf16* Xb = reinterpret_cast<bf16*>(X32 + n_floats);
+  bf16* Yb = Xb + d.maxb;
+  bf16* skipb = Yb + d.maxb;
+  bf16* zero = skipb + d.skip_total;
+  if (tid < 16) zero[tid] = __float2bfloat16(0.f);
+  const uint32_t zero_addr = ldp::smem_u32(zero);
+  const bf16* V = W + d.vec_base;
+
+  Tiles tiles;
+  tiles.start(W, sm, d.stages_main, d.main_stages, d.main_stages * d.n_steps);
 
   for (int i = tid; i < nb * T * D; i += NT) {
     const int b = i / (T * D);
     xcur[i] = b < n_valid ? x_init[static_cast<size_t>(b0) * T * D + i] : 0.f;
   }
-  for (int i = tid; i < d.cin_max; i += NT) zrow[i] = 0.f;
-  for (int i = tid; i < nb * d.Dc; i += NT) {
-    const int b = i / d.Dc;
-    gc[i] = b < n_valid ? gcond[static_cast<size_t>(b0) * d.Dc + i] : 0.f;
-  }
   __syncthreads();
 
-  const bf16* tw0 = W;
-  const bf16* tb0 = tw0 + d.dsed * 4 * d.dsed;
-  const bf16* tw1 = tb0 + 4 * d.dsed;
-  const bf16* tb1 = tw1 + 4 * d.dsed * d.dsed;
-  const int K = d.K, G = d.G;
-
   for (int step = 0; step < d.n_steps; ++step) {
-    // ---- diffusion-step encoder and the per-sample condition ----
-    const float t = static_cast<float>(ts[step]);
-    for (int i = tid; i < half; i += NT) {
-      const float f = expf(-logf(10000.f) * i / (half - 1));
-      const float ang = t * f;
-      emb[i] = sinf(ang);
-      emb[half + i] = cosf(ang);
+    {
+      const int Cp = pad32(D), lb = ldb(D), lf = ld32(D);
+      for (int i = tid; i < nb * T * Cp; i += NT) {
+        const int r = i / Cp, c = i - r * Cp;
+        const float v = c < D ? xcur[r * D + c] : 0.f;
+        if (c < D) X32[r * lf + c] = v;
+        Xb[r * lb + c] = __float2bfloat16(v);
+      }
     }
-    __syncthreads();
-    dense_rows(emb, d.dsed, tw0, tb0, hid, 4 * d.dsed, 1, true);
-    __syncthreads();
-    dense_rows(hid, 4 * d.dsed, tw1, tb1, temb, d.dsed, 1, false);
-    __syncthreads();
-    for (int i = tid; i < nb * cond_dim; i += NT) {
-      const int b = i / cond_dim, k = i - b * cond_dim;
-      mcond[i] = ldp::mishf(k < d.dsed ? temb[k] : gc[b * d.Dc + k - d.dsed]);
-    }
-    for (int i = tid; i < nb * T * D; i += NT) bufs[i] = xcur[i];
     __syncthreads();
 
-    float* X = bufs;
-    float* Y = bufs + nb * d.maxs;
-    float* Z = bufs + 2 * nb * d.maxs;
     for (int op = 0; op < d.n_ops; ++op) {
       const int* rec = prog + op * kRec;
       const int kind = rec[0];
       if (kind == kFilm) {
         const int cin = rec[1], ch = rec[2], Tl = rec[3];
-        const bf16* c1 = W + rec[4];
-        const bf16* c2 = W + rec[5];
-        const bf16* fw = W + rec[6];
-        const size_t k1 = static_cast<size_t>(K) * cin * ch;
-        const size_t k2 = static_cast<size_t>(K) * ch * ch;
-        dense_rows(mcond, cond_dim, fw,
-                   fw + static_cast<size_t>(cond_dim) * 2 * ch, film, 2 * ch,
-                   nb, false);
-        conv_rows<kSame>(X, cin, Tl, Y, ch, Tl, nb, c1, c1 + k1, K, false,
-                         zrow);
+        const bf16* v1 = V + rec[8];
+        const bf16* v2 = V + rec[9];
+        const int rows = nb * Tl, np = padn(ch);
+        Gemm g{};
+        g.A = Xb; g.lda = ldb(cin); g.cin_pad = pad32(cin); g.taps = K;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = rows; g.N = ch;
+        g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
         __syncthreads();
-        group_norm_mish(Y, ch, Tl, nb, G, c1 + k1 + ch, c1 + k1 + 2 * ch,
-                        stats, film);
-        conv_rows<kSame>(Y, ch, Tl, Z, ch, Tl, nb, c2, c2 + k2, K, false,
-                         zrow);
+        Film film{film_t + static_cast<size_t>(step) * d.film_ld + rec[6],
+                  film_g + rec[6], d.film_ld, b0, d.B};
+        group_norm_mish(Y32, ld32(ch), ch, Tl, nb, G, v1 + np, v1 + np + ch,
+                        stats, &film, nullptr, 0, nullptr, Yb, ldb(ch));
+        g.A = Yb; g.lda = ldb(ch); g.cin_pad = pad32(ch); g.bias = v2;
+        gemm<kMt>(g, tiles, zero_addr);
         __syncthreads();
-        group_norm_mish(Z, ch, Tl, nb, G, c2 + k2 + ch, c2 + k2 + 2 * ch,
-                        stats, nullptr);
         if (rec[7] >= 0) {
-          const bf16* pw = W + rec[7];
-          conv_rows<kSame>(X, cin, Tl, Z, ch, Tl, nb, pw,
-                           pw + static_cast<size_t>(cin) * ch, 1, true, zrow);
+          group_norm_mish(Y32, ld32(ch), ch, Tl, nb, G, v2 + np, v2 + np + ch,
+                          stats, nullptr, nullptr, 0, Y32, nullptr, 0);
+          Gemm p{};
+          p.A = Xb; p.lda = ldb(cin); p.cin_pad = pad32(cin); p.taps = 1;
+          p.mode = kSame; p.Tin = Tl; p.Tout = Tl; p.rows = rows; p.N = ch;
+          p.bias = V + rec[10]; p.out32 = Y32; p.ld32 = ld32(ch);
+          p.accum = true; p.outb = Yb; p.ldob = ldb(ch); p.nb_cols = pad32(ch);
+          gemm<kMt>(p, tiles, zero_addr);
+          __syncthreads();
         } else {
-          for (int i = tid; i < nb * Tl * ch; i += NT) Z[i] += X[i];
+          group_norm_mish(Y32, ld32(ch), ch, Tl, nb, G, v2 + np, v2 + np + ch,
+                          stats, nullptr, X32, ld32(cin), Y32, Yb, ldb(ch));
         }
-        __syncthreads();
-        float* tmp = X; X = Z; Z = tmp;
+        float* t32 = X32; X32 = Y32; Y32 = t32;
+        bf16* tb = Xb; Xb = Yb; Yb = tb;
       } else if (kind == kSave) {
-        const int n = nb * rec[3] * rec[2];
-        for (int i = tid; i < n; i += NT) skip[rec[1] + i] = X[i];
+        const int n = nb * rec[3] * ldb(rec[2]);
+        for (int i = tid; i < n; i += NT) skipb[rec[1] + i] = Xb[i];
         __syncthreads();
       } else if (kind == kConcat) {
-        const int C1 = rec[2], C2 = rec[3], Cw = C1 + C2;
-        const float* sk = skip + rec[1];
-        for (int i = tid; i < nb * rec[4] * Cw; i += NT) {
-          const int r = i / Cw, c = i - r * Cw;
-          Y[i] = c < C1 ? X[r * C1 + c] : sk[r * C2 + c - C1];
+        const int C1 = rec[2], C2 = rec[3], Cp = pad32(C1 + C2);
+        const int l1 = ldb(C1), l2 = ldb(C2), lo = ldb(C1 + C2);
+        const bf16* sk = skipb + rec[1];
+        for (int i = tid; i < nb * rec[4] * Cp; i += NT) {
+          const int r = i / Cp, c = i - r * Cp;
+          Yb[r * lo + c] = c < C1 ? Xb[r * l1 + c]
+                           : c < C1 + C2 ? sk[r * l2 + c - C1]
+                                         : __float2bfloat16(0.f);
         }
         __syncthreads();
-        float* tmp = X; X = Y; Y = tmp;
+        bf16* tb = Xb; Xb = Yb; Yb = tb;
       } else if (kind == kDown || kind == kUp) {
         const int ch = rec[1], Tin = rec[2];
-        const bf16* kw = W + rec[3];
-        const int kk = kind == kDown ? 3 : 4;
-        const bf16* kb = kw + static_cast<size_t>(kk) * ch * ch;
-        if (kind == kDown)
-          conv_rows<kStride2>(X, ch, Tin, Y, ch, Tin / 2, nb, kw, kb, 3, false,
-                              zrow);
-        else
-          conv_rows<kTranspose>(X, ch, Tin, Y, ch, 2 * Tin, nb, kw, kb, 4,
-                                false, zrow);
+        const int Tout = kind == kDown ? Tin / 2 : 2 * Tin;
+        Gemm g{};
+        g.A = Xb; g.lda = ldb(ch); g.cin_pad = pad32(ch);
+        g.taps = kind == kDown ? 3 : 4;
+        g.mode = kind == kDown ? kStride2 : kTranspose;
+        g.Tin = Tin; g.Tout = Tout; g.rows = nb * Tout; g.N = ch;
+        g.bias = V + rec[4]; g.out32 = Y32; g.ld32 = ld32(ch);
+        g.outb = Yb; g.ldob = ldb(ch); g.nb_cols = pad32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
         __syncthreads();
-        float* tmp = X; X = Y; Y = tmp;
+        float* t32 = X32; X32 = Y32; Y32 = t32;
+        bf16* tb = Xb; Xb = Yb; Yb = tb;
       } else if (kind == kFinalBlock) {
         const int cin = rec[1], ch = rec[2], Tl = rec[3];
-        const bf16* c1 = W + rec[4];
-        const size_t k1 = static_cast<size_t>(K) * cin * ch;
-        conv_rows<kSame>(X, cin, Tl, Y, ch, Tl, nb, c1, c1 + k1, K, false,
-                         zrow);
+        const bf16* v1 = V + rec[5];
+        const int np = padn(ch);
+        Gemm g{};
+        g.A = Xb; g.lda = ldb(cin); g.cin_pad = pad32(cin); g.taps = K;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = ch;
+        g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
         __syncthreads();
-        group_norm_mish(Y, ch, Tl, nb, G, c1 + k1 + ch, c1 + k1 + 2 * ch,
-                        stats, nullptr);
-        float* tmp = X; X = Y; Y = tmp;
-      } else {  // kFinalConv
+        group_norm_mish(Y32, ld32(ch), ch, Tl, nb, G, v1 + np, v1 + np + ch,
+                        stats, nullptr, nullptr, 0, nullptr, Yb, ldb(ch));
+        bf16* tb = Xb; Xb = Yb; Yb = tb;
+      } else {  // kFinalConv: eps into Y32
         const int cin = rec[1], Dout = rec[2], Tl = rec[3];
-        const bf16* ow = W + rec[4];
-        conv_rows<kSame>(X, cin, Tl, Y, Dout, Tl, nb, ow,
-                         ow + static_cast<size_t>(cin) * Dout, 1, false, zrow);
+        Gemm g{};
+        g.A = Xb; g.lda = ldb(cin); g.cin_pad = pad32(cin); g.taps = 1;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = Dout;
+        g.bias = V + rec[5]; g.out32 = Y32; g.ld32 = ld32(Dout);
+        gemm<kMt>(g, tiles, zero_addr);
         __syncthreads();
-        float* tmp = X; X = Y; Y = tmp;
       }
     }
+    tiles.align();
 
-    // X holds eps (nb*T x D)
     const float k0 = coefs[step * 5 + 0], k1 = coefs[step * 5 + 1];
     const float k2 = coefs[step * 5 + 2], k3 = coefs[step * 5 + 3];
+    const int lf = ld32(D);
     for (int i = tid; i < nb * T * D; i += NT) {
+      const int r = i / D, c = i - r * D;
       const float x = xcur[i];
-      const float x0 = fminf(fmaxf(k0 * (x - k1 * X[i]), -d.clip), d.clip);
+      const float x0 = fminf(fmaxf(k0 * (x - k1 * Y32[r * lf + c]), -clip),
+                             clip);
       xcur[i] = k2 * x0 + k3 * x;
     }
     __syncthreads();
   }
+  tiles.ring.drain();
 
   for (int i = tid; i < n_valid * T * D; i += NT)
     out[static_cast<size_t>(b0) * T * D + i] = xcur[i];
 }
 
+template <int kMt>
+int launch_main(const float* x_init, const float* coefs, const bf16* W,
+                const int* prog, const float* film_t, const float* film_g,
+                float* out, const Dims& d, float clip, cudaStream_t st) {
+  auto kernel = unet1d_sampler_kernel<kMt>;
+  cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (d.B + d.nb - 1) / d.nb;
+  kernel<<<grid, kThreads, d.smem_main, st>>>(x_init, coefs, W, prog, film_t,
+                                              film_g, out, d, clip);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns a cudaError_t. nb <= 8 samples per block; smem_bytes as computed
-// by the Python wrapper from the same layout.
+// Returns a cudaError_t. `dims` is kNDims host ints in the order of Dims
+// (the Python wrapper computes them from the same layout). film_t
+// (n_steps x film_ld) and film_g (B rounded up to 64 rows x film_ld) are
+// scratch.
 extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
                                   const int* ts, const float* coefs,
-                                  const void* w, const int* prog, int n_ops,
-                                  float* out, int B, int T, int D, int Dc,
-                                  int dsed, int K, int G, int nb, int maxs,
-                                  int skip_total, int film_max, int n_steps,
-                                  int cin_max, float clip, int smem_bytes,
+                                  const void* w, const int* prog,
+                                  float* film_t, float* film_g, float* out,
+                                  const int* dims, int n_dims, float clip,
                                   void* stream) {
-  if (nb < 1 || nb > kNbMax) return static_cast<int>(cudaErrorInvalidValue);
-  Dims d{B, T, D, Dc, dsed, K, G, nb, maxs, skip_total, film_max, n_ops,
-         n_steps, cin_max, clip};
-  cudaError_t err = ldp::allow_smem(unet1d_sampler_kernel, smem_bytes);
+  if (n_dims != kNDims) return static_cast<int>(cudaErrorInvalidValue);
+  Dims d;
+  int* fields = reinterpret_cast<int*>(&d);
+  for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
+  if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
+      d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
+      d.stages_pro > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto W = static_cast<const bf16*>(w);
+  cudaError_t err = ldp::allow_smem(unet1d_prologue_kernel, d.smem_pro);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (B + nb - 1) / nb;
-  unet1d_sampler_kernel<<<grid, 256, smem_bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      gcond, x_init, ts, coefs, static_cast<const bf16*>(w), prog, out, d);
-  return static_cast<int>(cudaGetLastError());
+  const int pro_grid = d.n_steps + (d.B + kCondRows - 1) / kCondRows;
+  unet1d_prologue_kernel<<<pro_grid, kThreads, d.smem_pro, st>>>(
+      gcond, ts, W, film_t, film_g, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // accumulators sized to the rows the tile holds: 2, 4 or 8 m16 tiles
+  const int mt = (d.nb * d.T + 15) / 16;
+  if (mt <= 2)
+    return launch_main<2>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
+                          st);
+  if (mt <= 4)
+    return launch_main<4>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
+                          st);
+  return launch_main<8>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
+                        st);
 }

@@ -27,7 +27,8 @@ class VectorEnv(Protocol):
     max_reward: float
 
     def reset(self, n: int, generator: torch.Generator):
-        """→ (state, obs) for n envs, drawn from ``generator``."""
+        """→ (state, obs) for n envs, drawn from ``generator``, on the
+        generator's device."""
         ...
 
     def reset_state(self, n: int, generator: torch.Generator):

@@ -63,15 +63,14 @@ class LiftEnv:
         self._rays: dict = {}
 
     # ------------------------------------------------------------------
-    def reset(self, n: int, generator: torch.Generator,
-              device: torch.device | str = "cpu"):
-        state = self.reset_state(n, generator, device)
+    def reset(self, n: int, generator: torch.Generator):
+        state = self.reset_state(n, generator)
         return state, self.obs(state)
 
-    def reset_state(self, n: int, generator: torch.Generator,
-                    device: torch.device | str = "cpu") -> LiftState:
-        """n seeded initial states (no observation): cube xy uniform in
-        ±10 cm, yaw in ±30°."""
+    def reset_state(self, n: int, generator: torch.Generator) -> LiftState:
+        """n seeded initial states (no observation), on the generator's
+        device: cube xy uniform in ±10 cm, yaw in ±30°."""
+        device = generator.device
         u = torch.rand(n, 3, generator=generator, device=device)
         cube_xy = u[:, :2] * 0.2 - 0.1
         yaw = u[:, 2] * (math.pi / 3) - math.pi / 6

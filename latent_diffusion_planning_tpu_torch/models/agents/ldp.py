@@ -77,6 +77,10 @@ class LDPAgent:
             if sched.prediction_type != "epsilon":
                 raise ValueError(f"the {name} samplers need ε prediction, "
                                  f"got {sched.prediction_type!r}")
+        # coefficient tables on the agent's device, made once: a table made
+        # on the host per decision would cost a host-to-device copy that
+        # waits for the stream
+        self._tables: dict = {}
         self._planner_packed = self._idm_packed = None
         if device.type == "cuda":
             self._check_kernels()
@@ -150,6 +154,17 @@ class LDPAgent:
     def _clip(self, sched: dlib.DiffusionSchedule) -> float:
         return sched.clip_range if sched.clip_sample else 1e9
 
+    def _table(self, sched: dlib.DiffusionSchedule, steps: int | None):
+        """(timesteps, coefs) of the strided DDIM process when ``steps`` asks
+        for one, else of the full DDPM process, on the agent's device."""
+        key = (id(sched), steps)
+        if key not in self._tables:
+            ts, coefs = (dlib.ddim_coef_table(sched, steps)
+                         if _ddim(steps, sched) else dlib.ddpm_coef_table(sched))
+            self._tables[key] = (ts.to(self.device, torch.int32),
+                                 coefs.to(self.device))
+        return self._tables[key]
+
     def _randn(self, shape, generator: torch.Generator | None) -> torch.Tensor:
         return torch.randn(shape, generator=generator, device=self.device)
 
@@ -158,11 +173,9 @@ class LDPAgent:
         """Reverse-diffuse actions for (s, s') pairs → (N, A), normalized."""
         c, sched = self.config, self.idm_sched
         shape = (pairs.shape[0], c.action_dim)
-        if _ddim(c.idm_inference_steps, sched):
-            ts, coefs = dlib.ddim_coef_table(sched, c.idm_inference_steps)
-            noise = None
-        else:
-            ts, coefs = dlib.ddpm_coef_table(sched)
+        ts, coefs = self._table(sched, c.idm_inference_steps)
+        noise = None
+        if not _ddim(c.idm_inference_steps, sched):
             noise = self._randn((ts.shape[0],) + shape, generator)
         return kmlp.fused_mlp_diffusion_sample(
             self.idm, pairs, x_init, ts, coefs, noise,
@@ -178,7 +191,7 @@ class LDPAgent:
                                 generator)
             return dlib.sample_ddpm(
                 sched, lambda x, t: self.planner(x, t, cond), x_init, noise)
-        ts, coefs = dlib.ddim_coef_table(sched, c.planner_inference_steps)
+        ts, coefs = self._table(sched, c.planner_inference_steps)
         return kunet.fused_unet1d_ddim_sample(
             self.planner, cond, x_init, ts, coefs,
             clip_range=self._clip(sched), packed=self._planner_packed)

@@ -3,11 +3,24 @@
 Replaces the TPU kernel ``latent_diffusion_planning_tpu/ops/pallas/
 diffusion_mlp.py`` (``fused_mlp_diffusion_sample`` → ``_sampler_kernel``).
 The kernel (``csrc/diffusion_mlp.cu``) runs the whole DDPM/DDIM reverse
-process of ``MLPDiffusion`` in one launch, in fp32. It is bound by fp32 FMAs
-on the CUDA cores (about 3.2 MFLOP per row and step at the bench widths);
-its design keeps a 64-row tile's activations in shared memory for all steps
-and reads the weights (6.6 MB) from L2, each read feeding 64 rows (see the
-source's note).
+process of ``MLPDiffusion`` in one launch with fp32 results. Its three large
+products per residual block run on the tensor cores as error-compensated
+TF32 (each operand split ``hi + lo``, ``hi·hi + hi·lo + lo·hi`` summed in
+fp32), which keeps about fp32's accuracy where plain TF32 would not. On the
+card it is bound by those three tensor-core passes and, about as long, by the
+weight stream: every 64-row block reads all the weights (6.4 MB at the bench
+widths) from L2 once per step. The design keeps the residual in registers as
+the products' accumulator for all steps, keeps only the products' left
+operands in shared memory, and streams the weights, pre-tiled here in the
+order and fragment layout the kernel consumes, through a shared-memory ring
+of asynchronous copies (see the source's note).
+
+Packed layout (``pack_params``), one fp32 buffer: ``[ stream | vectors ]``.
+The stream holds, per step, the trunk input layer's ``[x|s]`` rows (K padded
+to 16) and then, per block and per chunk ``c`` of H columns of the 4H layer,
+``w0[:, c]`` and ``w1[c, :]``; each (K, H) matrix as stages of 16 K-rows in
+``mma`` B-fragment order (``tile_matrix``). ``vectors`` holds everything the
+CUDA cores read: the time path, biases, LayerNorm and the output layer.
 
 The caller supplies the initial sample, every step's noise (None for DDIM)
 and the (T, 5) coefficient table from ``ops.diffusion``, so kernel and twin
@@ -22,8 +35,14 @@ from ...models.nets.mlp import MLPDiffusion
 from .. import diffusion as dlib
 from . import _build
 
-ROWS_CHOICES = (64, 32)
+ROWS = 64               # rows per block
+STAGE_K = 16            # K-rows per ring stage
+MAX_STAGES = 8
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def check_supported(net: MLPDiffusion) -> None:
@@ -38,28 +57,106 @@ def check_supported(net: MLPDiffusion) -> None:
     if not net.use_layer_norm:
         raise ValueError("kernel requires use_layer_norm=True")
     H = net.trunk.dense0.out_features
-    if H % 32 or not 32 <= H <= 256:
-        raise ValueError(f"kernel needs hidden_dim a multiple of 32 in "
-                         f"[32, 256], net has {H}")
+    if H % 64 or not 64 <= H <= 256:
+        raise ValueError(f"kernel needs hidden_dim 64, 128, 192 or 256 (eight "
+                         f"warps of whole 8-column mma tiles), net has {H}")
+
+
+def tile_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(K, H) → flat stages of 16 K-rows (K padded with zero rows). Inside a
+    stage element (k, n) sits at ``[k // 8][n // (H/8)][n % (H/8) // 8]
+    [(n % 8) * 4 + k % 4][k % 8 // 4]`` of a (2, 8 warps, H/64 tiles, 32
+    lanes, 2) block: lane ``l`` of warp ``w`` reads the ``m16n8k8`` B
+    fragment of each of its column tiles as one 8-byte word."""
+    K, H = w.shape
+    nt = H // 64
+    Kp = _up(K, STAGE_K)
+    full = w.new_zeros((Kp, H))
+    full[:K] = w
+    # k = stage*16 + k8*8 + e*4 + tq ; n = warp*8*nt + t*8 + g
+    v = full.reshape(Kp // 16, 2, 2, 4, 8, nt, 8)
+    #      dims:     stage   k8 e  tq warp t  g
+    return v.permute(0, 1, 4, 5, 6, 3, 2).reshape(-1)
+
+
+def untile_matrix(flat: torch.Tensor, K: int, H: int) -> torch.Tensor:
+    """Inverse of ``tile_matrix``: the padded (pad16(K), H) matrix."""
+    nt = H // 64
+    Kp = _up(K, STAGE_K)
+    v = flat.reshape(Kp // 16, 2, 8, nt, 8, 4, 2)
+    return v.permute(0, 1, 6, 5, 2, 3, 4).reshape(Kp, H)
+
+
+def _stream(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
+    """The (K, H) matrices of one step in the order the kernel consumes
+    them."""
+    H = net.trunk.dense0.out_features
+    n_in = net.out_dim + net.s_dim
+    out = [("trunk_in", net.trunk.dense0.weight.t()[:n_in])]
+    for b, blk in enumerate(net.trunk.blocks):
+        w0, w1 = blk.dense0.weight.t(), blk.dense1.weight.t()  # (H,4H) (4H,H)
+        for c in range(4):
+            out += [(f"w0.{b}.{c}", w0[:, c * H:(c + 1) * H]),
+                    (f"w1.{b}.{c}", w1[c * H:(c + 1) * H])]
+    return out
+
+
+def _vectors(net: MLPDiffusion) -> list[torch.Tensor]:
+    io = lambda lin: [lin.weight.t(), lin.bias]
+    n_in = net.out_dim + net.s_dim
+    parts = [net.time.kernel[:, 0], *io(net.cond.dense[0]),
+             *io(net.cond.dense[1]), net.trunk.dense0.weight.t()[n_in:],
+             net.trunk.dense0.bias]
+    for blk in net.trunk.blocks:
+        parts += [blk.norm.weight, blk.norm.bias, blk.dense0.bias,
+                  blk.dense1.bias]
+    return parts + io(net.trunk.dense1)
+
+
+def layout(net: MLPDiffusion) -> dict:
+    """Offsets (floats) of every streamed matrix, the stages a step streams,
+    and where the vectors start."""
+    H = net.trunk.dense0.out_features
+    off, o = {}, 0
+    for name, w in _stream(net):
+        off[name] = o
+        o += _up(w.shape[0], STAGE_K) * H
+    return dict(offsets=off, stream_stages=o // (STAGE_K * H), vec_base=o,
+                numel=o + sum(p.numel() for p in _vectors(net)))
 
 
 def pack_params(net: MLPDiffusion) -> torch.Tensor:
-    """The net's weights in the kernel's order, Dense kernels as (in, out)."""
+    """The net's weights, fp32, tiled and ordered as the kernel consumes
+    them (see the module docstring)."""
     check_supported(net)
-    io = lambda lin: [lin.weight.t(), lin.bias]
-    parts = [net.time.kernel[:, 0], *io(net.cond.dense[0]),
-             *io(net.cond.dense[1]), *io(net.trunk.dense0)]
-    for blk in net.trunk.blocks:
-        parts += [blk.norm.weight, blk.norm.bias, *io(blk.dense0),
-                  *io(blk.dense1)]
-    parts += io(net.trunk.dense1)
-    return torch.cat([p.detach().float().reshape(-1) for p in parts])
+    with torch.no_grad():
+        parts = [tile_matrix(w.detach().float()) for _, w in _stream(net)]
+        parts += [p.detach().float().reshape(-1) for p in _vectors(net)]
+        return torch.cat(parts)
 
 
-def _smem_bytes(rows: int, kxs: int, half: int, C0: int, C1: int, H: int,
-                A: int) -> int:
-    floats = rows * kxs + 3 * rows * H + 2 * half + C0 + C1 + H + rows * A
-    return 4 * floats
+def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
+    H = net.trunk.dense0.out_features
+    kxs = _up(A + S, STAGE_K) + 4
+    rest = 4 * (ROWS * kxs + 2 * ROWS * (H + 4) + ROWS * 8 + ROWS * A)
+    stage = STAGE_K * H * 4
+    stages = min(MAX_STAGES, (SMEM_LIMIT - rest) // stage)
+    if stages < 2:
+        raise ValueError("net too wide for the kernel's shared memory")
+    return dict(kxs=kxs, stages=stages, smem_bytes=stages * stage + rest)
+
+
+def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
+    """What a launch at this shape looks like: tile, grid, shared memory and
+    the bytes of weights its blocks stream in all."""
+    H = net.trunk.dense0.out_features
+    sm = _smem(net, A, S)
+    grid = -(-N // ROWS)
+    per_step = layout(net)["stream_stages"] * STAGE_K * H * 4
+    return dict(rows_per_block=ROWS, grid=grid, smem_bytes=sm["smem_bytes"],
+                ring_stages=sm["stages"],
+                weight_bytes_per_step_and_block=per_step,
+                weight_bytes_streamed=grid * T * per_step)
 
 
 def mlp_diffusion_sample_plain(net: MLPDiffusion, s: torch.Tensor,
@@ -102,16 +199,13 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
         raise ValueError("condition width does not match the net")
     if noise is not None and tuple(noise.shape) != (T, N, A):
         raise ValueError(f"noise must be {(T, N, A)}, got {tuple(noise.shape)}")
-    kxs = -(-(A + S) // 4) * 4
-    rows = next((r for r in ROWS_CHOICES
-                 if _smem_bytes(r, kxs, half, C0, C1, H, A) <= SMEM_LIMIT),
-                None)
-    if rows is None:
-        raise ValueError("net too wide for the kernel's shared memory")
-    smem = _smem_bytes(rows, kxs, half, C0, C1, H, A)
+    sm = _smem(net, A, S)
+    lay = layout(net)
     dev = s.device
     if packed is None:
         packed = pack_params(net).to(dev)
+    if packed.dtype != torch.float32 or packed.numel() != lay["numel"]:
+        raise ValueError("packed weights are not pack_params(net) in fp32")
     s = s.float().contiguous()
     x_init = x_init.float().contiguous()
     ts = timesteps.to(dev, torch.int32).contiguous()
@@ -119,13 +213,18 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
     if noise is not None:
         noise = noise.float().contiguous()
     out = torch.empty((N, A), device=dev, dtype=torch.float32)
+    # scratch the prologue fills: the time's share of the trunk input layer
+    cbias = torch.empty((T, H), device=dev, dtype=torch.float32)
+    dims = torch.tensor(
+        [N, S, A, T, half, C0, C1, H, len(net.trunk.blocks), sm["kxs"],
+         sm["stages"], lay["stream_stages"], lay["vec_base"],
+         sm["smem_bytes"], 4 * (2 * half + C0 + C1)], dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("ldp_mlp_sampler",
-                         [P, P, P, P, P, P, P] + [I] * 9 + [F, I, I, I, P])
+    fn = _build.function("ldp_mlp_sampler", [P] * 9 + [I, F, P])
     err = fn(s.data_ptr(), x_init.data_ptr(), ts.data_ptr(), coefs.data_ptr(),
-             _build.ptr(noise), packed.data_ptr(), out.data_ptr(),
-             N, S, A, T, half, C0, C1, H, len(net.trunk.blocks),
-             float(clip_range), rows, kxs, smem, _build.stream_ptr(s))
+             _build.ptr(noise), packed.data_ptr(), cbias.data_ptr(),
+             out.data_ptr(), dims.data_ptr(), dims.numel(), float(clip_range),
+             _build.stream_ptr(s))
     _build.check("ldp_mlp_sampler", err)
     fused_mlp_diffusion_sample.launches += 1
     return out

@@ -4,23 +4,43 @@ Replaces the TPU kernel ``latent_diffusion_planning_tpu/ops/pallas/
 diffusion_unet1d.py`` (``fused_unet1d_ddim_sample`` → ``_kernel``, both its
 VMEM-resident and its streamed-weights mode). The kernel
 (``csrc/diffusion_unet1d.cu``) runs every η=0 DDIM step of the planner U-Net
-for a tile of samples in one launch, with bf16 weights and fp32 activations
-and accumulation. Its bound is the bf16 tensor-core rate; this design runs
-the products as fp32 FMAs on the CUDA cores, which limit it, then the L2
-reads of the weights. It keeps every activation and skip of the tile in
-shared memory for all steps (see the source's note).
+for a tile of samples in one launch. Every conv is an implicit GEMM on the
+tensor cores (bf16 × bf16 ``mma.sync``, fp32 accumulators); GroupNorm, Mish,
+FiLM and the DDIM update are fp32. On the card it is bound by the weight
+stream: every block reads every conv weight once per step from L2 (or HBM,
+when the net is larger than L2). The design is built around that stream —
+weights are packed once, in exactly the order and fragment layout the kernel
+consumes them, and flow through a shared-memory ring of asynchronous copies
+that runs ahead across op and step boundaries — and it shrinks the stream:
+the time MLP and the FiLM projections, which do not depend on the sample or
+do not depend on the step, are computed once by a small prologue kernel of
+the same launch (see the source's note).
 
-The net reaches the kernel as one packed weight buffer plus a small program
-of 8-int records (``build_program``), so any ``down_dims``, ``n_groups`` and
-embedding width runs through the same kernel. The twin computes the same
-update with the module's own weights; to hold the kernel against it on the
-card, give the twin a copy of the net whose weights are rounded to bf16
-(``round_weights``).
+Packed layout (``pack_params``), one bf16 buffer:
+
+    [ main stream | time stream | cond stream | vectors ]
+
+A stream is a sequence of 8 KB *tiles*; a tile is 32 rows of K × 128 columns
+of N of one GEMM's (K, N) weight matrix, stored in ``mma`` B-fragment order
+(``tile_matrix``). A GEMM's tiles run N-group major, then along K; K is
+``taps × pad32(Cin)`` (zero rows in the padding), N is padded to 128. The main
+stream holds the convs in the order the program runs them, padded with zero
+tiles to a whole number of ring stages; the time stream holds the time MLP
+and the time half of every FiLM projection; the cond stream the
+global-condition half. ``vectors`` holds biases and GroupNorm scales.
+
+The net reaches the kernel as that buffer plus a small program of 12-int
+records (``build_program``), so any ``down_dims``, ``n_groups`` and embedding
+width runs through the same kernel. The twin computes the same update with
+the module's own weights in fp32; to hold the kernel against it on the card,
+give the twin ``rounding_twin(net)``: bf16-rounded weights and every conv and
+dense input rounded through bf16, which is where the kernel rounds.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 
 import torch
 
@@ -29,143 +49,386 @@ from .. import diffusion as dlib
 from . import _build
 
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
-NB_CHOICES = (8, 4, 2, 1)
+NB_CHOICES = (16, 8, 4, 2, 1)   # samples per block
+MIN_BLOCKS = 64         # prefer a tile that leaves at least this many blocks
+MAX_ROWS = 128          # GEMM rows (samples × time steps) a block can hold
 WEIGHT_DTYPE = torch.bfloat16   # what the kernel reads its weights as
+
+WARPS = 16                      # warps of a block; each owns 8 columns
+TILE_K, TILE_N = 32, 8 * WARPS
+TILE = TILE_K * TILE_N          # bf16 elements in a tile (8 KB)
+STAGE_TILES = 3                 # tiles per ring stage (24 KB)
+STAGE_BYTES = STAGE_TILES * TILE * 2
+MIN_STAGES, MAX_STAGES = 2, 8   # ring depth: as deep as shared memory allows
+PROLOGUE_STAGES = 3
+COND_ROWS = 64                  # samples per prologue block (cond half)
+REC = 12                        # ints per program record
 
 FILM, SAVE, CONCAT, DOWN, UP, FINAL_BLOCK, FINAL_CONV = range(7)
 
 
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def ldb(C: int) -> int:
+    """Row stride (bf16 elements) of a C-channel operand buffer: channels
+    padded to the tile depth, plus 8 so ``ldmatrix`` rows miss each other's
+    banks."""
+    return _up(C, TILE_K) + 8
+
+
+def ld32(C: int) -> int:
+    """Row stride (floats) of a C-channel fp32 buffer."""
+    return C + 8
+
+
 def check_supported(net: ConditionalUnet1D, T: int) -> None:
     """Raise ValueError, with the reason, for a call the kernel cannot run."""
-    stride = 2 ** (len(net.down_dims) - 1)
+    dd = net.down_dims
+    stride = 2 ** (len(dd) - 1)
     if T % stride:
         raise ValueError(f"plan length {T} not divisible by the U-Net stride "
                          f"{stride}")
-    if any(ch % net.n_groups for ch in net.down_dims):
+    if any(ch % net.n_groups for ch in dd):
         raise ValueError("every down_dims entry must divide into n_groups")
     if net.kernel_size % 2 == 0:
         raise ValueError("kernel needs an odd kernel_size")
+    if T > MAX_ROWS:
+        raise ValueError(f"plan length {T} exceeds the {MAX_ROWS} GEMM rows a "
+                         "block holds")
+    # skips live as bf16 conv operands only, so a block that reads a concat
+    # must project its residual (always so unless the widths conspire)
+    cin = dd[-1]
+    for lvl in range(len(dd) - 1, 0, -1):
+        if cin + dd[lvl] == dd[lvl - 1]:
+            raise ValueError("an up block whose concatenated input width "
+                             "equals its output width is not supported")
+        cin = dd[lvl - 1]
 
+
+# ---------------------------------------------------------------------------
+# the net as GEMMs, in the order the kernel runs them
+# ---------------------------------------------------------------------------
 
 def _conv_kio(conv: torch.nn.Conv1d) -> torch.Tensor:
     """torch (Cout, Cin, k) → the kernel's (k, Cin, Cout)."""
     return conv.weight.permute(2, 1, 0)
 
 
-def _block_params(blk) -> list[torch.Tensor]:
-    return [_conv_kio(blk.conv), blk.conv.bias, blk.norm.weight, blk.norm.bias]
+def _walk(L: int):
+    """The ops of a U-Net of L levels in execution order: ("film", block
+    index, level), ("save", level), ("down", i), ("concat", level),
+    ("up", j), ("final_block",), ("final_conv",)."""
+    n = 0
+    for i in range(L):
+        yield ("film", n, i)
+        yield ("film", n + 1, i)
+        n += 2
+        if i:
+            yield ("save", i)
+        if i < L - 1:
+            yield ("down", i)
+    yield ("film", n, L - 1)
+    yield ("film", n + 1, L - 1)
+    n += 2
+    for j, lvl in enumerate(range(L - 1, 0, -1)):
+        yield ("concat", lvl)
+        yield ("film", n, lvl)
+        yield ("film", n + 1, lvl)
+        n += 2
+        yield ("up", j)
+    yield ("final_block",)
+    yield ("final_conv",)
 
 
-def _groups(net: ConditionalUnet1D) -> list[tuple[str, list[torch.Tensor]]]:
-    """The net's weights in the kernel's order, as named groups; a group's
-    offset in the packed buffer is that of its first tensor."""
-    groups = [("time", [net.time_dense0.weight.t(), net.time_dense0.bias,
-                        net.time_dense1.weight.t(), net.time_dense1.bias])]
-    for i, blk in enumerate(net.blocks):
-        groups += [(f"conv1.{i}", _block_params(blk.block0)),
-                   (f"conv2.{i}", _block_params(blk.block1)),
-                   (f"film.{i}", [blk.film.weight.t(), blk.film.bias])]
-        if blk.proj is not None:
-            groups.append((f"proj.{i}", [_conv_kio(blk.proj), blk.proj.bias]))
-    for i, conv in enumerate(net.downs):
-        groups.append((f"down.{i}", [_conv_kio(conv), conv.bias]))
-    for i, up in enumerate(net.ups):
-        # stored flipped for torch's conv_transpose1d; the kernel takes the
-        # Flax taps, x[t] w[j] -> y[2t+2-j]
-        groups.append((f"up.{i}", [up.weight.flip(-1).permute(2, 0, 1),
-                                   up.bias]))
-    groups.append(("final_block", _block_params(net.final_block)))
-    groups.append(("final_conv", [_conv_kio(net.final_conv),
-                                  net.final_conv.bias]))
-    return groups
+def _gemms(net: ConditionalUnet1D) -> dict:
+    """The net's weight matrices by stream: name → ((taps, Cin, Cout)
+    weight, vectors), where vectors are [bias, GroupNorm scale, GroupNorm
+    bias] as far as the GEMM has them."""
+    conv = lambda c: (_conv_kio(c), [c.bias])
+    block = lambda b: (_conv_kio(b.conv), [b.conv.bias, b.norm.weight,
+                                           b.norm.bias])
+    main = []
+    for op in _walk(len(net.down_dims)):
+        if op[0] == "film":
+            i, blk = op[1], net.blocks[op[1]]
+            main += [(f"conv1.{i}", *block(blk.block0)),
+                     (f"conv2.{i}", *block(blk.block1))]
+            if blk.proj is not None:
+                main.append((f"proj.{i}", *conv(blk.proj)))
+        elif op[0] == "down":
+            main.append((f"down.{op[1]}", *conv(net.downs[op[1]])))
+        elif op[0] == "up":
+            up = net.ups[op[1]]
+            # stored flipped for torch's conv_transpose1d; the kernel takes
+            # the Flax taps, x[t] w[j] -> y[2t+2-j]
+            main.append((f"up.{op[1]}", up.weight.flip(-1).permute(2, 0, 1),
+                         [up.bias]))
+        elif op[0] == "final_block":
+            main.append(("final_block", *block(net.final_block)))
+        elif op[0] == "final_conv":
+            main.append(("final_conv", *conv(net.final_conv)))
+    d = net.dsed
+    film_w = torch.cat([b.film.weight for b in net.blocks], 0)   # (FT, cond)
+    film_b = torch.cat([b.film.bias for b in net.blocks], 0)
+    dense = lambda lin: (lin.weight.t()[None], [lin.bias])
+    time = [("time0", *dense(net.time_dense0)),
+            ("time1", *dense(net.time_dense1)),
+            ("film_t", film_w[:, :d].t()[None], [film_b])]
+    cond = [("film_g", film_w[:, d:].t()[None], [])]
+    return {"main": main, "time": time, "cond": cond}
+
+
+def tile_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) → flat tiles, K padded to 32 and N to 128 with zeros. Tiles
+    run N-group major, then along K. Inside a tile, element (k, n) sits at
+    ``[n // 8][(n % 8) * 4 + (k % 8) // 2][(k // 16) * 4 + (k % 16 // 8) * 2
+    + k % 2]`` of a (16 warps, 32 lanes, 8 values) block: lane ``l`` of warp
+    ``w`` reads its two ``m16n8k16`` B fragments as one 16-byte word."""
+    K, N = w.shape
+    Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
+    full = w.new_zeros((Kp, Np))
+    full[:K, :N] = w
+    # k = kt*32 + kc*16 + half*8 + tq*2 + lo ; n = ng*128 + warp*8 + g
+    v = full.reshape(Kp // 32, 2, 2, 4, 2, Np // TILE_N, WARPS, 8)
+    #      dims:     kt     kc half tq lo  ng      warp g
+    return v.permute(5, 0, 6, 7, 3, 1, 2, 4).reshape(-1)
+
+
+def untile_matrix(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of ``tile_matrix``: the padded (pad32(K), pad128(N)) matrix."""
+    Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
+    v = flat.reshape(Np // TILE_N, Kp // 32, WARPS, 8, 4, 2, 2, 2)
+    return v.permute(1, 5, 6, 4, 7, 0, 2, 3).reshape(Kp, Np)
+
+
+def _pad_taps(w: torch.Tensor) -> torch.Tensor:
+    """(taps, Cin, Cout) → (taps × pad32(Cin), Cout), zero rows in the pad."""
+    taps, cin, cout = w.shape
+    full = w.new_zeros((taps, _up(cin, TILE_K), cout))
+    full[:, :cin] = w
+    return full.reshape(-1, cout)
+
+
+def _signature(net: ConditionalUnet1D) -> tuple:
+    """What the net's structure follows from (its constructor arguments)."""
+    return (net.input_dim, net.global_cond_dim, net.dsed, net.down_dims,
+            net.kernel_size, net.n_groups)
+
+
+def layout(net: ConditionalUnet1D) -> dict:
+    """Where everything sits in the packed buffer. Offsets of tiles are in
+    tiles from the start of their stream; offsets of vectors in elements from
+    the start of the vector region. Depends on the net's shapes only."""
+    return _layout(_signature(net))
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(signature: tuple) -> dict:
+    with torch.device("meta"):
+        gemms = _gemms(ConditionalUnet1D(*signature))
+    out = {"gemm": {}, "stream": {}}
+    base = 0            # tiles from the start of the buffer
+    voff = 0
+    for stream in ("main", "time", "cond"):
+        t = 0
+        for name, w, vecs in gemms[stream]:
+            taps, cin, cout = w.shape
+            n_tiles = (taps * _up(cin, TILE_K) // TILE_K) * (_up(cout, TILE_N)
+                                                              // TILE_N)
+            out["gemm"][name] = dict(stream=stream, tile_off=t,
+                                     n_tiles=n_tiles, vec_off=voff,
+                                     taps=taps, cin=cin, cout=cout)
+            if vecs:
+                voff += _up(cout, TILE_N) + sum(v.numel() for v in vecs[1:])
+            t += n_tiles
+        stages = -(-t // STAGE_TILES)
+        out["stream"][stream] = dict(tile_base=base, n_tiles=t, stages=stages)
+        base += stages * STAGE_TILES
+    out["vec_base"] = base * TILE
+    out["n_vec"] = voff
+    out["numel"] = base * TILE + voff
+    foff, o = [], 0
+    for name, g in out["gemm"].items():
+        if name.startswith("conv1."):
+            foff.append(o)
+            o += 2 * g["cout"]
+    out["film_off"] = foff
+    out["film_total"] = o
+    out["film_ld"] = _up(o, TILE_N)
+    return out
 
 
 def pack_params(net: ConditionalUnet1D) -> torch.Tensor:
-    """Every weight of the net in the kernel's order, cast to bf16."""
-    return torch.cat([p.detach().reshape(-1).to(WEIGHT_DTYPE)
-                      for _, group in _groups(net) for p in group])
+    """Every weight of the net, bf16, tiled and ordered as the kernel
+    consumes it (see the module docstring)."""
+    gemms = _gemms(net)
+    lay = layout(net)
+    tiles, vecs_out = [], []
+    with torch.no_grad():
+        for stream in ("main", "time", "cond"):
+            n = 0
+            for name, w, vecs in gemms[stream]:
+                t = tile_matrix(_pad_taps(w.detach().float()))
+                tiles.append(t)
+                n += t.numel() // TILE
+                if vecs:
+                    bias = torch.zeros(_up(w.shape[2], TILE_N))
+                    bias[:w.shape[2]] = vecs[0].detach().float().cpu()
+                    vecs_out += [bias] + [v.detach().float().cpu()
+                                          for v in vecs[1:]]
+            pad = lay["stream"][stream]["stages"] * STAGE_TILES - n
+            tiles.append(torch.zeros(pad * TILE))
+        flat = torch.cat([t.cpu() for t in tiles] + vecs_out)
+    assert flat.numel() == lay["numel"]
+    return flat.to(WEIGHT_DTYPE)
 
+
+# ---------------------------------------------------------------------------
+# the program
+# ---------------------------------------------------------------------------
 
 def build_program(net: ConditionalUnet1D, T: int, nb: int) -> dict:
+    """The kernel's program for this net, a tile of ``nb`` samples and plan
+    length ``T`` (cached by the net's shapes; do not edit what it returns)."""
+    return _build_program(_signature(net), T, nb)
+
+
+@functools.lru_cache(maxsize=64)
+def _build_program(signature: tuple, T: int, nb: int) -> dict:
     """The kernel's op records and its shared-memory layout for a tile of
-    ``nb`` samples of length ``T``."""
-    off = {}
-    o = 0
-    for name, group in _groups(net):
-        off[name] = o
-        o += sum(p.numel() for p in group)
-    dd = list(net.down_dims)
-    L = len(dd)
-    D = net.input_dim
+    ``nb`` samples of length ``T``.
+
+    Records (12 ints, unused fields 0):
+      FILM         cin ch Tl tile(conv1) tile(conv2) film_off tile(proj)|-1
+                   vec(conv1) vec(conv2) vec(proj)
+      SAVE         skip_off C Tl
+      CONCAT       skip_off C_h C_skip Tl
+      DOWN / UP    ch Tl_in tile vec
+      FINAL_BLOCK  cin ch Tl tile vec
+      FINAL_CONV   cin D Tl tile vec
+    Tile offsets are in tiles from the start of the main stream; the kernel
+    consumes the stream in order and never seeks, so they must be contiguous
+    in program order (the tests check that).
+    """
+    lay = _layout(signature)
+    gm = lay["gemm"]
+    D, _, _, dd, _, n_groups = signature
+    dd = list(dd)
     recs = []
-    maxs = T * D                       # largest activation, floats per sample
-    n_blk = 0
+    max32 = T * ld32(D)          # floats per sample, fp32 buffers
+    maxb = T * ldb(D)            # bf16 elements per sample, operand buffers
 
-    def film(cin, ch, Tl):
-        nonlocal maxs, n_blk
-        i = n_blk
-        n_blk += 1
-        recs.append([FILM, cin, ch, Tl, off[f"conv1.{i}"], off[f"conv2.{i}"],
-                     off[f"film.{i}"], off.get(f"proj.{i}", -1)])
-        maxs = max(maxs, Tl * cin, Tl * ch)
+    def rec(*v):
+        recs.append(list(v) + [0] * (REC - len(v)))
 
-    # one skip slot per level >= 1 (the level-0 skip is never read back)
+    # one bf16 skip slot per level >= 1 (the level-0 skip is never read back)
     slot, skip_total = {}, 0
-    for i in range(1, L):
+    for i in range(1, len(dd)):
         slot[i] = skip_total
-        skip_total += nb * (T >> i) * dd[i]
+        skip_total += nb * (T >> i) * ldb(dd[i])
 
     Tl, cin = T, D
-    for i, ch in enumerate(dd):
-        film(cin, ch, Tl)
-        film(ch, ch, Tl)
-        cin = ch
-        if i:
-            recs.append([SAVE, slot[i], ch, Tl, 0, 0, 0, 0])
-        if i < L - 1:
-            recs.append([DOWN, ch, Tl, off[f"down.{i}"], 0, 0, 0, 0])
-            Tl //= 2
-    film(cin, cin, Tl)
-    film(cin, cin, Tl)
-    for j, (lvl, ch) in enumerate(zip(range(L - 1, 0, -1),
-                                      reversed(dd[:-1]))):
-        recs.append([CONCAT, slot[lvl], cin, dd[lvl], Tl, 0, 0, 0])
-        film(cin + dd[lvl], ch, Tl)
-        film(ch, ch, Tl)
-        cin = ch
-        recs.append([UP, ch, Tl, off[f"up.{j}"], 0, 0, 0, 0])
-        Tl *= 2
-        maxs = max(maxs, Tl * ch)
-    recs.append([FINAL_BLOCK, dd[0], dd[0], T, off["final_block"], 0, 0, 0])
-    recs.append([FINAL_CONV, dd[0], D, T, off["final_conv"], 0, 0, 0])
+    for op in _walk(len(dd)):
+        kind = op[0]
+        if kind == "film":
+            i = op[1]
+            ch = gm[f"conv1.{i}"]["cout"]
+            proj = gm.get(f"proj.{i}")
+            rec(FILM, cin, ch, Tl, gm[f"conv1.{i}"]["tile_off"],
+                gm[f"conv2.{i}"]["tile_off"], lay["film_off"][i],
+                proj["tile_off"] if proj else -1, gm[f"conv1.{i}"]["vec_off"],
+                gm[f"conv2.{i}"]["vec_off"], proj["vec_off"] if proj else 0)
+            max32 = max(max32, Tl * ld32(ch))
+            maxb = max(maxb, Tl * ldb(cin), Tl * ldb(ch))
+            cin = ch
+        elif kind == "save":
+            rec(SAVE, slot[op[1]], cin, Tl)
+        elif kind == "concat":
+            rec(CONCAT, slot[op[1]], cin, dd[op[1]], Tl)
+            cin += dd[op[1]]
+            maxb = max(maxb, Tl * ldb(cin))
+        elif kind in ("down", "up"):
+            g = gm[f"{kind}.{op[1]}"]
+            rec(DOWN if kind == "down" else UP, cin, Tl, g["tile_off"],
+                g["vec_off"])
+            Tl = Tl // 2 if kind == "down" else Tl * 2
+            max32 = max(max32, Tl * ld32(cin))
+            maxb = max(maxb, Tl * ldb(cin))
+        elif kind == "final_block":
+            g = gm["final_block"]
+            rec(FINAL_BLOCK, cin, dd[0], Tl, g["tile_off"], g["vec_off"])
+        else:
+            g = gm["final_conv"]
+            rec(FINAL_CONV, dd[0], D, Tl, g["tile_off"], g["vec_off"])
 
-    d = net.dsed
-    cond_dim = d + net.global_cond_dim
-    film_max = 2 * max(dd)
-    # the zero row that out-of-sample conv taps read: the widest conv input
-    cin_max = max([D, *dd] + [r[1] for r in recs if r[0] == FILM])
-    floats = (nb * T * D + 3 * nb * maxs + skip_total + nb * net.global_cond_dim
-              + 6 * d + nb * cond_dim + nb * film_max + nb * net.n_groups * 2
-              + cin_max)
-    return dict(records=recs, maxs=maxs, skip_total=skip_total,
-                film_max=film_max, cin_max=cin_max, smem_bytes=4 * floats)
+    floats = 2 * nb * max32 + nb * T * D + 2 * nb * n_groups
+    floats = _up(floats, 4)
+    halves = 2 * nb * maxb + skip_total + 16
+    rest = 4 * floats + 2 * halves
+    stages = min(MAX_STAGES, max(MIN_STAGES,
+                                 (SMEM_LIMIT - rest) // STAGE_BYTES))
+    return dict(records=recs, max32=nb * max32, maxb=nb * maxb,
+                skip_total=skip_total, stages=stages,
+                smem_bytes=stages * STAGE_BYTES + rest)
 
 
-def choose_tile(net: ConditionalUnet1D, T: int) -> tuple[int, dict]:
+def prologue_smem_bytes(net: ConditionalUnet1D) -> int:
+    """Shared memory of the prologue kernel: the ring, two operand buffers
+    wide enough for the time MLP's hidden layer or a tile of conditions."""
+    halves = max(16 * ldb(4 * net.dsed),
+                 COND_ROWS * ldb(net.global_cond_dim))
+    return PROLOGUE_STAGES * STAGE_BYTES + 2 * 2 * halves + 32
+
+
+def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
+                ) -> tuple[int, dict]:
+    """Samples per block and the program for them: the most that fit the
+    shared memory and the GEMM's row limit, but no more than leaves
+    ``MIN_BLOCKS`` blocks for a batch of ``B`` (the weight stream a block
+    reads is the same whatever it holds, so larger tiles divide the L2
+    traffic; too few blocks leave the card empty)."""
+    fits = []
     for nb in NB_CHOICES:
+        if nb * T > MAX_ROWS:
+            continue
         prog = build_program(net, T, nb)
         if prog["smem_bytes"] <= SMEM_LIMIT:
-            return nb, prog
-    raise ValueError("net too wide for the kernel's shared memory")
+            fits.append((nb, prog))
+    if not fits:
+        raise ValueError("net too wide for the kernel's shared memory")
+    if B is None:
+        return fits[0]
+    return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))
 
 
-def round_weights(net: ConditionalUnet1D) -> ConditionalUnet1D:
-    """A copy of the net whose weights are rounded through bf16 — the
-    function the kernel computes, for holding it against the twin."""
+@functools.lru_cache(maxsize=64)
+def _records_on(signature: tuple, T: int, nb: int,
+                device: torch.device) -> torch.Tensor:
+    prog = _build_program(signature, T, nb)
+    return torch.tensor(prog["records"], dtype=torch.int32).to(device)
+
+
+def _round_input(module, args):
+    return tuple(a.to(WEIGHT_DTYPE).to(a.dtype) if torch.is_floating_point(a)
+                 else a for a in args)
+
+
+def rounding_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
+    """A copy of the net that rounds where the kernel rounds: weights
+    through bf16, and the input of every Conv1d, ConvTranspose1d and Linear
+    through bf16 (products of bf16 operands, fp32 sums, everything else
+    fp32) — the function the kernel computes, for holding it against the
+    twin."""
     out = copy.deepcopy(net)
     with torch.no_grad():
         for p in out.parameters():
             p.copy_(p.to(WEIGHT_DTYPE).float())
+    for m in out.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d,
+                          torch.nn.Linear)):
+            m.register_forward_pre_hook(_round_input)
     return out
 
 
@@ -180,17 +443,40 @@ def unet1d_ddim_sample_plain(net: ConditionalUnet1D, global_cond: torch.Tensor,
             coefs, None, clip_range)
 
 
+def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
+                nb: int | None = None) -> dict:
+    """What a launch at this shape looks like: tile, grid, shared memory and
+    the bytes of weights its blocks stream in all."""
+    if nb is None:
+        nb, prog = choose_tile(net, T, B)
+    else:
+        prog = build_program(net, T, nb)
+    lay = layout(net)
+    grid = -(-B // nb)
+    stage = STAGE_BYTES
+    main = lay["stream"]["main"]["stages"] * stage
+    pro = (n_steps * lay["stream"]["time"]["stages"]
+           + -(-B // COND_ROWS) * lay["stream"]["cond"]["stages"]) * stage
+    return dict(samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
+                ring_stages=prog["stages"],
+                prologue_grid=n_steps + -(-B // COND_ROWS),
+                prologue_smem_bytes=prologue_smem_bytes(net),
+                weight_bytes_per_step_and_block=main,
+                weight_bytes_streamed=grid * n_steps * main + pro)
+
+
 def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              x_init: torch.Tensor, timesteps: torch.Tensor,
                              coefs: torch.Tensor, *, clip_range: float = 1.0,
-                             packed: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             packed: torch.Tensor | None = None,
+                             nb: int | None = None) -> torch.Tensor:
     """DDIM reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
 
     coefs (S, 5) from ``ops.diffusion.ddim_coef_table`` (the s_var column is
     ignored: η = 0). CPU tensors run the plain twin (with the net's own
     weights); CUDA tensors launch the kernel with bf16 weights.
-    ``packed`` is ``pack_params(net)`` on the device.
+    ``packed`` is ``pack_params(net)`` on the device; ``nb`` overrides the
+    samples per block (for measurements).
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
@@ -201,28 +487,47 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     check_supported(net, T)
     if D != net.input_dim or global_cond.shape != (B, net.global_cond_dim):
         raise ValueError("sample or condition width does not match the net")
-    nb, prog = choose_tile(net, T)
+    if nb is None:
+        nb, prog = choose_tile(net, T, B)
+    else:
+        prog = build_program(net, T, nb)
+        if nb * T > MAX_ROWS or prog["smem_bytes"] > SMEM_LIMIT:
+            raise ValueError(f"a tile of {nb} samples does not fit a block")
+    lay = layout(net)
     dev = x_init.device
     if packed is None:
         packed = pack_params(net).to(dev)
-    if packed.dtype != WEIGHT_DTYPE:
-        raise ValueError("the kernel reads bf16 weights")
-    recs = torch.tensor(prog["records"], dtype=torch.int32).to(dev)
+    if packed.dtype != WEIGHT_DTYPE or packed.numel() != lay["numel"]:
+        raise ValueError("packed weights are not pack_params(net) in bf16")
+    S = int(timesteps.shape[0])
+    recs = _records_on(_signature(net), T, nb, dev)
     gcond = global_cond.float().contiguous()
     x_init = x_init.float().contiguous()
     ts = timesteps.to(dev, torch.int32).contiguous()
     coefs = coefs.to(dev, torch.float32).contiguous()
     out = torch.empty((B, T, D), device=dev, dtype=torch.float32)
+    # scratch the prologue fills: FiLM's time half per step, and its
+    # global-condition half per sample
+    film_t = torch.empty((S, lay["film_ld"]), device=dev, dtype=torch.float32)
+    film_g = torch.empty((_up(B, COND_ROWS), lay["film_ld"]), device=dev,
+                         dtype=torch.float32)
+    st = lay["stream"]
+    dims = torch.tensor(
+        [B, T, D, net.global_cond_dim, net.dsed, net.kernel_size,
+         net.n_groups, nb, prog["max32"], prog["maxb"], prog["skip_total"],
+         len(prog["records"]), S, lay["film_total"], lay["film_ld"],
+         st["main"]["stages"], st["time"]["tile_base"], st["time"]["stages"],
+         st["cond"]["tile_base"], st["cond"]["stages"], lay["vec_base"],
+         lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
+         lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
+         prologue_smem_bytes(net), prog["stages"], PROLOGUE_STAGES, TILE_N],
+        dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("ldp_unet1d_sampler",
-                         [P, P, P, P, P, P, I, P] + [I] * 13 + [F, I, P])
+    fn = _build.function("ldp_unet1d_sampler", [P] * 9 + [P, I, F, P])
     err = fn(gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
              coefs.data_ptr(), packed.data_ptr(), recs.data_ptr(),
-             len(prog["records"]), out.data_ptr(), B, T, D,
-             net.global_cond_dim, net.dsed, net.kernel_size, net.n_groups, nb,
-             prog["maxs"], prog["skip_total"], prog["film_max"],
-             int(ts.shape[0]), prog["cin_max"], float(clip_range),
-             prog["smem_bytes"],
+             film_t.data_ptr(), film_g.data_ptr(), out.data_ptr(),
+             dims.data_ptr(), dims.numel(), float(clip_range),
              _build.stream_ptr(x_init))
     _build.check("ldp_unet1d_sampler", err)
     fused_unet1d_ddim_sample.launches += 1

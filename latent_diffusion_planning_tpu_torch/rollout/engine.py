@@ -68,7 +68,7 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     if init_states is None:
-        states = env.reset_state(n_episodes, gen, dev)
+        states = env.reset_state(n_episodes, gen)
     else:
         states = init_states.map(lambda x: x.to(dev))
     history = [states] * obs_horizon

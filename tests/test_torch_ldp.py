@@ -219,7 +219,7 @@ def test_run_batched_eval_matches_jax(plan_blend):
                    "cond_hidden_dims": [32, 32], "cond_activation": "mish"}),
      "swish"),
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 48, "time_dim": 16,
-                   "cond_hidden_dims": [32, 32]}), "multiple of 32"),
+                   "cond_hidden_dims": [32, 32]}), "64, 128, 192 or 256"),
     (dict(fused_dtype="float32"), "bf16"),
 ])
 def test_kernel_refusals(change, reason):

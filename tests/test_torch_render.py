@@ -7,9 +7,12 @@ differently in float. Env states and low-dim observations are fp32
 arithmetic on the same inputs: atol 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from latent_diffusion_planning_tpu.envs import lift as jlift
@@ -136,3 +139,22 @@ def test_reset_draws_in_range():
     assert float(state.cube_yaw.abs().max()) <= np.pi / 6
     assert obs["object"].shape == (256, 10)
     assert not state.grasped.any()
+
+
+def test_reset_takes_its_device_from_the_generator():
+    """``reset`` and ``reset_state`` have no device of their own to default
+    to the CPU with: every field of the state, and the observation, lies on
+    the device of the generator the caller passes."""
+    import inspect
+    env = lift.LiftEnv(image_size=8, episode_len=4)
+    for fn in (env.reset, env.reset_state):
+        assert "device" not in inspect.signature(fn).parameters
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    state, obs = env.reset(5, gen)
+    for f in dataclasses.fields(state):
+        assert getattr(state, f.name).device == gen.device, f.name
+    assert all(v.device == gen.device for v in obs.values())
+    again = env.reset_state(5, torch.Generator(device="cpu").manual_seed(3))
+    assert torch.equal(again.cube_pos, state.cube_pos)
+    with pytest.raises(AttributeError):
+        env.reset_state(5, None)
