@@ -21,14 +21,23 @@
       after one step at least 99% of elements within 5e-3; after all ten the
       mean error within 5e-3, no element beyond 0.1, and the kernel closer
       to the rounding twin than the unrounded fp32 net is;
-   C  ray-caster on 1024 Lift scenes and on 64 scenes with a convex k-DOP
-      prim (more than 98% of pixels within 2.0, the JAX package's bar).
-3. Runs the main path: ``run_batched_eval`` of the LDP agent at the bench
-   widths (seeded random weights) on 1024 kinematic Lift envs × 400 steps
-   (100 decisions), with every kernel's launch count read around it, after
-   an end-to-end check of ``sample_fast`` against the plain path (mean
-   error within 5e-3, no action beyond 0.1, for the reason given under B); then
-   times one decision stage by stage.
+   C  ray-caster on 1024 kinematic Lift scenes (3 boxes), on 64 scenes with
+      a convex k-DOP prim, and on 1024 physics Lift scenes (cube, two sphere
+      pads, three rotated arm-link boxes) taken from states a few scripted
+      steps apart: at least 99.9% of pixels within 2.0 on each set, image
+      finite. The ``kernels`` line reports the physics set.
+3. Runs the scripted expert on 1024 ``LiftPhysicsEnv`` envs × 80 steps on the
+   card (no rendering): at least 95% of the episodes must succeed and every
+   state stay finite.
+4. Runs the main path: ``run_batched_eval`` of the LDP agent at the bench
+   widths (seeded random weights) on 1024 ``LiftPhysicsEnv`` envs × 400
+   steps (100 decisions), the bench's env, with every kernel's launch count
+   read around it; then the same on 1024 kinematic ``LiftEnv`` envs × 40
+   steps (10 decisions), counts read again. Both after an end-to-end check
+   of ``sample_fast`` against the plain path (mean error within 5e-3, no
+   action beyond 0.1, for the reason given under B). Then times one decision
+   stage by stage, the physics and the render separately, the env
+   transitions eagerly and from their CUDA graph.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -56,6 +65,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 on the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 N_ENVS, EPISODE_LEN = 1024, 400
+KINEMATIC_LEN = 40           # the kinematic LiftEnv path: 10 decisions
 
 
 def card_line() -> str:
@@ -408,10 +418,42 @@ def convex_scenes(n, device):
                       for k, v in scene.__dict__.items()})
 
 
+def physics_states(env, n, device, seed=5, spread=12):
+    """n ``LiftPhysicsEnv`` states a few scripted steps apart: env i has
+    taken ``i % spread`` + 1 steps of the scripted expert, so the arm, the
+    pads and (late in the spread) the cube are in different places."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = env.reset_state(n, g)
+    keep = state
+    steps = torch.arange(n, device=device) % spread + 1
+    for i in range(spread):
+        state = env.transition(state, env.scripted_action(state))[0]
+        took = steps == i + 1
+        keep = keep.map(lambda k, s: torch.where(
+            took.reshape((-1,) + (1,) * (s.ndim - 1)), s, k), state)
+    return keep
+
+
+def scene_bytes(scene, n_convex) -> int:
+    """Bytes of the scene the kernel must read: each field once (a field
+    broadcast over envs is stored once)."""
+    total = 0
+    for name, t in scene.__dict__.items():
+        if t is None or (name == "planes" and not n_convex):
+            continue
+        unique = t.numel() if (t.shape[0] < 2 or t.stride(0)) else (
+            t.numel() // t.shape[0])
+        total += 4 * unique
+    return total
+
+
 def phase_raycast(smoke: Smoke):
     import torch
+    from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.envs.lift import LiftEnv, LiftState
     from latent_diffusion_planning_tpu_torch.ops import render as R
+    from latent_diffusion_planning_tpu_torch.ops.kernels import _build
     from latent_diffusion_planning_tpu_torch.ops.kernels import raycast as K
 
     dev = torch.device("cuda")
@@ -424,48 +466,112 @@ def phase_raycast(smoke: Smoke):
                       gripper=u[:, 3], cube_pos=state.cube_pos,
                       cube_yaw=state.cube_yaw, grasped=state.grasped,
                       t=state.t)
+    penv = configs.make_bench_env(render_images=False)
+    pstate = physics_states(penv, N_ENVS, dev)
     out = {}
     H = W = 64
     for name, scene, cam, n_convex in (
             ("lift", env.scene(state), env.camera, 0),
             ("convex", convex_scenes(64, dev),
-             R.look_at((0.55, 0.0, 1.25), (0.0, 0.0, 0.85)), 1)):
+             R.look_at((0.55, 0.0, 1.25), (0.0, 0.0, 0.85)), 1),
+            ("physics", penv.scene(pstate), penv.camera, 0)):
         rays = R.camera_rays(cam, H, W, dev)
         run_k = lambda: K.render_batch_cuda(scene, cam, H, W, n_convex, rays)
         run_p = lambda: R.render_batch(scene, cam, H, W)
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         diff = (got - ref).abs()
-        frac = float((diff.amax(-1) < 2.0).float().mean())
+        frac = float((diff.amax(-1) < 2.0).double().mean())
         err = float(diff.max())
-        print(f"   C {name}: {frac:.4%} of pixels within 2.0 (bar 98%), "
+        print(f"   C {name}: {frac:.4%} of pixels within 2.0 (bar 99.9%), "
               f"max_abs_err {err:.3e}", flush=True)
-        if not (frac > 0.98 and torch.isfinite(got).all()):
+        if not (frac >= 0.999 and torch.isfinite(got).all()):
             raise AssertionError(f"C {name}: {frac} of pixels within 2.0")
-        ms, plain_ms = time_ms(run_k, iters=10), time_ms(run_p)
+        ms, plain_ms = time_ms(run_k, iters=20), time_ms(run_p)
         smoke.timing(f"C {name} N={scene.pos.shape[0]}", ms, plain_ms)
+        args, _out, _keep = K.launch_args(scene, cam, H, W, n_convex, rays)
+        fn = _build.function("ldp_raycast", K.ARGTYPES)
+        stream = torch.cuda.current_stream().cuda_stream
+        launch_ms = time_ms(lambda: fn(*args, stream), iters=20)
+        print(f"   C {name}: the launch alone (arguments marshalled once) "
+              f"{launch_ms:.4f} ms [{smoke.card}]", flush=True)
         N, P = scene.pos.shape[:2]
         K_planes = scene.planes.shape[2] if n_convex else 0
-        # FLOPs per pixel, counted from csrc/raycast.cu (add, mul, div, sqrt;
-        # compares, min/max and selects not counted): ground plane 15,
-        # shading 30; per prim 33 for the body-frame ray, then 30 for a box
-        # slab or a sphere, or 15 + 12 per half-space for a k-DOP
-        ops = N * H * W * (45 + 63 * (P - n_convex)
-                           + (48 + 12 * K_planes) * n_convex)
-        nbytes = 4 * (N * H * W * 3 + N * P * 22 + H * W * 3 + N * 4
-                      + N * n_convex * K_planes * 4)
+        kinds = scene.kind[0, n_convex:].tolist()
+        n_box = sum(1 for k in kinds if k == 0)
+        n_sphere = len(kinds) - n_box
+        # FLOPs per pixel per env, counted from csrc/raycast.cu (an fma is
+        # 2; a reciprocal, a division, a square root 1; compares, min/max
+        # and selects 0; the normal of a nearer hit, taken for few pixels,
+        # 0): plane hit 1, shading 21 + 1 + 3, sky 2, clip * 255 3, checker
+        # tint 12; per box the bounding-sphere test 7, and only for the rays
+        # that pass it (counted on this run's scenes) the body-frame
+        # direction 15, 3 reciprocals, 6 products; per sphere 5 + 2 + 1 + 2;
+        # per k-DOP 15 and 6 a half-space
+        boxes = [n_convex + i for i, k in enumerate(kinds) if k == 0]
+        slab_tests = 0
+        if boxes:
+            oc = torch.tensor(cam.pos, device=dev) - scene.pos[:, boxes]
+            b = oc @ rays.reshape(-1, 3).t()                  # (N, boxes, HW)
+            c_bound = (oc * oc).sum(-1) - 1.0201 * (
+                scene.size[:, boxes] ** 2).sum(-1)
+            passes = (b * b - c_bound[..., None] >= 0) & ~(
+                (b > 0) & (c_bound[..., None] > 0))
+            slab_tests = int(passes.sum())
+        per_pixel = (43 + 7 * n_box + 10 * n_sphere
+                     + (15 + 6 * K_planes) * n_convex)
+        ops = N * H * W * per_pixel + 24 * slab_tests
+        per_pixel = ops / (N * H * W)
+        nbytes = 4 * (N * H * W * 3 + H * W * 3 + 12) + scene_bytes(
+            scene, n_convex)
         b_ms, b_by = bound(ops, nbytes)
+        E = args[-1]
+        print(f"   C {name}: {slab_tests / max(1, N * H * W * n_box):.2%} of "
+              "the (ray, box) pairs pass the bounding sphere", flush=True)
         info = smoke.shape_line(
-            f"C {name}", "raycast_kernel",
-            dict(pixels_per_block=256, grid=[-(-H * W // 256), N],
-                 smem_bytes=4 * (P * 22 + n_convex * K_planes * 4),
-                 weight_bytes_streamed=0), ops, PEAK_FP32_FLOPS,
-            "fp32 CUDA-core", ms)
+            f"C {name}", "raycast_kernelILb1E",
+            dict(pixels_per_thread=4, pixels_per_block=1024,
+                 envs_per_block=E, grid=[-(-H * W // 1024), -(-N // E)],
+                 smem_bytes=K.smem_bytes(P, K_planes, n_convex, E),
+                 flops_per_pixel=per_pixel, weight_bytes_streamed=0), ops,
+            PEAK_FP32_FLOPS, "fp32 CUDA-core", ms)
         out[name] = dict(max_abs_err=err, frac_within_2=frac, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         ops=ops, bytes=nbytes, shape=info)
-    smoke.kernels["raycast"] = dict(out["lift"])
+                         launch_only_ms=launch_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+                         shape=info)
+    smoke.kernels["raycast"] = dict(out["physics"])
     return out
+
+
+def phase_expert(smoke: Smoke):
+    """The physics checked on the card by the repo's own means: the scripted
+    expert must lift the cube in at least 95% of 1024 envs within 80 steps
+    (the JAX package's own test asks 6 of 6)."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+
+    env = configs.make_bench_env(episode_len=80, render_images=False)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    state = env.reset_state(N_ENVS, g)
+    success = torch.zeros(N_ENVS, dtype=torch.bool, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(80):
+        state, reward, ok = env.transition(state, env.scripted_action(state))
+        success |= ok
+        for leaf in (state.bodies.pos, state.bodies.quat, state.bodies.linvel,
+                     state.bodies.angvel, state.qpos, reward):
+            finite &= torch.isfinite(leaf).all()
+    rate = float(success.float().mean())
+    wall = time.perf_counter() - t0
+    print(f"   scripted expert, {N_ENVS} physics envs x 80 steps: success "
+          f"{rate:.4f} (bar 0.95), all finite {bool(finite)}, wall "
+          f"{wall:.3f} s incl. the graph's capture [{smoke.card}]", flush=True)
+    if not (rate >= 0.95 and bool(finite)):
+        raise AssertionError(f"scripted expert: success {rate}, finite "
+                             f"{bool(finite)}")
+    return dict(success=rate, finite=bool(finite), wall_s_run=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -477,7 +583,6 @@ def phase_end_to_end_check(smoke: Smoke):
     by its rounding twin) on 8 rendered windows and identical draws."""
     import torch
     from latent_diffusion_planning_tpu_torch import configs
-    from latent_diffusion_planning_tpu_torch.envs.lift import LiftEnv
     from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as K)
@@ -487,9 +592,8 @@ def phase_end_to_end_check(smoke: Smoke):
     cpu = LDPAgent.create(configs.bench_agent_config(), configs.SHAPE_META,
                           seed=0, device="cpu")
     cpu.planner = K.rounding_twin(cpu.planner)
-    env = LiftEnv()
-    g = torch.Generator(device="cuda").manual_seed(6)
-    _, obs = env.reset(8, g)
+    env = configs.make_bench_env()
+    obs = env.obs(physics_states(env, 8, "cuda", seed=6, spread=8))
     window = {k: obs[k][:, None] for k in configs.BENCH_POLICY_KEYS}
     gc = torch.Generator().manual_seed(7)
     draws = {"planner": torch.randn(8, 8, 25, generator=gc),
@@ -509,6 +613,9 @@ def phase_end_to_end_check(smoke: Smoke):
 
 
 def phase_slice(smoke: Smoke):
+    """The main path on the bench's env (``LiftPhysicsEnv``, 1024 envs × 400
+    steps), then on the kinematic ``LiftEnv`` (1024 × 40), each with the
+    launch counts set to 0 just before and read just after."""
     import torch
     from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.envs.lift import LiftEnv
@@ -518,56 +625,72 @@ def phase_slice(smoke: Smoke):
 
     cfg = configs.bench_agent_config()
     agent = LDPAgent.create(cfg, configs.SHAPE_META, seed=0, device="cuda")
-    env = LiftEnv(image_size=64, episode_len=EPISODE_LEN)
-    run = lambda n, T, seed: engine.run_batched_eval(
-        env, agent, n, seed, obs_horizon=cfg["obs_horizon"],
-        action_horizon=cfg["action_horizon"], episode_len=T,
-        policy_obs_keys=configs.BENCH_POLICY_KEYS, device="cuda")
-    run(N_ENVS, 8, 0)                       # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    n_decisions = math.ceil(EPISODE_LEN / cfg["action_horizon"])
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = run(N_ENVS, EPISODE_LEN, 1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    print(f"   launches: {counts} (decisions {n_decisions})", flush=True)
-    for name, n in counts.items():
-        if n != n_decisions:
-            raise AssertionError(f"{name} launched {n} times, expected "
-                                 f"{n_decisions}")
-        smoke.kernels[name]["launches"] = n
-    m = res["metrics"]
-    hz = res["per_episode"]["horizon"]
-    if not (0 <= m["success"] <= 1 and math.isfinite(m["reward"])
-            and hz.min() >= 1 and hz.max() <= EPISODE_LEN):
-        raise AssertionError(f"implausible metrics {m}")
-    rate = N_ENVS * EPISODE_LEN / wall
-    print(f"   random-weight LDP, {N_ENVS} envs x {EPISODE_LEN} steps: "
-          f"{rate:.1f} computed env-steps/s, wall {wall:.3f} s, "
-          f"success {m['success']:.4f}, horizon {m['horizon']:.1f} "
-          f"[{smoke.card}]", flush=True)
-    return dict(env_steps_per_s=rate, wall_s_run=wall, n_envs=N_ENVS,
-                episode_len=EPISODE_LEN, decisions=n_decisions,
-                launches=counts, metrics=m, weights="random (seed 0)")
+    out = {}
+    for label, env, T in (
+            ("physics", configs.make_bench_env(EPISODE_LEN), EPISODE_LEN),
+            ("kinematic", LiftEnv(image_size=64, episode_len=KINEMATIC_LEN),
+             KINEMATIC_LEN)):
+        run = lambda n, steps, seed: engine.run_batched_eval(
+            env, agent, n, seed, obs_horizon=cfg["obs_horizon"],
+            action_horizon=cfg["action_horizon"], episode_len=steps,
+            policy_obs_keys=configs.BENCH_POLICY_KEYS, device="cuda")
+        run(N_ENVS, 8, 0)       # warm-up: cuDNN plans, allocator, the graph
+        torch.cuda.synchronize()
+        n_decisions = math.ceil(T / cfg["action_horizon"])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(N_ENVS, T, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        print(f"   {label}: launches {counts} (decisions {n_decisions})",
+              flush=True)
+        for name, n in counts.items():
+            if n != n_decisions:
+                raise AssertionError(f"{label}: {name} launched {n} times, "
+                                     f"expected {n_decisions}")
+            if label == "physics":
+                smoke.kernels[name]["launches"] = n
+        m = res["metrics"]
+        hz = res["per_episode"]["horizon"]
+        if not (0 <= m["success"] <= 1 and math.isfinite(m["reward"])
+                and hz.min() >= 1 and hz.max() <= T):
+            raise AssertionError(f"{label}: implausible metrics {m}")
+        rate = N_ENVS * T / wall
+        print(f"   {label}: random-weight LDP, {N_ENVS} envs x {T} steps: "
+              f"{rate:.1f} computed env-steps/s, wall {wall:.3f} s, "
+              f"{wall / n_decisions * 1e3:.2f} ms a decision, "
+              f"success {m['success']:.4f}, horizon {m['horizon']:.1f} "
+              f"[{smoke.card}]", flush=True)
+        out[label] = dict(env_steps_per_s=rate, wall_s_run=wall, n_envs=N_ENVS,
+                          episode_len=T, decisions=n_decisions,
+                          launches=counts, metrics=m,
+                          weights="random (seed 0)")
+    return out
 
 
 def phase_breakdown(smoke: Smoke):
     """One decision of the main path at 1024 envs, stage by stage, each
     timed with CUDA events over repeated calls (not a trace: the stages run
-    back to back here as in the engine's loop)."""
+    back to back here as in the engine's loop). The env's stages are timed
+    on the physics env (transitions eagerly and from the CUDA graph, the
+    render apart from the rest of the observation) and, under their own
+    names, on the kinematic env."""
     import torch
     from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.envs.lift import LiftEnv
+    from latent_diffusion_planning_tpu_torch.envs.physics import kinematics
     from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
 
     cfg = configs.bench_agent_config()
     agent = LDPAgent.create(cfg, configs.SHAPE_META, seed=0, device="cuda")
-    env = LiftEnv(image_size=64, episode_len=EPISODE_LEN)
+    env = configs.make_bench_env(EPISODE_LEN)
+    eager = configs.make_bench_env(EPISODE_LEN, cuda_graph=False)
+    kin = LiftEnv(image_size=64, episode_len=EPISODE_LEN)
     g = torch.Generator(device="cuda").manual_seed(8)
-    state = env.reset_state(N_ENVS, g)
+    state = physics_states(env, N_ENVS, "cuda", seed=8)
+    kstate = kin.reset_state(N_ENVS, g)
     c = agent.config
     obs = env.obs(state)
     window = {k: obs[k][:, None] for k in configs.BENCH_POLICY_KEYS}
@@ -579,14 +702,28 @@ def phase_breakdown(smoke: Smoke):
     pairs = common.consecutive_pairs(plan)
     x_idm = torch.randn(pairs.shape[0], c.action_dim, device="cuda")
     acts = torch.rand(N_ENVS, 7, device="cuda") * 2 - 1
+    chain = env._const("cuda")["chain"]
+    positions = kinematics.fk(chain, state.qpos)[0]
+    scene = env.scene(state, positions)
+    steps = range(c.action_horizon)
     stages = {
-        "render + obs (kernel C)": lambda: env.obs(state),
+        "physics env: render + obs (fk, scene, kernel C)":
+            lambda: env.obs(state),
+        "physics env: scene + render (kernel C)":
+            lambda: env.render(state),
+        "physics env: render alone (kernel C through its wrapper)":
+            lambda: env.render_scene(scene),
+        "physics env: 4 transitions, CUDA graph":
+            lambda: [env.transition(state, acts) for _ in steps],
+        "physics env: 4 transitions, eager":
+            lambda: [eager.transition(state, acts) for _ in steps],
+        "kinematic env: render + obs (kernel C)": lambda: kin.obs(kstate),
+        "kinematic env: 4 transitions":
+            lambda: [kin.transition(kstate, acts) for _ in steps],
         "normalize + VAE encode": lambda: agent._prepare_eval_batch(
             {"obs": window}),
         "plan (kernel B)": lambda: agent._plan(cond, x_plan, g),
         "IDM decode (kernel A)": lambda: agent._idm_decode(pairs, x_idm, g),
-        "4 env transitions": lambda: [env.transition(state, acts)
-                                      for _ in range(c.action_horizon)],
         "sample_fast (VAE + B + A + glue)": lambda: agent.sample_fast(
             {"obs": window}, generator=g),
     }
@@ -594,6 +731,16 @@ def phase_breakdown(smoke: Smoke):
     for name, fn in stages.items():
         out[name] = time_ms(fn, iters=5)
         print(f"   {name}: {out[name]:.3f} ms [{smoke.card}]", flush=True)
+    # the eager step's host time: how long the host takes to enqueue it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager.transition(state, acts)
+    host = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    print(f"   physics env: host time to enqueue one eager transition "
+          f"{host:.3f} ms [{smoke.card}]", flush=True)
+    out["physics env: host ms to enqueue one eager transition"] = host
     return {"ms": out, "n_envs": N_ENVS}
 
 
@@ -648,10 +795,12 @@ def main() -> int:
         smoke.phase("kernel A: MLP-IDM sampler", lambda: phase_mlp(smoke))
         smoke.phase("kernel B: U-Net DDIM sampler", lambda: phase_unet(smoke))
         smoke.phase("kernel C: ray-caster", lambda: phase_raycast(smoke))
+        smoke.phase("physics: scripted expert on LiftPhysicsEnv",
+                    lambda: phase_expert(smoke))
         smoke.phase("sample_fast end to end", lambda: phase_end_to_end_check(smoke))
         if not smoke.failures:
-            smoke.phase("main path: LDP closed loop on Lift",
-                        lambda: phase_slice(smoke))
+            smoke.phase("main path: LDP closed loop on Lift, physics then "
+                        "kinematic", lambda: phase_slice(smoke))
             smoke.phase("one decision, stage by stage",
                         lambda: phase_breakdown(smoke))
 

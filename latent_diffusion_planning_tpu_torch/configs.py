@@ -95,6 +95,17 @@ BENCH_ENV = {
     "episode_len": 80,
 }
 
+# The bench env is ``LiftPhysicsEnv``. The yaml gives only the three keys
+# above; these are the JAX class's own settings (its constructor defaults
+# and the contact parameters it fixes), and ``bench.py`` runs episodes of 400.
+BENCH_PHYSICS = {
+    "n_substeps": 10,
+    "dt": 0.002,
+    "mu": 1.5,
+    "kt": 2000.0,
+}
+BENCH_EPISODE_LEN = 400
+
 # what the policy sees (bench.py: lowdim keys + rgb keys without "latent_")
 BENCH_POLICY_KEYS = ("robot0_eef_pos", "robot0_eef_quat",
                      "robot0_gripper_qpos", "agentview_image")
@@ -103,3 +114,18 @@ BENCH_POLICY_KEYS = ("robot0_eef_pos", "robot0_eef_quat",
 def bench_agent_config() -> dict:
     """A fresh deep copy of the bench agent config (callers may edit it)."""
     return copy.deepcopy(BENCH_AGENT)
+
+
+def make_bench_env(episode_len: int = BENCH_EPISODE_LEN, **overrides):
+    """The bench's env: ``LiftPhysicsEnv`` at 64×64, rendering through the
+    ray-cast kernel, 10 substeps of 2 ms per control step."""
+    from .envs.lift_physics import LiftPhysicsEnv
+    kw = dict(BENCH_ENV, episode_len=episode_len,
+              n_substeps=BENCH_PHYSICS["n_substeps"], dt=BENCH_PHYSICS["dt"])
+    kw.update(overrides)
+    env = LiftPhysicsEnv(**kw)
+    if (env.params.mu, env.params.kt) != (BENCH_PHYSICS["mu"],
+                                          BENCH_PHYSICS["kt"]):
+        raise AssertionError("LiftPhysicsEnv's contact parameters left the "
+                             "bench's")
+    return env

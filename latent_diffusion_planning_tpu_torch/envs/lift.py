@@ -61,6 +61,26 @@ class LiftEnv:
         self.camera = R.look_at(pos=(0.55, 0.0, 1.25),
                                 lookat=(0.0, 0.0, TABLE_Z + 0.05))
         self._rays: dict = {}
+        self._consts: dict = {}
+
+    def _const(self, dev) -> dict:
+        """Device constants, made once per device (a tensor built from
+        Python lists on the card is a copy from pageable memory that waits
+        for the stream, so none is built per call)."""
+        if dev not in self._consts:
+            t = lambda v, **kw: torch.tensor(v, device=dev, **kw)
+            self._consts[dev] = dict(
+                lo=t(WORK_LO), hi=t(WORK_HI),
+                eef_quat=t([[0.0, 0.0, 0.0, 1.0]]),
+                eye=torch.eye(3, device=dev)[None],
+                wrist_offset=t([[0.0, 0.0, 0.04]]),
+                cube_size=t([[CUBE_HALF] * 3]),
+                wrist_size=t([[0.015, 0.015, 0.035]]),
+                color=t([[[0.85, 0.1, 0.1],        # red cube
+                          [0.65, 0.65, 0.7],       # wrist
+                          [0.2, 0.2, 0.25]]]),     # fingers
+                plane_color=t([R.PLANE_COLOR]))
+        return self._consts[dev]
 
     # ------------------------------------------------------------------
     def reset(self, n: int, generator: torch.Generator):
@@ -96,12 +116,10 @@ class LiftEnv:
     def transition(self, state: LiftState, action: torch.Tensor):
         """``step`` without the observation → (state, reward, success); the
         eval engine steps with this and renders only at decisions."""
-        dev = action.device
+        c = self._const(action.device)
         action = torch.clamp(action, -1.0, 1.0)
-        lo = torch.tensor(WORK_LO, device=dev)
-        hi = torch.tensor(WORK_HI, device=dev)
         eef = torch.minimum(torch.maximum(
-            state.eef_pos + action[:, :3] * EEF_SPEED, lo), hi)
+            state.eef_pos + action[:, :3] * EEF_SPEED, c["lo"]), c["hi"])
 
         # gripper: action[6] > 0 means close (robosuite convention)
         target = 1.0 - (action[:, 6] > 0).float()
@@ -137,8 +155,7 @@ class LiftEnv:
                                  torch.sin(half_yaw)], -1)
         obs = {
             "robot0_eef_pos": state.eef_pos,
-            "robot0_eef_quat": torch.tensor([0.0, 0.0, 0.0, 1.0],
-                                            device=g.device).expand(n, 4),
+            "robot0_eef_quat": self._const(g.device)["eef_quat"].expand(n, 4),
             "robot0_gripper_qpos": torch.stack([0.020 + 0.024 * g,
                                                 -0.020 - 0.024 * g], -1),
             "object": torch.cat([state.cube_pos,
@@ -152,27 +169,24 @@ class LiftEnv:
     def scene(self, state: LiftState) -> R.Scene:
         n = state.gripper.shape[0]
         dev = state.gripper.device
+        c = self._const(dev)
         grip_half = 0.008 + 0.006 * state.gripper
-        eye = torch.eye(3, device=dev).expand(n, 3, 3)
-        const = lambda v: torch.tensor(v, device=dev).expand(n, 3)
+        eye = c["eye"].expand(n, 3, 3)
         return R.Scene(
             pos=torch.stack([state.cube_pos,
-                             state.eef_pos + const([0.0, 0.0, 0.04]),
+                             state.eef_pos + c["wrist_offset"],
                              state.eef_pos], 1),
             rot=torch.stack([R.euler_z(state.cube_yaw), eye, eye], 1),
-            size=torch.stack([const([CUBE_HALF] * 3),
-                              const([0.015, 0.015, 0.035]),
+            size=torch.stack([c["cube_size"].expand(n, 3),
+                              c["wrist_size"].expand(n, 3),
                               torch.stack([grip_half,
                                            torch.full_like(grip_half, 0.02),
                                            torch.full_like(grip_half, 0.012)],
                                           -1)], 1),
-            color=torch.tensor([[0.85, 0.1, 0.1],       # red cube
-                                [0.65, 0.65, 0.7],      # wrist
-                                [0.2, 0.2, 0.25]],      # fingers
-                               device=dev).expand(n, 3, 3),
+            color=c["color"].expand(n, 3, 3),
             kind=torch.zeros((n, 3), dtype=torch.int32, device=dev),
             plane_z=torch.full((n,), TABLE_Z, device=dev),
-            plane_color=torch.tensor(R.PLANE_COLOR, device=dev).expand(n, 3))
+            plane_color=c["plane_color"].expand(n, 3))
 
     def render(self, state: LiftState) -> torch.Tensor:
         """(N, H, W, 3) float32 in [0, 255] through the ray-cast kernel."""

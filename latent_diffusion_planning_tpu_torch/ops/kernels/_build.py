@@ -101,8 +101,9 @@ def library() -> ctypes.CDLL:
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    if fn.argtypes != argtypes:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -123,3 +124,4 @@ def ptr(t: torch.Tensor | None) -> int | None:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+LL = ctypes.c_longlong

@@ -14,8 +14,10 @@ import torch
 Stats = Mapping[str, Any]
 
 
-def stats_to_tensors(stats: Stats, device: torch.device | str = "cpu") -> dict:
-    """Nested config of bounds → float32 tensors; scalars stay Python numbers."""
+def stats_to_tensors(stats: Stats, device: torch.device | str) -> dict:
+    """Nested config of bounds → float32 tensors on ``device`` (the caller
+    names it: there is no default to land on the CPU with); scalars stay
+    Python numbers."""
     out: dict = {}
     for k, v in stats.items():
         if isinstance(v, Mapping):

@@ -12,6 +12,7 @@ plain version; ``ops/kernels/raycast.py`` holds the CUDA kernel.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -91,8 +92,31 @@ def euler_z(theta: torch.Tensor) -> torch.Tensor:
                         torch.stack([z, z, o], -1)], -2)
 
 
+def link_frame(p0: torch.Tensor, p1: torch.Tensor, width):
+    """Box spanning p0→p1 (each (..., 3)): (center, rot (..., 3, 3) with x
+    along the segment, half-size). ``width`` is a float or a tensor that
+    broadcasts against (..., 1). The port's copy of the JAX package's
+    ``envs/aloha_base._link_frame``, with the batch written out."""
+    d = p1 - p0
+    length = torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-9
+    x = d / length
+    zero, one = torch.zeros_like(x[..., 0]), torch.ones_like(x[..., 0])
+    ref = torch.where(x[..., 2:3].abs() < 0.9,
+                      torch.stack([zero, zero, one], -1),
+                      torch.stack([one, zero, zero], -1))
+    y = torch.linalg.cross(ref, x)
+    y = y / (torch.linalg.norm(y, dim=-1, keepdim=True) + 1e-9)
+    z = torch.linalg.cross(x, y)
+    wide = torch.zeros_like(length) + width
+    half = torch.cat([length / 2.0, wide, wide], -1)
+    return (p0 + p1) / 2.0, torch.stack([x, y, z], -1), half
+
+
+@functools.cache
 def light_rig(device=None) -> torch.Tensor:
-    """(3, 4): normalized light direction and color per light."""
+    """(3, 4): normalized light direction and color per light. Made once per
+    device: a tensor built from Python lists on the card is a copy from
+    pageable memory that waits for the stream."""
     d = torch.tensor(LIGHT_DIRS, dtype=torch.float32, device=device)
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     c = torch.tensor(LIGHT_COLORS, dtype=torch.float32, device=device)

@@ -44,6 +44,34 @@ def test_env_and_shape_meta_match_yaml():
     assert configs.OBS_NORMALIZATION == CFG["data"]["meta"]["obs_normalization"]
 
 
+def test_bench_env_is_the_physics_env_with_the_jax_settings():
+    """``make_bench_env`` builds what ``bench.py`` instantiates from the
+    yaml: ``LiftPhysicsEnv`` with the JAX class's own substeps, time step
+    and contact parameters, at the bench's episode length."""
+    from latent_diffusion_planning_tpu.envs.lift_physics import (
+        LiftPhysicsEnv as JaxEnv)
+    target = CFG["data"]["env_params"]["env"]["_target_"]
+    assert target.endswith("lift_physics.LiftPhysicsEnv")
+    jenv, env = JaxEnv(render_images=False), configs.make_bench_env()
+    assert type(env).__name__ == "LiftPhysicsEnv"
+    assert env.episode_len == configs.BENCH_EPISODE_LEN == 400
+    assert env.n_substeps == jenv.n_substeps == configs.BENCH_PHYSICS["n_substeps"]
+    assert tuple(env.params) == tuple(jenv.params)
+    assert (env.params.dt, env.params.mu, env.params.kt) == (
+        configs.BENCH_PHYSICS["dt"], configs.BENCH_PHYSICS["mu"],
+        configs.BENCH_PHYSICS["kt"])
+    assert env.image_size == 64 and env.render_images
+
+
+def test_stats_to_tensors_names_its_device():
+    """No default device to land on the CPU with."""
+    from latent_diffusion_planning_tpu_torch.ops import normalize
+    with pytest.raises(TypeError):
+        normalize.stats_to_tensors({"a": [1.0]})
+    out = normalize.stats_to_tensors({"a": {"min": [1.0], "k": 2}}, "cpu")
+    assert out["a"]["min"].device.type == "cpu" and out["a"]["k"] == 2
+
+
 def test_bench_policy_keys():
     meta = CFG["data"]["meta"]
     want = tuple(meta["lowdim_obs"]) + tuple(

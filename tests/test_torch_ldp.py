@@ -237,3 +237,148 @@ def test_non_epsilon_prediction_refused():
     cfg["idm_prediction_type"] = "sample"
     with pytest.raises(ValueError, match="ε prediction"):
         LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+
+
+def _torch_phys_state(states):
+    """A batch of JAX ``LiftPhysState``s as the port's."""
+    from latent_diffusion_planning_tpu_torch.envs import lift_physics as lp
+    from latent_diffusion_planning_tpu_torch.envs import physics as ph
+    t = lambda a: torch.from_numpy(np.array(a))
+    return lp.LiftPhysState(
+        bodies=ph.RigidBody(**{f: t(getattr(states.bodies, f))
+                               for f in ("pos", "quat", "linvel", "angvel")}),
+        **{f: t(getattr(states, f)) for f in ("qpos", "eef_target", "gripper",
+                                              "cube_yaw0", "t")})
+
+
+def test_run_batched_eval_on_lift_physics_replays_golden():
+    """The eval engine drives ``LiftPhysicsEnv`` (``reset_state`` →
+    ``obs`` → ``transition`` with masking) through the recorded action
+    sequence of ``tests/fixtures/replay_golden.npz``, 4 actions a decision:
+    the episode's max and summed reward equal the recording's at the JAX
+    replay test's reward tolerance (1e-3 a step)."""
+    from latent_diffusion_planning_tpu_torch.envs import lift_physics as lp
+    golden = np.load(Path(__file__).parent / "fixtures" / "replay_golden.npz")
+    actions = torch.from_numpy(golden["lift_actions"])             # (40, 7)
+    env = lp.LiftPhysicsEnv(render_images=False, episode_len=40)
+    xy_rng, yaw_rng = jax.random.split(jax.random.PRNGKey(5))
+    xy = jax.random.uniform(xy_rng, (2,), minval=-0.1, maxval=0.1)
+    yaw = jax.random.uniform(yaw_rng, (), minval=-jnp.pi / 6,
+                             maxval=jnp.pi / 6)
+    init = env.reset_state(
+        2, torch.Generator().manual_seed(0),
+        cube_xy=torch.from_numpy(np.array(xy)).expand(2, 2),
+        cube_yaw=torch.from_numpy(np.array(yaw)).expand(2))
+    calls = []
+
+    def replay(agent, window, gen):
+        assert set(window) == {"object", "robot0_eef_pos"}
+        d = len(calls)
+        calls.append(window["object"].shape)
+        return actions[4 * d:4 * d + 4][None].expand(2, 4, 7)
+
+    got = engine.run_batched_eval(
+        env, None, 2, action_horizon=4, episode_len=40, policy=replay,
+        policy_obs_keys=("object", "robot0_eef_pos"), init_states=init,
+        device="cpu")
+    rewards = golden["lift_rewards"]
+    done = np.flatnonzero(rewards >= 1.0)
+    steps = int(done[0]) + 1 if len(done) else 40
+    assert len(calls) == 10 and calls[0] == (2, 1, 10)
+    np.testing.assert_array_equal(got["per_episode"]["horizon"], steps)
+    np.testing.assert_allclose(got["per_episode"]["reward"],
+                               rewards[:steps].max(), atol=1e-3)
+    np.testing.assert_allclose(got["per_episode"]["reward_sum"],
+                               rewards[:steps].sum(), atol=1e-3 * steps)
+
+
+@pytest.mark.slow       # 100 s of XLA compile for the JAX engine's scan
+def test_run_batched_eval_on_lift_physics_matches_jax():
+    """The eval engine on ``LiftPhysicsEnv``, 2 envs × 8 steps (2 decisions,
+    80 physics substeps), against the JAX engine from the same initial
+    states (the JAX engine's own resets, handed in) under the deterministic
+    observation policy of the kinematic test. Success and horizon are equal;
+    rewards are held at the JAX package's replay tolerance for this env
+    (1e-3 a step, ``tests/test_replay_regression.py``): the closed loop
+    feeds fp32 differences of the IK solve and the contacts back through the
+    policy, and after 8 steps the two differ by 3e-5 in one env. The next
+    test puts a learned policy and the renderers into the loop."""
+    from latent_diffusion_planning_tpu.envs import lift_physics as jlp
+    from latent_diffusion_planning_tpu_torch.envs import lift_physics as lp
+    n, T = 2, 8
+    rng = jax.random.PRNGKey(7)
+    jenv = jlp.LiftPhysicsEnv(render_images=False)
+    ref = jengine.run_batched_eval(jenv, None, n, rng, action_horizon=4,
+                                   episode_len=T, policy=_jax_policy)
+    reset_rng = jax.random.split(rng)[0]
+    keys = jax.vmap(lambda s: jax.random.fold_in(reset_rng, s))(
+        jnp.arange(n, dtype=jnp.int32))
+    states, _ = jax.vmap(jenv.reset)(keys)
+    got = engine.run_batched_eval(
+        lp.LiftPhysicsEnv(render_images=False), None, n, action_horizon=4,
+        episode_len=T, policy=_torch_policy,
+        init_states=_torch_phys_state(states), device="cpu")
+    for k in ("success", "horizon"):
+        np.testing.assert_array_equal(got["per_episode"][k],
+                                      np.asarray(ref["per_episode"][k]))
+    np.testing.assert_allclose(got["per_episode"]["reward"],
+                               np.asarray(ref["per_episode"]["reward"]),
+                               atol=1e-3)
+    np.testing.assert_allclose(got["per_episode"]["reward_sum"],
+                               np.asarray(ref["per_episode"]["reward_sum"]),
+                               atol=1e-3 * T)
+    assert (got["per_episode"]["reward_sum"] > 0).all()
+
+
+@pytest.mark.slow       # minutes of XLA compile: agent + physics + renderer
+def test_run_batched_eval_tiny_agent_on_lift_physics_matches_jax():
+    """The whole slice at a small size: a tiny LDP agent (the same weights
+    on both sides, through ``bridge.py``) drives ``LiftPhysicsEnv`` from its
+    rendered frames, 2 envs × 8 steps, in the JAX engine and in the port's,
+    from the JAX engine's resets and with the JAX agent's draws handed in
+    decision by decision. The two renderers differ in a few silhouette
+    pixels and the closed loop feeds every difference back, so rewards are
+    held at the replay tolerance (1e-3 a step), success and horizon
+    exactly."""
+    from latent_diffusion_planning_tpu.envs import lift_physics as jlp
+    from latent_diffusion_planning_tpu_torch.envs import lift_physics as lp
+    cfg = _small_config()
+    jagent = _jax_small_agent(cfg)
+    snap = {"planner_params": _np(jagent.planner_state.params),
+            "idm_params": _np(jagent.idm_state.params),
+            "vae_params": _np(jagent.vae_params)}
+    agent = bridge.ldp_agent_from_flax(snap, cfg, configs.SHAPE_META,
+                                       device="cpu")
+    n, T = 2, 8
+    rng = jax.random.PRNGKey(9)
+    jenv = jlp.LiftPhysicsEnv(image_size=64, render_images=True)
+    ref = jengine.run_batched_eval(
+        jenv, jagent, n, rng, action_horizon=4, episode_len=T,
+        policy_obs_keys=configs.BENCH_POLICY_KEYS)
+    reset_rng, policy_rng = jax.random.split(rng)
+    keys = jax.vmap(lambda s: jax.random.fold_in(reset_rng, s))(
+        jnp.arange(n, dtype=jnp.int32))
+    states, _ = jax.vmap(jlp.LiftPhysicsEnv(render_images=False).reset)(keys)
+    d_rngs = jax.random.split(jax.random.fold_in(policy_rng, 0), T // 4)
+    draws = [_jax_draws(k, n, 8, agent.config.obs_dim, 7) for k in d_rngs]
+    seen = []
+
+    def policy(agent_, window, gen):
+        seen.append(None)
+        return agent_.sample_fast({"obs": dict(window)},
+                                  draws=draws[len(seen) - 1])
+
+    got = engine.run_batched_eval(
+        lp.LiftPhysicsEnv(image_size=64), agent, n, action_horizon=4,
+        episode_len=T, policy_obs_keys=configs.BENCH_POLICY_KEYS,
+        policy=policy, init_states=_torch_phys_state(states), device="cpu")
+    assert len(seen) == 2
+    for k in ("success", "horizon"):
+        np.testing.assert_array_equal(got["per_episode"][k],
+                                      np.asarray(ref["per_episode"][k]))
+    np.testing.assert_allclose(got["per_episode"]["reward"],
+                               np.asarray(ref["per_episode"]["reward"]),
+                               atol=1e-3)
+    np.testing.assert_allclose(got["per_episode"]["reward_sum"],
+                               np.asarray(ref["per_episode"]["reward_sum"]),
+                               atol=1e-3 * T)
