@@ -38,6 +38,20 @@
    action beyond 0.1, for the reason given under B). Then times one decision
    stage by stage, the physics and the render separately, the env
    transitions eagerly and from their CUDA graph.
+5. Trains the LDP agent on Lift at the bench widths (``phase_training``):
+   scripted demos on ``LiftPhysicsEnv`` (256 envs × 80 steps seed 0 for
+   train, 32 seed 77 for eval, every frame through kernel C; successful
+   episodes welded in memory), latents from the agent's seeded VAE, then the
+   ``Workspace`` of ``bench_train_config()`` for ``TRAIN_STEPS`` steps at
+   batch 128; both losses must be finite and fall. ``Workspace.run`` ends
+   with an eval (offline action MSE through A, plan statistics through B, a
+   closed loop of 256 envs × 80 steps), launch counts checked. The trained
+   agent's kernels are held against their plain versions on its trained
+   weights (the bars of A and B above; the packs were built from the seeded
+   weights before training, so a missed repack fails here); the full state
+   round-trips bit for bit, and one step from the restored state equals one
+   from the live state (cuDNN deterministic); a train step is timed part
+   by part with CUDA events.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -66,6 +80,14 @@ PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 N_ENVS, EPISODE_LEN = 1024, 400
 KINEMATIC_LEN = 40           # the kinematic LiftEnv path: 10 decisions
+# the training phase: demos as tools/run_lift_pipeline.sh collects them
+# (256 train envs seed 0, 32 eval envs seed 77, 80 steps), then TRAIN_STEPS
+# steps at the bench's batch 128 and a closed loop of EVAL_ENVS × 80 steps
+DEMO_SPLITS = (("train", 256, 0), ("eval", 32, 77))
+DEMO_LEN = 80
+TRAIN_STEPS = 400
+EVAL_ENVS = 256
+SPLIT_STEPS = 30             # train steps timed part by part (first 5 warm-up)
 
 
 def card_line() -> str:
@@ -744,12 +766,337 @@ def phase_breakdown(smoke: Smoke):
     return {"ms": out, "n_envs": N_ENVS}
 
 
-REPLACES = {
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+def _flat(tree, prefix=""):
+    """Nested dicts/lists of tensors and numbers → {path: leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    return {k2: v2 for k, v in items for k2, v2 in _flat(v, f"{prefix}{k}.").items()}
+
+
+def _max_diff(a, b) -> float:
+    """Largest |a - b| over every leaf of two states (inf if their keys,
+    shapes or plain values differ)."""
+    import torch
+    a, b = _flat(a), _flat(b)
+    if a.keys() != b.keys():
+        return math.inf
+    worst = 0.0
+    for k, x in a.items():
+        y = b[k]
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return math.inf
+        elif x.shape != y.shape:
+            return math.inf
+        elif x.numel():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def phase_training(smoke: Smoke):
+    """The training phase in a scratch run directory under the checkout's
+    git-ignored ``build/``, removed after."""
+    import shutil
+    import tempfile
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build))
+    try:
+        return _train_and_check(smoke, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _train_and_check(smoke: Smoke, work: Path):
+    """LDP training on Lift at the bench widths, through the port's entry
+    points: scripted demos on ``LiftPhysicsEnv`` (every frame rendered by
+    kernel C), welded in memory, VAE-encoded latents, the ``Workspace`` from
+    ``bench_train_config()`` for ``TRAIN_STEPS`` steps (its last act is
+    ``eval``: offline metrics through kernels A and B, then a closed loop of
+    ``EVAL_ENVS`` × 80 steps through C, B and A), the trained agent's kernels
+    against their plain versions, the state's round trip, and a train step
+    timed part by part."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
+    from latent_diffusion_planning_tpu_torch.data.latents import encode_latents
+    from latent_diffusion_planning_tpu_torch.data.writer import weld_collection
+    from latent_diffusion_planning_tpu_torch.models.agents import common
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA, diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = configs.bench_train_config()
+    meta = cfg["data"]["meta"]
+    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
+
+    # 1. demos: the scripted expert on the bench's env, successful episodes
+    env = configs.make_bench_env(episode_len=DEMO_LEN)
+    env_meta = {"env_name": "LiftPhysicsEnv",
+                "env_kwargs": dict(configs.BENCH_ENV, episode_len=DEMO_LEN)}
+    keys = list(meta["lowdim_obs"]) + ["agentview_image"]
+    welded = {}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for split, n, seed in DEMO_SPLITS:
+        col = engine.run_scripted_collection(env, n, seed, device=dev)
+        rate = float(col["success"].any(1).float().mean())
+        w = welded[split] = weld_collection(
+            col, obs_keys=keys, env_meta=env_meta, successful_only=True,
+            name=f"lift/{split}")
+        del col
+        print(f"   demos {split}: {n} envs x {DEMO_LEN} steps, seed {seed}: "
+              f"expert success {rate:.4f}, {w.n_demos} demos, "
+              f"{w.total_steps} steps welded [{smoke.card}]", flush=True)
+        out[f"demos_{split}"] = dict(envs=n, seed=seed, expert_success=rate,
+                                     demos=w.n_demos, steps=w.total_steps)
+        if w.n_demos == 0:
+            raise AssertionError(f"no successful {split} demos")
+    torch.cuda.synchronize()
+    out["collect_s"] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {"diffusion_mlp": 0, "diffusion_unet1d": 0,
+            "raycast": len(DEMO_SPLITS) * (DEMO_LEN + 1)}
+    print(f"   collection: {out['collect_s']:.3f} s, launches {counts} "
+          f"(expected {want}) [{smoke.card}]", flush=True)
+    if counts != want:
+        raise AssertionError(f"collection launches {counts} != {want}")
+
+    # 2. the Workspace over the welded splits; latents from its agent's VAE
+    cfg.update(n_grad_steps=TRAIN_STEPS, n_eval_episodes=EVAL_ENVS,
+               eval_every=0, save_every=0, log_every=100)
+    cfg["data"]["env_params"]["env"]["episode_len"] = DEMO_LEN
+    data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
+    data = OfflineData(**data_kw, train=welded["train"], eval=welded["eval"],
+                       device=dev)
+    ws = Workspace(cfg, work, data=data, device=dev)
+    ws.init_agent()
+    agent = ws.agent
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bounds = [encode_latents(welded[s], agent.vae, ["agentview_image"])
+              for s, _, _ in DEMO_SPLITS]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    frames = sum(w.total_steps for w in welded.values())
+    min_z, max_z = min(b[0] for b in bounds), max(b[1] for b in bounds)
+    print(f"   latents: {frames} frames in {secs:.3f} s = {frames / secs:.1f} "
+          f"frames/s, min_z {min_z:.4f} max_z {max_z:.4f} (seeded VAE at "
+          f"the bench widths) [{smoke.card}]", flush=True)
+    out.update(latent_frames=frames, latent_s=secs,
+               latent_frames_per_s=frames / secs, min_z=min_z, max_z=max_z)
+
+    # prime the kernels' packs with the seeded weights: a repack that the
+    # updates failed to trigger would show in the checks of step 4
+    primer = next(data.eval_dataloader())
+    agent.sample_action(primer)
+    agent.sample_plan_stats(primer)
+    seeded = LDPAgent.create(agent_cfg, meta["shape_meta"], seed=cfg["seed"],
+                             device=dev)
+
+    # 3. train (Workspace.run ends with a snapshot and an eval)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    curve = ws.loss_curve()
+    sps = TRAIN_STEPS / ws.train_seconds
+    first = {k: float(v[:20].mean()) for k, v in curve.items()}
+    last = {k: float(v[-20:].mean()) for k, v in curve.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in curve.values())
+    print(f"   train: {TRAIN_STEPS} steps at batch {cfg['batch_size']} in "
+          f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, "
+          f"{1e3 / sps:.2f} ms a step; run() with its snapshot and eval "
+          f"{run_s:.3f} s; peak memory {peak / 2**20:.1f} MiB "
+          f"[{smoke.card}]", flush=True)
+    for k in ("plan_loss", "idm_loss"):
+        print(f"   {k}: mean of the first 20 steps {first[k]:.5f}, of the "
+              f"last 20 {last[k]:.5f}", flush=True)
+    # An ε-prediction loss starts near 1 (the target is unit noise and the
+    # seeded nets output about 0); the warm-up reaches 3e-4 at step 200 and
+    # the nets fit the noise of 128-window batches well below 1 within a few
+    # hundred steps. The bar asks only that it falls: the last 20 steps'
+    # mean below the first 20's, for both losses, and every value finite.
+    if not finite:
+        raise AssertionError("a training loss is not finite")
+    for k in ("plan_loss", "idm_loss"):
+        if not last[k] < first[k]:
+            raise AssertionError(f"{k} did not fall: {first[k]} -> {last[k]}")
+    out.update(train_steps=TRAIN_STEPS, batch=cfg["batch_size"],
+               train_s=ws.train_seconds, steps_per_s=sps,
+               ms_per_step=1e3 / sps, run_s=run_s, peak_mib_run=peak / 2**20,
+               loss_first20=first, loss_last20=last)
+
+    # the eval that ended run(): launch counts, offline metrics, closed loop
+    ev = ws.last_eval
+    n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
+    counts = kernels.launch_counts()
+    want = {"diffusion_mlp": 2 + n_dec, "diffusion_unet1d": 2 + n_dec,
+            "raycast": n_dec}
+    print(f"   eval: launches {counts} (expected {want}: one offline batch "
+          f"of each split through A and B, then {n_dec} decisions)",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"eval launches {counts} != {want}")
+    for split in ("train", "eval"):
+        print(f"   eval {split}: action_mse {ev[f'{split}_action_mse']:.5f}, "
+              f"plan_mse {ev[f'{split}_plan_mse']:.6f} against "
+              f"plan_mse_persist {ev[f'{split}_plan_mse_persist']:.6f} "
+              f"(target var {ev[f'{split}_plan_target_var']:.6f})", flush=True)
+    print(f"   closed loop, {EVAL_ENVS} envs x {DEMO_LEN} steps after "
+          f"{TRAIN_STEPS} steps (a reading: a few hundred steps do not make "
+          f"a policy): success {ev['success']:.4f}, horizon "
+          f"{ev['horizon']:.2f}, {ev['env_steps_per_sec']:.1f} env-steps/s "
+          f"[{smoke.card}]", flush=True)
+    bad = [k for k, v in ev.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"eval metrics not finite: {bad}")
+    out.update(eval=ev, eval_launches=counts)
+
+    # 4. the trained agent's kernels against their plain versions, on its
+    # trained weights (its packs were primed with the seeded ones)
+    batch = agent._prepare_eval_batch(next(data.eval_dataloader()))
+    emb = agent._obs_cond(batch["obs"])
+    g = torch.Generator(device=dev).manual_seed(11)
+    pairs = common.consecutive_pairs(emb)
+    x_idm = torch.randn(pairs.shape[0], 7, generator=g, device=dev)
+    ts, coefs = agent._table(agent.idm_sched, agent.config.idm_inference_steps)
+    clip = agent._clip(agent.idm_sched)
+    got = agent._idm_decode(pairs, x_idm, None)
+    ref = KA.mlp_diffusion_sample_plain(agent.idm, pairs, x_idm, ts, coefs,
+                                        None, clip)
+    away = float((KA.mlp_diffusion_sample_plain(
+        seeded.idm, pairs, x_idm, ts, coefs, None, clip) - ref).abs().max())
+    err_a = float((got - ref).abs().max())
+    print(f"   trained A ({pairs.shape[0]} rows, DDIM-"
+          f"{agent.config.idm_inference_steps}): the plain net on the seeded "
+          f"weights is {away:.3e} away from the trained", flush=True)
+    smoke.check("trained A max_abs_err vs plain on the trained weights",
+                err_a, 1e-4)
+    cond = emb[:, 0]
+    x_plan = torch.randn(emb.shape[0], 8, emb.shape[2], generator=g,
+                         device=dev)
+    ts, coefs = agent._table(agent.planner_sched,
+                             agent.config.planner_inference_steps)
+    clip = agent._clip(agent.planner_sched)
+    plain = lambda net: KB.unet1d_ddim_sample_plain(net, cond, x_plan, ts,
+                                                    coefs, clip)
+    ref = plain(KB.rounding_twin(agent.planner))
+    full = err_stats(agent._plan(cond, x_plan, None), ref)
+    fp32 = err_stats(plain(agent.planner), ref)
+    stale = err_stats(plain(KB.rounding_twin(seeded.planner)), ref)
+    print(f"   trained B ({emb.shape[0]} samples): {full}; the fp32 net "
+          f"{fp32}; the seeded weights' twin {stale}", flush=True)
+    smoke.check("trained B mean_abs_err vs the rounding twin", full["mean"],
+                5e-3)
+    smoke.check("trained B max_abs_err vs the rounding twin", full["max"], 0.1)
+    if not full["mean"] < fp32["mean"]:
+        raise AssertionError("trained B: no closer to the rounding twin than "
+                             "the fp32 net is")
+    out.update(trained_a_max_abs_err=err_a, trained_a_seeded_away=away,
+               trained_b=full, trained_b_fp32=fp32, trained_b_seeded=stale)
+
+    # the cost of a repack, paid at the first sample after an update
+    for name, mod, net in (("planner", KB, agent.planner),
+                           ("idm", KA, agent.idm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mod.pack_params(net).to(dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"   pack_params({name}) + copy to the card: {ms:.3f} ms "
+              f"[{smoke.card}]", flush=True)
+        out[f"pack_ms_{name}"] = ms
+
+    # 5. round trip of the full state, then one step from each copy
+    path = ws.ckpt.list_states()[-1]
+    restored = LDPAgent.create(agent_cfg, meta["shape_meta"],
+                               seed=cfg["seed"] + 1, device=dev)
+    ws.ckpt.restore_state(path, restored)
+    n_leaves = len(_flat(agent.state_dict()))
+    diff = _max_diff(agent.state_dict(), restored.state_dict())
+    print(f"   state round trip through {path.name}: {n_leaves} leaves, "
+          f"max |diff| {diff}", flush=True)
+    if diff != 0.0:
+        raise AssertionError(f"restored state differs: {diff}")
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        step_batch = next(data.train_dataloader())
+        for ag in (agent, restored):
+            ag.update(step_batch, ws.step,
+                      torch.Generator(device=dev).manual_seed(12))
+        diff = _max_diff(agent.state_dict(), restored.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            prev)
+    print(f"   one step from the restored and from the live state (same "
+          f"batch and draws, cuDNN deterministic): max |diff| {diff}",
+          flush=True)
+    if diff != 0.0:
+        raise AssertionError(f"a step from the restored state differs: {diff}")
+    out.update(roundtrip_leaves=n_leaves, roundtrip_step_max_diff=diff)
+
+    # 6. where a train step's time goes (CUDA events, on the restored copy)
+    ds = data.device_dataset("train")
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(SPLIT_STEPS)]
+    host = []
+    torch.cuda.reset_peak_memory_stats()
+    for e0, e1, e2, e3 in events:
+        h0 = time.perf_counter()
+        e0.record()
+        step_batch = ds.sample(cfg["batch_size"], g)
+        e1.record()
+        h1 = time.perf_counter()
+        restored.backward(step_batch, True, True, g)
+        e2.record()
+        h2 = time.perf_counter()
+        restored.apply_gradients(True, True)
+        e3.record()
+        host.append((h1 - h0, h2 - h1, time.perf_counter() - h2))
+    torch.cuda.synchronize()
+    peak_steps = torch.cuda.max_memory_allocated()
+    parts = ("gather", "forward+backward", "optimizer")
+    timed = SPLIT_STEPS - 5
+    split_ms = {p: sum(ev[j].elapsed_time(ev[j + 1]) for ev in events[5:])
+                / timed for j, p in enumerate(parts)}
+    host_ms = {p: sum(h[j] for h in host[5:]) * 1e3 / timed
+               for j, p in enumerate(parts)}
+    print(f"   a train step, device timeline between events (mean of "
+          f"{timed}): {json.dumps(split_ms)} ms; host time to enqueue: "
+          f"{json.dumps(host_ms)} ms; peak memory over these steps "
+          f"{peak_steps / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    out.update(step_split_ms=split_ms, step_host_ms=host_ms,
+               peak_mib_train_steps=peak_steps / 2**20)
+    return out
+
+
+REPLACES = {   # the pl.pallas_call of each TPU kernel
     "diffusion_mlp": ("latent_diffusion_planning_tpu/ops/pallas/"
-                      "diffusion_mlp.py:122"),
+                      "diffusion_mlp.py:145"),
     "diffusion_unet1d": ("latent_diffusion_planning_tpu/ops/pallas/"
-                         "diffusion_unet1d.py:473"),
-    "raycast": "latent_diffusion_planning_tpu/ops/pallas/raycast.py:226",
+                         "diffusion_unet1d.py:533"),
+    "raycast": "latent_diffusion_planning_tpu/ops/pallas/raycast.py:268",
 }
 
 
@@ -803,6 +1150,8 @@ def main() -> int:
                         "kinematic", lambda: phase_slice(smoke))
             smoke.phase("one decision, stage by stage",
                         lambda: phase_breakdown(smoke))
+            smoke.phase("training: LDP on Lift at the bench widths",
+                        lambda: phase_training(smoke))
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

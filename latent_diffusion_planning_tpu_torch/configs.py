@@ -1,11 +1,12 @@
-"""The bench agent and env configuration as plain Python dicts.
+"""The bench agent, env and training configuration as plain Python dicts.
 
-Copied from ``assets/bench/config.yaml`` (``agent:`` and
-``data.env_params``) with the bench's fast-inference override: 10 strided
-DDIM steps for both planner and IDM (``bench.py``'s
-``BENCH_INFERENCE_STEPS`` default). The machine with the card has no YAML
-reader, so the port carries the dict; ``tests/test_torch_configs.py`` holds
-it against the yaml.
+Copied from ``assets/bench/config.yaml``. ``BENCH_AGENT`` is its ``agent:``
+with the bench's fast-inference override: 10 strided DDIM steps for both
+planner and IDM (``bench.py``'s ``BENCH_INFERENCE_STEPS`` default).
+``bench_train_config()`` is the run that trained it: the top-level training
+keys, the whole agent (DDIM-25 at eval, the optimizer keys) and the ``data``
+block. The machine with the card has no YAML reader, so the port carries the
+dicts; ``tests/test_torch_configs.py`` holds them against the yaml.
 """
 
 from __future__ import annotations
@@ -129,3 +130,88 @@ def make_bench_env(episode_len: int = BENCH_EPISODE_LEN, **overrides):
         raise AssertionError("LiftPhysicsEnv's contact parameters left the "
                              "bench's")
     return env
+
+
+# the training run of assets/bench (tools/run_lift_pipeline.sh): top-level
+# keys the Workspace reads
+BENCH_TRAIN = {
+    "seed": 0,
+    "batch_size": 128,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 200,
+    "n_grad_steps": 30000,
+    "grad_clip": None,
+    "horizon": 9,
+    "obs_horizon": 1,
+    "action_horizon": 4,
+    "pred_horizon": 8,
+    "log_every": 100,
+    "save_every": 10000,
+    "eval_every": 10000,
+    "n_eval_episodes": 64,
+    "save_full_state": True,
+    "snapshot_path": None,
+    "restore_keys": None,
+}
+
+# the agent keys the bench run trained with, beyond BENCH_AGENT's
+BENCH_AGENT_TRAINING = {
+    "data_name": "lift_latent_img64_data",
+    "alpha_planner": 1.0,
+    "alpha_idm": 1.0,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "idm_lr": 3e-4,
+    "idm_end_lr": 1e-6,
+    "warmup_steps": 200,
+    "decay_steps": 30000,
+    "update_planner_every": 1,
+    "update_idm_every": 1,
+    "update_idm_after": 0,
+    "update_planner_until": -1,
+    "update_planner_after": 0,
+    "grad_clip": None,
+    # the yaml's eval steps (bench.py overrides them with 10)
+    "planner_inference_steps": 25,
+    "idm_inference_steps": 25,
+}
+
+BENCH_DATA = {
+    "name": "lift_latent_img64_data",
+    "batch_size": 128,
+    "n_workers": 0,
+    "obs_horizon": 1,
+    "seq_length": 9,
+    "format": "robomimic",
+    "train_path": "datasets/lift/demos.hdf5",
+    "eval_path": "datasets/lift/demos_eval.hdf5",
+    "train_latent_path": "datasets/lift/demos_latent.hdf5",
+    "eval_latent_path": "datasets/lift/demos_eval_latent.hdf5",
+    "train_n_episode_overfit": None,
+    "eval_n_episode_overfit": 10,
+    "meta": {
+        "lowdim_obs": ["robot0_eef_pos", "robot0_eef_quat",
+                       "robot0_gripper_qpos"],
+        "rgb_obs": ["latent_agentview_image"],
+        "rgb_viz": "agentview_image",
+        "shape_meta": SHAPE_META,
+        "obs_normalization": OBS_NORMALIZATION,
+    },
+    "env_params": {
+        "obs_horizon": 1,
+        "rgb_viz": "agentview_image",
+        # the yaml's target is LiftPhysicsEnv
+        "env": {"name": "LiftPhysicsEnv", **BENCH_ENV},
+    },
+}
+
+
+def bench_train_config() -> dict:
+    """A fresh deep copy of the bench's training run: ``BENCH_TRAIN``, the
+    agent (``BENCH_AGENT`` with ``BENCH_AGENT_TRAINING``) and ``data``. The
+    VAE is not trained by the port yet: ``agent.vae_pretrain_path`` is unset
+    and the VAE keeps its seeded weights unless a caller restores some."""
+    agent = bench_agent_config()
+    agent.update(copy.deepcopy(BENCH_AGENT_TRAINING), vae_pretrain_path=None)
+    return copy.deepcopy({**BENCH_TRAIN, "agent": agent, "data": BENCH_DATA})

@@ -72,6 +72,7 @@ class LiftEnv:
             self._consts[dev] = dict(
                 lo=t(WORK_LO), hi=t(WORK_HI),
                 eef_quat=t([[0.0, 0.0, 0.0, 1.0]]),
+                above=t([[0.0, 0.0, 0.08]]),
                 eye=torch.eye(3, device=dev)[None],
                 wrist_offset=t([[0.0, 0.0, 0.04]]),
                 cube_size=t([[CUBE_HALF] * 3]),
@@ -187,6 +188,27 @@ class LiftEnv:
             kind=torch.zeros((n, 3), dtype=torch.int32, device=dev),
             plane_z=torch.full((n,), TABLE_Z, device=dev),
             plane_color=c["plane_color"].expand(n, 3))
+
+    def scripted_action(self, state: LiftState,
+                        generator: torch.Generator | None = None,
+                        noise: float = 0.0) -> torch.Tensor:
+        """Waypoint expert: reach above the cube → descend → grasp → lift."""
+        c = self._const(state.eef_pos.device)
+        cube, eef = state.cube_pos, state.eef_pos
+        lift_to = torch.cat([cube[:, :2],
+                             torch.full_like(cube[:, :1], TABLE_Z + 0.18)], -1)
+        xy_near = torch.linalg.norm(cube[:, :2] - eef[:, :2], dim=-1) < 0.01
+        z_near = (cube[:, 2] - eef[:, 2]).abs() < 0.012
+        target = torch.where(state.grasped[:, None], lift_to,
+                             torch.where(xy_near[:, None], cube,
+                                         cube + c["above"]))
+        delta = torch.clamp((target - eef) / EEF_SPEED, -1.0, 1.0)
+        close = torch.where(state.grasped | (xy_near & z_near), 1.0, -1.0)
+        act = torch.cat([delta, torch.zeros_like(delta), close[:, None]], -1)
+        if noise > 0.0 and generator is not None:
+            act = act + noise * torch.randn(act.shape, generator=generator,
+                                            device=act.device)
+        return torch.clamp(act, -1.0, 1.0)
 
     def render(self, state: LiftState) -> torch.Tensor:
         """(N, H, W, 3) float32 in [0, 255] through the ray-cast kernel."""

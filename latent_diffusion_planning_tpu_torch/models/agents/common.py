@@ -35,6 +35,14 @@ def obs_dims(shape_meta: Mapping[str, Any], rgb_obs: Sequence[str],
     return lowdim + rgb_feature_dim * len(rgb_obs), int(shape_meta["ac_dim"])
 
 
+def transition_pairs(obs_emb: torch.Tensor, obs_horizon: int) -> torch.Tensor:
+    """(s_t, s_{t+1}) pairs over the window tail → (B·(H-obs_horizon), 2D):
+    the IDM's training inputs."""
+    pair = torch.cat([obs_emb[:, obs_horizon - 1:-1], obs_emb[:, obs_horizon:]],
+                     -1)
+    return pair.reshape(-1, pair.shape[-1])
+
+
 def consecutive_pairs(plan: torch.Tensor) -> torch.Tensor:
     """(s_t, s_{t+1}) pairs along a plan → (B·(T-1), 2D)."""
     pair = torch.cat([plan[:, :-1], plan[:, 1:]], -1)
@@ -75,3 +83,35 @@ def prepare_batch(batch: Mapping[str, Any], obs_normalization: Any) -> dict:
         out["actions"] = nz.normalize_tree({"actions": batch["actions"]},
                                            obs_normalization)["actions"]
     return out
+
+
+def debug_obs_metrics(batch_obs: Mapping[str, torch.Tensor]) -> dict:
+    """Per-key min/max gauges."""
+    out = {}
+    for k, v in batch_obs.items():
+        out[f"{k}_min"] = v.min()
+        out[f"{k}_max"] = v.max()
+    return out
+
+
+def check_action_weights(weights, action_dim: int):
+    """None (no weighting) or a validated length-``action_dim`` tuple of
+    positive per-channel action loss weights."""
+    if weights is None:
+        return None
+    w = tuple(float(v) for v in weights)
+    if len(w) != action_dim:
+        raise ValueError(f"action_loss_weights has {len(w)} entries for "
+                         f"{action_dim}-dim actions")
+    if min(w) <= 0:
+        raise ValueError(f"action_loss_weights must be positive: {w}")
+    return w
+
+
+def weight_action_channels(sq_err: torch.Tensor, weights) -> torch.Tensor:
+    """Weight the last (action channel) axis by ``weights`` normalized to
+    mean 1, so the loss scale is the same with and without weighting."""
+    if not weights:
+        return sq_err
+    w = torch.tensor(weights, dtype=sq_err.dtype, device=sq_err.device)
+    return sq_err * (w * (w.numel() / w.sum()))

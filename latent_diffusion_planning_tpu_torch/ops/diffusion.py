@@ -2,13 +2,16 @@
 
 Counterpart of ``latent_diffusion_planning_tpu/ops/diffusion.py``: the same
 squaredcos_cap_v2 betas, ε/sample/v prediction, clip_sample, fixed_small DDPM
-variance and η=0 strided DDIM. The reverse processes are Python loops. They
+variance, η=0 strided DDIM and the forward process the train step noises
+its targets with (``add_noise``, ``training_target``). The reverse
+processes are Python loops. They
 take their initial sample and per-step noise as tensors, so a test can hand
 in the JAX package's draws (torch cannot reproduce JAX's threefry stream).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -59,8 +62,38 @@ class DiffusionSchedule:
                    num_steps=num_steps, prediction_type=prediction_type,
                    clip_sample=clip_sample, clip_range=clip_range)
 
+    def to(self, device: torch.device | str) -> "DiffusionSchedule":
+        """The same schedule with its tables on ``device`` (the train step
+        indexes them there without a copy from the host)."""
+        return dataclasses.replace(
+            self, betas=self.betas.to(device), alphas=self.alphas.to(device),
+            alphas_cumprod=self.alphas_cumprod.to(device))
+
     def _abar(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
         return _bcast(self.alphas_cumprod.to(t.device)[t], ndim)
+
+    # -- forward process ------------------------------------------------
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) noise; t: (B,)."""
+        abar = self._abar(t.reshape(-1), x0.ndim)
+        return torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * noise
+
+    def velocity_target(self, x0: torch.Tensor, noise: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        abar = self._abar(t.reshape(-1), x0.ndim)
+        return torch.sqrt(abar) * noise - torch.sqrt(1.0 - abar) * x0
+
+    def training_target(self, x0: torch.Tensor, noise: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """What the denoiser regresses to under this prediction type."""
+        if self.prediction_type == "epsilon":
+            return noise
+        if self.prediction_type == "sample":
+            return x0
+        if self.prediction_type == "v_prediction":
+            return self.velocity_target(x0, noise, t)
+        raise ValueError(f"unknown prediction_type {self.prediction_type!r}")
 
     def predict_x0(self, model_out: torch.Tensor, x_t: torch.Tensor,
                    t: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Batched closed-loop eval: plan → act → step over N envs on one device.
+"""Batched closed-loop eval and scripted demo collection over N envs on one
+device.
 
 Counterpart of ``latent_diffusion_planning_tpu/rollout/engine.py``'s
-``run_batched_eval``. The JAX engine fuses the whole episode into one
-``lax.scan``; here the decisions are a Python loop of eager device work.
-Episode semantics are the same:
+``run_batched_eval`` and ``run_scripted_collection``. The JAX engine fuses
+an episode into one ``lax.scan``; here the steps are a Python loop of eager
+device work. Eval episode semantics are the same:
 
 - an ``obs_horizon`` window of observations, materialized lazily from the
   last ``obs_horizon`` env states at decision boundaries only (renders
@@ -16,7 +17,7 @@ Episode semantics are the same:
   the episode's max per-step reward, ``horizon`` its steps to termination.
 
 Not ported yet: env meshes, video capture, the ``optimal`` obs flag
-(``add_optimal``), ``run_batched_eval_multi`` and data collection.
+(``add_optimal``), ``run_batched_eval_multi`` and ``run_data_collection``.
 """
 
 from __future__ import annotations
@@ -120,3 +121,64 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
         "n_episodes": n_episodes,
     }
     return {"metrics": metrics, "per_episode": per_episode}
+
+
+def _scripted_step(env, states, noise: float, clean_labels: bool,
+                   draw: torch.Tensor | None):
+    """One scripted-expert step: the clean action plus ``noise`` times the
+    (held) standard-normal ``draw`` is executed; the clean action is the
+    recorded label under ``clean_labels``, the executed one otherwise."""
+    clean = env.scripted_action(states)
+    executed = clean + noise * draw if noise > 0.0 else clean
+    new_states, reward, success = env.transition(states, executed)
+    return new_states, dict(obs=env.obs(new_states),
+                            action=clean if clean_labels else executed,
+                            reward=reward, success=success)
+
+
+@torch.no_grad()
+def run_scripted_collection(env, n_episodes: int, seed: int = 0, *,
+                            episode_len: int | None = None,
+                            noise: float = 0.0, noise_hold: int = 1,
+                            clean_labels: bool = False, init_states=None,
+                            noise_draws: torch.Tensor | None = None,
+                            device: torch.device | str | None = None) -> dict:
+    """Roll out the env's scripted expert (``env.scripted_action``) for
+    ``episode_len`` steps in ``n_episodes`` envs → ``first_obs`` {k: (N,
+    ...)}, ``obs`` {k: (N, T, ...)}, ``actions`` (N, T, A), ``rewards`` and
+    ``success`` (N, T), on the device.
+
+    ``noise``/``noise_hold``: DART-style injection. The executed action is
+    expert + N(0, noise²), the draw held for ``noise_hold`` consecutive
+    steps; ``clean_labels`` records the expert's noise-free action instead
+    of the executed one. ``seed`` seeds a generator on the device that draws
+    the resets (unless ``init_states`` gives them) and the noise (unless
+    ``noise_draws``, (T, N, A) standard normals already held, gives it).
+    """
+    dev = resolve_device(device)
+    episode_len = episode_len or env.episode_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if init_states is None:
+        states = env.reset_state(n_episodes, gen)
+    else:
+        states = init_states.map(lambda x: x.to(dev))
+    first_obs = env.obs(states)
+    if noise > 0.0 and noise_draws is None:
+        n_blocks = -(-episode_len // noise_hold)
+        noise_draws = torch.randn(
+            n_blocks, n_episodes, env.action_dim, generator=gen,
+            device=dev).repeat_interleave(noise_hold, 0)[:episode_len]
+    frames = []
+    for t in range(episode_len):
+        draw = noise_draws[t].to(dev) if noise > 0.0 else None
+        states, frame = _scripted_step(env, states, float(noise),
+                                       clean_labels, draw)
+        frames.append(frame)
+    stack = lambda xs: torch.stack(xs, 1)
+    return dict(first_obs=first_obs,
+                obs={k: stack([f["obs"][k] for f in frames])
+                     for k in frames[0]["obs"]},
+                actions=stack([f["action"] for f in frames]),
+                rewards=stack([f["reward"] for f in frames]),
+                success=stack([f["success"] for f in frames]))

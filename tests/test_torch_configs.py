@@ -85,3 +85,29 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_bench_train_config_matches_yaml():
+    """The training run's top-level keys, the whole agent (the yaml's
+    DDIM-25 eval steps, its optimizer keys) and the data block."""
+    got = configs.bench_train_config()
+    for k, v in configs.BENCH_TRAIN.items():
+        assert got[k] == CFG[k] == v, k
+    want = dict(CFG["agent"])
+    want.pop("_target_")
+    for net in ("planner", "idm_net"):
+        want[net] = {k: v for k, v in want[net].items()
+                     if k not in ("_target_", "_defer_")}
+    agent = dict(got["agent"])
+    assert agent.pop("vae_pretrain_path") is None
+    assert agent.pop("fused_dtype") == "bfloat16"
+    want.pop("vae_pretrain_path")
+    assert agent == want
+    data = dict(CFG["data"])
+    assert data.pop("_target_").endswith("datasets.OfflineData")
+    env = dict(data["env_params"]["env"])
+    assert env.pop("_target_").endswith("lift_physics.LiftPhysicsEnv")
+    data["env_params"] = {**data["env_params"],
+                          "env": {"name": "LiftPhysicsEnv", **env}}
+    assert got["data"] == data
+    assert got is not configs.bench_train_config()
