@@ -38,20 +38,32 @@
    action beyond 0.1, for the reason given under B). Then times one decision
    stage by stage, the physics and the render separately, the env
    transitions eagerly and from their CUDA graph.
-5. Trains the LDP agent on Lift at the bench widths (``phase_training``):
+5. Runs the Lift recipe's training on the card (``_training_phases``):
    scripted demos on ``LiftPhysicsEnv`` (256 envs × 80 steps seed 0 for
    train, 32 seed 77 for eval, every frame through kernel C; successful
-   episodes welded in memory), latents from the agent's seeded VAE, then the
-   ``Workspace`` of ``bench_train_config()`` for ``TRAIN_STEPS`` steps at
-   batch 128; both losses must be finite and fall. ``Workspace.run`` ends
+   episodes welded in memory); the VAE (``lift_vae_train_config()``: widths
+   [64,128,128,128], patch 4, batch 64) through ``VAEWorkspace`` for
+   ``VAE_STEPS`` steps: its loss must fall, its eval writes the HTML report,
+   and its reconstruction of eval frames must beat the seeded VAE's; a VAE
+   step timed part by part. Then latents of both splits from the VAE's
+   snapshot (EMA weights), and the LDP ``Workspace`` of
+   ``bench_train_config(vae_pretrain_path=...)`` for ``TRAIN_STEPS`` steps
+   at batch 128; both losses must be finite and fall. ``Workspace.run`` ends
    with an eval (offline action MSE through A, plan statistics through B, a
    closed loop of 256 envs × 80 steps), launch counts checked. The trained
    agent's kernels are held against their plain versions on its trained
    weights (the bars of A and B above; the packs were built from the seeded
-   weights before training, so a missed repack fails here); the full state
-   round-trips bit for bit, and one step from the restored state equals one
-   from the live state (cuDNN deterministic); a train step is timed part
-   by part with CUDA events.
+   weights before training, so a missed repack fails here); ``sample_viz``
+   runs once (one launch of B and of A); the full state round-trips bit for
+   bit, and one step from the restored state equals one from the live state
+   (cuDNN deterministic); a train step is timed part by part. Last DPVAE
+   (``lift_dp_vae_train_config()``) on the same latents for ``DPVAE_STEPS``
+   steps at batch 128, its loss falling, its eval's closed loop of 256 envs
+   × 80 steps launching C and B once a decision, B held against its
+   rounding twin on the trained action U-Net (packs primed from the seeded
+   weights), and B timed alone at 1024 samples, DDIM-25, at the recipe's
+   widths [64,128,256] and the reference widths [256,512,1024], each with
+   its launch geometry, the weight bytes it streams and its bound.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -88,6 +100,9 @@ DEMO_LEN = 80
 TRAIN_STEPS = 400
 EVAL_ENVS = 256
 SPLIT_STEPS = 30             # train steps timed part by part (first 5 warm-up)
+VAE_STEPS = 400              # of the recipe's 4000, at its batch 64
+DPVAE_STEPS = 400            # of the baselines' 30000, at batch 128
+UNET_TIMING_SAMPLES = 1024   # kernel B alone at the DPVAE widths
 
 
 def card_line() -> str:
@@ -801,61 +816,92 @@ def _max_diff(a, b) -> float:
     return worst
 
 
-def phase_training(smoke: Smoke):
-    """The training phase in a scratch run directory under the checkout's
-    git-ignored ``build/``, removed after."""
-    import shutil
-    import tempfile
-    build = REPO / "build"
-    build.mkdir(exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build))
-    try:
-        return _train_and_check(smoke, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+class TrainRun:
+    """What the training phases hand on: the scratch run directory (under
+    the checkout's git-ignored ``build/``, removed at the end), the welded
+    demo splits and the VAE snapshot."""
+
+    def __init__(self, work: Path):
+        self.work = work
+        self.welded: dict = {}
+        self.vae_snapshot: Path | None = None
+        self.vae_config: dict = {}
 
 
-def _train_and_check(smoke: Smoke, work: Path):
-    """LDP training on Lift at the bench widths, through the port's entry
-    points: scripted demos on ``LiftPhysicsEnv`` (every frame rendered by
-    kernel C), welded in memory, VAE-encoded latents, the ``Workspace`` from
-    ``bench_train_config()`` for ``TRAIN_STEPS`` steps (its last act is
-    ``eval``: offline metrics through kernels A and B, then a closed loop of
-    ``EVAL_ENVS`` × 80 steps through C, B and A), the trained agent's kernels
-    against their plain versions, the state's round trip, and a train step
-    timed part by part."""
+def _loss_means(curve, n=20) -> tuple[dict, dict]:
+    first = {k: float(v[:n].mean()) for k, v in curve.items()}
+    last = {k: float(v[-n:].mean()) for k, v in curve.items()}
+    return first, last
+
+
+def _falls(curve, keys, first, last) -> None:
+    """Every value finite, and the last 20 steps' mean below the first
+    20's for each of ``keys``."""
+    import torch
+    if not all(bool(torch.isfinite(v).all()) for v in curve.values()):
+        raise AssertionError("a training loss is not finite")
+    for k in keys:
+        if not last[k] < first[k]:
+            raise AssertionError(f"{k} did not fall: {first[k]} -> {last[k]}")
+
+
+def _split_step(parts, n_steps, skip=5):
+    """Mean device time (CUDA events) and host time to enqueue of each named
+    part of a train step, over ``n_steps`` steps after ``skip`` warm-up
+    ones; ``parts`` is [(name, fn)], run in order each step."""
+    import torch
+    events = [[torch.cuda.Event(enable_timing=True)
+               for _ in range(len(parts) + 1)] for _ in range(n_steps)]
+    host = []
+    for ev in events:
+        row = []
+        ev[0].record()
+        for j, (_, fn) in enumerate(parts):
+            h = time.perf_counter()
+            fn()
+            ev[j + 1].record()
+            row.append(time.perf_counter() - h)
+        host.append(row)
+    torch.cuda.synchronize()
+    timed = n_steps - skip
+    dev_ms = {p: sum(ev[j].elapsed_time(ev[j + 1]) for ev in events[skip:])
+              / timed for j, (p, _) in enumerate(parts)}
+    host_ms = {p: sum(h[j] for h in host[skip:]) * 1e3 / timed
+               for j, (p, _) in enumerate(parts)}
+    return dev_ms, host_ms
+
+
+def phase_vae(smoke: Smoke, run: TrainRun):
+    """Demos as ``tools/run_lift_pipeline.sh`` collects them (the scripted
+    expert on ``LiftPhysicsEnv``, every frame through kernel C, successful
+    episodes welded in memory), then the recipe's VAE run
+    (``lift_vae_train_config()``: widths [64,128,128,128], patch 4, batch
+    64, β 1e-5, EMA 0.99) through ``VAEWorkspace`` for ``VAE_STEPS`` steps;
+    its snapshot is what the next phases read."""
     import torch
     from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
-    from latent_diffusion_planning_tpu_torch.data.latents import encode_latents
     from latent_diffusion_planning_tpu_torch.data.writer import weld_collection
-    from latent_diffusion_planning_tpu_torch.models.agents import common
-    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
     from latent_diffusion_planning_tpu_torch.ops import kernels
-    from latent_diffusion_planning_tpu_torch.ops.kernels import (
-        diffusion_mlp as KA, diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.ops import normalize as nz
     from latent_diffusion_planning_tpu_torch.rollout import engine
-    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+    from latent_diffusion_planning_tpu_torch.train.vae_loop import VAEWorkspace
 
     dev = torch.device("cuda")
     out: dict = {}
-    cfg = configs.bench_train_config()
-    meta = cfg["data"]["meta"]
-    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
 
     # 1. demos: the scripted expert on the bench's env, successful episodes
     env = configs.make_bench_env(episode_len=DEMO_LEN)
     env_meta = {"env_name": "LiftPhysicsEnv",
                 "env_kwargs": dict(configs.BENCH_ENV, episode_len=DEMO_LEN)}
-    keys = list(meta["lowdim_obs"]) + ["agentview_image"]
-    welded = {}
+    keys = list(configs.BENCH_AGENT["lowdim_obs"]) + ["agentview_image"]
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for split, n, seed in DEMO_SPLITS:
         col = engine.run_scripted_collection(env, n, seed, device=dev)
         rate = float(col["success"].any(1).float().mean())
-        w = welded[split] = weld_collection(
+        w = run.welded[split] = weld_collection(
             col, obs_keys=keys, env_meta=env_meta, successful_only=True,
             name=f"lift/{split}")
         del col
@@ -876,29 +922,149 @@ def _train_and_check(smoke: Smoke, work: Path):
     if counts != want:
         raise AssertionError(f"collection launches {counts} != {want}")
 
-    # 2. the Workspace over the welded splits; latents from its agent's VAE
+    # 2. the VAE run; its last acts are a snapshot and an eval (losses over
+    # 10 eval batches, the HTML page)
+    cfg = configs.lift_vae_train_config()
+    cfg.update(n_grad_steps=VAE_STEPS, eval_every=0, save_every=0,
+               log_every=100)
+    data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
+    data = OfflineData(**data_kw, train=run.welded["train"],
+                       eval=run.welded["eval"], device=dev)
+    ws = VAEWorkspace(cfg, run.work / "vae", data=data, device=dev)
+    ws.init_agent()
+    model = ws.agent
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    curve = ws.loss_curve()
+    first, last = _loss_means(curve)
+    sps = VAE_STEPS / ws.train_seconds
+    print(f"   VAE: {VAE_STEPS} steps at batch {cfg['batch_size']} in "
+          f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, {1e3 / sps:.2f} ms "
+          f"a step; run() with its snapshot and eval {run_s:.3f} s; peak "
+          f"memory {peak / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    for k in model.LOSS_KEYS:
+        print(f"   VAE {k}: mean of the first 20 steps {first[k]:.6f}, of "
+              f"the last 20 {last[k]:.6f}", flush=True)
+    _falls(curve, ("loss", "loss_mse"), first, last)
+    ev = ws.last_eval
+    report = ws.report_path
+    print(f"   VAE eval over {cfg['n_eval_batches']} batches: loss_mse "
+          f"{ev['loss_mse']:.6f}, loss_kl {ev['loss_kl']:.3f}; report "
+          f"{report} ({report.stat().st_size} bytes)", flush=True)
+    if not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"VAE eval metrics not finite: {ev}")
+
+    # 3. reconstruction of eval frames, trained (EMA) against seeded
+    seeded = ws.make_agent()
+    key = "agentview_image"
+    frames = run.welded["eval"].arrays[key][:512].to(dev)
+    x = nz.normalize_tree({key: frames},
+                          {key: model.obs_normalization["obs"][key]})[key]
+    rec_err = {}
+    for name, m in (("trained", model), ("seeded", seeded)):
+        rec_err[name] = float(torch.mean(torch.square(
+            m.decode(m.encode_mode(x)) - x)))
+    print(f"   decode(encode_mode(x)) on {frames.shape[0]} eval frames, MSE "
+          f"in [-1, 1]: trained (EMA) {rec_err['trained']:.6f}, seeded "
+          f"{rec_err['seeded']:.6f}", flush=True)
+    if not rec_err["trained"] < rec_err["seeded"]:
+        raise AssertionError(f"the trained VAE does not reconstruct better "
+                             f"than the seeded one: {rec_err}")
+
+    # 4. where a VAE step's time goes (CUDA events, on the seeded copy)
+    ds = data.device_dataset("train")
+    g = torch.Generator(device=dev).manual_seed(13)
+    holder = {}
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms, host_ms = _split_step([
+        ("gather", lambda: holder.update(b=ds.sample(cfg["batch_size"], g))),
+        ("forward+backward", lambda: seeded.backward(holder["b"], g)),
+        ("optimizer", seeded.apply_gradients)], SPLIT_STEPS)
+    peak_steps = torch.cuda.max_memory_allocated()
+    print(f"   a VAE step, device timeline between events (mean of "
+          f"{SPLIT_STEPS - 5}): {json.dumps(dev_ms)} ms; host time to "
+          f"enqueue: {json.dumps(host_ms)} ms; peak memory over these steps "
+          f"{peak_steps / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+
+    run.vae_snapshot = ws.ckpt.list_checkpoints()[-1]
+    run.vae_config = dict(cfg["model"]["vae"])
+    out.update(vae_steps=VAE_STEPS, batch=cfg["batch_size"],
+               train_s=ws.train_seconds, steps_per_s=sps, ms_per_step=1e3 / sps,
+               run_s=run_s, peak_mib_run=peak / 2**20,
+               loss_first20=first, loss_last20=last, eval=ev,
+               report=str(report), report_bytes=report.stat().st_size,
+               recon_mse=rec_err, step_split_ms=dev_ms, step_host_ms=host_ms,
+               peak_mib_train_steps=peak_steps / 2**20,
+               snapshot=run.vae_snapshot.name)
+    return out
+
+
+def phase_ldp_training(smoke: Smoke, run: TrainRun):
+    """LDP training on Lift at the bench widths, fed by the trained VAE:
+    latents of both splits from its snapshot's EMA weights
+    (``process_latents``), the ``Workspace`` from ``bench_train_config``
+    with ``vae_pretrain_path`` set, for ``TRAIN_STEPS`` steps (its last act
+    is ``eval``: offline metrics through kernels A and B, then a closed loop
+    of ``EVAL_ENVS`` × 80 steps through C, B and A), the trained agent's
+    kernels against their plain versions, ``sample_viz``, the state's round
+    trip, and a train step timed part by part."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
+    from latent_diffusion_planning_tpu_torch.data.latents import process_latents
+    from latent_diffusion_planning_tpu_torch.models.agents import common
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA, diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = configs.bench_train_config(vae_pretrain_path=str(run.vae_snapshot))
+    meta = cfg["data"]["meta"]
+    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
+
+    # 1. latents from the trained VAE's snapshot (EMA weights)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    min_z, max_z = process_latents(list(run.welded.values()), run.vae_snapshot,
+                                   run.vae_config, ["agentview_image"],
+                                   device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    frames = sum(w.total_steps for w in run.welded.values())
+    bound = meta["obs_normalization"]["obs"]["latent_agentview_image"]
+    to_unit = lambda z: (z - bound["min"]) / (bound["max"] - bound["min"]) * 2 - 1
+    print(f"   latents of the trained VAE: {frames} frames in {secs:.3f} s = "
+          f"{frames / secs:.1f} frames/s; min_z {min_z:.4f} max_z "
+          f"{max_z:.4f}, normalized by the config's bounds [{bound['min']}, "
+          f"{bound['max']}] to [{to_unit(min_z):.4f}, {to_unit(max_z):.4f}] "
+          f"[{smoke.card}]", flush=True)
+    out.update(latent_frames=frames, latent_s=secs,
+               latent_frames_per_s=frames / secs, min_z=min_z, max_z=max_z)
+
+    # 2. the Workspace over the welded splits, its VAE from the snapshot
     cfg.update(n_grad_steps=TRAIN_STEPS, n_eval_episodes=EVAL_ENVS,
                eval_every=0, save_every=0, log_every=100)
     cfg["data"]["env_params"]["env"]["episode_len"] = DEMO_LEN
     data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
-    data = OfflineData(**data_kw, train=welded["train"], eval=welded["eval"],
-                       device=dev)
-    ws = Workspace(cfg, work, data=data, device=dev)
+    data = OfflineData(**data_kw, train=run.welded["train"],
+                       eval=run.welded["eval"], device=dev)
+    ws = Workspace(cfg, run.work / "ldp", data=data, device=dev)
     ws.init_agent()
     agent = ws.agent
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bounds = [encode_latents(welded[s], agent.vae, ["agentview_image"])
-              for s, _, _ in DEMO_SPLITS]
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    frames = sum(w.total_steps for w in welded.values())
-    min_z, max_z = min(b[0] for b in bounds), max(b[1] for b in bounds)
-    print(f"   latents: {frames} frames in {secs:.3f} s = {frames / secs:.1f} "
-          f"frames/s, min_z {min_z:.4f} max_z {max_z:.4f} (seeded VAE at "
-          f"the bench widths) [{smoke.card}]", flush=True)
-    out.update(latent_frames=frames, latent_s=secs,
-               latent_frames_per_s=frames / secs, min_z=min_z, max_z=max_z)
+    snap = torch.load(run.vae_snapshot, map_location=dev, weights_only=True)
+    vae_diff = max(float((v - snap["vae_ema_params"][k]).abs().max())
+                   for k, v in agent.vae.state_dict().items())
+    print(f"   the agent's VAE against the snapshot's EMA weights: max |diff| "
+          f"{vae_diff}", flush=True)
+    if vae_diff != 0.0:
+        raise AssertionError("the agent did not load the VAE snapshot")
 
     # prime the kernels' packs with the seeded weights: a repack that the
     # updates failed to trigger would show in the checks of step 4
@@ -918,9 +1084,7 @@ def _train_and_check(smoke: Smoke, work: Path):
     peak = torch.cuda.max_memory_allocated()
     curve = ws.loss_curve()
     sps = TRAIN_STEPS / ws.train_seconds
-    first = {k: float(v[:20].mean()) for k, v in curve.items()}
-    last = {k: float(v[-20:].mean()) for k, v in curve.items()}
-    finite = all(bool(torch.isfinite(v).all()) for v in curve.values())
+    first, last = _loss_means(curve)
     print(f"   train: {TRAIN_STEPS} steps at batch {cfg['batch_size']} in "
           f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, "
           f"{1e3 / sps:.2f} ms a step; run() with its snapshot and eval "
@@ -934,11 +1098,7 @@ def _train_and_check(smoke: Smoke, work: Path):
     # the nets fit the noise of 128-window batches well below 1 within a few
     # hundred steps. The bar asks only that it falls: the last 20 steps'
     # mean below the first 20's, for both losses, and every value finite.
-    if not finite:
-        raise AssertionError("a training loss is not finite")
-    for k in ("plan_loss", "idm_loss"):
-        if not last[k] < first[k]:
-            raise AssertionError(f"{k} did not fall: {first[k]} -> {last[k]}")
+    _falls(curve, ("plan_loss", "idm_loss"), first, last)
     out.update(train_steps=TRAIN_STEPS, batch=cfg["batch_size"],
                train_s=ws.train_seconds, steps_per_s=sps,
                ms_per_step=1e3 / sps, run_s=run_s, peak_mib_run=peak / 2**20,
@@ -1013,6 +1173,25 @@ def _train_and_check(smoke: Smoke, work: Path):
     out.update(trained_a_max_abs_err=err_a, trained_a_seeded_away=away,
                trained_b=full, trained_b_fp32=fp32, trained_b_seeded=stale)
 
+    # plan visualization once on eval windows: B plans, the decoder draws
+    # the executed latents, A decodes the actions between them
+    viz_batch = next(data.eval_dataloader())
+    kernels.reset_launch_counts()
+    acts, viz = agent.sample_viz(viz_batch, g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"diffusion_mlp": 1, "diffusion_unet1d": 1, "raycast": 0}
+    pv = viz["plan_viz"]
+    print(f"   sample_viz on {acts.shape[0]} eval windows: plan_mse "
+          f"{float(viz['plan_mse']):.6f}, plan_viz {tuple(pv.shape)} in "
+          f"[{float(pv.min()):.3f}, {float(pv.max()):.3f}], launches {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want or not (torch.isfinite(acts).all()
+                              and torch.isfinite(pv).all()):
+        raise AssertionError(f"sample_viz: launches {counts}, finite "
+                             f"{bool(torch.isfinite(pv).all())}")
+    out.update(viz_plan_mse=float(viz["plan_mse"]), viz_launches=counts)
+
     # the cost of a repack, paid at the first sample after an update
     for name, mod, net in (("planner", KB, agent.planner),
                            ("idm", KA, agent.idm)):
@@ -1058,37 +1237,236 @@ def _train_and_check(smoke: Smoke, work: Path):
 
     # 6. where a train step's time goes (CUDA events, on the restored copy)
     ds = data.device_dataset("train")
-    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-              for _ in range(SPLIT_STEPS)]
-    host = []
+    holder = {}
     torch.cuda.reset_peak_memory_stats()
-    for e0, e1, e2, e3 in events:
-        h0 = time.perf_counter()
-        e0.record()
-        step_batch = ds.sample(cfg["batch_size"], g)
-        e1.record()
-        h1 = time.perf_counter()
-        restored.backward(step_batch, True, True, g)
-        e2.record()
-        h2 = time.perf_counter()
-        restored.apply_gradients(True, True)
-        e3.record()
-        host.append((h1 - h0, h2 - h1, time.perf_counter() - h2))
-    torch.cuda.synchronize()
+    split_ms, host_ms = _split_step([
+        ("gather", lambda: holder.update(b=ds.sample(cfg["batch_size"], g))),
+        ("forward+backward",
+         lambda: restored.backward(holder["b"], True, True, g)),
+        ("optimizer", lambda: restored.apply_gradients(True, True))],
+        SPLIT_STEPS)
     peak_steps = torch.cuda.max_memory_allocated()
-    parts = ("gather", "forward+backward", "optimizer")
-    timed = SPLIT_STEPS - 5
-    split_ms = {p: sum(ev[j].elapsed_time(ev[j + 1]) for ev in events[5:])
-                / timed for j, p in enumerate(parts)}
-    host_ms = {p: sum(h[j] for h in host[5:]) * 1e3 / timed
-               for j, p in enumerate(parts)}
     print(f"   a train step, device timeline between events (mean of "
-          f"{timed}): {json.dumps(split_ms)} ms; host time to enqueue: "
-          f"{json.dumps(host_ms)} ms; peak memory over these steps "
+          f"{SPLIT_STEPS - 5}): {json.dumps(split_ms)} ms; host time to "
+          f"enqueue: {json.dumps(host_ms)} ms; peak memory over these steps "
           f"{peak_steps / 2**20:.1f} MiB [{smoke.card}]", flush=True)
     out.update(step_split_ms=split_ms, step_host_ms=host_ms,
                peak_mib_train_steps=peak_steps / 2**20)
     return out
+
+
+def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
+                       seeded=None, hold_max=True) -> dict:
+    """Kernel B on ``net`` against its rounding twin: after all of
+    ``table`` the mean within 5e-3 and, with ``hold_max``, no element beyond
+    0.1 (phase B's bars), and closer to the twin than the fp32 net is after
+    one step and after all. Phase B's share of elements within 5e-3 after
+    one step (99%) is calibrated on seeded nets; a trained net's larger
+    activations put more of them next to a bf16 boundary (the trained
+    action U-Net: 97–98% for the kernel where the fp32 net lands far further
+    off), so it is printed here as a reading. The largest error is a single
+    element's worst bf16 flip carried through the steps: over 1024 samples ×
+    25 steps at the reference widths it passed 0.1 once (0.149; the fp32
+    net 0.252), so the timing shapes print it as a reading too. With
+    ``seeded``, also how far the seeded weights' twin lands (a stale pack
+    would sit there)."""
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    twin = KB.rounding_twin(net)
+    ts, coefs = table
+    plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
+        m, cond, x_init, ts[:n], coefs[:n], clip)
+    kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
+        net, cond, x_init, ts[:n], coefs[:n], clip_range=clip, packed=packed)
+    ref1 = plain(twin, 1)
+    one, fp32_one = err_stats(kernel(1), ref1), err_stats(plain(net, 1), ref1)
+    ref = plain(twin)
+    full, fp32 = err_stats(kernel(), ref), err_stats(plain(net), ref)
+    print(f"   {what}: after 1 step {one} (the fp32 net {fp32_one}); after "
+          f"{len(ts)} steps {full} (the fp32 net {fp32})", flush=True)
+    out = dict(one_step=one, fp32_net_one_step=fp32_one, kernel=full,
+               fp32_net=fp32)
+    if seeded is not None:
+        out["seeded_twin"] = err_stats(plain(KB.rounding_twin(seeded)), ref)
+        print(f"   {what}: the seeded weights' twin {out['seeded_twin']}",
+              flush=True)
+    smoke.check(f"{what} mean_abs_err vs the rounding twin", full["mean"], 5e-3)
+    if hold_max:
+        smoke.check(f"{what} max_abs_err vs the rounding twin", full["max"],
+                    0.1)
+    if not (one["mean"] < fp32_one["mean"] and full["mean"] < fp32["mean"]):
+        raise AssertionError(f"{what}: no closer to the rounding twin than "
+                             "the fp32 net is")
+    return out
+
+
+def phase_dp_vae(smoke: Smoke, run: TrainRun):
+    """DPVAE on the same latents (``lift_dp_vae_train_config()``: action
+    U-Net [64,128,256] over 7 action channels with a 25-wide condition,
+    DDPM-50 training, DDIM-25 sampling) for ``DPVAE_STEPS`` steps at batch
+    128 through the ``Workspace``, whose eval ends with a closed loop of
+    ``EVAL_ENVS`` × 80 steps through kernels C and B; kernel B held against
+    its rounding twin on the trained action U-Net; then kernel B alone at
+    ``UNET_TIMING_SAMPLES`` samples, DDIM-25, at the recipe's widths and at
+    the reference widths [256,512,1024] (``configs/agent/dp_repr_agent.yaml``)."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
+    from latent_diffusion_planning_tpu_torch.models.agents.dp_vae import (
+        DPVAEAgent)
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConditionalUnet1D)
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = configs.lift_dp_vae_train_config(
+        vae_pretrain_path=str(run.vae_snapshot))
+    cfg.update(n_grad_steps=DPVAE_STEPS, n_eval_episodes=EVAL_ENVS,
+               eval_every=0, save_every=0, log_every=100, resume=False)
+    cfg["data"]["env_params"]["env"]["episode_len"] = DEMO_LEN
+    meta = cfg["data"]["meta"]
+    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
+    data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
+    data = OfflineData(**data_kw, train=run.welded["train"],
+                       eval=run.welded["eval"], device=dev)
+    ws = Workspace(cfg, run.work / "dp_vae", data=data, device=dev)
+    ws.init_agent()
+    agent = ws.agent
+    if not isinstance(agent, DPVAEAgent):
+        raise AssertionError(f"the workspace built a {type(agent).__name__}")
+    # prime kernel B's pack with the seeded weights (see the LDP phase)
+    agent.sample_action(next(data.eval_dataloader()))
+    seeded = DPVAEAgent.create(agent_cfg, meta["shape_meta"], seed=cfg["seed"],
+                               device=dev)
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    curve = ws.loss_curve()
+    first, last = _loss_means(curve)
+    sps = DPVAE_STEPS / ws.train_seconds
+    print(f"   DPVAE: {DPVAE_STEPS} steps at batch {cfg['batch_size']} in "
+          f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, {1e3 / sps:.2f} ms "
+          f"a step; run() with its snapshot and eval {run_s:.3f} s; peak "
+          f"memory {peak / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    print(f"   DPVAE loss: mean of the first 20 steps {first['loss']:.5f}, of "
+          f"the last 20 {last['loss']:.5f}", flush=True)
+    _falls(curve, ("loss",), first, last)
+
+    ev = ws.last_eval
+    n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
+    counts = kernels.launch_counts()
+    want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 + n_dec,
+            "raycast": n_dec}
+    print(f"   DPVAE eval: launches {counts} (expected {want}: one offline "
+          f"batch of each split through B, then {n_dec} decisions through C "
+          f"and B)", flush=True)
+    if counts != want:
+        raise AssertionError(f"DPVAE eval launches {counts} != {want}")
+    print(f"   DPVAE eval: action_mse train {ev['train_action_mse']:.5f}, "
+          f"eval {ev['eval_action_mse']:.5f}; closed loop, {EVAL_ENVS} envs "
+          f"x {DEMO_LEN} steps after {DPVAE_STEPS} steps: success "
+          f"{ev['success']:.4f}, horizon {ev['horizon']:.2f}, "
+          f"{ev['env_steps_per_sec']:.1f} env-steps/s [{smoke.card}]",
+          flush=True)
+    bad = [k for k, v in ev.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"DPVAE eval metrics not finite: {bad}")
+    out.update(train_steps=DPVAE_STEPS, batch=cfg["batch_size"],
+               train_s=ws.train_seconds, steps_per_s=sps,
+               ms_per_step=1e3 / sps, run_s=run_s, peak_mib_run=peak / 2**20,
+               loss_first20=first, loss_last20=last, eval=ev,
+               eval_launches=counts)
+
+    # kernel B on the trained action U-Net (its pack was primed with the
+    # seeded weights) against the rounding twin
+    batch = next(data.eval_dataloader())
+    prepared = agent._prepare(agent._to_device(batch))
+    cond = agent._obs_cond(prepared["obs"])
+    g = torch.Generator(device=dev).manual_seed(14)
+    x_init = torch.randn(cond.shape[0], 8, 7, generator=g, device=dev)
+    ts, coefs = table = agent.sampler.table()
+    clip = agent.sched.clip_range
+    net = agent._sampling_net()
+    agent.sampler(net, cond, x_init)          # repacks from the trained net
+    out["trained_b"] = _unet_against_twin(
+        smoke, f"trained DPVAE B ({cond.shape[0]} samples, DDIM-"
+        f"{ts.shape[0]})", net, cond, x_init, table, clip,
+        agent.sampler._pack, seeded=seeded.planner)
+
+    # kernel B alone at the DPVAE widths, 1024 samples, DDIM-25
+    B = UNET_TIMING_SAMPLES
+    p = cfg["agent"]["planner"]
+    timing = {}
+    for name, dd in (("recipe", tuple(p["down_dims"])),
+                     ("reference", (256, 512, 1024))):
+        if name == "recipe":
+            tnet = net
+        else:
+            torch.manual_seed(15)
+            tnet = ConditionalUnet1D(7, 25, p["diffusion_step_embed_dim"], dd,
+                                     p["kernel_size"], p["n_groups"]).to(dev)
+        gc = torch.randn(B, 25, generator=g, device=dev)
+        x0 = torch.randn(B, 8, 7, generator=g, device=dev)
+        packed = KB.pack_params(tnet).to(dev)
+        what = f"DPVAE B {name} {list(dd)} B={B}"
+        checks = _unet_against_twin(smoke, what, tnet, gc, x0, table, clip,
+                                    packed, hold_max=False)
+        twin = KB.rounding_twin(tnet)
+        run_k = lambda: KB.fused_unet1d_ddim_sample(
+            tnet, gc, x0, ts, coefs, clip_range=clip, packed=packed)
+        run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs,
+                                                    clip)
+        ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
+        smoke.timing(what, ms, plain_ms)
+        elem, mm, nbytes = unet_flops_bytes(tnet, B, 8, int(ts.shape[0]))
+        b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
+        shape = KB.kernel_info(tnet, B, 8, int(ts.shape[0]))
+        row_tiles = -(-shape["samples_per_block"] * 8 // 16)
+        entry = next(n for n in (2, 4, 8) if row_tiles <= n)
+        info = smoke.shape_line(
+            what, f"unet1d_sampler_kernelILi{entry}E", shape, mm,
+            PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
+        print(f"   {what}: bound {b_ms:.3f} ms ({b_by}); weights "
+              f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
+              f"and block, {shape['weight_bytes_streamed'] / 1e9:.1f} GB "
+              f"streamed in all [{smoke.card}]", flush=True)
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
+                            bytes=nbytes, shape=info, **checks)
+    out["unet_timing"] = timing
+    return out
+
+
+def _training_phases(smoke: Smoke) -> None:
+    """The recipe's training phases in one scratch run directory under the
+    checkout's git-ignored ``build/``, removed after; each phase runs only
+    if the ones it reads from passed."""
+    import shutil
+    import tempfile
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    run = TrainRun(Path(tempfile.mkdtemp(prefix="chip_smoke_train_",
+                                         dir=build)))
+    try:
+        smoke.phase("training: demos and the VAE on Lift at the recipe widths",
+                    lambda: phase_vae(smoke, run))
+        if run.vae_snapshot is None:
+            return
+        smoke.phase("training: LDP on the trained VAE's latents at the bench "
+                    "widths", lambda: phase_ldp_training(smoke, run))
+        smoke.phase("training: DPVAE on the same latents; kernel B at its "
+                    "widths", lambda: phase_dp_vae(smoke, run))
+    finally:
+        shutil.rmtree(run.work, ignore_errors=True)
 
 
 REPLACES = {   # the pl.pallas_call of each TPU kernel
@@ -1150,8 +1528,7 @@ def main() -> int:
                         "kinematic", lambda: phase_slice(smoke))
             smoke.phase("one decision, stage by stage",
                         lambda: phase_breakdown(smoke))
-            smoke.phase("training: LDP on Lift at the bench widths",
-                        lambda: phase_training(smoke))
+            _training_phases(smoke)
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

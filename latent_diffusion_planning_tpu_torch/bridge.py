@@ -25,6 +25,7 @@ from torch import nn
 
 from . import resolve_device
 from .models.agents import common
+from .models.agents.dp_vae import DPVAEAgent
 from .models.agents.ldp import LDPAgent
 from .models.nets.mlp import MLPDiffusion
 from .models.nets.unet1d import ConditionalUnet1D
@@ -140,6 +141,13 @@ def _resblock2d(blk, p: Mapping) -> None:
         _conv2d(blk.shortcut, p["shortcut"])
 
 
+def _mid_attention(attn, p: Mapping) -> None:
+    _norm(attn.norm, p["GroupNorm_0"])
+    for lin, name in ((attn.q, "Dense_0"), (attn.k, "Dense_1"),
+                      (attn.v, "Dense_2"), (attn.out, "Dense_3")):
+        _dense(lin, p[name])
+
+
 def load_klvae_encoder(vae: KLVAE, params: Mapping) -> KLVAE:
     """``params``: the KLVAE's full tree ({encoder, decoder}) or the
     encoder's alone."""
@@ -161,11 +169,7 @@ def load_klvae_encoder(vae: KLVAE, params: Mapping) -> KLVAE:
             n_conv += 1
     _resblock2d(enc.mid0, p[f"ResBlock2D_{n_res}"])
     if enc.attn is not None:
-        a = p["MidAttention_0"]
-        _norm(enc.attn.norm, a["GroupNorm_0"])
-        for lin, name in ((enc.attn.q, "Dense_0"), (enc.attn.k, "Dense_1"),
-                          (enc.attn.v, "Dense_2"), (enc.attn.out, "Dense_3")):
-            _dense(lin, a[name])
+        _mid_attention(enc.attn, p["MidAttention_0"])
     _resblock2d(enc.mid1, p[f"ResBlock2D_{n_res + 1}"])
     _norm(enc.norm_out, p["GroupNorm_0"])
     _conv2d(enc.conv_out, p[f"Conv_{n_conv}"])
@@ -173,8 +177,45 @@ def load_klvae_encoder(vae: KLVAE, params: Mapping) -> KLVAE:
     return vae
 
 
+def load_klvae_decoder(vae: KLVAE, params: Mapping) -> KLVAE:
+    """``params``: the KLVAE's full tree or the decoder's alone. Flax names
+    the decoder's convs in call order (``Conv_0`` in, then one per
+    upsample, then the head unless it is ``unpatch_head``); the head's
+    output channels keep the JAX order, which ``Decoder.forward`` shuffles
+    as the JAX head does."""
+    p = params.get("decoder", params)
+    dec = vae.decoder
+    _conv2d(dec.post_quant_conv, p["post_quant_conv"])
+    _conv2d(dec.conv_in, p["Conv_0"])
+    _resblock2d(dec.mid0, p["ResBlock2D_0"])
+    if dec.attn is not None:
+        _mid_attention(dec.attn, p["MidAttention_0"])
+    _resblock2d(dec.mid1, p["ResBlock2D_1"])
+    n_res = 2
+    for i, blocks in enumerate(dec.levels):
+        for blk in blocks:
+            _resblock2d(blk, p[f"ResBlock2D_{n_res}"])
+            n_res += 1
+        if i < len(dec.ups):
+            _conv2d(dec.ups[i], p[f"Conv_{i + 1}"])
+    _norm(dec.norm_out, p["GroupNorm_0"])
+    _conv2d(dec.conv_out, p["unpatch_head"] if dec.patch_size > 1
+            else p[f"Conv_{len(dec.ups) + 1}"])
+    return vae
+
+
+def load_klvae(vae: KLVAE, params: Mapping) -> KLVAE:
+    """The whole VAE from its ``{encoder, decoder}`` tree."""
+    return load_klvae_decoder(load_klvae_encoder(vae, params), params)
+
+
+def klvae_from_flax(params: Mapping, **cfg) -> KLVAE:
+    """``cfg``: KLVAE's fields (``configs.BENCH_AGENT["vae"]``'s keys)."""
+    return load_klvae(KLVAE(**cfg), params)
+
+
 # ---------------------------------------------------------------------------
-# the agent
+# the agents
 # ---------------------------------------------------------------------------
 
 def ldp_agent_from_flax(snapshot: Mapping, config: Mapping,
@@ -201,7 +242,33 @@ def ldp_agent_from_flax(snapshot: Mapping, config: Mapping,
         cond_activation=i.get("cond_activation", "swish"),
         n_blocks=i.get("n_blocks", 3), hidden_dim=i.get("hidden_dim", 256),
         use_layer_norm=i.get("use_layer_norm", True))
-    vae = load_klvae_encoder(KLVAE(**config.get("vae", {})),
-                             snapshot["vae_params"])
+    vae = load_klvae(KLVAE(**config.get("vae", {})), snapshot["vae_params"])
     return LDPAgent.assemble(planner, idm, vae, config, obs_dim, action_dim,
                              dev)
+
+
+def dp_vae_agent_from_flax(snapshot: Mapping, config: Mapping,
+                           shape_meta: Mapping,
+                           device: torch.device | str | None = None
+                           ) -> DPVAEAgent:
+    """A DPVAEAgent from a ``{planner_params, vae_params}`` snapshot (and
+    ``planner_ema_params`` when it holds them) and the agent config dict
+    (the ``agent`` of ``configs.lift_dp_vae_train_config()``)."""
+    dev = resolve_device(device)
+    obs_dim, action_dim = common.obs_dims(shape_meta, config["rgb_obs"],
+                                          config["lowdim_obs"],
+                                          config.get("vae_feature_dim", 16))
+    p = config["planner"]
+    kw = dict(input_dim=action_dim,
+              global_cond_dim=obs_dim * config.get("obs_horizon", 1),
+              diffusion_step_embed_dim=p.get("diffusion_step_embed_dim", 256),
+              down_dims=p.get("down_dims", (256, 512, 1024)),
+              kernel_size=p.get("kernel_size", 5), n_groups=p.get("n_groups", 8))
+    planner = unet1d_from_flax(snapshot["planner_params"], **kw)
+    vae = load_klvae(KLVAE(**config.get("vae", {})), snapshot["vae_params"])
+    agent = DPVAEAgent.assemble(planner, vae, config, obs_dim, action_dim, dev)
+    ema = agent.planner_state.ema
+    if ema is not None and snapshot.get("planner_ema_params") is not None:
+        ema.load_state_dict(unet1d_from_flax(snapshot["planner_ema_params"],
+                                             **kw).state_dict())
+    return agent

@@ -1,12 +1,16 @@
-"""The bench agent, env and training configuration as plain Python dicts.
+"""The Lift recipe's configurations as plain Python dicts.
 
 Copied from ``assets/bench/config.yaml``. ``BENCH_AGENT`` is its ``agent:``
 with the bench's fast-inference override: 10 strided DDIM steps for both
 planner and IDM (``bench.py``'s ``BENCH_INFERENCE_STEPS`` default).
 ``bench_train_config()`` is the run that trained it: the top-level training
 keys, the whole agent (DDIM-25 at eval, the optimizer keys) and the ``data``
-block. The machine with the card has no YAML reader, so the port carries the
-dicts; ``tests/test_torch_configs.py`` holds them against the yaml.
+block. ``lift_vae_train_config()`` is the VAE run of
+``tools/run_lift_pipeline.sh`` and ``lift_dp_vae_train_config()`` the DPVAE
+run of ``tools/run_lift_baselines.sh``, each composed as the JAX package's
+config system composes it. The machine with the card has no YAML reader, so
+the port carries the dicts; ``tests/test_torch_configs.py`` holds them
+against the yaml.
 """
 
 from __future__ import annotations
@@ -207,11 +211,156 @@ BENCH_DATA = {
 }
 
 
-def bench_train_config() -> dict:
+def bench_train_config(vae_pretrain_path: str | None = None) -> dict:
     """A fresh deep copy of the bench's training run: ``BENCH_TRAIN``, the
-    agent (``BENCH_AGENT`` with ``BENCH_AGENT_TRAINING``) and ``data``. The
-    VAE is not trained by the port yet: ``agent.vae_pretrain_path`` is unset
-    and the VAE keeps its seeded weights unless a caller restores some."""
+    agent (``BENCH_AGENT`` with ``BENCH_AGENT_TRAINING``) and ``data``.
+    ``vae_pretrain_path`` names a snapshot of the VAE run
+    (``lift_vae_train_config()``); unset, the VAE keeps its seeded
+    weights."""
     agent = bench_agent_config()
-    agent.update(copy.deepcopy(BENCH_AGENT_TRAINING), vae_pretrain_path=None)
+    agent.update(copy.deepcopy(BENCH_AGENT_TRAINING),
+                 vae_pretrain_path=vae_pretrain_path)
     return copy.deepcopy({**BENCH_TRAIN, "agent": agent, "data": BENCH_DATA})
+
+
+# -- the VAE run: configs/train_vae.yaml with model/stable_vae and
+# data/lift/img, under tools/run_lift_pipeline.sh's overrides
+
+def _without_latents(tree: dict) -> dict:
+    return {k: v for k, v in tree.items() if not k.startswith("latent_")}
+
+
+LIFT_IMG_DATA = {
+    "name": "lift_img64_data",
+    "batch_size": 64,
+    "n_workers": 0,
+    "obs_horizon": 1,
+    "seq_length": 2,
+    "format": "robomimic",
+    "train_path": "datasets/lift/demos.hdf5",
+    "eval_path": "datasets/lift/demos_eval.hdf5",
+    "train_n_episode_overfit": None,
+    "eval_n_episode_overfit": 10,
+    "meta": {
+        "lowdim_obs": ["robot0_eef_pos", "robot0_eef_quat",
+                       "robot0_gripper_qpos"],
+        "rgb_obs": ["agentview_image"],
+        "rgb_viz": "agentview_image",
+        "shape_meta": {**SHAPE_META,
+                       "all_shapes": _without_latents(SHAPE_META["all_shapes"])},
+        "obs_normalization": {
+            **OBS_NORMALIZATION,
+            "obs": _without_latents(OBS_NORMALIZATION["obs"])},
+    },
+    "env_params": {
+        "obs_horizon": 1,
+        "rgb_viz": "agentview_image",
+        "env": {"name": "LiftPhysicsEnv", **BENCH_ENV, "episode_len": 400},
+    },
+}
+
+LIFT_VAE_TRAIN = {
+    "seed": 0,
+    "batch_size": 64,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 100,
+    "n_grad_steps": 4000,
+    "horizon": 2,
+    "obs_horizon": 1,
+    "action_horizon": 1,
+    "pred_horizon": 1,
+    "log_every": 100,
+    "save_every": 2000,
+    "eval_every": 2000,
+    "n_eval_batches": 10,
+    "n_eval_episodes": 0,
+    "save_full_state": True,
+    "snapshot_path": None,
+}
+
+LIFT_VAE_MODEL = {
+    "name": "stable_vae",
+    "vae": BENCH_AGENT["vae"],
+    "use_kl": True,
+    "beta": 1e-5,
+    "image_size": 64,
+    "rgb_obs": ["agentview_image"],
+    "obs_normalization": LIFT_IMG_DATA["meta"]["obs_normalization"],
+    "data_name": "lift_img64_data",
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 100,
+    "decay_steps": 4000,
+    "ema_decay": 0.99,
+}
+
+
+def lift_vae_train_config() -> dict:
+    """A fresh deep copy of the Lift recipe's VAE run: ``LIFT_VAE_TRAIN``,
+    ``model`` (the KLVAE at the bench widths, β 1e-5, EMA 0.99) and
+    ``data`` (raw 64×64 frames, windows of 2)."""
+    return copy.deepcopy({**LIFT_VAE_TRAIN, "model": LIFT_VAE_MODEL,
+                          "data": LIFT_IMG_DATA})
+
+
+# -- the DPVAE run: configs/train_bc.yaml with agent/dp_repr_agent and
+# data/lift/latent_img, under tools/run_lift_baselines.sh's overrides
+
+LIFT_DP_VAE_TRAIN = {
+    "seed": 0,
+    "batch_size": 128,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 200,
+    "n_grad_steps": 30000,
+    "grad_clip": None,
+    "horizon": 8,
+    "obs_horizon": 1,
+    "action_horizon": 4,
+    "pred_horizon": 8,
+    "log_every": 100,
+    "save_every": 15000,
+    "eval_every": 15000,
+    "n_eval_episodes": 256,
+    "save_full_state": True,
+    "snapshot_path": None,
+    "restore_keys": None,
+    "resume": True,
+}
+
+LIFT_DP_VAE_AGENT = {
+    "name": "dp_vae",
+    "planner": BENCH_AGENT["planner"],
+    "vae": BENCH_AGENT["vae"],
+    "vae_pretrain_path": "experiments/pipeline3/vae/ckpt/4000.ckpt",
+    "vae_feature_dim": 16,
+    "lowdim_obs": BENCH_AGENT["lowdim_obs"],
+    "rgb_obs": BENCH_AGENT["rgb_obs"],
+    "obs_normalization": OBS_NORMALIZATION,
+    "obs_horizon": 1,
+    "pred_horizon": 8,
+    "action_horizon": 4,
+    "n_diffusion_steps": 50,
+    "inference_steps": 25,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 200,
+    "decay_steps": 30000,
+    "random_shift": 0,
+    "use_ema": False,
+    "ema_decay": 0.75,
+}
+
+
+def lift_dp_vae_train_config(vae_pretrain_path: str | None = None) -> dict:
+    """A fresh deep copy of the Lift baselines' DPVAE run:
+    ``LIFT_DP_VAE_TRAIN``, the agent (an action U-Net [64,128,256], DDPM-50
+    training and DDIM-25 sampling, over the bench VAE's latents) and the
+    bench's latent ``data`` with windows of 8. ``vae_pretrain_path``
+    replaces the script's snapshot path when given."""
+    agent = copy.deepcopy(LIFT_DP_VAE_AGENT)
+    if vae_pretrain_path is not None:
+        agent["vae_pretrain_path"] = vae_pretrain_path
+    return copy.deepcopy({**LIFT_DP_VAE_TRAIN, "agent": agent,
+                          "data": dict(BENCH_DATA, seq_length=8)})

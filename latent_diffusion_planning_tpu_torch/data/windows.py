@@ -1,7 +1,7 @@
 """Device-resident window sampling over welded demos.
 
 Counterpart of ``latent_diffusion_planning_tpu/data/windows.py``
-(``DeviceDataset``, ``sample_traj``). The welded arrays go to the device
+(``DeviceDataset``, ``sample_traj``, ``action_event_weights``). The welded arrays go to the device
 once (images stay uint8), with each step's demo extent; a batch is one
 indexed gather per key, so sampling never touches the host.
 
@@ -15,8 +15,9 @@ dataset keys (actions) drop the stacked prefix.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Sequence
 
+import numpy as np
 import torch
 
 from .ingest import WeldedDemos
@@ -108,3 +109,27 @@ def sample_traj(welded: WeldedDemos, ep: int) -> dict:
     for k in welded.dataset_keys:
         batch[k] = demo[k]
     return batch
+
+
+def action_event_weights(welded: WeldedDemos, channels: Sequence[int],
+                         boost: float = 3.0, halfwidth: int = 8,
+                         key: str = "actions") -> torch.Tensor:
+    """Per-step sampling weights (N,) that upweight action-channel events.
+
+    For each demo: the per-step activity is the summed |Δaction| over
+    ``channels``, box-smoothed over ±``halfwidth`` steps and divided by its
+    demo maximum, giving weight ``1 + boost·activity`` in [1, 1 + boost]. A
+    demo whose channels never move keeps weight 1. Computed on the host in
+    NumPy, once, as the JAX package does.
+    """
+    acts = welded.arrays[key].cpu().numpy().astype(np.float32)
+    sel = acts[:, list(channels)]
+    w = np.ones(len(acts), np.float32)
+    kernel = np.ones(2 * int(halfwidth) + 1, np.float32)
+    for s, n in zip(welded.demo_starts.tolist(), welded.demo_lengths.tolist()):
+        d = np.abs(np.diff(sel[s:s + n], axis=0)).sum(axis=1)
+        smooth = np.convolve(np.concatenate([[0.0], d]), kernel, mode="same")
+        peak = smooth.max()
+        if peak > 0:
+            w[s:s + n] = 1.0 + float(boost) * smooth / peak
+    return torch.from_numpy(w)

@@ -1,9 +1,11 @@
-"""Shared agent machinery: observation conditioning and the VAE latent codec.
+"""Shared agent machinery: observation conditioning, the VAE latent codec
+and kernel B's route for the agents that diffuse action sequences.
 
-Counterpart of ``latent_diffusion_planning_tpu/models/agents/common.py``. A
-batch is ``{"obs": {key: (B, H, ...)}, "actions": (B, T, A)}``; the
-conditioning vector per timestep is the rgb features first, then the lowdim
-keys, in config order.
+Counterpart of ``latent_diffusion_planning_tpu/models/agents/common.py``
+(and of ``models/agents/dp.py``'s ``_fused_action_ddim``, which DP and DPVAE
+share). A batch is ``{"obs": {key: (B, H, ...)}, "actions": (B, T, A)}``;
+the conditioning vector per timestep is the rgb features first, then the
+lowdim keys, in config order.
 """
 
 from __future__ import annotations
@@ -13,8 +15,11 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+from ...ops import diffusion as dlib
 from ...ops import normalize as nz
-from ..vae import KLVAE
+from ...ops.kernels import diffusion_unet1d as kunet
+from ..nets.unet1d import ConditionalUnet1D
+from ..vae import KLVAE, latent_grid_shape
 
 
 def obs_cond_from_features(batch_obs: Mapping[str, torch.Tensor],
@@ -50,11 +55,14 @@ def consecutive_pairs(plan: torch.Tensor) -> torch.Tensor:
 
 
 class VAECodec:
-    """Moves rgb obs into normalized latent space with a frozen VAE."""
+    """Moves obs between image and normalized latent space with a frozen
+    VAE."""
 
-    def __init__(self, vae: KLVAE, rgb_obs: Sequence[str]):
+    def __init__(self, vae: KLVAE, rgb_obs: Sequence[str],
+                 vae_feature_dim: int):
         self.vae = vae
         self.rgb_obs = tuple(rgb_obs)   # e.g. ("latent_agentview_image",)
+        self.vae_feature_dim = vae_feature_dim
 
     @torch.no_grad()
     def encode_obs(self, batch_obs: Mapping[str, torch.Tensor],
@@ -74,6 +82,20 @@ class VAECodec:
                 {latent_key: feats},
                 {latent_key: obs_normalization["obs"][latent_key]})[latent_key]
         return out
+
+    @torch.no_grad()
+    def decode_features(self, feats: torch.Tensor,
+                        obs_normalization: Any) -> torch.Tensor:
+        """(B, T, obs_dim) normalized features → the decoded images of their
+        first rgb key's latents, (B, T, h, w, c) in [-1, 1]."""
+        B, T = feats.shape[:2]
+        h, w, c = latent_grid_shape(self.vae_feature_dim)
+        z = feats[:, :, :self.vae_feature_dim].reshape(B * T, h, w, c)
+        key = self.rgb_obs[0]
+        z = nz.unnormalize_tree({key: z},
+                                {key: obs_normalization["obs"][key]})[key]
+        rec = self.vae.decode(z)
+        return rec.reshape(B, T, *rec.shape[1:])
 
 
 def prepare_batch(batch: Mapping[str, Any], obs_normalization: Any) -> dict:
@@ -115,3 +137,73 @@ def weight_action_channels(sq_err: torch.Tensor, weights) -> torch.Tensor:
         return sq_err
     w = torch.tensor(weights, dtype=sq_err.dtype, device=sq_err.device)
     return sq_err * (w * (w.numel() / w.sum()))
+
+
+# ---------------------------------------------------------------------------
+# kernel B over an action U-Net (DP, DPVAE)
+# ---------------------------------------------------------------------------
+
+def strided_ddim(steps: int | None, sched: dlib.DiffusionSchedule) -> bool:
+    """Whether ``steps`` asks for strided DDIM (fewer steps than trained)."""
+    return bool(steps and steps < sched.num_steps)
+
+
+class ActionSampler:
+    """The reverse process of an action U-Net: strided η=0 DDIM through
+    kernel B (``fused_unet1d_ddim_sample``) on the card, its plain twin on
+    the CPU, and on the CPU also the full DDPM process when no strided steps
+    are set. The coefficient table is made once on the device; the kernel's
+    packed weights are made at the first sample on the card and dropped by
+    ``weights_changed``."""
+
+    def __init__(self, sched: dlib.DiffusionSchedule,
+                 inference_steps: int | None, device: torch.device):
+        self.sched = sched
+        self.inference_steps = inference_steps
+        self.device = device
+        self._table = None
+        self._pack = None
+
+    def check(self, net: ConditionalUnet1D, pred_horizon: int,
+              fused_dtype: str) -> None:
+        """Raise, with the reason, for what kernel B cannot run."""
+        if not strided_ddim(self.inference_steps, self.sched):
+            raise ValueError("the fused action sampler is DDIM only: set "
+                             "inference_steps < n_diffusion_steps")
+        if self.sched.prediction_type != "epsilon":
+            raise ValueError("the fused action sampler needs ε prediction")
+        if getattr(torch, fused_dtype) != kunet.WEIGHT_DTYPE:
+            raise ValueError("the fused action kernel reads bf16 weights")
+        kunet.check_supported(net, pred_horizon)
+
+    def weights_changed(self) -> None:
+        self._pack = None
+
+    def table(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self._table is None:
+            ts, coefs = dlib.ddim_coef_table(self.sched.to("cpu"),
+                                             self.inference_steps)
+            self._table = (ts.to(self.device, torch.int32),
+                           coefs.to(self.device))
+        return self._table
+
+    def __call__(self, net: ConditionalUnet1D, cond: torch.Tensor,
+                 x_init: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """cond (B, Dc), x_init (B, T, A) → (B, T, A) normalized actions."""
+        sched = self.sched
+        clip = sched.clip_range if sched.clip_sample else 1e9
+        if not strided_ddim(self.inference_steps, sched):
+            if x_init.device.type != "cpu":
+                raise ValueError("DDPM sampling runs on the CPU only")
+            noise = torch.randn((sched.num_steps,) + tuple(x_init.shape),
+                                generator=generator, device=x_init.device)
+            with torch.no_grad():
+                return dlib.sample_ddpm(sched, lambda x, t: net(x, t, cond),
+                                        x_init, noise)
+        if x_init.device.type == "cuda" and self._pack is None:
+            self._pack = kunet.pack_params(net).to(x_init.device)
+        ts, coefs = self.table()
+        return kunet.fused_unet1d_ddim_sample(
+            net, cond, x_init, ts, coefs, clip_range=clip,
+            packed=self._pack if x_init.device.type == "cuda" else None)

@@ -5,7 +5,9 @@ Counterpart of ``latent_diffusion_planning_tpu/models/agents/ldp.py``.
 Inference (``sample_fast``, ``sample_action``, ``sample_plan_stats``): encode
 the camera frame with the VAE, reverse-diffuse a latent plan with the
 planner U-Net (kernel B on the card), decode actions from consecutive latent
-pairs with the MLP IDM (kernel A), unnormalize.
+pairs with the MLP IDM (kernel A), unnormalize. ``sample_viz`` also decodes
+the executed part of the plan back to images with the VAE's decoder, and
+``sample_action_from_plan`` decodes actions toward a given plan.
 
 Training (``update``): the planner's ε-loss on the window's future latents
 and the IDM's on its (s, s') pairs, summed, one backward pass through
@@ -24,7 +26,7 @@ tables assume ε, and no config of the port uses another.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: for sampling the planner's initial sample
-(B, pred_horizon, obs_dim) and the IDM's (B·pred_horizon, action_dim); for
+(B, pred_horizon, obs_dim) and the IDM's (one row per decoded pair); for
 the losses ``plan_t`` (B,), ``plan_noise`` (B, H-obs_horizon, obs_dim),
 ``idm_t`` (N,) and ``idm_noise`` (N, action_dim) with N the window's
 transition pairs.
@@ -87,12 +89,10 @@ OPTIMIZER_DEFAULTS = dict(lr=1e-4, end_lr=1e-6, idm_lr=1e-4, idm_end_lr=1e-6,
                           grad_clip=None, ema_decay=0.0)
 
 
-def _ddim(steps: int | None, sched: dlib.DiffusionSchedule) -> bool:
-    return bool(steps and steps < sched.num_steps)
-
-
 class LDPAgent:
-    """Planner U-Net + MLP IDM + frozen VAE encoder, on one device."""
+    """Planner U-Net + MLP IDM + frozen VAE, on one device."""
+
+    LOSS_KEYS = ("plan_loss", "idm_loss", "loss")
 
     def __init__(self, planner: ConditionalUnet1D, idm: MLPDiffusion,
                  vae: KLVAE, planner_sched: dlib.DiffusionSchedule,
@@ -108,7 +108,8 @@ class LDPAgent:
         self.idm_sched = idm_sched.to(device)
         self.obs_normalization = nz.stats_to_tensors(obs_normalization, device)
         self.config = config
-        self.codec = common.VAECodec(self.vae, config.rgb_obs)
+        self.codec = common.VAECodec(self.vae, config.rgb_obs,
+                                     config.vae_feature_dim)
         for name, sched in (("planner", planner_sched), ("idm", idm_sched)):
             if sched.prediction_type != "epsilon":
                 raise ValueError(f"the {name} samplers need ε prediction, "
@@ -153,7 +154,8 @@ class LDPAgent:
         """Raise, with the reason, for a configuration the kernels cannot
         run (called when the agent is built on the card)."""
         c = self.config
-        if not _ddim(c.planner_inference_steps, self.planner_sched):
+        if not common.strided_ddim(c.planner_inference_steps,
+                                   self.planner_sched):
             raise ValueError("the fused planner sampler is DDIM only: set "
                              "planner_inference_steps < the train steps")
         if getattr(torch, c.fused_dtype) != kunet.WEIGHT_DTYPE:
@@ -236,7 +238,8 @@ class LDPAgent:
         if key not in self._tables:
             host = sched.to("cpu")
             ts, coefs = (dlib.ddim_coef_table(host, steps)
-                         if _ddim(steps, sched) else dlib.ddpm_coef_table(host))
+                         if common.strided_ddim(steps, sched)
+                         else dlib.ddpm_coef_table(host))
             self._tables[key] = (ts.to(self.device, torch.int32),
                                  coefs.to(self.device))
         return self._tables[key]
@@ -260,7 +263,7 @@ class LDPAgent:
         shape = (pairs.shape[0], c.action_dim)
         ts, coefs = self._table(sched, c.idm_inference_steps)
         noise = None
-        if not _ddim(c.idm_inference_steps, sched):
+        if not common.strided_ddim(c.idm_inference_steps, sched):
             noise = self._randn((ts.shape[0],) + shape, generator)
         return kmlp.fused_mlp_diffusion_sample(
             self._inference_net("idm"), pairs, x_init, ts, coefs, noise,
@@ -270,7 +273,7 @@ class LDPAgent:
               generator: torch.Generator | None) -> torch.Tensor:
         """Reverse-diffuse a latent plan (B, pred_horizon, obs_dim)."""
         c, sched = self.config, self.planner_sched
-        if not _ddim(c.planner_inference_steps, sched):
+        if not common.strided_ddim(c.planner_inference_steps, sched):
             # DDPM planning: plain loop (CPU only; refused on the card)
             noise = self._randn((sched.num_steps,) + tuple(x_init.shape),
                                 generator)
@@ -356,6 +359,53 @@ class LDPAgent:
                 obs_emb[:, c.obs_horizon - 1:c.obs_horizon] - target)),
             "plan_target_var": torch.var(target, correction=0),
         }
+
+    @torch.no_grad()
+    def sample_viz(self, batch: Mapping,
+                   generator: torch.Generator | None = None,
+                   draws: Mapping | None = None) -> tuple[torch.Tensor, dict]:
+        """Plan, decode the current latent and the plan's first
+        ``action_horizon`` latents to images, and the actions between them →
+        ((B, action_horizon, A) unnormalized actions, {plan_viz (B, ah+1, h,
+        w, c) in [-1, 1], plan (B, ah+1, obs_dim), and plan_mse against the
+        window's future latents when the window extends past obs_horizon}).
+        """
+        c = self.config
+        obs_emb = self._obs_cond(self._prepare_eval_batch(batch)["obs"])
+        B = obs_emb.shape[0]
+        cond = obs_emb[:, :c.obs_horizon].reshape(B, -1)
+        x_plan = self._draw(draws, "planner", lambda: self._randn(
+            (B, c.pred_horizon, c.obs_dim), generator))
+        pred_plan = self._plan(cond, x_plan, generator)
+        plan = torch.cat([obs_emb[:, c.obs_horizon - 1:c.obs_horizon],
+                          pred_plan[:, :c.action_horizon]], 1)
+        metrics = {"plan_viz": self.codec.decode_features(
+            plan, self.obs_normalization), "plan": plan}
+        pairs = common.consecutive_pairs(plan)
+        x_idm = self._draw(draws, "idm", lambda: self._randn(
+            (pairs.shape[0], c.action_dim), generator))
+        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+            B, -1, c.action_dim)
+        if obs_emb.shape[1] > c.obs_horizon:
+            metrics["plan_mse"] = torch.mean(torch.square(
+                pred_plan - obs_emb[:, c.obs_horizon:]))
+        return nz.unnormalize_actions(acts, self.obs_normalization), metrics
+
+    @torch.no_grad()
+    def sample_action_from_plan(self, batch: Mapping, next_plan: torch.Tensor,
+                                generator: torch.Generator | None = None,
+                                draws: Mapping | None = None) -> torch.Tensor:
+        """Actions from each observed latent toward ``next_plan`` (B, H,
+        obs_dim) normalized latents → (B, H, A) unnormalized."""
+        start = self._obs_cond(self._prepare_eval_batch(batch)["obs"])
+        B = start.shape[0]
+        pair = torch.cat([start, next_plan.to(self.device).float()], -1)
+        pairs = pair.reshape(-1, pair.shape[-1])
+        x_idm = self._draw(draws, "idm", lambda: self._randn(
+            (pairs.shape[0], self.config.action_dim), generator))
+        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+            B, -1, self.config.action_dim)
+        return nz.unnormalize_actions(acts, self.obs_normalization)
 
     # ------------------------------------------------------------------
     # training

@@ -1,26 +1,51 @@
-"""KL autoencoder for 64×64 camera frames: the encoder path.
+"""KL autoencoder (β-VAE) for 64×64 camera frames, and its trainer.
 
-Counterpart of ``latent_diffusion_planning_tpu/models/vae.py``'s ``KLVAE``
-encoder (patch stem, ResBlock2D, stride-2 downsample, mid self-attention,
-quant_conv). Public functions take and return NHWC like the JAX package;
-inside, the net runs NCHW. The decoder, which only plan visualization needs,
-is not ported yet.
+Counterpart of ``latent_diffusion_planning_tpu/models/vae.py``: ``KLVAE``
+(patch stem, ResBlock2D, stride-2 downsample, mid self-attention,
+quant_conv; the decoder's post_quant_conv, nearest 2× upsampling and
+pixel-shuffle head), ``kl_divergence``, ``latent_grid_shape`` and
+``VAEModel`` (recon MSE + β·KL on the first frame of every rgb key, Adam
+with the warmup-cosine schedule, EMA weights for inference). Public
+functions take and return NHWC like the JAX package; inside, the nets run
+NCHW.
 
-This is plain network code: on the card its convolutions go to cuDNN. It
-runs in float32 with TF32 off (``encode``), because the latents pass through
-a min/max normalization into the planner's condition and TF32's 10-bit
-mantissa would move them by about 1e-3.
+This is plain network code: on the card its convolutions go to cuDNN. The
+VAE runs in float32 with TF32 off (``fp32_math``) when it encodes, decodes
+and trains, because its latents pass through a min/max normalization into
+the planner's condition and TF32's 10-bit mantissa would move them by about
+1e-3; the latents a trained VAE gives are those of the function it was
+trained as.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Any, Mapping, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import resolve_device
+from ..ops import normalize as nz
+from ..train.state import TrainState
+
 GN_EPS = 1e-6
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """cuDNN convolutions and cuBLAS products in full fp32 (TF32 off)
+    inside the block; the previous settings after it."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class ResBlock2D(nn.Module):
@@ -113,8 +138,67 @@ class Encoder(nn.Module):
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
 
+class Decoder(nn.Module):
+    def __init__(self, block_out_channels: Sequence[int], latent_channels: int,
+                 out_channels: int = 3, layers_per_block: int = 2,
+                 norm_groups: int = 32, use_mid_attention: bool = True,
+                 patch_size: int = 1):
+        super().__init__()
+        boc = list(block_out_channels)
+        top = boc[-1]
+        self.patch_size = patch_size
+        self.out_channels = out_channels
+        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
+        self.conv_in = nn.Conv2d(latent_channels, top, 3, padding=1)
+        self.mid0 = ResBlock2D(top, top, norm_groups)
+        self.attn = MidAttention(top, norm_groups) if use_mid_attention else None
+        self.mid1 = ResBlock2D(top, top, norm_groups)
+        levels = []
+        cin = top
+        for ch in reversed(boc):
+            blocks = []
+            for _ in range(layers_per_block + 1):
+                blocks.append(ResBlock2D(cin, ch, norm_groups))
+                cin = ch
+            levels.append(nn.ModuleList(blocks))
+        self.levels = nn.ModuleList(levels)
+        self.ups = nn.ModuleList(nn.Conv2d(ch, ch, 3, padding=1)
+                                 for ch in list(reversed(boc))[:-1])
+        bottom = boc[0]
+        self.norm_out = nn.GroupNorm(min(norm_groups, bottom), bottom,
+                                     eps=GN_EPS)
+        # patch_size > 1: p·p·C channels per cell, pixel-shuffled out
+        self.conv_out = nn.Conv2d(bottom, out_channels * patch_size ** 2, 3,
+                                  padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(self.post_quant_conv(z))
+        x = self.mid0(x)
+        if self.attn is not None:
+            x = self.attn(x)
+        x = self.mid1(x)
+        for i, blocks in enumerate(self.levels):
+            for blk in blocks:
+                x = blk(x)
+            if i < len(self.ups):
+                # exactly 2×: jax.image.resize's "nearest" repeats each cell
+                x = self.ups[i](F.interpolate(x, scale_factor=2.0,
+                                              mode="nearest"))
+        x = self.conv_out(F.silu(self.norm_out(x)))
+        p = self.patch_size
+        if p > 1:
+            # the JAX head's channel index is (py·p + px)·C + c (its reshape
+            # to (B, H, W, p, p, C)); pixel_shuffle would read c·p² + py·p +
+            # px, so the shuffle is spelled out
+            B, _, H, W = x.shape
+            C = self.out_channels
+            x = x.reshape(B, p, p, C, H, W).permute(0, 3, 4, 1, 5, 2).reshape(
+                B, C, H * p, W * p)
+        return x
+
+
 class KLVAE(nn.Module):
-    """The autoencoder's encoder; images NHWC in [-1, 1]."""
+    """The autoencoder; images NHWC in [-1, 1]."""
 
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 256, 256,
                                                             256, 256),
@@ -124,16 +208,221 @@ class KLVAE(nn.Module):
                  patch_size: int = 1, downsample_pad: str = "same"):
         super().__init__()
         self.latent_channels = latent_channels
+        self.in_channels = in_channels
+        self.n_downsample = (patch_size.bit_length() - 1
+                             + len(block_out_channels) - 1)
         self.encoder = Encoder(block_out_channels, latent_channels, in_channels,
                                layers_per_block, norm_groups, use_mid_attention,
                                patch_size, downsample_pad)
+        self.decoder = Decoder(block_out_channels, latent_channels,
+                               out_channels, layers_per_block, norm_groups,
+                               use_mid_attention, patch_size)
 
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, C) → (mean, logvar), each (B, h, w, latent_channels)."""
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        with fp32_math():
             mean, logvar = self.encoder(x.float().permute(0, 3, 1, 2))
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
         return mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (B, h, w, latent_channels) → images (B, H, W, C)."""
+        with fp32_math():
+            x = self.decoder(z.float().permute(0, 3, 1, 2))
+        return x.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(reconstruction, mean, logvar); the decoder reads the posterior
+        sample ``mean + exp(logvar / 2) · eps`` (NHWC like the mean), or the
+        mean when ``eps`` is None."""
+        mean, logvar = self.encode(x)
+        z = mean if eps is None else mean + torch.exp(0.5 * logvar) * eps
+        return self.decode(z), mean, logvar
+
+
+def kl_divergence(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0, I)) per sample, summed over latent dims."""
+    return 0.5 * torch.sum(torch.square(mean) + torch.exp(logvar) - 1.0
+                           - logvar, dim=tuple(range(1, mean.ndim)))
+
+
+def latent_grid_shape(feature_dim: int) -> tuple[int, int, int]:
+    """A flat latent feature dim's (h, w, c) grid."""
+    table = {16: (2, 2, 4), 32: (2, 2, 8), 36: (3, 3, 4), 64: (4, 4, 4)}
+    if feature_dim not in table:
+        raise ValueError(f"unsupported vae_feature_dim {feature_dim}")
+    return table[feature_dim]
+
+
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+
+# VAEModel.create's keyword defaults in the JAX package
+VAE_DEFAULTS = dict(name="klvae", use_kl=True, beta=1e-5, data_name="",
+                    lr=1e-4, end_lr=1e-6, warmup_steps=1000,
+                    decay_steps=300_000, ema_decay=0.99, image_size=64)
+
+
+class VAEModel:
+    """Trains a ``KLVAE`` on the first frame of every rgb obs key with recon
+    MSE + β·KL; the EMA weights (when ``ema_decay`` > 0) serve encoding,
+    decoding and sampling.
+
+    The posterior sample's noise ε (NHWC, one row per image: the rgb keys'
+    frames stacked key after key) comes from ``generator``, or
+    ``draws={"eps": ...}`` hands it in; ``sample`` takes its prior draws
+    the same way.
+    """
+
+    LOSS_KEYS = ("loss", "loss_mse", "loss_kl")
+
+    def __init__(self, vae: KLVAE, obs_normalization: Any, config: Mapping,
+                 device: torch.device):
+        self.device = device
+        self.vae = vae.to(device)
+        c = {**VAE_DEFAULTS, **{k: v for k, v in config.items()
+                                if k in VAE_DEFAULTS}}
+        self.config = dict(c, rgb_obs=tuple(config["rgb_obs"]))
+        self.obs_normalization = nz.stats_to_tensors(obs_normalization, device)
+        self.vae_state = TrainState(
+            self.vae, lr=c["lr"], end_lr=c["end_lr"],
+            warmup_steps=c["warmup_steps"], decay_steps=c["decay_steps"],
+            ema_decay=c["ema_decay"])
+
+    @classmethod
+    def create(cls, config: Mapping, *, seed: int = 0,
+               device: torch.device | str | None = None) -> "VAEModel":
+        """From a model config dict (``configs.lift_vae_train_config()``'s
+        ``model``: ``vae``, ``rgb_obs``, ``obs_normalization``, ``beta``,
+        the optimizer keys) with weights drawn from ``seed``."""
+        dev = resolve_device(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            vae = KLVAE(**config.get("vae", {}))
+        return cls(vae, config["obs_normalization"], config, dev)
+
+    @property
+    def inference_vae(self) -> KLVAE:
+        return self.vae_state.inference_module
+
+    def weights_changed(self) -> None:
+        """Nothing is cached from the weights (the agents' hook)."""
+
+    # -- losses -----------------------------------------------------------
+    def _images(self, batch_obs: Mapping) -> torch.Tensor:
+        return torch.cat([batch_obs[k][:, 0] for k in self.config["rgb_obs"]])
+
+    def loss(self, batch: Mapping, eps: torch.Tensor):
+        """(loss, metrics) on a normalized batch; ``eps`` as in the class
+        note."""
+        imgs = self._images(batch["obs"])
+        rec, mean, logvar = self.vae(imgs, eps)
+        mse = torch.mean(torch.square(imgs - rec))
+        kl = (torch.mean(kl_divergence(mean, logvar)) if self.config["use_kl"]
+              else torch.zeros((), device=self.device))
+        loss = mse + self.config["beta"] * kl
+        metrics = dict(loss=loss, loss_mse=mse, loss_kl=kl,
+                       img_min=imgs.min(), img_max=imgs.max(),
+                       z_min=mean.min(), z_max=mean.max(), z_mean=mean.mean(),
+                       z_std=mean.std(correction=0))
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def _prepare(self, batch: Mapping) -> dict:
+        return {"obs": nz.normalize_tree(
+            {k: batch["obs"][k].to(self.device) for k in self.config["rgb_obs"]},
+            self.obs_normalization["obs"])}
+
+    def _eps(self, batch: Mapping, generator, draws) -> torch.Tensor:
+        given = (draws or {}).get("eps")
+        if given is not None:
+            return torch.as_tensor(given, device=self.device).float()
+        n = sum(batch["obs"][k].shape[0] for k in self.config["rgb_obs"])
+        return torch.randn((n, *self.latent_hw()), generator=generator,
+                           device=self.device)
+
+    def backward(self, batch: Mapping,
+                 generator: torch.Generator | None = None,
+                 draws: Mapping | None = None) -> dict:
+        """Forward and one backward pass on a raw batch ``{"obs": {rgb key:
+        (B, H, h, w, c)}}`` (frame 0 of each window); leaves the gradients
+        in the VAE's ``.grad`` and returns the metrics."""
+        batch = self._prepare(batch)
+        with fp32_math():
+            loss, metrics = self.loss(batch, self._eps(batch, generator, draws))
+            loss.backward()
+        return metrics
+
+    def apply_gradients(self) -> dict:
+        """The optimizer step; returns the learning rate it applied and the
+        step count before it."""
+        metrics = {"vae_lr": self.vae_state.lr(),
+                   "vae_step": self.vae_state.step}
+        self.vae_state.apply_gradients()
+        return metrics
+
+    def update(self, batch: Mapping, step: int | None = None,
+               generator: torch.Generator | None = None,
+               draws: Mapping | None = None) -> dict:
+        """``backward`` then ``apply_gradients``; ``step`` is taken for the
+        Workspace's call and unused."""
+        metrics = self.backward(batch, generator, draws)
+        metrics.update(self.apply_gradients())
+        return metrics
+
+    @torch.no_grad()
+    def get_metrics(self, batch: Mapping,
+                    generator: torch.Generator | None = None,
+                    draws: Mapping | None = None) -> dict:
+        batch = self._prepare(batch)
+        return self.loss(batch, self._eps(batch, generator, draws))[1]
+
+    # -- inference ----------------------------------------------------------
+    @torch.no_grad()
+    def encode_mode(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Latent mean of normalized [-1, 1] NHWC images."""
+        return self.inference_vae.encode(imgs.to(self.device))[0]
+
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.inference_vae.decode(z.to(self.device))
+
+    def _unnormalize(self, imgs: torch.Tensor) -> torch.Tensor:
+        key = self.config["rgb_obs"][0]
+        return nz.unnormalize_tree(
+            {key: imgs}, {key: self.obs_normalization["obs"][key]})[key]
+
+    def reconstruct(self, batch: Mapping) -> torch.Tensor:
+        """The first frame of the first rgb key of a raw batch, through the
+        encoder's mean and the decoder, back in the key's units."""
+        key = self.config["rgb_obs"][0]
+        obs = nz.normalize_tree(
+            {key: batch["obs"][key][:, 0].to(self.device)},
+            {key: self.obs_normalization["obs"][key]})[key]
+        return self._unnormalize(self.decode(self.encode_mode(obs)))
+
+    def sample(self, n: int, generator: torch.Generator | None = None,
+               z: torch.Tensor | None = None) -> torch.Tensor:
+        """Decoded prior samples z ~ N(0, I) (``z`` hands them in)."""
+        if z is None:
+            z = torch.randn((n, *self.latent_hw()), generator=generator,
+                            device=self.device)
+        return self._unnormalize(self.decode(z))
+
+    def latent_hw(self) -> tuple[int, int, int]:
+        s = self.config["image_size"] // (2 ** self.vae.n_downsample)
+        return (s, s, self.vae.latent_channels)
+
+    # -- persistence --------------------------------------------------------
+    def get_params(self) -> dict:
+        """``{vae_params, vae_ema_params}`` state dicts: the form an LDP or
+        DPVAE workspace's ``vae_pretrain_path`` reads."""
+        ema = self.vae_state.ema
+        return {"vae_params": self.vae.state_dict(),
+                "vae_ema_params": None if ema is None else ema.state_dict()}
+
+    def state_dict(self) -> dict:
+        return {"vae": self.vae_state.state_dict()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.vae_state.load_state_dict(state["vae"])

@@ -36,8 +36,10 @@ PolicyFn = Callable[[Any, Mapping[str, torch.Tensor], torch.Generator],
 
 
 def agent_sample_policy(agent, obs_window, generator) -> torch.Tensor:
-    """Default adapter: the agent's fastest full-inference path."""
-    return agent.sample_fast({"obs": dict(obs_window)}, generator=generator)
+    """Default adapter: the agent's fastest full-inference path
+    (``sample_fast`` where it has one, else ``sample_action``)."""
+    sample = getattr(agent, "sample_fast", None) or agent.sample_action
+    return sample({"obs": dict(obs_window)}, generator=generator)
 
 
 def policy_view(window: dict, policy_obs_keys) -> dict:

@@ -4,15 +4,18 @@ offline and closed-loop eval, snapshots.
 Counterpart of ``latent_diffusion_planning_tpu/train/loop.py``'s
 ``Workspace`` on one device (the JAX package's mesh and replication are
 not ported). The config is a plain dict (``configs.bench_train_config()``'s
-keys), since the machine with the card has no YAML reader. Per step:
+or ``configs.lift_dp_vae_train_config()``'s keys; the agent's ``name``,
+``ldp`` or ``dp_vae``, picks its class), since the machine with the card has
+no YAML reader. Per step:
 ``agent.update`` on a batch the device dataset gathered, then the next
 gather; every ``log_every`` steps the metrics are read and logged (the
 only reads of the device inside the loop), every ``save_every`` a snapshot,
 every ``eval_every`` an eval; at the end a snapshot and an eval. ``eval``
-logs the offline action MSE (``sample_action``, kernel A on the card), the
-losses and the plan statistics (``sample_plan_stats``, kernel B) on a train
-and an eval batch, then runs ``n_eval_episodes`` closed-loop episodes
-(``run_batched_eval``: kernels C, B and A every decision).
+logs the offline action MSE (``sample_action``: kernel A on the card for
+LDP, B for DPVAE), the losses and, for LDP, the plan statistics
+(``sample_plan_stats``, kernel B) on a train and an eval batch, then runs
+``n_eval_episodes`` closed-loop episodes (``run_batched_eval``: kernels C,
+B and, for LDP, A every decision).
 """
 
 from __future__ import annotations
@@ -27,13 +30,14 @@ import torch
 
 from .. import resolve_device
 from ..data.datasets import OfflineData
+from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
 from ..rollout import engine as rollout_engine
 from ..utils.logger import Logger
 from ..utils.timers import Every, Timer
 from .checkpoint import Checkpointer, apply_params_snapshot
 
-LOSS_KEYS = ("plan_loss", "idm_loss", "loss")
+AGENTS = {"ldp": LDPAgent, "dp_vae": DPVAEAgent}
 
 
 def make_env(name: str, **kwargs):
@@ -67,7 +71,7 @@ class Workspace:
             kw = {k: v for k, v in self.cfg["data"].items() if k != "_target_"}
             data = OfflineData(**kw, device=self.device)
         self.data = data
-        self.agent: LDPAgent | None = None
+        self.agent = None
         self.step = 0
         self.train_seconds = 0.0
         self.loss_history: list[torch.Tensor] = []
@@ -75,17 +79,25 @@ class Workspace:
         self._env = None
 
     # ------------------------------------------------------------------
-    def init_agent(self) -> None:
-        cfg = self.cfg
-        agent_cfg = dict(cfg["agent"])
+    def make_agent(self):
+        """The config's agent with seeded weights and, when
+        ``vae_pretrain_path`` names a VAE snapshot, its VAE's (EMA)
+        weights."""
+        agent_cfg = dict(self.cfg["agent"])
         vae_path = agent_cfg.pop("vae_pretrain_path", None)
         agent_cfg["obs_normalization"] = self.data.meta["obs_normalization"]
-        self.agent = LDPAgent.create(agent_cfg, self.data.shape_meta,
-                                     seed=cfg.get("seed", 0), device=self.device)
+        agent = AGENTS[agent_cfg.get("name", "ldp")].create(
+            agent_cfg, self.data.shape_meta, seed=self.cfg.get("seed", 0),
+            device=self.device)
         if vae_path:
             snap = self.ckpt.restore_raw(vae_path)
-            self.agent.vae.load_state_dict(snap.get("vae_ema_params")
-                                           or snap["vae_params"])
+            agent.vae.load_state_dict(snap.get("vae_ema_params")
+                                      or snap["vae_params"])
+        return agent
+
+    def init_agent(self) -> None:
+        cfg = self.cfg
+        self.agent = self.make_agent()
         if cfg.get("snapshot_path"):
             apply_params_snapshot(self.agent,
                                   self.ckpt.restore_raw(cfg["snapshot_path"]),
@@ -98,7 +110,7 @@ class Workspace:
                 self.step = int(states[-1].name.split(".")[0])
                 self.logger.note(f"resumed full state @ {self.step}")
         n_params = sum(v.numel() for p in self.agent.get_params().values()
-                       for v in p.values())
+                       if p is not None for v in p.values())
         self.logger.note(f"agent created: {n_params:.3e} params on "
                          f"{self.device}")
 
@@ -123,7 +135,7 @@ class Workspace:
                 batch = next(train_iter)
             # kept on the device: reading them would wait for the step
             self.loss_history.append(torch.stack(
-                [metrics[k] for k in LOSS_KEYS]))
+                [metrics[k] for k in self.agent.LOSS_KEYS]))
             if log_every(self.step):
                 self.logger.log_metrics(metrics, self.step, "train")
                 now = time.perf_counter()
@@ -147,10 +159,10 @@ class Workspace:
         self.eval()
 
     def loss_curve(self) -> dict[str, torch.Tensor]:
-        """Each step's ``plan_loss``, ``idm_loss``, ``loss`` of this run,
-        on the CPU."""
+        """Each step's losses of this run (the agent's ``LOSS_KEYS``), on
+        the CPU."""
         curve = torch.stack(self.loss_history).cpu()
-        return {k: curve[:, i] for i, k in enumerate(LOSS_KEYS)}
+        return {k: curve[:, i] for i, k in enumerate(self.agent.LOSS_KEYS)}
 
     # ------------------------------------------------------------------
     def eval(self) -> dict:
@@ -167,7 +179,9 @@ class Workspace:
             metrics = {"action_mse": torch.mean(err ** 2),
                        "action_l1": torch.mean(err.abs())}
             metrics.update(self.agent.get_metrics(batch, self.generator))
-            metrics.update(self.agent.sample_plan_stats(batch, self.generator))
+            if hasattr(self.agent, "sample_plan_stats"):
+                metrics.update(self.agent.sample_plan_stats(batch,
+                                                            self.generator))
             out.update({f"{split}_{k}": float(v) for k, v in metrics.items()})
         if cfg.get("n_eval_episodes", 0) > 0 and self._make_env() is not None:
             t0 = time.perf_counter()

@@ -111,3 +111,71 @@ def test_bench_train_config_matches_yaml():
                           "env": {"name": "LiftPhysicsEnv", **env}}
     assert got["data"] == data
     assert got is not configs.bench_train_config()
+
+
+def _plain(tree):
+    """A resolved JAX Config as plain dicts and lists, without
+    ``_target_``/``_defer_`` (an env's target becomes its ``name``)."""
+    if hasattr(tree, "items"):
+        out = {k: _plain(v) for k, v in tree.items()
+               if k not in ("_target_", "_defer_")}
+        if "_target_" in tree and str(tree["_target_"]).endswith("Env"):
+            out["name"] = str(tree["_target_"]).rsplit(".", 1)[1]
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree
+
+
+def _assert_port_config(got: dict, want: dict, skip=()):
+    """Every key the port carries equals the JAX config's; the top level
+    may leave out keys the port does not read (run layout, workers)."""
+    for k, v in got.items():
+        if k in skip:
+            continue
+        assert k in want, k
+        assert v == want[k], k
+
+
+def test_lift_vae_train_config_matches_the_pipeline():
+    """``tools/run_lift_pipeline.sh``'s VAE stage through the JAX config
+    system: configs/train_vae.yaml, data lift/img, model stable_vae."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    want = _plain(load_config("train_vae", [
+        "data=lift/img", "model.vae.block_out_channels=[64,128,128,128]",
+        "model.vae.patch_size=4", "model.vae.norm_groups=16",
+        "batch_size=64", "n_grad_steps=4000", "warmup_steps=100", "lr=3e-4",
+        "eval_every=2000", "save_every=2000"]))
+    got = configs.lift_vae_train_config()
+    _assert_port_config(got, want, skip=("model", "data"))
+    _assert_port_config(got["model"], want["model"])
+    assert set(want["model"]) == set(got["model"])
+    _assert_port_config(got["data"], want["data"])
+    assert got["model"]["vae"] == configs.BENCH_AGENT["vae"]
+
+
+def test_lift_dp_vae_train_config_matches_the_baselines():
+    """``tools/run_lift_baselines.sh``'s DPVAE stage through the JAX config
+    system: configs/train_bc.yaml, agent dp_repr_agent, data
+    lift/latent_img."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    vae = "experiments/pipeline3/vae/ckpt/4000.ckpt"
+    want = _plain(load_config("train_bc", [
+        "agent=dp_repr_agent", "data=lift/latent_img",
+        "model_vae.block_out_channels=[64,128,128,128]",
+        "model_vae.patch_size=4", "model_vae.norm_groups=16",
+        f"agent.vae_pretrain_path={vae}",
+        "agent.planner.down_dims=[64,128,256]", "agent.n_diffusion_steps=50",
+        "agent.inference_steps=25", "horizon=8", "pred_horizon=8",
+        "n_grad_steps=30000", "eval_every=15000", "save_every=15000",
+        "resume=true", "data.env_params.env.episode_len=80", "obs_horizon=1",
+        "action_horizon=4", "batch_size=128", "warmup_steps=200", "lr=3e-4",
+        "n_eval_episodes=256"]))
+    got = configs.lift_dp_vae_train_config()
+    _assert_port_config(got, want, skip=("agent", "data"))
+    assert got["agent"] == want["agent"]
+    _assert_port_config(got["data"], want["data"])
+    other = configs.lift_dp_vae_train_config(vae_pretrain_path="x.ckpt")
+    assert other["agent"]["vae_pretrain_path"] == "x.ckpt"
+    assert configs.bench_train_config("v.ckpt")["agent"][
+        "vae_pretrain_path"] == "v.ckpt"

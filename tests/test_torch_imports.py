@@ -1,5 +1,6 @@
 """The port and chip_smoke.py import nothing of JAX or the JAX package,
-and nothing the card's machine lacks (``h5py``, ``yaml``) at module level.
+and nothing the card's machine lacks (``h5py``, ``yaml``, ``PIL``,
+``imageio``) at module level.
 
 Checked on the source with ``ast`` (not by importing), so a forbidden import
 anywhere in a module fails even on a path the tests do not run.
@@ -34,13 +35,14 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-ABSENT_ON_THE_CARD = ("h5py", "yaml")
+ABSENT_ON_THE_CARD = ("h5py", "yaml", "PIL", "imageio")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_module_level_imports_the_card_lacks(path):
-    """``h5py`` and ``yaml`` may be imported inside a function (a loader the
-    card's path never calls), not when the module is imported."""
+    """``h5py``, ``yaml``, ``PIL`` and ``imageio`` may be imported inside a
+    function (a loader the card's path never calls), not when the module is
+    imported."""
     tree = ast.parse(path.read_text(), filename=str(path))
     top = ast.Module(body=[n for n in tree.body
                            if isinstance(n, (ast.Import, ast.ImportFrom,
