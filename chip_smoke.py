@@ -63,7 +63,16 @@
    rounding twin on the trained action U-Net (packs primed from the seeded
    weights), and B timed alone at 1024 samples, DDIM-25, at the recipe's
    widths [64,128,256] and the reference widths [256,512,1024], each with
-   its launch geometry, the weight bytes it streams and its bound.
+   its launch geometry, the weight bytes it streams and its bound. Then DP
+   (``lift_dp_train_config()``: ResNet-18 on the raw frame trained end to
+   end with the action U-Net, a 1033-wide condition) on the same demos for
+   ``DP_STEPS`` steps at batch 128, its loss falling, its eval's closed
+   loop launching C and B once a decision, B held against its rounding
+   twin on the trained action U-Net at that condition (pack primed from the
+   seeded weights) and timed alone at 1024 samples, DDIM-25; the encoder's
+   time over 1024 frames beside its conv FLOPs and fp32 bound, one DP
+   decision at 1024 envs stage by stage, the state's round trip and a step
+   timed part by part.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -102,6 +111,7 @@ EVAL_ENVS = 256
 SPLIT_STEPS = 30             # train steps timed part by part (first 5 warm-up)
 VAE_STEPS = 400              # of the recipe's 4000, at its batch 64
 DPVAE_STEPS = 400            # of the baselines' 30000, at batch 128
+DP_STEPS = 400               # likewise, on raw frames
 UNET_TIMING_SAMPLES = 1024   # kernel B alone at the DPVAE widths
 
 
@@ -871,6 +881,42 @@ def _split_step(parts, n_steps, skip=5):
     return dev_ms, host_ms
 
 
+def _check_round_trip(ws, restored, what: str) -> dict:
+    """The workspace's newest full state restored onto ``restored`` (an
+    agent built from another seed) equals the live agent's bit for bit,
+    and one step from each copy (same batch and draws, cuDNN
+    deterministic) leaves them equal."""
+    import torch
+    agent = ws.agent
+    path = ws.ckpt.list_states()[-1]
+    ws.ckpt.restore_state(path, restored)
+    n_leaves = len(_flat(agent.state_dict()))
+    diff = _max_diff(agent.state_dict(), restored.state_dict())
+    print(f"   {what} state round trip through {path.name}: {n_leaves} "
+          f"leaves, max |diff| {diff}", flush=True)
+    if diff != 0.0:
+        raise AssertionError(f"restored {what} state differs: {diff}")
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        step_batch = next(ws.data.train_dataloader())
+        for ag in (agent, restored):
+            ag.update(step_batch, ws.step,
+                      torch.Generator(device=ws.device).manual_seed(12))
+        diff = _max_diff(agent.state_dict(), restored.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            prev)
+    print(f"   one {what} step from the restored and from the live state "
+          f"(same batch and draws, cuDNN deterministic): max |diff| {diff}",
+          flush=True)
+    if diff != 0.0:
+        raise AssertionError(f"a {what} step from the restored state "
+                             f"differs: {diff}")
+    return dict(roundtrip_leaves=n_leaves, roundtrip_step_max_diff=diff)
+
+
 def phase_vae(smoke: Smoke, run: TrainRun):
     """Demos as ``tools/run_lift_pipeline.sh`` collects them (the scripted
     expert on ``LiftPhysicsEnv``, every frame through kernel C, successful
@@ -1124,7 +1170,8 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
           f"{TRAIN_STEPS} steps (a reading: a few hundred steps do not make "
           f"a policy): success {ev['success']:.4f}, horizon "
           f"{ev['horizon']:.2f}, {ev['env_steps_per_sec']:.1f} env-steps/s "
-          f"[{smoke.card}]", flush=True)
+          f"to the episodes' ends, {ev['computed_env_steps_per_sec']:.1f} "
+          f"computed env-steps/s [{smoke.card}]", flush=True)
     bad = [k for k, v in ev.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"eval metrics not finite: {bad}")
@@ -1206,34 +1253,9 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
         out[f"pack_ms_{name}"] = ms
 
     # 5. round trip of the full state, then one step from each copy
-    path = ws.ckpt.list_states()[-1]
     restored = LDPAgent.create(agent_cfg, meta["shape_meta"],
                                seed=cfg["seed"] + 1, device=dev)
-    ws.ckpt.restore_state(path, restored)
-    n_leaves = len(_flat(agent.state_dict()))
-    diff = _max_diff(agent.state_dict(), restored.state_dict())
-    print(f"   state round trip through {path.name}: {n_leaves} leaves, "
-          f"max |diff| {diff}", flush=True)
-    if diff != 0.0:
-        raise AssertionError(f"restored state differs: {diff}")
-    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-        True, False)
-    try:
-        step_batch = next(data.train_dataloader())
-        for ag in (agent, restored):
-            ag.update(step_batch, ws.step,
-                      torch.Generator(device=dev).manual_seed(12))
-        diff = _max_diff(agent.state_dict(), restored.state_dict())
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-            prev)
-    print(f"   one step from the restored and from the live state (same "
-          f"batch and draws, cuDNN deterministic): max |diff| {diff}",
-          flush=True)
-    if diff != 0.0:
-        raise AssertionError(f"a step from the restored state differs: {diff}")
-    out.update(roundtrip_leaves=n_leaves, roundtrip_step_max_diff=diff)
+    out.update(_check_round_trip(ws, restored, "LDP"))
 
     # 6. where a train step's time goes (CUDA events, on the restored copy)
     ds = data.device_dataset("train")
@@ -1300,6 +1322,42 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     return out
 
 
+def _time_unet(smoke, what, net, B, table, clip, g) -> dict:
+    """Kernel B alone on ``net`` at ``B`` samples over ``table`` (T 8,
+    seeded condition and initial sample): held against the rounding twin
+    (the max as a reading), timed beside the twin, with its launch
+    geometry, the weight bytes it streams and its bound."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    ts, coefs = table
+    gc = torch.randn(B, net.global_cond_dim, generator=g, device="cuda")
+    x0 = torch.randn(B, 8, net.input_dim, generator=g, device="cuda")
+    packed = KB.pack_params(net).to("cuda")
+    checks = _unet_against_twin(smoke, what, net, gc, x0, table, clip, packed,
+                                hold_max=False)
+    twin = KB.rounding_twin(net)
+    run_k = lambda: KB.fused_unet1d_ddim_sample(
+        net, gc, x0, ts, coefs, clip_range=clip, packed=packed)
+    run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs, clip)
+    ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
+    smoke.timing(what, ms, plain_ms)
+    elem, mm, nbytes = unet_flops_bytes(net, B, 8, int(ts.shape[0]))
+    b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
+    shape = KB.kernel_info(net, B, 8, int(ts.shape[0]))
+    row_tiles = -(-shape["samples_per_block"] * 8 // 16)
+    entry = next(n for n in (2, 4, 8) if row_tiles <= n)
+    info = smoke.shape_line(what, f"unet1d_sampler_kernelILi{entry}E", shape,
+                            mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
+    print(f"   {what}: bound {b_ms:.3f} ms ({b_by}); weights "
+          f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
+          f"and block, {shape['weight_bytes_streamed'] / 1e9:.1f} GB "
+          f"streamed in all [{smoke.card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bf16_flops=mm, fp32_flops=elem, bytes=nbytes, shape=info,
+                **checks)
+
+
 def phase_dp_vae(smoke: Smoke, run: TrainRun):
     """DPVAE on the same latents (``lift_dp_vae_train_config()``: action
     U-Net [64,128,256] over 7 action channels with a 25-wide condition,
@@ -1317,8 +1375,6 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
     from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
         ConditionalUnet1D)
     from latent_diffusion_planning_tpu_torch.ops import kernels
-    from latent_diffusion_planning_tpu_torch.ops.kernels import (
-        diffusion_unet1d as KB)
     from latent_diffusion_planning_tpu_torch.train.loop import Workspace
 
     dev = torch.device("cuda")
@@ -1375,8 +1431,9 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
           f"eval {ev['eval_action_mse']:.5f}; closed loop, {EVAL_ENVS} envs "
           f"x {DEMO_LEN} steps after {DPVAE_STEPS} steps: success "
           f"{ev['success']:.4f}, horizon {ev['horizon']:.2f}, "
-          f"{ev['env_steps_per_sec']:.1f} env-steps/s [{smoke.card}]",
-          flush=True)
+          f"{ev['env_steps_per_sec']:.1f} env-steps/s to the episodes' ends, "
+          f"{ev['computed_env_steps_per_sec']:.1f} computed env-steps/s "
+          f"[{smoke.card}]", flush=True)
     bad = [k for k, v in ev.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"DPVAE eval metrics not finite: {bad}")
@@ -1393,7 +1450,8 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
     cond = agent._obs_cond(prepared["obs"])
     g = torch.Generator(device=dev).manual_seed(14)
     x_init = torch.randn(cond.shape[0], 8, 7, generator=g, device=dev)
-    ts, coefs = table = agent.sampler.table()
+    table = agent.sampler.table()
+    ts = table[0]
     clip = agent.sched.clip_range
     net = agent._sampling_net()
     agent.sampler(net, cond, x_init)          # repacks from the trained net
@@ -1414,35 +1472,211 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
             torch.manual_seed(15)
             tnet = ConditionalUnet1D(7, 25, p["diffusion_step_embed_dim"], dd,
                                      p["kernel_size"], p["n_groups"]).to(dev)
-        gc = torch.randn(B, 25, generator=g, device=dev)
-        x0 = torch.randn(B, 8, 7, generator=g, device=dev)
-        packed = KB.pack_params(tnet).to(dev)
-        what = f"DPVAE B {name} {list(dd)} B={B}"
-        checks = _unet_against_twin(smoke, what, tnet, gc, x0, table, clip,
-                                    packed, hold_max=False)
-        twin = KB.rounding_twin(tnet)
-        run_k = lambda: KB.fused_unet1d_ddim_sample(
-            tnet, gc, x0, ts, coefs, clip_range=clip, packed=packed)
-        run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs,
-                                                    clip)
-        ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
-        smoke.timing(what, ms, plain_ms)
-        elem, mm, nbytes = unet_flops_bytes(tnet, B, 8, int(ts.shape[0]))
-        b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
-        shape = KB.kernel_info(tnet, B, 8, int(ts.shape[0]))
-        row_tiles = -(-shape["samples_per_block"] * 8 // 16)
-        entry = next(n for n in (2, 4, 8) if row_tiles <= n)
-        info = smoke.shape_line(
-            what, f"unet1d_sampler_kernelILi{entry}E", shape, mm,
-            PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
-        print(f"   {what}: bound {b_ms:.3f} ms ({b_by}); weights "
-              f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
-              f"and block, {shape['weight_bytes_streamed'] / 1e9:.1f} GB "
-              f"streamed in all [{smoke.card}]", flush=True)
-        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
-                            bytes=nbytes, shape=info, **checks)
+        timing[name] = _time_unet(smoke, f"DPVAE B {name} {list(dd)} B={B}",
+                                  tnet, B, table, clip, g)
     out["unet_timing"] = timing
+    return out
+
+
+def conv_flops(net, x) -> float:
+    """Operations of every convolution of ``net`` on ``x`` (2 per
+    multiply-add), counted from the shapes the forward gives them."""
+    import torch
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        k = mod.weight[0].numel()           # Cin/groups × kh × kw
+        total[0] += 2.0 * out.numel() * k
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_dp(smoke: Smoke, run: TrainRun):
+    """DP on the raw camera frames (``lift_dp_train_config()``: ResNet-18
+    with GroupNorm and a spatial-softmax head trained end to end with the
+    action U-Net [64,128,256], whose condition is 1024 features + 9 lowdim
+    = 1033 wide; DDPM-50 training, DDIM-25 sampling) for ``DP_STEPS`` steps
+    at batch 128 through the ``Workspace``, on the demos the VAE phase
+    collected; its eval ends with a closed loop of ``EVAL_ENVS`` × 80 steps
+    through kernels C and B. Then kernel B on the trained action U-Net
+    against its rounding twin (pack primed with the seeded weights), B
+    alone at ``UNET_TIMING_SAMPLES`` samples, DDIM-25, the encoder over
+    1024 frames and one decision at 1024 envs stage by stage, the state's
+    round trip, and a train step timed part by part."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
+    from latent_diffusion_planning_tpu_torch.models.agents.dp import DPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.ops import normalize as nz
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+    from latent_diffusion_planning_tpu_torch.utils.precision import fp32_math
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = configs.lift_dp_train_config()
+    cfg.update(n_grad_steps=DP_STEPS, n_eval_episodes=EVAL_ENVS,
+               eval_every=0, save_every=0, log_every=100, resume=False)
+    meta = cfg["data"]["meta"]
+    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
+    data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
+    data = OfflineData(**data_kw, train=run.welded["train"],
+                       eval=run.welded["eval"], device=dev)
+    ws = Workspace(cfg, run.work / "dp", data=data, device=dev)
+    ws.init_agent()
+    agent = ws.agent
+    if not isinstance(agent, DPAgent):
+        raise AssertionError(f"the workspace built a {type(agent).__name__}")
+    print(f"   DP: condition {agent.config.cond_dim} wide, kernel B's "
+          f"prologue takes {KB.cond_rows(agent.planner)} samples a block",
+          flush=True)
+    # prime kernel B's pack with the seeded weights (see the LDP phase)
+    agent.sample_action(next(data.eval_dataloader()))
+    seeded = DPAgent.create(agent_cfg, meta["shape_meta"], seed=cfg["seed"],
+                            device=dev)
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    curve = ws.loss_curve()
+    first, last = _loss_means(curve)
+    sps = DP_STEPS / ws.train_seconds
+    print(f"   DP: {DP_STEPS} steps at batch {cfg['batch_size']} in "
+          f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, {1e3 / sps:.2f} ms "
+          f"a step; run() with its snapshot and eval {run_s:.3f} s; peak "
+          f"memory {peak / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    print(f"   DP loss: mean of the first 20 steps {first['loss']:.5f}, of "
+          f"the last 20 {last['loss']:.5f}", flush=True)
+    _falls(curve, ("loss",), first, last)
+
+    ev = ws.last_eval
+    n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
+    want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 + n_dec,
+            "raycast": n_dec}
+    print(f"   DP eval: launches {counts} (expected {want}: one offline "
+          f"batch of each split through B, then {n_dec} decisions through C "
+          f"and B)", flush=True)
+    if counts != want:
+        raise AssertionError(f"DP eval launches {counts} != {want}")
+    print(f"   DP eval: action_mse train {ev['train_action_mse']:.5f}, eval "
+          f"{ev['eval_action_mse']:.5f}; closed loop, {EVAL_ENVS} envs x "
+          f"{DEMO_LEN} steps after {DP_STEPS} steps: success "
+          f"{ev['success']:.4f}, horizon {ev['horizon']:.2f}, "
+          f"{ev['env_steps_per_sec']:.1f} env-steps/s to the episodes' ends, "
+          f"{ev['computed_env_steps_per_sec']:.1f} computed env-steps/s "
+          f"[{smoke.card}]", flush=True)
+    bad = [k for k, v in ev.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"DP eval metrics not finite: {bad}")
+    out.update(train_steps=DP_STEPS, batch=cfg["batch_size"],
+               train_s=ws.train_seconds, steps_per_s=sps,
+               ms_per_step=1e3 / sps, run_s=run_s, peak_mib_run=peak / 2**20,
+               loss_first20=first, loss_last20=last, eval=ev,
+               eval_launches=counts, cond_dim=agent.config.cond_dim)
+
+    # kernel B on the trained action U-Net (its pack was primed with the
+    # seeded weights) against the rounding twin, at the 1033-wide condition
+    batch = next(data.eval_dataloader())
+    obs = nz.normalize_tree({k: v.to(dev) for k, v in batch["obs"].items()},
+                            agent.obs_normalization["obs"])
+    with torch.no_grad(), fp32_math():
+        cond = agent._obs_cond(agent.encoders, obs)
+    g = torch.Generator(device=dev).manual_seed(16)
+    x_init = torch.randn(cond.shape[0], 8, 7, generator=g, device=dev)
+    table = agent.sampler.table()
+    ts = table[0]
+    clip = agent.sched.clip_range
+    net = agent._sampling_net()
+    agent.sampler(net, cond, x_init)          # repacks from the trained net
+    out["trained_b"] = _unet_against_twin(
+        smoke, f"trained DP B ({cond.shape[0]} samples, cond "
+        f"{cond.shape[1]}, DDIM-{ts.shape[0]})", net, cond, x_init, table,
+        clip, agent.sampler._pack, seeded=seeded.planner)
+
+    # kernel B alone at DP's widths, 1024 samples, DDIM-25
+    B = UNET_TIMING_SAMPLES
+    out["unet_timing"] = _time_unet(
+        smoke, f"DP B {list(net.down_dims)} cond {net.global_cond_dim} B={B}",
+        net, B, table, clip, g)
+
+    # the encoder over 1024 frames and one decision at 1024 envs, stage by
+    # stage (CUDA events; fp32 with TF32 off, as the agent runs it)
+    env = configs.make_bench_env(EPISODE_LEN)
+    state = physics_states(env, N_ENVS, "cuda", seed=8)
+    eobs = env.obs(state)
+    window = {k: eobs[k][:, None] for k in configs.BENCH_POLICY_KEYS}
+    acts = torch.rand(N_ENVS, 7, device=dev) * 2 - 1
+    enc = agent.encoders["agentview_image"]
+    frames = window["agentview_image"]
+
+    def encode():
+        with torch.no_grad(), fp32_math():
+            return agent._obs_cond(agent.encoders, nz.normalize_tree(
+                window, agent.obs_normalization["obs"]))
+    dcond = encode()
+    dx = torch.randn(N_ENVS, 8, 7, generator=g, device=dev)
+    stages = {
+        "normalize + ResNet-18 encode": encode,
+        "action U-Net (kernel B)": lambda: agent.sampler(net, dcond, dx),
+        "physics env: 4 transitions, CUDA graph":
+            lambda: [env.transition(state, acts) for _ in range(4)],
+        "physics env: render + obs (kernel C)": lambda: env.obs(state),
+        "sample_action (encode + B + glue)":
+            lambda: agent.sample_action({"obs": window}, g),
+    }
+    dec = {}
+    for name, fn in stages.items():
+        dec[name] = time_ms(fn, iters=5)
+        print(f"   DP decision, {N_ENVS} envs: {name}: {dec[name]:.3f} ms "
+              f"[{smoke.card}]", flush=True)
+    x = nz.normalize_tree({"agentview_image": frames[:, 0]},
+                          agent.obs_normalization["obs"])["agentview_image"]
+    flops = conv_flops(enc, x)
+    nbytes = frames.numel() + N_ENVS * enc.n_features * 4 + sum(
+        p.numel() * 4 for p in enc.parameters())
+    e_ms, e_by = bound(flops, nbytes)
+    print(f"   ResNet-18 encode of {N_ENVS} frames: {flops / 1e9:.1f} GFLOP "
+          f"of convolutions ({flops / N_ENVS / 1e9:.3f} a frame), fp32 bound "
+          f"{e_ms:.3f} ms ({e_by}); measured "
+          f"{dec['normalize + ResNet-18 encode']:.3f} ms [{smoke.card}]",
+          flush=True)
+    out.update(decision_ms=dec, encoder_gflop=flops / 1e9,
+               encoder_bound_ms=e_ms, encoder_bound_by=e_by)
+
+    # round trip of the full state, then one step from each copy
+    restored = DPAgent.create(agent_cfg, meta["shape_meta"],
+                              seed=cfg["seed"] + 1, device=dev)
+    out.update(_check_round_trip(ws, restored, "DP"))
+
+    # where a train step's time goes (CUDA events, on the restored copy)
+    ds = data.device_dataset("train")
+    holder = {}
+    torch.cuda.reset_peak_memory_stats()
+    split_ms, host_ms = _split_step([
+        ("gather", lambda: holder.update(b=ds.sample(cfg["batch_size"], g))),
+        ("forward+backward", lambda: restored.backward(holder["b"], g)),
+        ("optimizer", restored.apply_gradients)], SPLIT_STEPS)
+    peak_steps = torch.cuda.max_memory_allocated()
+    print(f"   a DP step, device timeline between events (mean of "
+          f"{SPLIT_STEPS - 5}): {json.dumps(split_ms)} ms; host time to "
+          f"enqueue: {json.dumps(host_ms)} ms; peak memory over these steps "
+          f"{peak_steps / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    out.update(step_split_ms=split_ms, step_host_ms=host_ms,
+               peak_mib_train_steps=peak_steps / 2**20)
     return out
 
 
@@ -1465,6 +1699,8 @@ def _training_phases(smoke: Smoke) -> None:
                     "widths", lambda: phase_ldp_training(smoke, run))
         smoke.phase("training: DPVAE on the same latents; kernel B at its "
                     "widths", lambda: phase_dp_vae(smoke, run))
+        smoke.phase("training: DP on raw frames at the recipe widths",
+                    lambda: phase_dp(smoke, run))
     finally:
         shutil.rmtree(run.work, ignore_errors=True)
 

@@ -25,9 +25,12 @@ from torch import nn
 
 from . import resolve_device
 from .models.agents import common
+from .models.agents.dp import DPAgent
+from .models.agents.dp import build_nets as build_dp_nets
 from .models.agents.dp_vae import DPVAEAgent
 from .models.agents.ldp import LDPAgent
 from .models.nets.mlp import MLPDiffusion
+from .models.nets.resnet import ResNetEncoder
 from .models.nets.unet1d import ConditionalUnet1D
 from .models.vae import KLVAE
 
@@ -56,7 +59,8 @@ def _conv1d(conv: nn.Conv1d, p: Mapping) -> None:
 
 def _conv2d(conv: nn.Conv2d, p: Mapping) -> None:
     _copy(conv.weight, _t(p["kernel"]).permute(3, 2, 0, 1))
-    _copy(conv.bias, _t(p["bias"]))
+    if conv.bias is not None:
+        _copy(conv.bias, _t(p["bias"]))
 
 
 def _conv_transpose1d(conv: nn.ConvTranspose1d, p: Mapping) -> None:
@@ -214,6 +218,46 @@ def klvae_from_flax(params: Mapping, **cfg) -> KLVAE:
     return load_klvae(KLVAE(**cfg), params)
 
 
+def load_resnet(net: ResNetEncoder, params: Mapping) -> ResNetEncoder:
+    """A ``ResNetEncoder``'s Flax tree: ``conv_init``, ``norm_init``, then
+    ``<block class>_<n>`` in call order, each with ``Conv_*`` and its
+    norms (``GroupNorm_*`` or ``LayerNorm_*``) in call order and, where the
+    shape changes, ``conv_proj`` and ``norm_proj``; the heads'
+    ``SpatialSoftmax_0`` (a learned temperature), ``SpatialLearnedEmbeddings_0``
+    and ``MLP_0``."""
+    _conv2d(net.conv_init, params["conv_init"])
+    _norm(net.norm_init, params["norm_init"])
+    for n, blk in enumerate(net.blocks):
+        p = params[f"{type(blk).__name__}_{n}"]
+        norm = "GroupNorm" if isinstance(blk.norm0, nn.GroupNorm) else "LayerNorm"
+        convs = [blk.conv0, blk.conv1] + ([blk.conv2] if hasattr(blk, "conv2")
+                                          else [])
+        norms = [blk.norm0, blk.norm1] + ([blk.norm2] if hasattr(blk, "norm2")
+                                          else [])
+        for i, (conv, nm) in enumerate(zip(convs, norms)):
+            _conv2d(conv, p[f"Conv_{i}"])
+            _norm(nm, p[f"{norm}_{i}"])
+        if blk.proj is not None:
+            _conv2d(blk.proj, p["conv_proj"])
+            _norm(blk.norm_proj, p["norm_proj"])
+    if "SpatialSoftmax_0" in params:
+        _copy(net.pool.softmax_temperature,
+              _t(params["SpatialSoftmax_0"]["softmax_temperature"]))
+    if "SpatialLearnedEmbeddings_0" in params:
+        _copy(net.pool.kernel,
+              _t(params["SpatialLearnedEmbeddings_0"]["kernel"]))
+    if net.mlp is not None:
+        for i, lin in enumerate(net.mlp.dense):
+            _dense(lin, params["MLP_0"][f"Dense_{i}"])
+    return net
+
+
+def resnet_from_flax(params: Mapping, **cfg) -> ResNetEncoder:
+    """``cfg``: ResNetEncoder's fields, ``image_shape`` (H, W, C) among
+    them."""
+    return load_resnet(ResNetEncoder(**cfg), params)
+
+
 # ---------------------------------------------------------------------------
 # the agents
 # ---------------------------------------------------------------------------
@@ -271,4 +315,28 @@ def dp_vae_agent_from_flax(snapshot: Mapping, config: Mapping,
     if ema is not None and snapshot.get("planner_ema_params") is not None:
         ema.load_state_dict(unet1d_from_flax(snapshot["planner_ema_params"],
                                              **kw).state_dict())
+    return agent
+
+
+def dp_agent_from_flax(snapshot: Mapping, config: Mapping, shape_meta: Mapping,
+                       device: torch.device | str | None = None) -> DPAgent:
+    """A DPAgent from a JAX ``get_params()`` snapshot (``planner_params``
+    and ``encoder_params`` ``{<key>_params}``, each key a camera or
+    ``shared``; with ``planner_ema_params`` and ``encoder_ema_params`` when
+    it holds them) and the agent config dict (the ``agent`` of
+    ``configs.lift_dp_train_config()``)."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        planner, encoders = build_dp_nets(config, shape_meta)
+    load_unet1d(planner, snapshot["planner_params"])
+    for key, net in encoders.items():
+        load_resnet(net, snapshot["encoder_params"][f"{key}_params"])
+    agent = DPAgent.assemble(planner, encoders, config, shape_meta, dev)
+    ema = agent.planner_state.ema
+    if ema is not None and snapshot.get("planner_ema_params") is not None:
+        load_unet1d(ema, snapshot["planner_ema_params"])
+    for key, state in agent.encoder_states.items():
+        tree = (snapshot.get("encoder_ema_params") or {}).get(f"{key}_params")
+        if state.ema is not None and tree is not None:
+            load_resnet(state.ema, tree)
     return agent

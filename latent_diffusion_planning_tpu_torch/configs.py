@@ -6,9 +6,10 @@ planner and IDM (``bench.py``'s ``BENCH_INFERENCE_STEPS`` default).
 ``bench_train_config()`` is the run that trained it: the top-level training
 keys, the whole agent (DDIM-25 at eval, the optimizer keys) and the ``data``
 block. ``lift_vae_train_config()`` is the VAE run of
-``tools/run_lift_pipeline.sh`` and ``lift_dp_vae_train_config()`` the DPVAE
-run of ``tools/run_lift_baselines.sh``, each composed as the JAX package's
-config system composes it. The machine with the card has no YAML reader, so
+``tools/run_lift_pipeline.sh``, ``lift_dp_train_config()`` and
+``lift_dp_vae_train_config()`` the DP and DPVAE runs of
+``tools/run_lift_baselines.sh``, each composed as the JAX package's config
+system composes it. The machine with the card has no YAML reader, so
 the port carries the dicts; ``tests/test_torch_configs.py`` holds them
 against the yaml.
 """
@@ -364,3 +365,55 @@ def lift_dp_vae_train_config(vae_pretrain_path: str | None = None) -> dict:
         agent["vae_pretrain_path"] = vae_pretrain_path
     return copy.deepcopy({**LIFT_DP_VAE_TRAIN, "agent": agent,
                           "data": dict(BENCH_DATA, seq_length=8)})
+
+
+# -- the DP run: configs/train_bc.yaml with agent/dp_agent and data/lift/img,
+# under stage 1 of tools/run_lift_baselines.sh's overrides (its top-level
+# keys are the DPVAE run's: the script gives both the same ones)
+
+LIFT_DP_AGENT = {
+    "name": "dp",
+    "planner": BENCH_AGENT["planner"],
+    # ResNet-18 with GroupNorm and a spatial-softmax head (1024 features)
+    "encoder": {
+        "stage_sizes": [2, 2, 2, 2],
+        "block_cls": "ResNetBlock",
+        "n_filters": 64,
+        "norm": "group",
+        "act": "relu",
+        "pooling_method": "spatial_softmax",
+        "softmax_temperature": 1.0,
+        "n_spatial_blocks": 8,
+    },
+    "lowdim_obs": BENCH_AGENT["lowdim_obs"],
+    "rgb_obs": ["agentview_image"],
+    "obs_normalization": LIFT_IMG_DATA["meta"]["obs_normalization"],
+    "obs_horizon": 1,
+    "pred_horizon": 8,
+    "action_horizon": 4,
+    "n_diffusion_steps": 50,
+    # dp_agent.yaml leaves null (DDPM), which kernel B refuses; the recipe
+    # sets 25
+    "inference_steps": 25,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "warmup_steps": 200,
+    "decay_steps": 30000,
+    "shared_encoder": False,
+    "planner_ema_decay": 0.75,
+    "encoder_ema_decay": 0.75,
+    "use_ema": False,
+}
+
+
+def lift_dp_train_config() -> dict:
+    """A fresh deep copy of the Lift baselines' DP run: ``LIFT_DP_VAE_TRAIN``,
+    the agent (ResNet-18 on the raw 64×64 frame, trained end to end with an
+    action U-Net [64,128,256]; DDPM-50 training, DDIM-25 sampling) and the
+    raw-frame ``data`` with windows of 8 at batch 128, its closed loop 80
+    steps long."""
+    data = copy.deepcopy(LIFT_IMG_DATA)
+    data.update(seq_length=8, batch_size=LIFT_DP_VAE_TRAIN["batch_size"])
+    data["env_params"]["env"]["episode_len"] = BENCH_ENV["episode_len"]
+    return copy.deepcopy({**LIFT_DP_VAE_TRAIN, "agent": LIFT_DP_AGENT,
+                          "data": data})

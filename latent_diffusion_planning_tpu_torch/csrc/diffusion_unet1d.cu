@@ -85,7 +85,7 @@ constexpr int kStageTiles = 3;
 constexpr int kChunk = 3;          // tiles a warp takes at a time
 constexpr int kStageBytes = kStageTiles * kTileBytes;
 constexpr int kMtCap = 8;          // most m16 row tiles a warp accumulates
-constexpr int kCondRows = 64;      // samples per prologue block
+constexpr int kCondRowsMax = 64;   // most samples per prologue cond block
 constexpr float kGnEps = 1e-6f;
 
 enum ConvMode { kSame = 0, kStride2 = 1, kTranspose = 2 };
@@ -337,9 +337,9 @@ struct Dims {
   int B, T, D, Dc, dsed, K, G, nb, max32, maxb, skip_total, n_ops, n_steps,
       film_total, film_ld, main_stages, time_tile_base, time_stages,
       cond_tile_base, cond_stages, vec_base, v_time0, v_time1, v_film_t,
-      smem_main, smem_pro, stages_main, stages_pro, tile_n;
+      smem_main, smem_pro, stages_main, stages_pro, tile_n, cond_rows;
 };
-constexpr int kNDims = 29;
+constexpr int kNDims = 30;
 
 __device__ __forceinline__ Gemm dense(const bf16* A, int K, int rows, int N,
                                       const bf16* bias) {
@@ -352,16 +352,17 @@ __device__ __forceinline__ Gemm dense(const bf16* A, int K, int rows, int N,
 // What does not depend on the sample, or not on the step. Blocks [0, S):
 // step s's time embedding -> time MLP -> Mish -> the time half of every
 // FiLM projection (+ bias) into film_t[s]. Blocks from S on: the condition
-// half for 64 samples each into film_g.
+// half for cond_rows samples each into film_g (64, or 32 or 16 where a
+// wide condition's operand tile would not fit the shared memory).
 __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
     const float* __restrict__ gcond, const int* __restrict__ ts,
     const bf16* __restrict__ W, float* __restrict__ film_t,
     float* __restrict__ film_g, Dims d) {
-  constexpr int kMt = kCondRows / 16;
+  constexpr int kMt = kCondRowsMax / 16;
   extern __shared__ uint4 smem_raw[];
   char* sm = reinterpret_cast<char*>(smem_raw);
   const int tid = threadIdx.x, NT = blockDim.x;
-  const int hb = max(16 * ldb(4 * d.dsed), kCondRows * ldb(d.Dc));
+  const int hb = max(16 * ldb(4 * d.dsed), d.cond_rows * ldb(d.Dc));
   bf16* Pb = reinterpret_cast<bf16*>(sm + d.stages_pro * kStageBytes);
   bf16* Qb = Pb + hb;
   bf16* zero = Qb + hb;
@@ -400,12 +401,12 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
     g.ld32 = d.film_ld;
     gemm<kMt>(g, tiles, zero_addr);
   } else {
-    const int s0 = (blockIdx.x - d.n_steps) * kCondRows;
-    const int rows = min(kCondRows, d.B - s0);
+    const int s0 = (blockIdx.x - d.n_steps) * d.cond_rows;
+    const int rows = min(d.cond_rows, d.B - s0);
     tiles.start(W + static_cast<size_t>(d.cond_tile_base) * kTileElems, sm,
                 d.stages_pro, d.cond_stages, d.cond_stages);
     const int ld = ldb(d.Dc), Cp = pad32(d.Dc);
-    for (int i = tid; i < kCondRows * Cp; i += NT) {
+    for (int i = tid; i < d.cond_rows * Cp; i += NT) {
       const int r = i / Cp, c = i - r * Cp;
       float v = 0.f;
       if (r < rows && c < d.Dc)
@@ -595,8 +596,8 @@ int launch_main(const float* x_init, const float* coefs, const bf16* W,
 
 // Returns a cudaError_t. `dims` is kNDims host ints in the order of Dims
 // (the Python wrapper computes them from the same layout). film_t
-// (n_steps x film_ld) and film_g (B rounded up to 64 rows x film_ld) are
-// scratch.
+// (n_steps x film_ld) and film_g (B rounded up to cond_rows rows x
+// film_ld) are scratch.
 extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
                                   const int* ts, const float* coefs,
                                   const void* w, const int* prog,
@@ -609,13 +610,14 @@ extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
   if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
       d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
-      d.stages_pro > 8)
+      d.stages_pro > 8 || d.cond_rows < 16 || d.cond_rows > kCondRowsMax ||
+      d.cond_rows % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto W = static_cast<const bf16*>(w);
   cudaError_t err = ldp::allow_smem(unet1d_prologue_kernel, d.smem_pro);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int pro_grid = d.n_steps + (d.B + kCondRows - 1) / kCondRows;
+  const int pro_grid = d.n_steps + (d.B + d.cond_rows - 1) / d.cond_rows;
   unet1d_prologue_kernel<<<pro_grid, kThreads, d.smem_pro, st>>>(
       gcond, ts, W, film_t, film_g, d);
   err = cudaGetLastError();

@@ -19,7 +19,6 @@ trained as.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Mapping, Sequence
 
 import torch
@@ -29,23 +28,9 @@ from torch.nn import functional as F
 from .. import resolve_device
 from ..ops import normalize as nz
 from ..train.state import TrainState
+from ..utils.precision import fp32_math
 
 GN_EPS = 1e-6
-
-
-@contextlib.contextmanager
-def fp32_math():
-    """cuDNN convolutions and cuBLAS products in full fp32 (TF32 off)
-    inside the block; the previous settings after it."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class ResBlock2D(nn.Module):

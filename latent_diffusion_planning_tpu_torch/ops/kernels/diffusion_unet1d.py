@@ -61,7 +61,8 @@ STAGE_TILES = 3                 # tiles per ring stage (24 KB)
 STAGE_BYTES = STAGE_TILES * TILE * 2
 MIN_STAGES, MAX_STAGES = 2, 8   # ring depth: as deep as shared memory allows
 PROLOGUE_STAGES = 3
-COND_ROWS = 64                  # samples per prologue block (cond half)
+COND_ROWS = (64, 32, 16)        # samples per prologue block (cond half):
+                                # the most whose operand tile fits
 REC = 12                        # ints per program record
 
 FILM, SAVE, CONCAT, DOWN, UP, FINAL_BLOCK, FINAL_CONV = range(7)
@@ -97,6 +98,7 @@ def check_supported(net: ConditionalUnet1D, T: int) -> None:
     if T > MAX_ROWS:
         raise ValueError(f"plan length {T} exceeds the {MAX_ROWS} GEMM rows a "
                          "block holds")
+    cond_rows(net)
     # skips live as bf16 conv operands only, so a block that reads a concat
     # must project its residual (always so unless the widths conspire)
     cin = dd[-1]
@@ -374,12 +376,22 @@ def _build_program(signature: tuple, T: int, nb: int) -> dict:
                 smem_bytes=stages * STAGE_BYTES + rest)
 
 
-def prologue_smem_bytes(net: ConditionalUnet1D) -> int:
+def prologue_smem_bytes(net: ConditionalUnet1D, rows: int) -> int:
     """Shared memory of the prologue kernel: the ring, two operand buffers
-    wide enough for the time MLP's hidden layer or a tile of conditions."""
-    halves = max(16 * ldb(4 * net.dsed),
-                 COND_ROWS * ldb(net.global_cond_dim))
+    wide enough for the time MLP's hidden layer or ``rows`` conditions."""
+    halves = max(16 * ldb(4 * net.dsed), rows * ldb(net.global_cond_dim))
     return PROLOGUE_STAGES * STAGE_BYTES + 2 * 2 * halves + 32
+
+
+def cond_rows(net: ConditionalUnet1D) -> int:
+    """Samples per prologue block of the condition half: 64, or fewer where
+    a wide condition's operand buffers would not fit the shared memory (DP's
+    1033-wide condition takes 32)."""
+    for rows in COND_ROWS:
+        if prologue_smem_bytes(net, rows) <= SMEM_LIMIT:
+            return rows
+    raise ValueError(f"a {net.global_cond_dim}-wide condition does not fit "
+                     "the prologue's shared memory")
 
 
 def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
@@ -455,12 +467,13 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
     grid = -(-B // nb)
     stage = STAGE_BYTES
     main = lay["stream"]["main"]["stages"] * stage
+    rows = cond_rows(net)
     pro = (n_steps * lay["stream"]["time"]["stages"]
-           + -(-B // COND_ROWS) * lay["stream"]["cond"]["stages"]) * stage
+           + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
     return dict(samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
-                ring_stages=prog["stages"],
-                prologue_grid=n_steps + -(-B // COND_ROWS),
-                prologue_smem_bytes=prologue_smem_bytes(net),
+                ring_stages=prog["stages"], prologue_cond_rows=rows,
+                prologue_grid=n_steps + -(-B // rows),
+                prologue_smem_bytes=prologue_smem_bytes(net, rows),
                 weight_bytes_per_step_and_block=main,
                 weight_bytes_streamed=grid * n_steps * main + pro)
 
@@ -509,7 +522,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     # scratch the prologue fills: FiLM's time half per step, and its
     # global-condition half per sample
     film_t = torch.empty((S, lay["film_ld"]), device=dev, dtype=torch.float32)
-    film_g = torch.empty((_up(B, COND_ROWS), lay["film_ld"]), device=dev,
+    rows = cond_rows(net)
+    film_g = torch.empty((_up(B, rows), lay["film_ld"]), device=dev,
                          dtype=torch.float32)
     st = lay["stream"]
     dims = torch.tensor(
@@ -520,7 +534,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
          st["cond"]["tile_base"], st["cond"]["stages"], lay["vec_base"],
          lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
          lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
-         prologue_smem_bytes(net), prog["stages"], PROLOGUE_STAGES, TILE_N],
+         prologue_smem_bytes(net, rows), prog["stages"], PROLOGUE_STAGES,
+         TILE_N, rows],
         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
     fn = _build.function("ldp_unet1d_sampler", [P] * 9 + [P, I, F, P])

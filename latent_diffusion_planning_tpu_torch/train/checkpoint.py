@@ -80,8 +80,9 @@ def apply_params_snapshot(agent: Any, snapshot: Mapping[str, Any],
                           restore_keys: list[str] | None = None) -> Any:
     """Rebind a snapshot's ``<name>_params`` onto the agent: ``planner`` and
     ``idm`` onto their train states (weights and EMA copy; the optimizer
-    state stays), ``vae`` onto the VAE. Keys containing ``ema`` are skipped;
-    ``restore_keys`` filters which keys apply."""
+    state stays), ``encoder`` ``{<key>_params}`` onto the encoder train
+    state of each key, ``vae`` onto the VAE. Keys containing ``ema`` are
+    skipped; ``restore_keys`` filters which keys apply."""
     for key, value in snapshot.items():
         if "ema" in key or not key.endswith("_params"):
             continue
@@ -89,7 +90,10 @@ def apply_params_snapshot(agent: Any, snapshot: Mapping[str, Any],
             continue
         prefix = key[:-len("_params")]
         state = getattr(agent, f"{prefix}_state", None)
-        if state is not None:
+        if prefix == "encoder" and hasattr(agent, "encoder_states"):
+            for cam, st in agent.encoder_states.items():
+                st.set_params(value[f"{cam}_params"])
+        elif state is not None:
             state.set_params(value)
         elif prefix == "vae":
             agent.vae.load_state_dict(value)

@@ -3,19 +3,24 @@ offline and closed-loop eval, snapshots.
 
 Counterpart of ``latent_diffusion_planning_tpu/train/loop.py``'s
 ``Workspace`` on one device (the JAX package's mesh and replication are
-not ported). The config is a plain dict (``configs.bench_train_config()``'s
-or ``configs.lift_dp_vae_train_config()``'s keys; the agent's ``name``,
-``ldp`` or ``dp_vae``, picks its class), since the machine with the card has
-no YAML reader. Per step:
+not ported). The config is a plain dict (the keys of
+``configs.bench_train_config()``, ``lift_dp_vae_train_config()`` or
+``lift_dp_train_config()``; the agent's ``name``, ``ldp``, ``dp_vae`` or
+``dp``, picks its class), since the machine with the card has no YAML
+reader. Its agent section takes the bounds the data normalizes with
+(``stats_from_data`` measures them) before the agent is built, and
+``config.json`` is written again with them. Per step:
 ``agent.update`` on a batch the device dataset gathered, then the next
 gather; every ``log_every`` steps the metrics are read and logged (the
 only reads of the device inside the loop), every ``save_every`` a snapshot,
 every ``eval_every`` an eval; at the end a snapshot and an eval. ``eval``
 logs the offline action MSE (``sample_action``: kernel A on the card for
-LDP, B for DPVAE), the losses and, for LDP, the plan statistics
+LDP, B for DPVAE and DP), the losses and, for LDP, the plan statistics
 (``sample_plan_stats``, kernel B) on a train and an eval batch, then runs
 ``n_eval_episodes`` closed-loop episodes (``run_batched_eval``: kernels C,
-B and, for LDP, A every decision).
+B and, for LDP, A every decision); ``env_steps_per_sec`` counts each
+episode's steps up to its end, as the JAX log does, and
+``computed_env_steps_per_sec`` every step the engine ran, masked ones too.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from .. import resolve_device
 from ..data.datasets import OfflineData
+from ..models.agents.dp import DPAgent
 from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
 from ..rollout import engine as rollout_engine
@@ -37,7 +43,14 @@ from ..utils.logger import Logger
 from ..utils.timers import Every, Timer
 from .checkpoint import Checkpointer, apply_params_snapshot
 
-AGENTS = {"ldp": LDPAgent, "dp_vae": DPVAEAgent}
+AGENTS = {"ldp": LDPAgent, "dp_vae": DPVAEAgent, "dp": DPAgent}
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict (``None`` leaves skipped)."""
+    if isinstance(tree, Mapping):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [] if tree is None else [tree]
 
 
 def make_env(name: str, **kwargs):
@@ -59,8 +72,7 @@ class Workspace:
         self.work_dir = Path(work_dir or self.cfg.get("work_dir",
                                                       "experiments/run"))
         self.work_dir.mkdir(parents=True, exist_ok=True)
-        (self.work_dir / "config.json").write_text(
-            json.dumps(self.cfg, indent=1, default=str))
+        self._write_config()
         self.device = resolve_device(device)
         self.logger = Logger(self.work_dir)
         self.ckpt = Checkpointer(self.work_dir / "ckpt")
@@ -77,6 +89,23 @@ class Workspace:
         self.loss_history: list[torch.Tensor] = []
         self.last_eval: dict = {}
         self._env = None
+
+    def _write_config(self) -> None:
+        (self.work_dir / "config.json").write_text(
+            json.dumps(self.cfg, indent=1, default=str))
+
+    def _record_bounds(self) -> None:
+        """Write the bounds the agent normalizes with (the data's, which
+        ``stats_from_data`` measures) into the config and rewrite
+        ``config.json``, so whatever rebuilds the agent from the run
+        directory or a state snapshot's config normalizes as training
+        did."""
+        for key in ("agent", "model"):      # the VAE workspace's is "model"
+            section = self.cfg.get(key)
+            if section is not None and "obs_normalization" in section:
+                section["obs_normalization"] = copy.deepcopy(
+                    self.data.meta["obs_normalization"])
+                self._write_config()
 
     # ------------------------------------------------------------------
     def make_agent(self):
@@ -97,6 +126,7 @@ class Workspace:
 
     def init_agent(self) -> None:
         cfg = self.cfg
+        self._record_bounds()
         self.agent = self.make_agent()
         if cfg.get("snapshot_path"):
             apply_params_snapshot(self.agent,
@@ -109,8 +139,7 @@ class Workspace:
                 self.ckpt.restore_state(states[-1], self.agent)
                 self.step = int(states[-1].name.split(".")[0])
                 self.logger.note(f"resumed full state @ {self.step}")
-        n_params = sum(v.numel() for p in self.agent.get_params().values()
-                       if p is not None for v in p.values())
+        n_params = sum(v.numel() for v in _tensors(self.agent.get_params()))
         self.logger.note(f"agent created: {n_params:.3e} params on "
                          f"{self.device}")
 
@@ -192,8 +221,12 @@ class Workspace:
                 policy_obs_keys=self._policy_obs_keys(), device=self.device)
             wall = time.perf_counter() - t0
             m = dict(res["metrics"])
-            m.update(total_time=wall, env_steps_per_sec=(
-                self._env.episode_len * m["n_episodes"] / wall))
+            # the JAX log's rate counts each episode's steps to its end;
+            # the computed one every masked step the engine ran as well
+            m.update(total_time=wall,
+                     env_steps_per_sec=m["horizon"] * m["n_episodes"] / wall,
+                     computed_env_steps_per_sec=(
+                         self._env.episode_len * m["n_episodes"] / wall))
             out.update(m)
         self.logger.log_metrics(out, self.step, "eval")
         self.logger.dump(self.step, "eval")

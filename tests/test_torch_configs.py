@@ -179,3 +179,25 @@ def test_lift_dp_vae_train_config_matches_the_baselines():
     assert other["agent"]["vae_pretrain_path"] == "x.ckpt"
     assert configs.bench_train_config("v.ckpt")["agent"][
         "vae_pretrain_path"] == "v.ckpt"
+
+
+def test_lift_dp_train_config_matches_the_baselines():
+    """``tools/run_lift_baselines.sh``'s DP stage through the JAX config
+    system: configs/train_bc.yaml, agent dp_agent, data lift/img, with
+    ``dp_agent.yaml`` under the script's overrides (DDIM-25 sampling among
+    them: the yaml's null would be DDPM)."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    want = _plain(load_config("train_bc", [
+        "agent=dp_agent", "data=lift/img",
+        "agent.planner.down_dims=[64,128,256]", "agent.n_diffusion_steps=50",
+        "agent.inference_steps=25", "horizon=8", "pred_horizon=8",
+        "n_grad_steps=30000", "eval_every=15000", "save_every=15000",
+        "resume=true", "data.env_params.env.episode_len=80", "obs_horizon=1",
+        "action_horizon=4", "batch_size=128", "warmup_steps=200", "lr=3e-4",
+        "n_eval_episodes=256"]))
+    got = configs.lift_dp_train_config()
+    _assert_port_config(got, want, skip=("agent", "data"))
+    assert got["agent"] == want["agent"]
+    assert got["data"] == want["data"]
+    assert got["agent"]["encoder"]["stage_sizes"] == [2, 2, 2, 2]
+    assert got is not configs.lift_dp_train_config()

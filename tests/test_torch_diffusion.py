@@ -388,12 +388,18 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip):
     return xcur.reshape(B, T, D)
 
 
-@pytest.mark.parametrize("dd,G", [((8, 16, 32), 4), ((24, 40), 8)])
-def test_unet_kernel_program_matches_twin(dd, G):
+@pytest.mark.parametrize("dd,G,Dc", [
+    pytest.param((8, 16, 32), 4, 6, id="dd0-4"),
+    pytest.param((24, 40), 8, 6, id="dd1-8"),
+    # DP's condition is 1033 wide: several 32-row K tiles of the condition
+    # half, the last one ragged (Dc 75 pads to 96: two full tiles and 11 of
+    # 32 rows; with the 16-wide step embedding the FiLM input is 91 wide)
+    pytest.param((8, 16), 4, 75, id="wide-ragged-cond")])
+def test_unet_kernel_program_matches_twin(dd, G, Dc):
     """Kernel B's record program and tiled weights, run by the NumPy
     transcription of its data path (bf16 operands, hoisted FiLM), compute
     what the rounding twin computes (fp64 vs fp32 sums: atol 1e-4)."""
-    B, T, D, Dc = 3, 8, 5, 6
+    B, T, D = 3, 8, 5
     torch.manual_seed(0)
     net = kunet.rounding_twin(kunet.ConditionalUnet1D(D, Dc, 16, dd, 5, G))
     rng = np.random.default_rng(5)

@@ -55,3 +55,7 @@ def test_no_module_level_imports_the_card_lacks(path):
 def test_port_and_smoke_exist():
     assert len(FILES) > 20
     assert (REPO / "chip_smoke.py").exists()
+    port = REPO / "latent_diffusion_planning_tpu_torch"
+    for module in ("models/nets/resnet.py", "models/agents/dp.py",
+                   "utils/precision.py"):
+        assert port / module in FILES, module

@@ -559,9 +559,11 @@ def test_workspace_trains_on_a_scripted_kinematic_collection(tmp_path):
 
 def test_export_bench_torch_restores_the_bridged_weights(tmp_path):
     """``tools/export_bench_torch.py`` writes the committed checkpoint in the
-    port's format; restoring it onto a seeded agent gives the weights the
-    bridge gives."""
+    port's format, the whole VAE included, at the size its docstring
+    states; restoring it onto a seeded agent gives the weights the bridge
+    gives."""
     import importlib.util
+    import re
     import sys
     from latent_diffusion_planning_tpu.train.checkpoint import (
         Checkpointer as JaxCheckpointer)
@@ -578,7 +580,12 @@ def test_export_bench_torch_restores_the_bridged_weights(tmp_path):
     agent = LDPAgent.create(configs.bench_agent_config(), configs.SHAPE_META,
                             device="cpu")
     ck = Checkpointer(tmp_path)
-    apply_params_snapshot(agent, ck.restore_raw(ck.list_checkpoints()[-1]))
+    path = ck.list_checkpoints()[-1]
+    stated = float(re.search(r"([\d.]+) MB", tool.__doc__).group(1))
+    assert path.stat().st_size / 1e6 == pytest.approx(stated, abs=0.05)
+    snap = ck.restore_raw(path)
+    assert set(snap["vae_params"]) == set(agent.vae.state_dict())
+    apply_params_snapshot(agent, snap)
     want = bridge.ldp_agent_from_flax(
         _np(JaxCheckpointer(CKPT).restore_raw(CKPT / "agent.ckpt")),
         configs.bench_agent_config(), configs.SHAPE_META, device="cpu")

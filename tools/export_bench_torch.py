@@ -8,10 +8,10 @@ JAX and orbax can read. This tool runs on such a machine: it restores the
 snapshot with the JAX package's ``Checkpointer.restore_raw``, builds the
 port's agent from it through ``bridge.ldp_agent_from_flax`` and writes
 ``agent.get_params()`` with the port's ``Checkpointer.save_params`` as
-``<out>/30000.ckpt`` (``torch.save`` of state dicts, 40 MB: the port keeps
-the VAE's encoder only). ``build/``
-is git-ignored, so the export is not committed; a machine without JAX reads
-it with ``Checkpointer.restore_raw`` and ``apply_params_snapshot``
+``<out>/30000.ckpt`` (``torch.save`` of state dicts, 55.9 MB: the planner,
+the IDM and the whole VAE, its encoder and its decoder). ``build/`` is
+git-ignored, so the export is not committed; a machine without JAX reads it
+with ``Checkpointer.restore_raw`` and ``apply_params_snapshot``
 (``tools/eval_bench_torch.py``).
 """
 
