@@ -56,7 +56,23 @@
    weights before training, so a missed repack fails here); ``sample_viz``
    runs once (one launch of B and of A); the full state round-trips bit for
    bit, and one step from the restored state equals one from the live state
-   (cuDNN deterministic); a train step is timed part by part. Last DPVAE
+   (cuDNN deterministic); a train step is timed part by part. Then the
+   mixed-data study of ``tools/run_lift_mixed_study.sh`` on that trained
+   agent and its latents: episode resets checked to depend on (seed,
+   episode) alone on the card; ``run_data_collection`` of the agent on
+   ``COLLECT_ENVS`` physics envs × 80 steps with action noise 0.1, seed 123
+   (A and B once a decision, C every frame; launch counts checked); its
+   unsuccessful episodes welded (at most ``SUBOPT_CAP``, the study's corpus
+   size) and encoded by the VAE snapshot; the study's three arms
+   (``lift_mixed_study_config``: expert, mixed, action-free; 8 expert
+   demos) ``MIXED_STEPS`` steps each at batch 128, both losses falling,
+   each ending with its eval (closed loop of ``EVAL_ENVS`` × 80 steps,
+   launch counts checked, success a reading); the share of rows each mixed
+   stream drew from the suboptimal corpus within 0.1 of its ``train_split``;
+   A and B on the mixed arm's trained weights (the bars above, packs primed
+   from the seeded weights), its state's round trip through
+   ``update_mixed``, and a mixed step timed part by part beside the plain
+   one. Last DPVAE
    (``lift_dp_vae_train_config()``) on the same latents for ``DPVAE_STEPS``
    steps at batch 128, its loss falling, its eval's closed loop of 256 envs
    × 80 steps launching C and B once a decision, B held against its
@@ -113,6 +129,13 @@ VAE_STEPS = 400              # of the recipe's 4000, at its batch 64
 DPVAE_STEPS = 400            # of the baselines' 30000, at batch 128
 DP_STEPS = 400               # likewise, on raw frames
 UNET_TIMING_SAMPLES = 1024   # kernel B alone at the DPVAE widths
+# the mixed-data study (tools/run_lift_mixed_study.sh): its collection of
+# 256 envs, the unsuccessful episodes capped at its corpus size, 8 expert
+# demos, each arm cut from 30000 steps
+COLLECT_ENVS = 256
+SUBOPT_CAP = 92
+N_EXPERT = 8
+MIXED_STEPS = 400
 
 
 def card_line() -> str:
@@ -829,13 +852,15 @@ def _max_diff(a, b) -> float:
 class TrainRun:
     """What the training phases hand on: the scratch run directory (under
     the checkout's git-ignored ``build/``, removed at the end), the welded
-    demo splits and the VAE snapshot."""
+    demo splits (with their latents once the LDP phase made them), the VAE
+    snapshot and the trained LDP agent."""
 
     def __init__(self, work: Path):
         self.work = work
         self.welded: dict = {}
         self.vae_snapshot: Path | None = None
         self.vae_config: dict = {}
+        self.ldp_agent = None
 
 
 def _loss_means(curve, n=20) -> tuple[dict, dict]:
@@ -885,7 +910,8 @@ def _check_round_trip(ws, restored, what: str) -> dict:
     """The workspace's newest full state restored onto ``restored`` (an
     agent built from another seed) equals the live agent's bit for bit,
     and one step from each copy (same batch and draws, cuDNN
-    deterministic) leaves them equal."""
+    deterministic; ``update_mixed`` when the workspace has a mixed stream)
+    leaves them equal."""
     import torch
     agent = ws.agent
     path = ws.ckpt.list_states()[-1]
@@ -901,9 +927,15 @@ def _check_round_trip(ws, restored, what: str) -> dict:
         True, False)
     try:
         step_batch = next(ws.data.train_dataloader())
+        mixed = ws.mixed_data
+        mixed_batch = (None if mixed is None
+                       else next(mixed.train_dataloader()))
         for ag in (agent, restored):
-            ag.update(step_batch, ws.step,
-                      torch.Generator(device=ws.device).manual_seed(12))
+            gen = torch.Generator(device=ws.device).manual_seed(12)
+            if mixed_batch is None:
+                ag.update(step_batch, ws.step, gen)
+            else:
+                ag.update_mixed(step_batch, mixed_batch, ws.step, gen)
         diff = _max_diff(agent.state_dict(), restored.state_dict())
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
@@ -1049,6 +1081,62 @@ def phase_vae(smoke: Smoke, run: TrainRun):
     return out
 
 
+def _check_trained_ldp(smoke, what: str, agent, seeded, raw_batch,
+                       g) -> dict:
+    """Kernels A and B of a trained LDP agent against their plain versions
+    on its trained weights, on the latents of ``raw_batch``: A within 1e-4
+    of the fp32 sampler, B within phase B's mean (5e-3) and max (0.1) of
+    its rounding twin and closer to it than the fp32 net. The caller primed
+    the packs with the seeded weights before training, so a missed repack
+    fails here; how far ``seeded``'s nets land is printed beside."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.agents import common
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA, diffusion_unet1d as KB)
+    dev = agent.device
+    batch = agent._prepare_eval_batch(raw_batch)
+    emb = agent._obs_cond(batch["obs"])
+    pairs = common.consecutive_pairs(emb)
+    x_idm = torch.randn(pairs.shape[0], 7, generator=g, device=dev)
+    ts, coefs = agent._table(agent.idm_sched, agent.config.idm_inference_steps)
+    clip = agent._clip(agent.idm_sched)
+    got = agent._idm_decode(pairs, x_idm, None)
+    ref = KA.mlp_diffusion_sample_plain(agent.idm, pairs, x_idm, ts, coefs,
+                                        None, clip)
+    away = float((KA.mlp_diffusion_sample_plain(
+        seeded.idm, pairs, x_idm, ts, coefs, None, clip) - ref).abs().max())
+    err_a = float((got - ref).abs().max())
+    print(f"   {what} A ({pairs.shape[0]} rows, DDIM-"
+          f"{agent.config.idm_inference_steps}): the plain net on the seeded "
+          f"weights is {away:.3e} away from the trained", flush=True)
+    smoke.check(f"{what} A max_abs_err vs plain on the trained weights",
+                err_a, 1e-4)
+    cond = emb[:, 0]
+    x_plan = torch.randn(emb.shape[0], 8, emb.shape[2], generator=g,
+                         device=dev)
+    ts, coefs = agent._table(agent.planner_sched,
+                             agent.config.planner_inference_steps)
+    clip = agent._clip(agent.planner_sched)
+    plain = lambda net: KB.unet1d_ddim_sample_plain(net, cond, x_plan, ts,
+                                                    coefs, clip)
+    ref = plain(KB.rounding_twin(agent.planner))
+    full = err_stats(agent._plan(cond, x_plan, None), ref)
+    fp32 = err_stats(plain(agent.planner), ref)
+    stale = err_stats(plain(KB.rounding_twin(seeded.planner)), ref)
+    print(f"   {what} B ({emb.shape[0]} samples): {full}; the fp32 net "
+          f"{fp32}; the seeded weights' twin {stale}", flush=True)
+    smoke.check(f"{what} B mean_abs_err vs the rounding twin", full["mean"],
+                5e-3)
+    smoke.check(f"{what} B max_abs_err vs the rounding twin", full["max"],
+                0.1)
+    if not full["mean"] < fp32["mean"]:
+        raise AssertionError(f"{what} B: no closer to the rounding twin than "
+                             "the fp32 net is")
+    return {f"{what}_a_max_abs_err": err_a, f"{what}_a_seeded_away": away,
+            f"{what}_b": full, f"{what}_b_fp32": fp32,
+            f"{what}_b_seeded": stale}
+
+
 def phase_ldp_training(smoke: Smoke, run: TrainRun):
     """LDP training on Lift at the bench widths, fed by the trained VAE:
     latents of both splits from its snapshot's EMA weights
@@ -1062,7 +1150,6 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
     from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
     from latent_diffusion_planning_tpu_torch.data.latents import process_latents
-    from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
     from latent_diffusion_planning_tpu_torch.ops import kernels
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
@@ -1179,46 +1266,9 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
 
     # 4. the trained agent's kernels against their plain versions, on its
     # trained weights (its packs were primed with the seeded ones)
-    batch = agent._prepare_eval_batch(next(data.eval_dataloader()))
-    emb = agent._obs_cond(batch["obs"])
     g = torch.Generator(device=dev).manual_seed(11)
-    pairs = common.consecutive_pairs(emb)
-    x_idm = torch.randn(pairs.shape[0], 7, generator=g, device=dev)
-    ts, coefs = agent._table(agent.idm_sched, agent.config.idm_inference_steps)
-    clip = agent._clip(agent.idm_sched)
-    got = agent._idm_decode(pairs, x_idm, None)
-    ref = KA.mlp_diffusion_sample_plain(agent.idm, pairs, x_idm, ts, coefs,
-                                        None, clip)
-    away = float((KA.mlp_diffusion_sample_plain(
-        seeded.idm, pairs, x_idm, ts, coefs, None, clip) - ref).abs().max())
-    err_a = float((got - ref).abs().max())
-    print(f"   trained A ({pairs.shape[0]} rows, DDIM-"
-          f"{agent.config.idm_inference_steps}): the plain net on the seeded "
-          f"weights is {away:.3e} away from the trained", flush=True)
-    smoke.check("trained A max_abs_err vs plain on the trained weights",
-                err_a, 1e-4)
-    cond = emb[:, 0]
-    x_plan = torch.randn(emb.shape[0], 8, emb.shape[2], generator=g,
-                         device=dev)
-    ts, coefs = agent._table(agent.planner_sched,
-                             agent.config.planner_inference_steps)
-    clip = agent._clip(agent.planner_sched)
-    plain = lambda net: KB.unet1d_ddim_sample_plain(net, cond, x_plan, ts,
-                                                    coefs, clip)
-    ref = plain(KB.rounding_twin(agent.planner))
-    full = err_stats(agent._plan(cond, x_plan, None), ref)
-    fp32 = err_stats(plain(agent.planner), ref)
-    stale = err_stats(plain(KB.rounding_twin(seeded.planner)), ref)
-    print(f"   trained B ({emb.shape[0]} samples): {full}; the fp32 net "
-          f"{fp32}; the seeded weights' twin {stale}", flush=True)
-    smoke.check("trained B mean_abs_err vs the rounding twin", full["mean"],
-                5e-3)
-    smoke.check("trained B max_abs_err vs the rounding twin", full["max"], 0.1)
-    if not full["mean"] < fp32["mean"]:
-        raise AssertionError("trained B: no closer to the rounding twin than "
-                             "the fp32 net is")
-    out.update(trained_a_max_abs_err=err_a, trained_a_seeded_away=away,
-               trained_b=full, trained_b_fp32=fp32, trained_b_seeded=stale)
+    out.update(_check_trained_ldp(smoke, "trained", agent, seeded,
+                                  next(data.eval_dataloader()), g))
 
     # plan visualization once on eval windows: B plans, the decoder draws
     # the executed latents, A decodes the actions between them
@@ -1274,6 +1324,235 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
           f"{peak_steps / 2**20:.1f} MiB [{smoke.card}]", flush=True)
     out.update(step_split_ms=split_ms, step_host_ms=host_ms,
                peak_mib_train_steps=peak_steps / 2**20)
+    run.ldp_agent = agent
+    return out
+
+
+def _replayed_share(facade, n_batches: int) -> tuple[float, int]:
+    """The share of rows that a mixed facade's train stream drew from its
+    sub-datasets after the first, judged by index against the offsets: the
+    stream's first ``n_batches`` batches replayed from a generator seeded
+    as its loader seeds one (checked against the loader's first batch)."""
+    import torch
+    ds = facade.device_dataset("train")
+    gen = torch.Generator(device=ds.device).manual_seed(facade.seed)
+    idx = [ds.indices(facade.batch_size, gen) for _ in range(n_batches)]
+    first = next(facade.train_dataloader())
+    if not torch.equal(ds.dataset.gather(idx[0])["actions"],
+                       first["actions"]):
+        raise AssertionError("the replayed indices are not the stream's")
+    idx = torch.cat(idx)
+    return float((idx >= ds.sub_offsets[1]).float().mean()), idx.numel()
+
+
+def phase_mixed(smoke: Smoke, run: TrainRun):
+    """The mixed-data study of ``tools/run_lift_mixed_study.sh`` on the
+    LDP phase's trained agent and latents: the per-episode resets checked
+    on the card; ``run_data_collection`` of the agent with action noise 0.1
+    on ``COLLECT_ENVS`` physics envs × 80 steps, seed 123
+    (``lift_collect_data_config()``), launch counts checked; the
+    unsuccessful episodes welded (at most ``SUBOPT_CAP``) and encoded by the
+    VAE snapshot; the three arms (``lift_mixed_study_config``, 8 expert
+    demos) trained ``MIXED_STEPS`` steps each, losses falling, each ending
+    with its eval (closed loop ``EVAL_ENVS`` × 80 through C, B and A; launch
+    counts checked); the share of suboptimal rows in the mixed streams;
+    kernels A and B on the mixed arm's trained weights, its state's round
+    trip, and a mixed step timed part by part beside the plain one."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.latents import process_latents
+    from latent_diffusion_planning_tpu_torch.data.writer import weld_collection
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.train.loop import (Workspace,
+                                                               make_data)
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    col_cfg = configs.lift_collect_data_config()
+    n_col, seed = COLLECT_ENVS, col_cfg["seed"]
+    T = col_cfg["episode_len"]
+    policy = run.ldp_agent
+    c = policy.config
+
+    # 1. the resets: episode i's uniforms depend on (seed, i) alone, on the
+    # card as on the CPU; the old single-generator draw beside, as a reading
+    full = engine.reset_uniforms(seed, torch.arange(n_col, device=dev), 3)
+    head = engine.reset_uniforms(seed, torch.arange(4, device=dev), 3)
+    tail = engine.reset_uniforms(seed, torch.arange(n_col - 4, n_col,
+                                                    device=dev), 3)
+    on_cpu = engine.reset_uniforms(seed, torch.arange(n_col), 3)
+    same = (torch.equal(full[:4], head) and torch.equal(full[-4:], tail)
+            and torch.equal(full.cpu(), on_cpu))
+    old = lambda n: torch.rand(n, 3, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    print(f"   resets: {n_col} episodes' uniforms, the first and last 4 "
+          f"drawn alone, and the CPU's: equal {same}; the old one-generator "
+          f"draw's first 4 of {n_col} against 4 alone: equal "
+          f"{torch.equal(old(n_col)[:4], old(4))} (a reading)", flush=True)
+    if not same:
+        raise AssertionError("per-episode reset uniforms depend on the run")
+
+    # 2. the suboptimal corpus: the trained LDP with action noise
+    env = configs.make_bench_env(episode_len=T)
+    env_meta = {"env_name": "LiftPhysicsEnv",
+                "env_kwargs": dict(configs.BENCH_ENV, episode_len=T)}
+    keys = list(configs.BENCH_AGENT["lowdim_obs"]) + ["agentview_image"]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = engine.run_data_collection(
+        env, policy, n_col, seed, obs_horizon=c.obs_horizon,
+        action_horizon=c.action_horizon, episode_len=T,
+        action_noise=col_cfg["noise"],
+        policy_obs_keys=configs.BENCH_POLICY_KEYS, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_dec = math.ceil(T / c.action_horizon)
+    want = {"diffusion_mlp": n_dec, "diffusion_unet1d": n_dec,
+            "raycast": n_dec * c.action_horizon + 1}
+    rate = float(col["success"].any(1).float().mean())
+    print(f"   collection: {n_col} envs x {T} steps, noise "
+          f"{col_cfg['noise']}, seed {seed}: {secs:.3f} s, "
+          f"{n_col * T / secs:.1f} env-steps/s; policy success {rate:.4f}; "
+          f"launches {counts} (expected {want}) [{smoke.card}]", flush=True)
+    if counts != want:
+        raise AssertionError(f"collection launches {counts} != {want}")
+    subopt = weld_collection(col, obs_keys=keys, env_meta=env_meta,
+                             unsuccessful_only=True, max_demos=SUBOPT_CAP,
+                             name="lift/suboptimal")
+    del col
+    if subopt.n_demos == 0:
+        raise AssertionError("no unsuccessful episodes to weld")
+    min_z, max_z = process_latents([subopt], run.vae_snapshot,
+                                   run.vae_config, ["agentview_image"],
+                                   device=dev)
+    z = subopt.arrays["latent_agentview_image"]
+    print(f"   suboptimal corpus: {subopt.n_demos} unsuccessful episodes "
+          f"(cap {SUBOPT_CAP}), {subopt.total_steps} steps, latents "
+          f"{tuple(z.shape)} in [{min_z:.4f}, {max_z:.4f}]", flush=True)
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError("suboptimal latents not finite")
+    out.update(collect_envs=n_col, collect_s=secs, collect_success=rate,
+               collect_launches=counts, subopt_demos=subopt.n_demos,
+               subopt_steps=subopt.total_steps)
+
+    # 3. the three arms
+    given = {True: dict(train=[run.welded["train"], subopt],
+                        eval=run.welded["eval"]),
+             False: dict(train=run.welded["train"], eval=run.welded["eval"])}
+    arms = {}
+    for arm in configs.MIXED_STUDY_ARMS:
+        cfg = configs.lift_mixed_study_config(
+            arm, N_EXPERT, vae_pretrain_path=str(run.vae_snapshot))
+        cfg.update(n_grad_steps=MIXED_STEPS, n_eval_episodes=EVAL_ENVS,
+                   eval_every=0, save_every=0, log_every=100)
+        facades = {}
+        for name in ("data", "mixed_data"):
+            if name in cfg:
+                sec = cfg[name]
+                sec["env_params"]["env"]["episode_len"] = DEMO_LEN
+                sec = {k: v for k, v in sec.items()
+                       if not k.endswith(("path", "paths"))}
+                facades[name] = make_data(sec, dev,
+                                          **given[bool(sec.get("mixed"))])
+        ws = Workspace(cfg, run.work / arm, data=facades["data"],
+                       mixed_data=facades.get("mixed_data"), device=dev)
+        ws.init_agent()
+        agent = ws.agent
+        if arm == "mixed":
+            # prime the packs with the seeded weights (see the LDP phase)
+            primer = next(ws.data.eval_dataloader())
+            agent.sample_action(primer)
+            agent.sample_plan_stats(primer)
+            agent_cfg = {**cfg["agent"], "obs_normalization":
+                         ws.data.meta["obs_normalization"]}
+            seeded = LDPAgent.create(agent_cfg, ws.data.shape_meta,
+                                     seed=cfg["seed"], device=dev)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ws.run()
+        torch.cuda.synchronize()
+        curve = ws.loss_curve()
+        first, last = _loss_means(curve)
+        sps = MIXED_STEPS / ws.train_seconds
+        print(f"   {arm}: {MIXED_STEPS} steps at batch {cfg['batch_size']} "
+              f"in {ws.train_seconds:.3f} s = {sps:.2f} steps/s; plan_loss "
+              f"{first['plan_loss']:.5f} -> {last['plan_loss']:.5f}, "
+              f"idm_loss {first['idm_loss']:.5f} -> {last['idm_loss']:.5f} "
+              f"(means of the first and last 20 steps); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"[{smoke.card}]", flush=True)
+        _falls(curve, ("plan_loss", "idm_loss"), first, last)
+        counts = kernels.launch_counts()
+        want = {"diffusion_mlp": 2 + n_dec, "diffusion_unet1d": 2 + n_dec,
+                "raycast": n_dec}
+        ev = ws.last_eval
+        print(f"   {arm} eval: launches {counts} (expected {want}); closed "
+              f"loop {EVAL_ENVS} envs x {DEMO_LEN} steps (a reading): "
+              f"success {ev['success']:.4f}, horizon {ev['horizon']:.2f}, "
+              f"{ev['computed_env_steps_per_sec']:.1f} computed env-steps/s; "
+              f"action_mse train {ev['train_action_mse']:.5f}, eval "
+              f"{ev['eval_action_mse']:.5f} [{smoke.card}]", flush=True)
+        if counts != want:
+            raise AssertionError(f"{arm} eval launches {counts} != {want}")
+        bad = [k for k, v in ev.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{arm} eval metrics not finite: {bad}")
+        info = dict(steps_per_s=sps, loss_first20=first, loss_last20=last,
+                    eval=ev, eval_launches=counts)
+        stream = {"mixed": ws.mixed_data, "actionfree": ws.data}.get(arm)
+        if stream is not None:
+            share, rows = _replayed_share(stream, MIXED_STEPS + 1)
+            target = 1.0 - stream.train_split[0]
+            print(f"   {arm}: the {'IDM' if arm == 'mixed' else 'planner'}'s"
+                  f" stream drew {share:.4f} of its {rows} rows from the "
+                  f"suboptimal corpus (train_split {stream.train_split})",
+                  flush=True)
+            smoke.check(f"{arm} suboptimal share |share - {target}|",
+                        abs(share - target), 0.1)
+            info["subopt_share"] = share
+        arms[arm] = info
+        if arm == "mixed":
+            mixed_ws = ws
+    out["arms"] = arms
+
+    # 4. the mixed arm's kernels on its trained weights, its state's round
+    # trip, and a mixed step beside the plain one (CUDA events)
+    ws, agent = mixed_ws, mixed_ws.agent
+    g = torch.Generator(device=dev).manual_seed(14)
+    out.update(_check_trained_ldp(smoke, "mixed arm", agent, seeded,
+                                  next(ws.data.eval_dataloader()), g))
+    restored = LDPAgent.create(agent_cfg, ws.data.shape_meta,
+                               seed=ws.cfg["seed"] + 1, device=dev)
+    out.update(_check_round_trip(ws, restored, "mixed LDP"))
+    ds = ws.data.device_dataset("train")
+    ds_m = ws.mixed_data.device_dataset("train")
+    B = ws.data.batch_size
+    h = {}
+    gather = lambda: h.update(b=ds.sample(B, g))
+    splits = {}
+    for label, parts in (
+            ("plain", [("gather", gather),
+                       ("forward+backward",
+                        lambda: restored.backward(h["b"], True, True, g)),
+                       ("optimizer",
+                        lambda: restored.apply_gradients(True, True))]),
+            ("mixed", [("gather", gather),
+                       ("gather mixed", lambda: h.update(m=ds_m.sample(B, g))),
+                       ("forward+backward", lambda: restored.backward(
+                           h["b"], True, True, g, mixed_batch=h["m"])),
+                       ("optimizer",
+                        lambda: restored.apply_gradients(True, True))])):
+        dev_ms, host_ms = _split_step(parts, SPLIT_STEPS)
+        splits[label] = dict(device_ms=dev_ms, host_ms=host_ms)
+        print(f"   a {label} LDP step, device timeline between events (mean "
+              f"of {SPLIT_STEPS - 5}): {json.dumps(dev_ms)} ms; host time "
+              f"to enqueue: {json.dumps(host_ms)} ms [{smoke.card}]",
+              flush=True)
+    out["step_split"] = splits
     return out
 
 
@@ -1697,6 +1976,9 @@ def _training_phases(smoke: Smoke) -> None:
             return
         smoke.phase("training: LDP on the trained VAE's latents at the bench "
                     "widths", lambda: phase_ldp_training(smoke, run))
+        if run.ldp_agent is not None:
+            smoke.phase("training: mixed and action-free data",
+                        lambda: phase_mixed(smoke, run))
         smoke.phase("training: DPVAE on the same latents; kernel B at its "
                     "widths", lambda: phase_dp_vae(smoke, run))
         smoke.phase("training: DP on raw frames at the recipe widths",

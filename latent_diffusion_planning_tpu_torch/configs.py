@@ -8,8 +8,10 @@ keys, the whole agent (DDIM-25 at eval, the optimizer keys) and the ``data``
 block. ``lift_vae_train_config()`` is the VAE run of
 ``tools/run_lift_pipeline.sh``, ``lift_dp_train_config()`` and
 ``lift_dp_vae_train_config()`` the DP and DPVAE runs of
-``tools/run_lift_baselines.sh``, each composed as the JAX package's config
-system composes it. The machine with the card has no YAML reader, so
+``tools/run_lift_baselines.sh``, ``lift_mixed_study_config(arm)`` the three
+arms of ``tools/run_lift_mixed_study.sh`` and ``lift_collect_data_config()``
+its collection of the suboptimal corpus, each composed as the JAX package's
+config system composes it. The machine with the card has no YAML reader, so
 the port carries the dicts; ``tests/test_torch_configs.py`` holds them
 against the yaml.
 """
@@ -417,3 +419,89 @@ def lift_dp_train_config() -> dict:
     data["env_params"]["env"]["episode_len"] = BENCH_ENV["episode_len"]
     return copy.deepcopy({**LIFT_DP_VAE_TRAIN, "agent": LIFT_DP_AGENT,
                           "data": data})
+
+
+# -- the mixed-data study: tools/run_lift_mixed_study.sh. The planner trains
+# on ``data``, the IDM on ``mixed_data``: expert (train_bc.yaml: both are
+# the expert demos), mixed (train_mixed_bc.yaml: the IDM's stream adds the
+# suboptimal corpus with its actions) and actionfree (the planner's stream
+# adds the suboptimal corpus, whose actions it never reads; the IDM's stays
+# expert). A section with "mixed": true is a MixedOfflineData.
+
+# data/lift/mixed_latent_img.yaml: expert demos first, then the suboptimal
+# corpus that lift_collect_data_config() collects
+LIFT_MIXED_DATA = {
+    "mixed": True,
+    "name": "lift_mixed_latent_img64_data",
+    "batch_size": 128,
+    "n_workers": 0,
+    "obs_horizon": 1,
+    "seq_length": 9,
+    "format": "robomimic",
+    "train_paths": ["datasets/lift/demos.hdf5",
+                    "datasets/lift/suboptimal.hdf5"],
+    "eval_paths": "datasets/lift/demos_eval.hdf5",
+    "train_latent_paths": ["datasets/lift/demos_latent.hdf5",
+                           "datasets/lift/suboptimal_latent.hdf5"],
+    "eval_latent_paths": "datasets/lift/demos_eval_latent.hdf5",
+    "train_n_episode_overfit": [None, None],
+    "eval_n_episode_overfit": 10,
+    "train_split": 0.5,
+    "eval_split": 0.5,
+    "meta": BENCH_DATA["meta"],
+    "env_params": BENCH_DATA["env_params"],
+}
+
+MIXED_STUDY_ARMS = ("expert", "mixed", "actionfree")
+
+
+def lift_mixed_study_config(arm: str, n_expert: int = 8,
+                            vae_pretrain_path: str | None = None) -> dict:
+    """A fresh deep copy of one arm of the mixed-data study (``arm`` in
+    ``MIXED_STUDY_ARMS``): ``bench_train_config`` under the study's keys
+    (30000 steps, an eval of 512 episodes at the end) with ``n_expert``
+    expert demos. The section that only reads the expert demos keeps its
+    yaml's 400-step eval episodes (the script overrides ``data``'s only)."""
+    if arm not in MIXED_STUDY_ARMS:
+        raise ValueError(f"arm {arm!r} is not one of {MIXED_STUDY_ARMS}")
+    cfg = bench_train_config(vae_pretrain_path)
+    cfg.update(n_grad_steps=30000, eval_every=30000, save_every=30000,
+               n_eval_episodes=512)
+    expert = copy.deepcopy(BENCH_DATA)
+    expert["train_n_episode_overfit"] = n_expert
+    mixed = copy.deepcopy(LIFT_MIXED_DATA)
+    mixed["train_n_episode_overfit"] = [n_expert, None]
+    if arm == "expert":
+        cfg["data"] = expert
+    elif arm == "mixed":
+        cfg["data"] = expert
+        mixed["env_params"]["env"]["episode_len"] = 400
+        cfg["mixed_data"] = mixed
+    else:
+        cfg["data"] = mixed
+        cfg["agent"]["data_name"] = mixed["name"]
+        expert["env_params"]["env"]["episode_len"] = 400
+        cfg["mixed_data"] = expert
+    return cfg
+
+
+# configs/collect_data.yaml under the study's overrides: the suboptimal
+# corpus is an intermediate LDP checkpoint rolled out with action noise 0.1,
+# its unsuccessful episodes kept
+LIFT_COLLECT_DATA = {
+    "run_dir": "experiments/pipeline3/ldp",
+    "ckpt_name": "10000.ckpt",
+    "n_episodes": 256,
+    "episode_len": 80,
+    "noise": 0.1,
+    "successful_only": False,
+    "unsuccessful_only": True,
+    "max_demos": None,
+    "out_path": "datasets/lift/suboptimal.hdf5",
+    "seed": 123,
+}
+
+
+def lift_collect_data_config() -> dict:
+    """A fresh copy of the study's collection of its suboptimal corpus."""
+    return copy.deepcopy(LIFT_COLLECT_DATA)

@@ -1,9 +1,10 @@
 """Device-resident window sampling over welded demos.
 
 Counterpart of ``latent_diffusion_planning_tpu/data/windows.py``
-(``DeviceDataset``, ``sample_traj``, ``action_event_weights``). The welded arrays go to the device
-once (images stay uint8), with each step's demo extent; a batch is one
-indexed gather per key, so sampling never touches the host.
+(``DeviceDataset``, ``MixedDeviceDataset``, ``sample_traj``,
+``action_event_weights``). The welded arrays go to the device once (images
+stay uint8), with each step's demo extent; a batch is one indexed gather
+per key, so sampling never touches the host.
 
 Window semantics: a sample at index i covers steps ``[i - frame_stack + 1,
 i + seq_length)`` of i's demo, with edge padding by clamping the indices to
@@ -14,6 +15,7 @@ dataset keys (actions) drop the stacked prefix.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
@@ -94,6 +96,95 @@ class DeviceDataset:
                 idx = torch.randint(0, self.n_steps, (batch_size,),
                                     generator=generator, device=self.device)
         return self.gather(torch.as_tensor(idx, device=self.device).long())
+
+    def iter_batches(self, batch_size: int,
+                     generator: torch.Generator) -> Iterator[dict]:
+        """Infinite batch iterator."""
+        while True:
+            yield self.sample(batch_size, generator)
+
+
+@dataclass
+class MixedDeviceDataset:
+    """A weighted mixture of sub-datasets concatenated into one
+    ``DeviceDataset``: a draw picks a sub-dataset by ``probs``, then a
+    uniform step inside it, and the batch is one gather."""
+
+    dataset: DeviceDataset
+    sub_offsets: torch.Tensor   # (K,) int64: first step of each sub
+    sub_sizes: torch.Tensor     # (K,) int64: steps of each sub
+    probs: torch.Tensor         # (K,) float32, summing to 1
+
+    @classmethod
+    def create(cls, dataset: DeviceDataset, sub_offsets: Sequence[int],
+               sub_sizes: Sequence[int], probs: Sequence[float],
+               step_weights: torch.Tensor | None = None
+               ) -> "MixedDeviceDataset":
+        """``step_weights`` (N,) weight steps inside each sub: they fold
+        into one weight per step, p_k · w_i / Σ_{j ∈ k} w_j, which is the
+        two-stage mixture exactly, and become ``dataset``'s
+        ``sample_weights``."""
+        p = np.asarray(probs, np.float32)
+        if not (p.ndim == 1 and len(p) == len(sub_offsets) == len(sub_sizes)):
+            raise ValueError("probs, sub_offsets and sub_sizes must be K "
+                             "entries each")
+        p = p / p.sum()
+        if step_weights is not None:
+            w = np.asarray(step_weights, np.float64)
+            if w.shape != (dataset.n_steps,):
+                raise ValueError(f"step_weights shape {w.shape} != "
+                                 f"({dataset.n_steps},)")
+            folded = np.zeros_like(w)
+            for off, size, pk in zip(sub_offsets, sub_sizes, p):
+                wk = w[off:off + size]
+                folded[off:off + size] = float(pk) * wk / wk.sum()
+            dataset = dataclasses.replace(
+                dataset, sample_weights=torch.from_numpy(folded).float().to(
+                    dataset.device))
+        put = lambda v, dt: torch.as_tensor(np.asarray(v), dtype=dt,
+                                            device=dataset.device)
+        return cls(dataset=dataset, sub_offsets=put(sub_offsets, torch.int64),
+                   sub_sizes=put(sub_sizes, torch.int64),
+                   probs=put(p, torch.float32))
+
+    @property
+    def n_steps(self) -> int:
+        return self.dataset.n_steps
+
+    @property
+    def device(self) -> torch.device:
+        return self.dataset.device
+
+    def indices(self, batch_size: int,
+                generator: torch.Generator | None = None,
+                choice: torch.Tensor | None = None,
+                u: torch.Tensor | None = None) -> torch.Tensor:
+        """(B,) step indices: a sub-dataset per row (``choice``, drawn by
+        ``probs``), then ``floor(u · size)`` steps into it (``u`` uniform in
+        [0, 1)); both may be handed in. With folded step weights one
+        weighted draw replaces both."""
+        ds = self.dataset
+        if ds.sample_weights is not None:
+            return torch.multinomial(ds.sample_weights, batch_size,
+                                     replacement=True, generator=generator)
+        if choice is None:
+            choice = torch.multinomial(self.probs, batch_size,
+                                       replacement=True, generator=generator)
+        if u is None:
+            u = torch.rand(batch_size, generator=generator,
+                           device=self.device)
+        choice = torch.as_tensor(choice, device=self.device).long()
+        u = torch.as_tensor(u, device=self.device).float()
+        within = torch.floor(u * self.sub_sizes[choice]).long()
+        return self.sub_offsets[choice] + within
+
+    def sample(self, batch_size: int,
+               generator: torch.Generator | None = None,
+               choice: torch.Tensor | None = None,
+               u: torch.Tensor | None = None) -> dict:
+        """A batch of windows at ``indices``."""
+        return self.dataset.gather(self.indices(batch_size, generator, choice,
+                                                u))
 
     def iter_batches(self, batch_size: int,
                      generator: torch.Generator) -> Iterator[dict]:

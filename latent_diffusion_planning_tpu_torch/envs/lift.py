@@ -28,6 +28,14 @@ LIFT_SUCCESS = 0.04      # robosuite Lift: cube 4 cm above table
 GRAVITY_DZ = 0.025       # cube fall per step when free (quasi-static)
 WORK_LO = (-0.25, -0.25, TABLE_Z + 0.005)
 WORK_HI = (0.25, 0.25, TABLE_Z + 0.40)
+SPAWN_UNIFORMS = 3       # uniforms a reset draws per env: cube x, y, yaw
+
+
+def spawn_draws(u: torch.Tensor) -> dict:
+    """(n, 3) uniforms in [0, 1) → a reset's ``cube_xy`` (n, 2), uniform in
+    ±10 cm, and ``cube_yaw`` (n,), uniform in ±30°."""
+    return {"cube_xy": u[:, :2] * 0.2 - 0.1,
+            "cube_yaw": u[:, 2] * (math.pi / 3) - math.pi / 6}
 
 
 @dataclass
@@ -84,17 +92,27 @@ class LiftEnv:
         return self._consts[dev]
 
     # ------------------------------------------------------------------
-    def reset(self, n: int, generator: torch.Generator):
-        state = self.reset_state(n, generator)
+    def reset(self, n: int, generator: torch.Generator, **draws):
+        state = self.reset_state(n, generator, **draws)
         return state, self.obs(state)
 
-    def reset_state(self, n: int, generator: torch.Generator) -> LiftState:
+    # what a reset draws, for callers that draw the uniforms themselves
+    reset_uniforms = SPAWN_UNIFORMS
+    reset_draws = staticmethod(spawn_draws)
+
+    def reset_state(self, n: int, generator: torch.Generator,
+                    cube_xy: torch.Tensor | None = None,
+                    cube_yaw: torch.Tensor | None = None) -> LiftState:
         """n seeded initial states (no observation), on the generator's
-        device: cube xy uniform in ±10 cm, yaw in ±30°."""
+        device: cube xy uniform in ±10 cm, yaw in ±30°. ``cube_xy`` (n, 2)
+        and ``cube_yaw`` (n,) replace the generator's draws."""
         device = generator.device
-        u = torch.rand(n, 3, generator=generator, device=device)
-        cube_xy = u[:, :2] * 0.2 - 0.1
-        yaw = u[:, 2] * (math.pi / 3) - math.pi / 6
+        if cube_xy is None or cube_yaw is None:
+            drawn = spawn_draws(torch.rand(n, SPAWN_UNIFORMS,
+                                           generator=generator, device=device))
+            cube_xy = drawn["cube_xy"] if cube_xy is None else cube_xy
+            cube_yaw = drawn["cube_yaw"] if cube_yaw is None else cube_yaw
+        cube_xy, yaw = cube_xy.to(device), cube_yaw.to(device)
         return LiftState(
             eef_pos=torch.tensor([0.0, 0.0, TABLE_Z + 0.25],
                                  device=device).expand(n, 3).clone(),

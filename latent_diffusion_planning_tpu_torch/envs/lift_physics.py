@@ -20,7 +20,6 @@ raises.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass
 
 import torch
@@ -30,8 +29,8 @@ from ..ops import rotations as rot
 from ..ops.kernels import raycast
 from . import physics as ph
 from . import robosuite_arm as ra
-from .lift import (CUBE_HALF, EEF_SPEED, GRIPPER_SPEED, LIFT_SUCCESS, TABLE_Z,
-                   WORK_HI, WORK_LO)
+from .lift import (CUBE_HALF, EEF_SPEED, GRIPPER_SPEED, LIFT_SUCCESS,
+                   SPAWN_UNIFORMS, TABLE_Z, WORK_HI, WORK_LO, spawn_draws)
 from .physics import kinematics as K
 
 PANDA_CHAIN = ra.panda_chain(base_pos=(-0.56, 0.0, TABLE_Z))
@@ -173,18 +172,25 @@ class LiftPhysicsEnv:
         state = self.reset_state(n, generator, **draws)
         return state, self.obs(state)
 
+    # what a reset draws, for callers that draw the uniforms themselves
+    reset_uniforms = SPAWN_UNIFORMS
+    reset_draws = staticmethod(spawn_draws)
+
     def reset_state(self, n: int, generator: torch.Generator,
                     cube_xy: torch.Tensor | None = None,
                     cube_yaw: torch.Tensor | None = None) -> LiftPhysState:
         """n seeded initial states on the generator's device: cube xy
         uniform in ±10 cm, yaw in ±30°. ``cube_xy`` (n, 2) and ``cube_yaw``
-        (n,) replace the draws (a test hands in another framework's)."""
+        (n,) replace the draws (the eval engine's per-episode draws, or
+        another framework's in a test)."""
         dev = generator.device
         c = self._const(dev)
-        u = torch.rand(n, 3, generator=generator, device=dev)
-        xy = u[:, :2] * 0.2 - 0.1 if cube_xy is None else cube_xy.to(dev)
-        yaw = (u[:, 2] * (math.pi / 3) - math.pi / 6 if cube_yaw is None
-               else cube_yaw.to(dev))
+        if cube_xy is None or cube_yaw is None:
+            drawn = spawn_draws(torch.rand(n, SPAWN_UNIFORMS,
+                                           generator=generator, device=dev))
+            cube_xy = drawn["cube_xy"] if cube_xy is None else cube_xy
+            cube_yaw = drawn["cube_yaw"] if cube_yaw is None else cube_yaw
+        xy, yaw = cube_xy.to(dev), cube_yaw.to(dev)
         grip = torch.ones(n, device=dev)
         left, right = self._pad_positions(c["home_eef"].expand(n, 3), grip, c)
         cube_pos = torch.cat([xy, torch.full((n, 1), TABLE_Z + CUBE_HALF,

@@ -12,9 +12,11 @@ the executed part of the plan back to images with the VAE's decoder, and
 Training (``update``): the planner's ε-loss on the window's future latents
 and the IDM's on its (s, s') pairs, summed, one backward pass through
 autograd, then each net's own optimizer step (``train/state.py``: Adam,
-warmup-cosine, optional clipping, EMA). The VAE stays frozen. The kernels
-read the nets from packed copies of their weights; an update marks those
-stale and they are rebuilt at the next sample on the card.
+warmup-cosine, optional clipping, EMA). ``update_mixed`` takes a second
+batch: the planner trains on the first (expert) one, the IDM on the second
+(mixed) one's encoded observations and actions. The VAE stays frozen. The
+kernels read the nets from packed copies of their weights; an update marks
+those stale and they are rebuilt at the next sample on the card.
 
 Where the JAX agent drops to its XLA scan when a kernel cannot take a
 configuration, this agent raises on CUDA with the reason: DDPM planning
@@ -28,8 +30,8 @@ Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: for sampling the planner's initial sample
 (B, pred_horizon, obs_dim) and the IDM's (one row per decoded pair); for
 the losses ``plan_t`` (B,), ``plan_noise`` (B, H-obs_horizon, obs_dim),
-``idm_t`` (N,) and ``idm_noise`` (N, action_dim) with N the window's
-transition pairs.
+``idm_t`` (N,) and ``idm_noise`` (N, action_dim) with N the transition
+pairs of the IDM's batch (the mixed one in ``update_mixed``).
 """
 
 from __future__ import annotations
@@ -431,13 +433,15 @@ class LDPAgent:
         return torch.mean(common.weight_action_channels(
             sq, self.config.action_loss_weights))
 
-    def _loss_draws(self, obs_emb: torch.Tensor, actions: torch.Tensor,
+    def _loss_draws(self, obs_emb: torch.Tensor, idm_emb: torch.Tensor,
+                    actions: torch.Tensor,
                     generator: torch.Generator | None,
                     draws: Mapping | None) -> dict:
-        """Each loss's timesteps and noise: handed in, or drawn."""
+        """Each loss's timesteps and noise: handed in, or drawn; the
+        planner's sized by its batch, the IDM's by its batch's pairs."""
         c = self.config
         B, H, D = obs_emb.shape
-        n_pairs = B * (H - c.obs_horizon)
+        n_pairs = idm_emb.shape[0] * (idm_emb.shape[1] - c.obs_horizon)
         randint = lambda hi, n: torch.randint(0, hi, (n,), generator=generator,
                                               device=self.device)
         return {
@@ -453,13 +457,18 @@ class LDPAgent:
 
     def _loss(self, batch: Mapping, use_planner: bool, use_idm: bool,
               generator: torch.Generator | None = None,
-              draws: Mapping | None = None):
-        """(summed loss, metrics) on a prepared (normalized, encoded) batch;
+              draws: Mapping | None = None,
+              mixed_batch: Mapping | None = None):
+        """(summed loss, metrics) on a prepared (normalized, encoded) batch
+        and, when given, a prepared mixed batch that the IDM reads instead;
         the metrics are detached tensors on the device."""
         c = self.config
         obs_emb = self._obs_cond(batch["obs"])
-        actions = batch["actions"]
-        d = self._loss_draws(obs_emb, actions, generator, draws)
+        idm_batch = batch if mixed_batch is None else mixed_batch
+        idm_emb = (obs_emb if mixed_batch is None
+                   else self._obs_cond(mixed_batch["obs"]))
+        actions = idm_batch["actions"]
+        d = self._loss_draws(obs_emb, idm_emb, actions, generator, draws)
         metrics = dict(
             emb_min=obs_emb.min(), emb_max=obs_emb.max(),
             emb_mean=obs_emb.mean(), emb_std=obs_emb.std(correction=0),
@@ -472,7 +481,7 @@ class LDPAgent:
                 self.planner, obs_emb, d["plan_t"], d["plan_noise"])
         if use_idm:
             idm_loss = c.alpha_idm * self._idm_loss(
-                self.idm, obs_emb, actions, d["idm_t"], d["idm_noise"])
+                self.idm, idm_emb, actions, d["idm_t"], d["idm_noise"])
         loss = plan_loss + idm_loss
         metrics.update(plan_loss=plan_loss.detach(),
                        idm_loss=idm_loss.detach(), loss=loss.detach())
@@ -499,11 +508,16 @@ class LDPAgent:
 
     def backward(self, batch: Mapping, use_planner: bool, use_idm: bool,
                  generator: torch.Generator | None = None,
-                 draws: Mapping | None = None) -> dict:
-        """Forward and one backward pass of the summed loss; leaves the
-        gradients in the nets' ``.grad``. Returns the metrics."""
+                 draws: Mapping | None = None,
+                 mixed_batch: Mapping | None = None) -> dict:
+        """Forward and one backward pass of the summed loss (the IDM's on
+        ``mixed_batch`` when given); leaves the gradients in the nets'
+        ``.grad``. Returns the metrics."""
+        mixed = (None if mixed_batch is None
+                 else self._prepare_train_batch(mixed_batch))
         loss, metrics = self._loss(self._prepare_train_batch(batch),
-                                   use_planner, use_idm, generator, draws)
+                                   use_planner, use_idm, generator, draws,
+                                   mixed)
         nets = [n for n, use in ((self.planner, use_planner),
                                  (self.idm, use_idm)) if use]
         if nets:
@@ -528,14 +542,25 @@ class LDPAgent:
 
     def update(self, batch: Mapping, step: int,
                generator: torch.Generator | None = None,
-               draws: Mapping | None = None) -> dict:
+               draws: Mapping | None = None,
+               mixed_batch: Mapping | None = None) -> dict:
         """One train step on a raw batch ``{"obs": {k: (B, H, ...)},
-        "actions": (B, H', A)}`` at global ``step`` (the gates read it);
-        updates the agent in place and returns its metrics."""
+        "actions": (B, H', A)}`` (and the IDM's ``mixed_batch``) at global
+        ``step`` (the gates read it); updates the agent in place and
+        returns its metrics."""
         use_planner, use_idm = self._gates(step)
-        metrics = self.backward(batch, use_planner, use_idm, generator, draws)
+        metrics = self.backward(batch, use_planner, use_idm, generator, draws,
+                                mixed_batch)
         metrics.update(self.apply_gradients(use_planner, use_idm))
         return metrics
+
+    def update_mixed(self, batch: Mapping, mixed_batch: Mapping, step: int,
+                     generator: torch.Generator | None = None,
+                     draws: Mapping | None = None) -> dict:
+        """One train step with two streams: the planner on ``batch``, the
+        IDM on ``mixed_batch`` (its encoded observations and its actions;
+        ``action_min``/``action_max`` report its actions)."""
+        return self.update(batch, step, generator, draws, mixed_batch)
 
     @torch.no_grad()
     def get_metrics(self, batch: Mapping,

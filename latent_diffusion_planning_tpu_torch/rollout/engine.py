@@ -1,10 +1,11 @@
-"""Batched closed-loop eval and scripted demo collection over N envs on one
-device.
+"""Batched closed-loop eval, policy data collection and scripted demo
+collection over N envs on one device.
 
 Counterpart of ``latent_diffusion_planning_tpu/rollout/engine.py``'s
-``run_batched_eval`` and ``run_scripted_collection``. The JAX engine fuses
-an episode into one ``lax.scan``; here the steps are a Python loop of eager
-device work. Eval episode semantics are the same:
+``run_batched_eval``, ``run_data_collection`` and
+``run_scripted_collection``. The JAX engine fuses an episode into one
+``lax.scan``; here the steps are a Python loop of eager device work. Eval
+episode semantics are the same:
 
 - an ``obs_horizon`` window of observations, materialized lazily from the
   last ``obs_horizon`` env states at decision boundaries only (renders
@@ -16,8 +17,15 @@ device work. Eval episode semantics are the same:
   ``episode_len``; finished envs are masked (their state frozen), reward is
   the episode's max per-step reward, ``horizon`` its steps to termination.
 
-Not ported yet: env meshes, video capture, the ``optimal`` obs flag
-(``add_optimal``), ``run_batched_eval_multi`` and ``run_data_collection``.
+Every entry point resets episode i from (``seed``, ``episode_seeds[i]``)
+alone (default ``episode_seeds`` = 0..N-1), as the JAX engine's per-episode
+``fold_in`` does: the spawn's uniforms come from a counter-based integer
+hash computed on the device (``reset_uniforms``), so an episode's spawn is
+the same in a run of any size and can be replayed alone. The policy's draws
+and the action noise come from a ``torch.Generator`` seeded with ``seed``.
+Threefry cannot be matched, so the spawns are not the JAX package's.
+
+Not ported yet: env meshes, video capture and ``run_batched_eval_multi``.
 """
 
 from __future__ import annotations
@@ -42,10 +50,69 @@ def agent_sample_policy(agent, obs_window, generator) -> torch.Tensor:
     return sample({"obs": dict(obs_window)}, generator=generator)
 
 
-def policy_view(window: dict, policy_obs_keys) -> dict:
-    """What the policy sees: the listed keys (all when None)."""
-    return ({k: window[k] for k in policy_obs_keys if k in window}
+def policy_view(window: dict, policy_obs_keys, add_optimal: bool = False,
+                obs_horizon: int = 1) -> dict:
+    """What the policy sees: the listed keys (all when None) and, with
+    ``add_optimal``, the ``optimal`` flag as ones (N, obs_horizon, 1), which
+    no env produces (an agent trained on mixed data reads it)."""
+    view = ({k: window[k] for k in policy_obs_keys if k in window}
             if policy_obs_keys else dict(window))
+    if add_optimal:
+        leaf = next(iter(window.values()))
+        view["optimal"] = torch.ones(leaf.shape[0], obs_horizon, 1,
+                                     device=leaf.device)
+    return view
+
+
+# -- per-episode resets -----------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """x·c mod 2³² for x in [0, 2³²) (an int64 tensor or an int), in 16-bit
+    halves of ``c`` so no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finalizer (lowbias32): every output bit depends on
+    every input bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def reset_uniforms(seed: int, episode_seeds: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """(N, n) float32 uniforms in [0, 1) for the resets of episodes
+    ``episode_seeds`` (N,): a hash of (``seed``, episode seed, draw index)
+    on the seeds' device, so row i depends on ``seed`` and
+    ``episode_seeds[i]`` alone, on any device."""
+    key = _mix32(_mix32(seed & _M32) ^ ((seed >> 32) & _M32))
+    h = _mix32((episode_seeds.long() & _M32) ^ key)
+    draw = torch.arange(1, n + 1, device=episode_seeds.device) * 0x9E3779B9
+    h = _mix32((h[:, None] + draw[None, :]) & _M32)
+    return (h >> 8).float() * (1.0 / (1 << 24))
+
+
+def _initial_states(env, n_episodes: int, seed: int, episode_seeds,
+                    init_states, gen: torch.Generator):
+    """``init_states`` on the device, or the resets of ``episode_seeds``
+    (default 0..N-1) under ``seed``."""
+    dev = gen.device
+    if init_states is not None:
+        return init_states.map(lambda x: x.to(dev))
+    if episode_seeds is None:
+        episode_seeds = torch.arange(n_episodes, device=dev)
+    episode_seeds = torch.as_tensor(episode_seeds, device=dev)
+    if tuple(episode_seeds.shape) != (n_episodes,):
+        raise ValueError(f"episode_seeds shape {tuple(episode_seeds.shape)} "
+                         f"!= ({n_episodes},)")
+    u = reset_uniforms(seed, episode_seeds, env.reset_uniforms)
+    return env.reset_state(n_episodes, gen, **env.reset_draws(u))
 
 
 @torch.no_grad()
@@ -53,15 +120,18 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
                      obs_horizon: int = 1, action_horizon: int = 4,
                      episode_len: int | None = None,
                      policy_obs_keys: tuple[str, ...] | None = None,
+                     add_optimal: bool = False,
+                     episode_seeds=None,
                      plan_blend: float = 0.0,
                      policy: PolicyFn = agent_sample_policy,
                      init_states=None,
                      device: torch.device | str | None = None) -> dict:
     """Run ``n_episodes`` parallel episodes → host-side metrics.
 
-    ``seed`` seeds one ``torch.Generator`` on the device that draws the
-    resets (unless ``init_states`` gives them) and then the policy's noise.
-    ``device`` None means the card.
+    Episode i resets from (``seed``, ``episode_seeds[i]``) unless
+    ``init_states`` gives the states; ``seed`` also seeds the generator on
+    the device that the policy draws from. ``add_optimal`` hands the policy
+    the ``optimal`` flag (``policy_view``). ``device`` None means the card.
     """
     if not 0.0 <= plan_blend < 1.0:
         raise ValueError(f"plan_blend must be in [0, 1), got {plan_blend}")
@@ -70,10 +140,8 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     n_decisions = math.ceil(episode_len / action_horizon)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    if init_states is None:
-        states = env.reset_state(n_episodes, gen)
-    else:
-        states = init_states.map(lambda x: x.to(dev))
+    states = _initial_states(env, n_episodes, seed, episode_seeds,
+                             init_states, gen)
     history = [states] * obs_horizon
 
     done = torch.zeros(n_episodes, dtype=torch.bool, device=dev)
@@ -86,7 +154,8 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     for _ in range(n_decisions):
         obs_h = [env.obs(s) for s in history]
         window = {k: torch.stack([o[k] for o in obs_h], 1) for k in obs_h[0]}
-        actions = policy(agent, policy_view(window, policy_obs_keys), gen)
+        actions = policy(agent, policy_view(window, policy_obs_keys,
+                                            add_optimal, obs_horizon), gen)
         if plan_blend > 0.0:
             if prev_plan is not None:
                 overlap = actions.shape[1] - action_horizon
@@ -125,6 +194,74 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     return {"metrics": metrics, "per_episode": per_episode}
 
 
+@torch.no_grad()
+def run_data_collection(env, agent, n_episodes: int, seed: int = 0, *,
+                        obs_horizon: int = 1, action_horizon: int = 4,
+                        episode_len: int | None = None,
+                        action_noise: float = 0.0,
+                        policy_obs_keys: tuple[str, ...] | None = None,
+                        add_optimal: bool = False, episode_seeds=None,
+                        policy: PolicyFn = agent_sample_policy,
+                        init_states=None,
+                        noise_draws: torch.Tensor | None = None,
+                        device: torch.device | str | None = None) -> dict:
+    """Roll out a policy with Gaussian action noise and return its full
+    trajectories for a dataset, in ``run_scripted_collection``'s layout
+    (``first_obs``, ``obs``, ``actions``, ``rewards``, ``success``, on the
+    device; ``data/writer.weld_collection`` welds them).
+
+    Episodes run all ``ceil(episode_len / action_horizon)`` decisions, with
+    no early stop and no masking, so the trajectories are rectangular. Per
+    decision: one policy call on the window of the last ``obs_horizon``
+    observations (the first repeated before the start), then
+    ``action_horizon`` env steps with the chunk plus ``action_noise`` times
+    standard normals; the noised actions are executed and recorded, and
+    every step's observation is computed (it is recorded). Resets as in
+    ``run_batched_eval``; ``noise_draws`` (n_decisions, N, action_horizon,
+    A) hands the normals in, else they are drawn after each policy call
+    from the generator the policy draws from.
+    """
+    dev = resolve_device(device)
+    episode_len = episode_len or env.episode_len
+    n_decisions = math.ceil(episode_len / action_horizon)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    states = _initial_states(env, n_episodes, seed, episode_seeds,
+                             init_states, gen)
+    first_obs = env.obs(states)
+    history = [first_obs] * obs_horizon
+    frames = []
+    for d in range(n_decisions):
+        window = {k: torch.stack([o[k] for o in history], 1)
+                  for k in first_obs}
+        actions = policy(agent, policy_view(window, policy_obs_keys,
+                                            add_optimal, obs_horizon),
+                         gen)[:, :action_horizon]
+        if action_noise > 0.0:
+            draw = (noise_draws[d].to(dev) if noise_draws is not None
+                    else torch.randn(actions.shape, generator=gen,
+                                     device=dev))
+            actions = actions + action_noise * draw
+        for a_t in actions.unbind(1):
+            states, reward, success = env.transition(states, a_t)
+            obs = env.obs(states)
+            history = history[1:] + [obs]
+            frames.append(dict(obs=obs, action=a_t, reward=reward,
+                               success=success))
+    return _stack_frames(first_obs, frames)
+
+
+def _stack_frames(first_obs: dict, frames: list[dict]) -> dict:
+    """Per-step frames → the (N, T, ...) collection layout."""
+    stack = lambda xs: torch.stack(xs, 1)
+    return dict(first_obs=first_obs,
+                obs={k: stack([f["obs"][k] for f in frames])
+                     for k in frames[0]["obs"]},
+                actions=stack([f["action"] for f in frames]),
+                rewards=stack([f["reward"] for f in frames]),
+                success=stack([f["success"] for f in frames]))
+
+
 def _scripted_step(env, states, noise: float, clean_labels: bool,
                    draw: torch.Tensor | None):
     """One scripted-expert step: the clean action plus ``noise`` times the
@@ -143,6 +280,7 @@ def run_scripted_collection(env, n_episodes: int, seed: int = 0, *,
                             episode_len: int | None = None,
                             noise: float = 0.0, noise_hold: int = 1,
                             clean_labels: bool = False, init_states=None,
+                            episode_seeds=None,
                             noise_draws: torch.Tensor | None = None,
                             device: torch.device | str | None = None) -> dict:
     """Roll out the env's scripted expert (``env.scripted_action``) for
@@ -153,18 +291,17 @@ def run_scripted_collection(env, n_episodes: int, seed: int = 0, *,
     ``noise``/``noise_hold``: DART-style injection. The executed action is
     expert + N(0, noise²), the draw held for ``noise_hold`` consecutive
     steps; ``clean_labels`` records the expert's noise-free action instead
-    of the executed one. ``seed`` seeds a generator on the device that draws
-    the resets (unless ``init_states`` gives them) and the noise (unless
-    ``noise_draws``, (T, N, A) standard normals already held, gives it).
+    of the executed one. Resets as in ``run_batched_eval`` (unless
+    ``init_states`` gives them); ``seed`` seeds a generator on the device
+    that draws the noise (unless ``noise_draws``, (T, N, A) standard
+    normals already held, gives it).
     """
     dev = resolve_device(device)
     episode_len = episode_len or env.episode_len
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    if init_states is None:
-        states = env.reset_state(n_episodes, gen)
-    else:
-        states = init_states.map(lambda x: x.to(dev))
+    states = _initial_states(env, n_episodes, seed, episode_seeds,
+                             init_states, gen)
     first_obs = env.obs(states)
     if noise > 0.0 and noise_draws is None:
         n_blocks = -(-episode_len // noise_hold)
@@ -177,10 +314,4 @@ def run_scripted_collection(env, n_episodes: int, seed: int = 0, *,
         states, frame = _scripted_step(env, states, float(noise),
                                        clean_labels, draw)
         frames.append(frame)
-    stack = lambda xs: torch.stack(xs, 1)
-    return dict(first_obs=first_obs,
-                obs={k: stack([f["obs"][k] for f in frames])
-                     for k in frames[0]["obs"]},
-                actions=stack([f["action"] for f in frames]),
-                rewards=stack([f["reward"] for f in frames]),
-                success=stack([f["success"] for f in frames]))
+    return _stack_frames(first_obs, frames)

@@ -4,21 +4,26 @@ offline and closed-loop eval, snapshots.
 Counterpart of ``latent_diffusion_planning_tpu/train/loop.py``'s
 ``Workspace`` on one device (the JAX package's mesh and replication are
 not ported). The config is a plain dict (the keys of
-``configs.bench_train_config()``, ``lift_dp_vae_train_config()`` or
-``lift_dp_train_config()``; the agent's ``name``, ``ldp``, ``dp_vae`` or
-``dp``, picks its class), since the machine with the card has no YAML
-reader. Its agent section takes the bounds the data normalizes with
+``configs.bench_train_config()``, ``lift_dp_vae_train_config()``,
+``lift_dp_train_config()`` or ``lift_mixed_study_config(arm)``; the
+agent's ``name``, ``ldp``, ``dp_vae`` or ``dp``, picks its class), since
+the machine with the card has no YAML reader. Its agent section takes the bounds the data normalizes with
 (``stats_from_data`` measures them) before the agent is built, and
-``config.json`` is written again with them. Per step:
-``agent.update`` on a batch the device dataset gathered, then the next
-gather; every ``log_every`` steps the metrics are read and logged (the
+``config.json`` is written again with them. A data section (``data``, and
+the optional ``mixed_data``) is a ``MixedOfflineData`` when it sets
+``"mixed": true``, else an ``OfflineData`` (``make_data``). Per step:
+``agent.update`` on a batch the device dataset gathered (``update_mixed``
+on one batch of each stream when there is a ``mixed_data`` stream: the
+planner reads ``data``, the IDM ``mixed_data``), then the next gathers;
+every ``log_every`` steps the metrics are read and logged (the
 only reads of the device inside the loop), every ``save_every`` a snapshot,
 every ``eval_every`` an eval; at the end a snapshot and an eval. ``eval``
 logs the offline action MSE (``sample_action``: kernel A on the card for
 LDP, B for DPVAE and DP), the losses and, for LDP, the plan statistics
 (``sample_plan_stats``, kernel B) on a train and an eval batch, then runs
 ``n_eval_episodes`` closed-loop episodes (``run_batched_eval``: kernels C,
-B and, for LDP, A every decision); ``env_steps_per_sec`` counts each
+B and, for LDP, A every decision; the policy is handed the ``optimal``
+flag when its observation keys name it); ``env_steps_per_sec`` counts each
 episode's steps up to its end, as the JAX log does, and
 ``computed_env_steps_per_sec`` every step the engine ran, masked ones too.
 """
@@ -34,7 +39,7 @@ from typing import Any, Mapping
 import torch
 
 from .. import resolve_device
-from ..data.datasets import OfflineData
+from ..data.datasets import MixedOfflineData, OfflineData
 from ..models.agents.dp import DPAgent
 from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
@@ -64,10 +69,21 @@ def make_env(name: str, **kwargs):
     raise KeyError(f"env {name!r} is not ported")
 
 
+def make_data(section: Mapping[str, Any], device: torch.device | str,
+              **given) -> OfflineData | MixedOfflineData:
+    """A data section as its facade: ``MixedOfflineData`` when it sets
+    ``"mixed": true``, else ``OfflineData``; ``given`` (for example welded
+    ``train``/``eval`` splits) joins the section's keys."""
+    kw = {k: v for k, v in section.items() if k != "_target_"}
+    cls = MixedOfflineData if kw.pop("mixed", False) else OfflineData
+    return cls(**kw, **given, device=device)
+
+
 class Workspace:
     def __init__(self, cfg: Mapping[str, Any], work_dir: str | Path | None = None,
-                 data: OfflineData | None = None,
-                 device: torch.device | str | None = None):
+                 data: OfflineData | MixedOfflineData | None = None,
+                 device: torch.device | str | None = None,
+                 mixed_data: OfflineData | MixedOfflineData | None = None):
         self.cfg = copy.deepcopy(dict(cfg))
         self.work_dir = Path(work_dir or self.cfg.get("work_dir",
                                                       "experiments/run"))
@@ -80,9 +96,11 @@ class Workspace:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.cfg.get("seed", 0))
         if data is None:
-            kw = {k: v for k, v in self.cfg["data"].items() if k != "_target_"}
-            data = OfflineData(**kw, device=self.device)
+            data = make_data(self.cfg["data"], self.device)
+        if mixed_data is None and self.cfg.get("mixed_data"):
+            mixed_data = make_data(self.cfg["mixed_data"], self.device)
         self.data = data
+        self.mixed_data = mixed_data
         self.agent = None
         self.step = 0
         self.train_seconds = 0.0
@@ -147,9 +165,12 @@ class Workspace:
     def run(self) -> None:
         cfg = self.cfg
         train_iter = self.data.train_dataloader()
+        mixed_iter = (self.mixed_data.train_dataloader()
+                      if self.mixed_data is not None else None)
         if self.agent is None:
             self.init_agent()
         batch = next(train_iter)
+        mixed_batch = next(mixed_iter) if mixed_iter is not None else None
         log_every = Every(cfg.get("log_every", 100))
         eval_every = Every(cfg.get("eval_every", 10_000))
         save_every = Every(cfg.get("save_every", 50_000))
@@ -159,9 +180,16 @@ class Workspace:
         steps_last = self.step
         while self.step < n_steps:
             with self.timer.section("update"):
-                metrics = self.agent.update(batch, self.step, self.generator)
+                if mixed_iter is not None:
+                    metrics = self.agent.update_mixed(
+                        batch, mixed_batch, self.step, self.generator)
+                else:
+                    metrics = self.agent.update(batch, self.step,
+                                                self.generator)
             with self.timer.section("data"):
                 batch = next(train_iter)
+                if mixed_iter is not None:
+                    mixed_batch = next(mixed_iter)
             # kept on the device: reading them would wait for the step
             self.loss_history.append(torch.stack(
                 [metrics[k] for k in self.agent.LOSS_KEYS]))
@@ -213,12 +241,13 @@ class Workspace:
                                                             self.generator))
             out.update({f"{split}_{k}": float(v) for k, v in metrics.items()})
         if cfg.get("n_eval_episodes", 0) > 0 and self._make_env() is not None:
+            keys = self._policy_obs_keys()
             t0 = time.perf_counter()
             res = rollout_engine.run_batched_eval(
                 self._env, self.agent, cfg["n_eval_episodes"], self.step,
                 obs_horizon=cfg["obs_horizon"],
-                action_horizon=cfg["action_horizon"],
-                policy_obs_keys=self._policy_obs_keys(), device=self.device)
+                action_horizon=cfg["action_horizon"], policy_obs_keys=keys,
+                add_optimal="optimal" in keys, device=self.device)
             wall = time.perf_counter() - t0
             m = dict(res["metrics"])
             # the JAX log's rate counts each episode's steps to its end;

@@ -201,3 +201,69 @@ def test_lift_dp_train_config_matches_the_baselines():
     assert got["data"] == want["data"]
     assert got["agent"]["encoder"]["stage_sizes"] == [2, 2, 2, 2]
     assert got is not configs.lift_dp_train_config()
+
+
+STUDY_VAE = "experiments/pipeline3/vae/ckpt/4000.ckpt"
+# tools/run_lift_mixed_study.sh's $VAE_ARGS and $COMMON
+STUDY_COMMON = [
+    "model_vae.block_out_channels=[64,128,128,128]", "model_vae.patch_size=4",
+    "model_vae.norm_groups=16", f"agent.vae_pretrain_path={STUDY_VAE}",
+    "agent.planner.down_dims=[64,128,256]",
+    "agent.planner_n_diffusion_steps=50", "agent.idm_n_diffusion_steps=50",
+    "agent.planner_inference_steps=25", "agent.idm_inference_steps=25",
+    "data.env_params.env.episode_len=80", "horizon=9", "obs_horizon=1",
+    "action_horizon=4", "pred_horizon=8", "batch_size=128",
+    "n_grad_steps=30000", "warmup_steps=200", "lr=3e-4",
+    "n_eval_episodes=512", "eval_every=30000", "save_every=30000",
+    "experiment_folder=mixed_study"]
+# each arm's config and data sections in the script, N_EXPERT=8
+STUDY_ARMS = {
+    "expert": ("train_bc", ["agent=ldp_agent", "data=lift/latent_img",
+                            "data.train_n_episode_overfit=8"]),
+    "mixed": ("train_mixed_bc", [
+        "data=lift/latent_img", "data.train_n_episode_overfit=8",
+        "mixed_data=lift/mixed_latent_img",
+        "mixed_data.train_n_episode_overfit=[8,null]"]),
+    "actionfree": ("train_mixed_bc", [
+        "data=lift/mixed_latent_img", "data.train_n_episode_overfit=[8,null]",
+        "mixed_data=lift/latent_img", "mixed_data.train_n_episode_overfit=8"]),
+}
+
+
+@pytest.mark.parametrize("arm", list(STUDY_ARMS))
+def test_lift_mixed_study_config_matches_the_study(arm):
+    """Each arm of ``tools/run_lift_mixed_study.sh`` through the JAX config
+    system: the planner's stream ``data`` and the IDM's ``mixed_data`` (a
+    ``MixedOfflineData`` section carries the port's ``"mixed": true``)."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    name, overrides = STUDY_ARMS[arm]
+    want = _plain(load_config(name, overrides + STUDY_COMMON))
+    got = configs.lift_mixed_study_config(arm, 8, STUDY_VAE)
+    _assert_port_config(got, want, skip=("agent", "data", "mixed_data"))
+    agent = dict(got["agent"])
+    assert agent.pop("fused_dtype") == "bfloat16"
+    assert agent == want["agent"]
+    sections = ("data", "mixed_data") if arm != "expert" else ("data",)
+    assert ("mixed_data" in got) == ("mixed_data" in want) == (arm != "expert")
+    for sec in sections:
+        section = dict(got[sec])
+        target = load_config(name, overrides + STUDY_COMMON)[sec]["_target_"]
+        assert section.pop("mixed", False) == target.endswith(
+            "MixedOfflineData"), sec
+        assert section == want[sec], sec
+    assert got is not configs.lift_mixed_study_config(arm)
+    with pytest.raises(ValueError, match="arm"):
+        configs.lift_mixed_study_config("other")
+
+
+def test_lift_collect_data_config_matches_the_study():
+    """Stage 1 of the study: configs/collect_data.yaml under the script's
+    overrides (256 episodes of 80 steps, noise 0.1, unsuccessful episodes
+    kept, seed 123)."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    want = _plain(load_config("collect_data", [
+        "run_dir=experiments/pipeline3/ldp", "ckpt_name=10000.ckpt",
+        "n_episodes=256", "episode_len=80", "noise=0.1",
+        "unsuccessful_only=true", "out_path=datasets/lift/suboptimal.hdf5",
+        "seed=123"]))
+    assert configs.lift_collect_data_config() == want
