@@ -56,9 +56,20 @@
    weights before training, so a missed repack fails here); ``sample_viz``
    runs once (one launch of B and of A); the full state round-trips bit for
    bit, and one step from the restored state equals one from the live state
-   (cuDNN deterministic); a train step is timed part by part. Then the
-   mixed-data study of ``tools/run_lift_mixed_study.sh`` on that trained
-   agent and its latents: episode resets checked to depend on (seed,
+   (cuDNN deterministic); a train step is timed part by part. Then
+   hierarchical LDP on the same latents (``lift_ldp_hier_train_config()``:
+   a planner [64,128,256] over 2 strided latents and a chunk IDM [64,128]
+   k 3 over chunks of 4 actions, neither downsampling) for ``HIER_STEPS``
+   steps at batch 128, both losses falling, its eval's closed loop of 256
+   envs × 80 steps launching B twice a decision and C once (counts
+   checked exactly), B held against its rounding twin on both trained nets
+   (packs primed from the seeded weights), ``sample_viz`` once (B twice),
+   the state's round trip, a step timed part by part, and B alone, DDIM-25,
+   at the recipe's planner (1024 × T 2) and chunk IDM (2048 × T 4) and at
+   the yaml's reference widths, each with its bound (products read off the
+   kernel's program, counting only the conv taps inside the sequence).
+   Then the mixed-data study of ``tools/run_lift_mixed_study.sh`` on that
+   trained agent and its latents: episode resets checked to depend on (seed,
    episode) alone on the card; ``run_data_collection`` of the agent on
    ``COLLECT_ENVS`` physics envs × 80 steps with action noise 0.1, seed 123
    (A and B once a decision, C every frame; launch counts checked); its
@@ -136,6 +147,7 @@ COLLECT_ENVS = 256
 SUBOPT_CAP = 92
 N_EXPERT = 8
 MIXED_STEPS = 400
+HIER_STEPS = 400             # LDP-hier, of the baselines' 15000, at batch 128
 
 
 def card_line() -> str:
@@ -327,37 +339,53 @@ def phase_mlp(smoke: Smoke):
     return out
 
 
+def taps_inside(n_out, k, stride, offset, n_in) -> int:
+    """(output row, tap) pairs of a 1-D conv, output row o reading input
+    row ``stride·o + j - offset`` at tap j, whose input row lies inside
+    [0, n_in): the products the function needs, since a tap on the padding
+    multiplies a zero."""
+    return sum(0 <= stride * o + j - offset < n_in
+               for o in range(n_out) for j in range(k))
+
+
 def unet_flops_bytes(net, B, T, steps):
     """(fp32 elementwise FLOPs, bf16-weight product FLOPs, bytes). The TPU
     kernel multiplies bf16 by bf16 with fp32 accumulation, so its products
-    are counted at the bf16 tensor-core peak."""
+    are counted at the bf16 tensor-core peak. A conv counts only the taps
+    that land inside the sequence (a 2-long plan under 5 taps reads 4 of
+    10); each FiLM projection counts its time half once a step and its
+    condition half once a sample, as the kernel's prologue computes them."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as K)
     recs = K.build_program(net, T, 1)["records"]
     k = net.kernel_size
-    cond = net.dsed + net.global_cond_dim
-    per = elem = 0
+    same = lambda tl: taps_inside(tl, k, 1, k // 2, tl)
+    per = elem = film_t = film_g = 0
     for r in recs:
         if r[0] == K.FILM:
             cin, ch, tl = r[1:4]
-            per += 2 * tl * ch * k * (cin + ch) + 2 * cond * 2 * ch
+            per += 2 * same(tl) * ch * (cin + ch)
+            film_t += 2 * net.dsed * 2 * ch
+            film_g += 2 * net.global_cond_dim * 2 * ch
             if r[7] >= 0:
                 per += 2 * tl * cin * ch
             else:
                 elem += tl * ch
             elem += 2 * 12 * tl * ch         # two GroupNorm + Mish passes
-        elif r[0] in (K.DOWN, K.UP):
+        elif r[0] == K.DOWN:                 # k 3, stride 2, pad (0, 1)
             ch, tin = r[1:3]
-            tout = tin // 2 if r[0] == K.DOWN else 2 * tin
-            per += 2 * tout * ch * ch * (3 if r[0] == K.DOWN else 2)
+            per += 2 * taps_inside(tin // 2, 3, 2, 0, tin) * ch * ch
+        elif r[0] == K.UP:                   # x[t] w[j] -> y[2t + 2 - j]
+            ch, tin = r[1:3]
+            per += 2 * taps_inside(tin, 4, 2, 1, 2 * tin) * ch * ch
         elif r[0] == K.FINAL_BLOCK:
-            per += 2 * r[3] * r[1] * r[2] * k
+            per += 2 * same(r[3]) * r[1] * r[2]
             elem += 12 * r[3] * r[2]
         elif r[0] == K.FINAL_CONV:
             per += 2 * r[3] * r[1] * r[2]
     d = net.dsed
-    once = 2 * (d * 4 * d + 4 * d * d)
-    mm = steps * (once + B * per)
+    once = 2 * (d * 4 * d + 4 * d * d) + film_t
+    mm = steps * (once + B * per) + B * film_g
     elem = steps * B * (elem + 10 * T * net.input_dim)
     weights = sum(p.numel() for p in net.parameters()) * 2       # bf16
     nbytes = weights + 4 * (B * net.global_cond_dim + 2 * B * T * net.input_dim)
@@ -1601,17 +1629,17 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     return out
 
 
-def _time_unet(smoke, what, net, B, table, clip, g) -> dict:
-    """Kernel B alone on ``net`` at ``B`` samples over ``table`` (T 8,
-    seeded condition and initial sample): held against the rounding twin
-    (the max as a reading), timed beside the twin, with its launch
-    geometry, the weight bytes it streams and its bound."""
+def _time_unet(smoke, what, net, B, table, clip, g, T=8) -> dict:
+    """Kernel B alone on ``net`` at ``B`` samples of length ``T`` over
+    ``table`` (seeded condition and initial sample): held against the
+    rounding twin (the max as a reading), timed beside the twin, with its
+    launch geometry, the weight bytes it streams and its bound."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
     ts, coefs = table
     gc = torch.randn(B, net.global_cond_dim, generator=g, device="cuda")
-    x0 = torch.randn(B, 8, net.input_dim, generator=g, device="cuda")
+    x0 = torch.randn(B, T, net.input_dim, generator=g, device="cuda")
     packed = KB.pack_params(net).to("cuda")
     checks = _unet_against_twin(smoke, what, net, gc, x0, table, clip, packed,
                                 hold_max=False)
@@ -1621,20 +1649,21 @@ def _time_unet(smoke, what, net, B, table, clip, g) -> dict:
     run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs, clip)
     ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
     smoke.timing(what, ms, plain_ms)
-    elem, mm, nbytes = unet_flops_bytes(net, B, 8, int(ts.shape[0]))
+    elem, mm, nbytes = unet_flops_bytes(net, B, T, int(ts.shape[0]))
     b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
-    shape = KB.kernel_info(net, B, 8, int(ts.shape[0]))
-    row_tiles = -(-shape["samples_per_block"] * 8 // 16)
+    shape = KB.kernel_info(net, B, T, int(ts.shape[0]))
+    row_tiles = -(-shape["samples_per_block"] * T // 16)
     entry = next(n for n in (2, 4, 8) if row_tiles <= n)
     info = smoke.shape_line(what, f"unet1d_sampler_kernelILi{entry}E", shape,
                             mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
-    print(f"   {what}: bound {b_ms:.3f} ms ({b_by}); weights "
+    print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
+          f"the kernel's time; weights "
           f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
           f"and block, {shape['weight_bytes_streamed'] / 1e9:.1f} GB "
           f"streamed in all [{smoke.card}]", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bf16_flops=mm, fp32_flops=elem, bytes=nbytes, shape=info,
-                **checks)
+                bound_share=b_ms / ms, bf16_flops=mm, fp32_flops=elem,
+                bytes=nbytes, shape=info, **checks)
 
 
 def phase_dp_vae(smoke: Smoke, run: TrainRun):
@@ -1753,6 +1782,190 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
                                      p["kernel_size"], p["n_groups"]).to(dev)
         timing[name] = _time_unet(smoke, f"DPVAE B {name} {list(dd)} B={B}",
                                   tnet, B, table, clip, g)
+    out["unet_timing"] = timing
+    return out
+
+
+def phase_ldp_hier(smoke: Smoke, run: TrainRun):
+    """Hierarchical LDP (stage 3 of ``tools/run_lift_baselines.sh``,
+    ``lift_ldp_hier_train_config()``: a planner [64,128,256] k 5 over P = 2
+    strided latents and a chunk IDM [64,128] k 3 over chunks of 4 actions,
+    neither downsampling; DDPM-50 training, DDIM-25 sampling) on the LDP
+    phase's latents, through the ``Workspace`` for ``HIER_STEPS`` of its
+    15000 steps at batch 128; its eval ends with a closed loop of
+    ``EVAL_ENVS`` × 80 steps that launches kernel B twice a decision
+    (planner, then chunk IDM) and C once. Then kernel B on both trained
+    nets against their rounding twins (packs primed from the seeded
+    weights), ``sample_viz`` once, the state's round trip, a step timed
+    part by part, and kernel B alone at the recipe's shapes and at the
+    yaml's reference widths."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data.datasets import OfflineData
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp_hier import (
+        LDPHierAgent)
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        unet_from_config)
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.train.loop import Workspace
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = configs.lift_ldp_hier_train_config(
+        vae_pretrain_path=str(run.vae_snapshot))
+    cfg.update(n_grad_steps=HIER_STEPS, n_eval_episodes=EVAL_ENVS,
+               eval_every=0, save_every=0, log_every=100, resume=False)
+    cfg["data"]["env_params"]["env"]["episode_len"] = DEMO_LEN
+    meta = cfg["data"]["meta"]
+    agent_cfg = {**cfg["agent"], "obs_normalization": meta["obs_normalization"]}
+    data_kw = {k: v for k, v in cfg["data"].items() if not k.endswith("path")}
+    data = OfflineData(**data_kw, train=run.welded["train"],
+                       eval=run.welded["eval"], device=dev)
+    ws = Workspace(cfg, run.work / "ldp_hier", data=data, device=dev)
+    ws.init_agent()
+    agent = ws.agent
+    if not isinstance(agent, LDPHierAgent):
+        raise AssertionError(f"the workspace built a {type(agent).__name__}")
+    P, k = agent.plan_length, agent.config.idm_horizon
+    # prime both packs with the seeded weights (see the LDP phase):
+    # sample_action packs the chunk IDM, sample_plan_stats the planner
+    primer = next(data.eval_dataloader())
+    agent.sample_action(primer)
+    agent.sample_plan_stats(primer)
+    seeded = LDPHierAgent.create(agent_cfg, meta["shape_meta"],
+                                 seed=cfg["seed"], device=dev)
+
+    # the eval that ends run(): per split one sample_action (B on the chunk
+    # IDM) and one sample_plan_stats (B on the planner at the window's
+    # length), then per decision B on the planner, B on the chunk IDM and
+    # C for the frame; no MLP-IDM
+    n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
+    want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 * 2 + 2 * n_dec,
+            "raycast": n_dec}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ws.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    curve = ws.loss_curve()
+    first, last = _loss_means(curve)
+    sps = HIER_STEPS / ws.train_seconds
+    print(f"   LDP-hier: {HIER_STEPS} steps at batch {cfg['batch_size']} in "
+          f"{ws.train_seconds:.3f} s = {sps:.2f} steps/s, {1e3 / sps:.2f} ms "
+          f"a step; run() with its snapshot and eval {run_s:.3f} s; peak "
+          f"memory {peak / 2**20:.1f} MiB [{smoke.card}]", flush=True)
+    for key in ("plan_loss", "idm_loss"):
+        print(f"   LDP-hier {key}: mean of the first 20 steps "
+              f"{first[key]:.5f}, of the last 20 {last[key]:.5f}", flush=True)
+    _falls(curve, ("plan_loss", "idm_loss"), first, last)
+    print(f"   LDP-hier eval: launches {counts} (expected {want}: per split "
+          f"one sample_action and one sample_plan_stats through B, then "
+          f"{n_dec} decisions through B twice and C once)", flush=True)
+    if counts != want:
+        raise AssertionError(f"LDP-hier eval launches {counts} != {want}")
+    ev = ws.last_eval
+    for split in ("train", "eval"):
+        print(f"   LDP-hier eval {split}: action_mse "
+              f"{ev[f'{split}_action_mse']:.5f}, plan_mse "
+              f"{ev[f'{split}_plan_mse']:.6f} against plan_mse_persist "
+              f"{ev[f'{split}_plan_mse_persist']:.6f}", flush=True)
+    print(f"   LDP-hier closed loop, {EVAL_ENVS} envs x {DEMO_LEN} steps after "
+          f"{HIER_STEPS} steps (a reading): success {ev['success']:.4f}, "
+          f"horizon {ev['horizon']:.2f}, {ev['env_steps_per_sec']:.1f} "
+          f"env-steps/s to the episodes' ends, "
+          f"{ev['computed_env_steps_per_sec']:.1f} computed env-steps/s "
+          f"[{smoke.card}]", flush=True)
+    bad = [key for key, v in ev.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"LDP-hier eval metrics not finite: {bad}")
+    out.update(train_steps=HIER_STEPS, batch=cfg["batch_size"],
+               train_s=ws.train_seconds, steps_per_s=sps,
+               ms_per_step=1e3 / sps, run_s=run_s, peak_mib_run=peak / 2**20,
+               loss_first20=first, loss_last20=last, eval=ev,
+               eval_launches=counts, eval_launches_expected=want)
+
+    # kernel B on both trained nets against their rounding twins; the
+    # packs the agent hands over were primed from the seeded weights, so a
+    # missed repack fails here
+    g = torch.Generator(device=dev).manual_seed(16)
+    emb = agent._obs_cond(agent._prepare_eval_batch(
+        next(data.eval_dataloader()))["obs"])
+    c = agent.config
+    for name, steps, cond, shape in (
+            ("planner", c.planner_inference_steps, emb[:, 0],
+             (emb.shape[0], P, c.obs_dim)),
+            ("idm", c.idm_inference_steps, agent._strided_pairs(emb),
+             (emb.shape[0] * (emb.shape[1] - 1) // k, k, c.action_dim))):
+        sched = getattr(agent, f"{name}_sched")
+        x_init = torch.randn(shape, generator=g, device=dev)
+        out[f"trained_b_{name}"] = _unet_against_twin(
+            smoke, f"trained LDP-hier B {name} ({shape[0]} samples, T "
+            f"{shape[1]}, DDIM-{steps})", agent._inference_net(name), cond,
+            x_init, agent._table(sched, steps), agent._clip(sched),
+            agent._packed(name), seeded=getattr(seeded, name))
+
+    # plan visualization once, on windows of obs_horizon + P steps (plan_mse
+    # against the next P latents, as the JAX agent compares them)
+    viz_batch = next(data.eval_dataloader())
+    viz_batch = {"obs": {key: v[:, :1 + P]
+                         for key, v in viz_batch["obs"].items()}}
+    kernels.reset_launch_counts()
+    acts, viz = agent.sample_viz(viz_batch, g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"diffusion_mlp": 0, "diffusion_unet1d": 2, "raycast": 0}
+    pv = viz["plan_viz"]
+    print(f"   LDP-hier sample_viz on {acts.shape[0]} eval windows: actions "
+          f"{tuple(acts.shape)}, plan_mse {float(viz['plan_mse']):.6f}, "
+          f"plan_viz {tuple(pv.shape)} in [{float(pv.min()):.3f}, "
+          f"{float(pv.max()):.3f}], launches {counts} (expected {want})",
+          flush=True)
+    if (counts != want or tuple(pv.shape[:2]) != (acts.shape[0], P * k)
+            or not (torch.isfinite(acts).all() and torch.isfinite(pv).all())):
+        raise AssertionError(f"LDP-hier sample_viz: launches {counts}, "
+                             f"plan_viz {tuple(pv.shape)}")
+    out.update(viz_plan_mse=float(viz["plan_mse"]), viz_launches=counts)
+
+    restored = LDPHierAgent.create(agent_cfg, meta["shape_meta"],
+                                   seed=cfg["seed"] + 1, device=dev)
+    out.update(_check_round_trip(ws, restored, "LDP-hier"))
+
+    ds = data.device_dataset("train")
+    holder = {}
+    split_ms, host_ms = _split_step([
+        ("gather", lambda: holder.update(b=ds.sample(cfg["batch_size"], g))),
+        ("forward+backward",
+         lambda: restored.backward(holder["b"], True, True, g)),
+        ("optimizer", lambda: restored.apply_gradients(True, True))],
+        SPLIT_STEPS)
+    print(f"   a LDP-hier train step, device timeline between events (mean "
+          f"of {SPLIT_STEPS - 5}): {json.dumps(split_ms)} ms; host time to "
+          f"enqueue: {json.dumps(host_ms)} ms [{smoke.card}]", flush=True)
+    out.update(step_split_ms=split_ms, step_host_ms=host_ms)
+
+    # kernel B alone, DDIM-25: the recipe's planner at 1024 samples of 2
+    # latents and its chunk IDM at the 2048 chunks of 1024 decisions, then
+    # the yaml's reference widths at the same shapes
+    timing = {}
+    ref = {"planner": [256, 512, 1024], "idm_net": [256, 512]}
+    for name, net_key, B, T in (("planner", "planner", 1024, P),
+                                ("idm", "idm_net", 2048, k)):
+        sched = getattr(agent, f"{name}_sched")
+        steps = getattr(c, f"{name}_inference_steps")
+        table, clip = agent._table(sched, steps), agent._clip(sched)
+        trained = agent._inference_net(name)
+        torch.manual_seed(17)
+        wide = unet_from_config({**cfg["agent"][net_key],
+                                 "down_dims": ref[net_key]},
+                                trained.input_dim,
+                                trained.global_cond_dim).to(dev)
+        for label, net in (("recipe", trained), ("reference", wide)):
+            timing[f"{name}_{label}"] = _time_unet(
+                smoke, f"LDP-hier B {name} {label} {list(net.down_dims)} "
+                f"B={B} T={T}", net, B, table, clip, g, T=T)
     out["unet_timing"] = timing
     return out
 
@@ -1976,6 +2189,10 @@ def _training_phases(smoke: Smoke) -> None:
             return
         smoke.phase("training: LDP on the trained VAE's latents at the bench "
                     "widths", lambda: phase_ldp_training(smoke, run))
+        if run.ldp_agent is not None:
+            smoke.phase("training: LDP-hier on the trained VAE's latents; "
+                        "kernel B on nets that do not downsample",
+                        lambda: phase_ldp_hier(smoke, run))
         if run.ldp_agent is not None:
             smoke.phase("training: mixed and action-free data",
                         lambda: phase_mixed(smoke, run))

@@ -29,9 +29,10 @@ from .models.agents.dp import DPAgent
 from .models.agents.dp import build_nets as build_dp_nets
 from .models.agents.dp_vae import DPVAEAgent
 from .models.agents.ldp import LDPAgent
+from .models.agents.ldp_hier import LDPHierAgent
 from .models.nets.mlp import MLPDiffusion
 from .models.nets.resnet import ResNetEncoder
-from .models.nets.unet1d import ConditionalUnet1D
+from .models.nets.unet1d import ConditionalUnet1D, unet_from_config
 from .models.vae import KLVAE
 
 
@@ -78,6 +79,9 @@ def _norm(norm: nn.Module, p: Mapping) -> None:
 # ---------------------------------------------------------------------------
 
 def load_unet1d(net: ConditionalUnet1D, params: Mapping) -> ConditionalUnet1D:
+    """Flax names the top level's plain convs in call order: the stride-2
+    downsamples ``Conv_0``… (none when the net does not downsample), then
+    the final 1×1 conv."""
     _dense(net.time_dense0, params["Dense_0"])
     _dense(net.time_dense1, params["Dense_1"])
     for i, blk in enumerate(net.blocks):
@@ -102,10 +106,11 @@ def load_unet1d(net: ConditionalUnet1D, params: Mapping) -> ConditionalUnet1D:
 def unet1d_from_flax(params: Mapping, *, input_dim: int, global_cond_dim: int,
                      diffusion_step_embed_dim: int = 256,
                      down_dims=(256, 512, 1024), kernel_size: int = 5,
-                     n_groups: int = 8) -> ConditionalUnet1D:
+                     n_groups: int = 8,
+                     downsample: bool = True) -> ConditionalUnet1D:
     net = ConditionalUnet1D(input_dim, global_cond_dim,
                             diffusion_step_embed_dim, down_dims, kernel_size,
-                            n_groups)
+                            n_groups, downsample)
     return load_unet1d(net, params)
 
 
@@ -271,13 +276,10 @@ def ldp_agent_from_flax(snapshot: Mapping, config: Mapping,
     obs_dim, action_dim = common.obs_dims(shape_meta, config["rgb_obs"],
                                           config["lowdim_obs"],
                                           config["vae_feature_dim"])
-    p = config["planner"]
-    planner = unet1d_from_flax(
-        snapshot["planner_params"], input_dim=obs_dim,
-        global_cond_dim=obs_dim * config["obs_horizon"],
-        diffusion_step_embed_dim=p.get("diffusion_step_embed_dim", 256),
-        down_dims=p.get("down_dims", (256, 512, 1024)),
-        kernel_size=p.get("kernel_size", 5), n_groups=p.get("n_groups", 8))
+    planner = load_unet1d(
+        unet_from_config(config["planner"], obs_dim,
+                         obs_dim * config["obs_horizon"]),
+        snapshot["planner_params"])
     i = config["idm_net"]
     idm = mlp_diffusion_from_flax(
         snapshot["idm_params"], s_dim=2 * obs_dim, out_dim=action_dim,
@@ -302,19 +304,15 @@ def dp_vae_agent_from_flax(snapshot: Mapping, config: Mapping,
     obs_dim, action_dim = common.obs_dims(shape_meta, config["rgb_obs"],
                                           config["lowdim_obs"],
                                           config.get("vae_feature_dim", 16))
-    p = config["planner"]
-    kw = dict(input_dim=action_dim,
-              global_cond_dim=obs_dim * config.get("obs_horizon", 1),
-              diffusion_step_embed_dim=p.get("diffusion_step_embed_dim", 256),
-              down_dims=p.get("down_dims", (256, 512, 1024)),
-              kernel_size=p.get("kernel_size", 5), n_groups=p.get("n_groups", 8))
-    planner = unet1d_from_flax(snapshot["planner_params"], **kw)
+    planner = load_unet1d(
+        unet_from_config(config["planner"], action_dim,
+                         obs_dim * config.get("obs_horizon", 1)),
+        snapshot["planner_params"])
     vae = load_klvae(KLVAE(**config.get("vae", {})), snapshot["vae_params"])
     agent = DPVAEAgent.assemble(planner, vae, config, obs_dim, action_dim, dev)
     ema = agent.planner_state.ema
     if ema is not None and snapshot.get("planner_ema_params") is not None:
-        ema.load_state_dict(unet1d_from_flax(snapshot["planner_ema_params"],
-                                             **kw).state_dict())
+        load_unet1d(ema, snapshot["planner_ema_params"])
     return agent
 
 
@@ -339,4 +337,32 @@ def dp_agent_from_flax(snapshot: Mapping, config: Mapping, shape_meta: Mapping,
         tree = (snapshot.get("encoder_ema_params") or {}).get(f"{key}_params")
         if state.ema is not None and tree is not None:
             load_resnet(state.ema, tree)
+    return agent
+
+
+def ldp_hier_agent_from_flax(snapshot: Mapping, config: Mapping,
+                             shape_meta: Mapping,
+                             device: torch.device | str | None = None
+                             ) -> LDPHierAgent:
+    """An LDPHierAgent from a ``{planner_params, idm_params, vae_params}``
+    snapshot (and ``planner_ema_params``, ``idm_ema_params`` when it holds
+    them and the config tracks EMA copies) and the agent config dict (the
+    ``agent`` of ``configs.lift_ldp_hier_train_config()``)."""
+    dev = resolve_device(device)
+    obs_dim, action_dim = common.obs_dims(shape_meta, config["rgb_obs"],
+                                          config["lowdim_obs"],
+                                          config["vae_feature_dim"])
+    planner = load_unet1d(
+        unet_from_config(config["planner"], obs_dim,
+                         obs_dim * config["obs_horizon"]),
+        snapshot["planner_params"])
+    idm = load_unet1d(unet_from_config(config["idm_net"], action_dim,
+                                       2 * obs_dim), snapshot["idm_params"])
+    vae = load_klvae(KLVAE(**config.get("vae", {})), snapshot["vae_params"])
+    agent = LDPHierAgent.assemble(planner, idm, vae, config, obs_dim,
+                                  action_dim, dev)
+    for name in ("planner", "idm"):
+        ema = getattr(agent, f"{name}_state").ema
+        if ema is not None and snapshot.get(f"{name}_ema_params") is not None:
+            load_unet1d(ema, snapshot[f"{name}_ema_params"])
     return agent

@@ -6,11 +6,12 @@ planner and IDM (``bench.py``'s ``BENCH_INFERENCE_STEPS`` default).
 ``bench_train_config()`` is the run that trained it: the top-level training
 keys, the whole agent (DDIM-25 at eval, the optimizer keys) and the ``data``
 block. ``lift_vae_train_config()`` is the VAE run of
-``tools/run_lift_pipeline.sh``, ``lift_dp_train_config()`` and
-``lift_dp_vae_train_config()`` the DP and DPVAE runs of
-``tools/run_lift_baselines.sh``, ``lift_mixed_study_config(arm)`` the three
-arms of ``tools/run_lift_mixed_study.sh`` and ``lift_collect_data_config()``
-its collection of the suboptimal corpus, each composed as the JAX package's
+``tools/run_lift_pipeline.sh``; ``lift_dp_train_config()``,
+``lift_dp_vae_train_config()`` and ``lift_ldp_hier_train_config()`` are the
+DP, DPVAE and LDP-hier runs of ``tools/run_lift_baselines.sh``;
+``lift_mixed_study_config(arm)`` the three arms of
+``tools/run_lift_mixed_study.sh`` and ``lift_collect_data_config()`` its
+collection of the suboptimal corpus, each composed as the JAX package's
 config system composes it. The machine with the card has no YAML reader, so
 the port carries the dicts; ``tests/test_torch_configs.py`` holds them
 against the yaml.
@@ -419,6 +420,82 @@ def lift_dp_train_config() -> dict:
     data["env_params"]["env"]["episode_len"] = BENCH_ENV["episode_len"]
     return copy.deepcopy({**LIFT_DP_VAE_TRAIN, "agent": LIFT_DP_AGENT,
                           "data": data})
+
+
+# -- the LDP-hier run: stage 3 of tools/run_lift_baselines.sh
+# (configs/train_bc.yaml with agent/ldp_hier_agent and data/lift/latent_img;
+# its recorded run, assets/runs/baselines/ldp_hier/config.yaml, took 15000
+# steps): a strided planner and a chunk-decoding U-Net IDM, neither of which
+# downsamples
+
+LIFT_LDP_HIER_TRAIN = {
+    **LIFT_DP_VAE_TRAIN,
+    "n_grad_steps": 15000,
+    "horizon": 9,
+    "idm_horizon": 4,
+    "save_every": 7500,
+    "eval_every": 7500,
+}
+
+LIFT_LDP_HIER_AGENT = {
+    "name": "ldp_hier",
+    "planner": {**BENCH_AGENT["planner"], "downsample": False},
+    "idm_net": {
+        "diffusion_step_embed_dim": 256,
+        "down_dims": [64, 128],
+        "kernel_size": 3,
+        "n_groups": 8,
+        "downsample": False,
+    },
+    "idm_horizon": 4,
+    "vae": BENCH_AGENT["vae"],
+    "vae_pretrain_path": "experiments/pipeline3/vae/ckpt/4000.ckpt",
+    "vae_feature_dim": 16,
+    "use_planner": True,
+    "use_idm": True,
+    "lowdim_obs": BENCH_AGENT["lowdim_obs"],
+    "rgb_obs": BENCH_AGENT["rgb_obs"],
+    "obs_normalization": OBS_NORMALIZATION,
+    "data_name": BENCH_DATA["name"],
+    "obs_horizon": 1,
+    "pred_horizon": 8,
+    "action_horizon": 4,
+    "planner_n_diffusion_steps": 50,
+    "idm_n_diffusion_steps": 50,
+    "planner_inference_steps": 25,
+    "idm_inference_steps": 25,
+    "alpha_planner": 1.0,
+    "alpha_idm": 1.0,
+    "lr": 3e-4,
+    "end_lr": 1e-6,
+    "idm_lr": 3e-4,
+    "idm_end_lr": 1e-6,
+    "warmup_steps": 200,
+    "decay_steps": 15000,
+    "update_planner_every": 1,
+    "update_idm_every": 1,
+    "update_idm_after": 0,
+    "update_planner_until": -1,
+    "update_planner_after": 0,
+    "grad_clip": None,
+    # LDPHierAgent.create's default: kernel B computes in bf16
+    "fused_dtype": "bfloat16",
+}
+
+
+def lift_ldp_hier_train_config(vae_pretrain_path: str | None = None) -> dict:
+    """A fresh deep copy of the Lift baselines' LDP-hier run:
+    ``LIFT_LDP_HIER_TRAIN`` (15000 steps at batch 128, windows of 9), the
+    agent (planner [64,128,256] k 5 over P = 8 // 4 = 2 strided latents,
+    chunk IDM [64,128] k 3 over chunks of 4 actions, neither downsampling;
+    DDPM-50 training, DDIM-25 sampling, over the bench VAE's latents) and
+    the bench's latent ``data``. ``vae_pretrain_path`` replaces the
+    script's snapshot path when given."""
+    agent = copy.deepcopy(LIFT_LDP_HIER_AGENT)
+    if vae_pretrain_path is not None:
+        agent["vae_pretrain_path"] = vae_pretrain_path
+    return copy.deepcopy({**LIFT_LDP_HIER_TRAIN, "agent": agent,
+                          "data": BENCH_DATA})
 
 
 # -- the mixed-data study: tools/run_lift_mixed_study.sh. The planner trains

@@ -43,7 +43,7 @@ from ...ops import normalize as nz
 from ...train.state import TrainState, global_norm
 from ...utils.precision import fp32_math
 from ..nets.resnet import ResNetEncoder
-from ..nets.unet1d import ConditionalUnet1D
+from ..nets.unet1d import ConditionalUnet1D, unet_from_config
 from . import common
 
 
@@ -87,12 +87,8 @@ def build_nets(config: Mapping, shape_meta: Mapping
         vision = sum(e.n_features for e in encoders.values())
     lowdim = sum(math.prod(shapes[k]) for k in config["lowdim_obs"])
     cond_dim = (vision + lowdim) * config.get("obs_horizon", 1)
-    p = config["planner"]
-    planner = ConditionalUnet1D(
-        int(shape_meta["ac_dim"]), cond_dim,
-        p.get("diffusion_step_embed_dim", 256),
-        p.get("down_dims", (256, 512, 1024)), p.get("kernel_size", 5),
-        p.get("n_groups", 8))
+    planner = unet_from_config(config["planner"], int(shape_meta["ac_dim"]),
+                               cond_dim)
     return planner, encoders
 
 

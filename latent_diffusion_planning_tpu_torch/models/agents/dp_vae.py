@@ -36,7 +36,7 @@ from ...ops import augment
 from ...ops import diffusion as dlib
 from ...ops import normalize as nz
 from ...train.state import TrainState, global_norm
-from ..nets.unet1d import ConditionalUnet1D
+from ..nets.unet1d import ConditionalUnet1D, unet_from_config
 from ..vae import KLVAE
 from . import common
 
@@ -116,12 +116,9 @@ class DPVAEAgent:
             obs_dim, action_dim = common.obs_dims(
                 shape_meta, config["rgb_obs"], config["lowdim_obs"],
                 config.get("vae_feature_dim", 16))
-            p = config["planner"]
-            planner = ConditionalUnet1D(
-                action_dim, obs_dim * config.get("obs_horizon", 1),
-                p.get("diffusion_step_embed_dim", 256),
-                p.get("down_dims", (256, 512, 1024)), p.get("kernel_size", 5),
-                p.get("n_groups", 8))
+            planner = unet_from_config(
+                config["planner"], action_dim,
+                obs_dim * config.get("obs_horizon", 1))
             vae = KLVAE(**config.get("vae", {}))
         return cls.assemble(planner, vae, config, obs_dim, action_dim, dev)
 

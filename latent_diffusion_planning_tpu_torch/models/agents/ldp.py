@@ -48,7 +48,7 @@ from ...ops.kernels import diffusion_mlp as kmlp
 from ...ops.kernels import diffusion_unet1d as kunet
 from ...train.state import TrainState, global_norm
 from ..nets.mlp import MLPDiffusion
-from ..nets.unet1d import ConditionalUnet1D
+from ..nets.unet1d import ConditionalUnet1D, unet_from_config
 from ..vae import KLVAE
 from . import common
 
@@ -144,12 +144,14 @@ class LDPAgent:
         return state.ema if state.ema is not None else getattr(self, name)
 
     def _packed(self, name: str):
+        """The named net's packed weights for its kernel (B for a U-Net, A
+        for the MLP), on the card; None on the CPU."""
         if self.device.type != "cuda":
             return None
         if name not in self._packs:
-            kernel = kunet if name == "planner" else kmlp
-            self._packs[name] = kernel.pack_params(
-                self._inference_net(name)).to(self.device)
+            net = self._inference_net(name)
+            kernel = kunet if isinstance(net, ConditionalUnet1D) else kmlp
+            self._packs[name] = kernel.pack_params(net).to(self.device)
         return self._packs[name]
 
     def _check_kernels(self) -> None:
@@ -186,11 +188,7 @@ class LDPAgent:
             shape_meta, config["rgb_obs"], config["lowdim_obs"],
             config["vae_feature_dim"])
         oh = config["obs_horizon"]
-        p = config["planner"]
-        planner = ConditionalUnet1D(
-            obs_dim, obs_dim * oh, p.get("diffusion_step_embed_dim", 256),
-            p.get("down_dims", (256, 512, 1024)), p.get("kernel_size", 5),
-            p.get("n_groups", 8))
+        planner = unet_from_config(config["planner"], obs_dim, obs_dim * oh)
         i = config["idm_net"]
         idm = MLPDiffusion(2 * obs_dim, action_dim, i.get("time_dim", 64),
                            i.get("cond_hidden_dims", (128, 128)),
@@ -205,7 +203,21 @@ class LDPAgent:
     @classmethod
     def assemble(cls, planner, idm, vae, config: Mapping, obs_dim: int,
                  action_dim: int, device: torch.device) -> "LDPAgent":
-        cfg = LDPConfig(
+        cfg = cls._agent_config(config, obs_dim, action_dim)
+        sched = lambda n, pt: dlib.DiffusionSchedule.create(
+            n, "squaredcos_cap_v2", prediction_type=pt, clip_sample=True)
+        return cls(planner, idm, vae,
+                   sched(config.get("planner_n_diffusion_steps", 100),
+                         config.get("planner_prediction_type", "epsilon")),
+                   sched(config.get("idm_n_diffusion_steps", 100),
+                         config.get("idm_prediction_type", "epsilon")),
+                   config["obs_normalization"], cfg, device,
+                   {k: config[k] for k in OPTIMIZER_DEFAULTS if k in config})
+
+    @classmethod
+    def _agent_config(cls, config: Mapping, obs_dim: int,
+                      action_dim: int) -> LDPConfig:
+        return LDPConfig(
             lowdim_obs=tuple(config["lowdim_obs"]),
             rgb_obs=tuple(config["rgb_obs"]),
             obs_horizon=config["obs_horizon"],
@@ -219,15 +231,6 @@ class LDPAgent:
             action_loss_weights=common.check_action_weights(
                 config.get("action_loss_weights"), action_dim),
             **{f: config[f] for f in _TRAIN_FIELDS if f in config})
-        sched = lambda n, pt: dlib.DiffusionSchedule.create(
-            n, "squaredcos_cap_v2", prediction_type=pt, clip_sample=True)
-        return cls(planner, idm, vae,
-                   sched(config.get("planner_n_diffusion_steps", 100),
-                         config.get("planner_prediction_type", "epsilon")),
-                   sched(config.get("idm_n_diffusion_steps", 100),
-                         config.get("idm_prediction_type", "epsilon")),
-                   config["obs_normalization"], cfg, device,
-                   {k: config[k] for k in OPTIMIZER_DEFAULTS if k in config})
 
     # ------------------------------------------------------------------
     def _clip(self, sched: dlib.DiffusionSchedule) -> float:
@@ -271,21 +274,30 @@ class LDPAgent:
             self._inference_net("idm"), pairs, x_init, ts, coefs, noise,
             clip_range=self._clip(sched), packed=self._packed("idm"))
 
-    def _plan(self, cond: torch.Tensor, x_init: torch.Tensor,
-              generator: torch.Generator | None) -> torch.Tensor:
-        """Reverse-diffuse a latent plan (B, pred_horizon, obs_dim)."""
-        c, sched = self.config, self.planner_sched
-        if not common.strided_ddim(c.planner_inference_steps, sched):
-            # DDPM planning: plain loop (CPU only; refused on the card)
+    def _unet_sample(self, name: str, steps: int | None, cond: torch.Tensor,
+                     x_init: torch.Tensor,
+                     generator: torch.Generator | None) -> torch.Tensor:
+        """Reverse-diffuse x_init (B, T, C) with the U-Net ``name`` on
+        condition ``cond``: strided DDIM through kernel B, or DDPM through
+        the plain loop (CPU only; refused on the card)."""
+        sched = getattr(self, f"{name}_sched")
+        net = self._inference_net(name)
+        if not common.strided_ddim(steps, sched):
             noise = self._randn((sched.num_steps,) + tuple(x_init.shape),
                                 generator)
-            net = self._inference_net("planner")
             return dlib.sample_ddpm(
                 sched, lambda x, t: net(x, t, cond), x_init, noise)
-        ts, coefs = self._table(sched, c.planner_inference_steps)
+        ts, coefs = self._table(sched, steps)
         return kunet.fused_unet1d_ddim_sample(
-            self._inference_net("planner"), cond, x_init, ts, coefs,
-            clip_range=self._clip(sched), packed=self._packed("planner"))
+            net, cond, x_init, ts, coefs, clip_range=self._clip(sched),
+            packed=self._packed(name))
+
+    def _plan(self, cond: torch.Tensor, x_init: torch.Tensor,
+              generator: torch.Generator | None) -> torch.Tensor:
+        """Reverse-diffuse a latent plan as long as x_init (B, T,
+        obs_dim)."""
+        return self._unet_sample("planner", self.config.planner_inference_steps,
+                                 cond, x_init, generator)
 
     def _prepare_eval_batch(self, batch: Mapping) -> dict:
         batch = {k: {kk: vv.to(self.device) for kk, vv in v.items()}
@@ -412,10 +424,20 @@ class LDPAgent:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    def _plan_target(self, obs_emb: torch.Tensor) -> torch.Tensor:
+        """The latents the planner learns to plan: the window's future."""
+        return obs_emb[:, self.config.obs_horizon:]
+
+    def _idm_target(self, actions: torch.Tensor) -> torch.Tensor:
+        """The actions the IDM learns to decode: one per transition pair,
+        (N, A)."""
+        oh = self.config.obs_horizon
+        return actions[:, oh - 1:-1].reshape(-1, actions.shape[-1])
+
     def _plan_loss(self, net, obs_emb: torch.Tensor, t: torch.Tensor,
                    noise: torch.Tensor) -> torch.Tensor:
         oh, sched = self.config.obs_horizon, self.planner_sched
-        target = obs_emb[:, oh:]
+        target = self._plan_target(obs_emb)
         noisy = sched.add_noise(target, noise, t)
         cond = obs_emb[:, :oh].reshape(obs_emb.shape[0], -1)
         pred = net(noisy, t, cond)
@@ -426,33 +448,31 @@ class LDPAgent:
                   t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         oh, sched = self.config.obs_horizon, self.idm_sched
         pairs = common.transition_pairs(obs_emb, oh)
-        acts = actions[:, oh - 1:-1].reshape(-1, actions.shape[-1])
+        acts = self._idm_target(actions)
         noisy = sched.add_noise(acts, noise, t)
         pred = net(pairs, noisy, t)
         sq = torch.square(pred - sched.training_target(acts, noise, t))
         return torch.mean(common.weight_action_channels(
             sq, self.config.action_loss_weights))
 
-    def _loss_draws(self, obs_emb: torch.Tensor, idm_emb: torch.Tensor,
-                    actions: torch.Tensor,
+    def _loss_draws(self, obs_emb: torch.Tensor, actions: torch.Tensor,
                     generator: torch.Generator | None,
                     draws: Mapping | None) -> dict:
         """Each loss's timesteps and noise: handed in, or drawn; the
-        planner's sized by its batch, the IDM's by its batch's pairs."""
-        c = self.config
-        B, H, D = obs_emb.shape
-        n_pairs = idm_emb.shape[0] * (idm_emb.shape[1] - c.obs_horizon)
+        planner's sized by its target, the IDM's by its batch's targets."""
+        plan_shape = self._plan_target(obs_emb).shape
+        idm_shape = self._idm_target(actions).shape
         randint = lambda hi, n: torch.randint(0, hi, (n,), generator=generator,
                                               device=self.device)
         return {
             "plan_t": self._draw(draws, "plan_t", lambda: randint(
-                self.planner_sched.num_steps, B)),
+                self.planner_sched.num_steps, plan_shape[0])),
             "plan_noise": self._draw(draws, "plan_noise", lambda: self._randn(
-                (B, H - c.obs_horizon, D), generator)),
+                plan_shape, generator)),
             "idm_t": self._draw(draws, "idm_t", lambda: randint(
-                self.idm_sched.num_steps, n_pairs)),
+                self.idm_sched.num_steps, idm_shape[0])),
             "idm_noise": self._draw(draws, "idm_noise", lambda: self._randn(
-                (n_pairs, actions.shape[-1]), generator)),
+                idm_shape, generator)),
         }
 
     def _loss(self, batch: Mapping, use_planner: bool, use_idm: bool,
@@ -468,7 +488,7 @@ class LDPAgent:
         idm_emb = (obs_emb if mixed_batch is None
                    else self._obs_cond(mixed_batch["obs"]))
         actions = idm_batch["actions"]
-        d = self._loss_draws(obs_emb, idm_emb, actions, generator, draws)
+        d = self._loss_draws(obs_emb, actions, generator, draws)
         metrics = dict(
             emb_min=obs_emb.min(), emb_max=obs_emb.max(),
             emb_mean=obs_emb.mean(), emb_std=obs_emb.std(correction=0),

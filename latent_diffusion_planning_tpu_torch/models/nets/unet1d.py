@@ -1,8 +1,11 @@
-"""1-D conditional U-Net, the planner's denoiser.
+"""1-D conditional U-Net, the denoiser of plans and action chunks.
 
 Counterpart of ``latent_diffusion_planning_tpu/models/nets/unet1d.py``. The
 public layout is the JAX package's (B, T, C); inside, the net runs in
-torch's (B, C, T). Two Flax semantics are reproduced exactly:
+torch's (B, C, T). With ``downsample=False`` (LDP-hier's planner and chunk
+IDM) there is no strided conv and no transposed conv: every level runs at
+the full length, which may then be any length. Two Flax semantics of the
+downsampling net are reproduced exactly:
 
 - the stride-2 k=3 downsample pads (0, 1) (Flax ``SAME``), not (1, 1):
   ``y[t'] = Σ_j x[2t'+j] w[j]``;
@@ -69,8 +72,6 @@ class ConditionalUnet1D(nn.Module):
                  kernel_size: int = 5, n_groups: int = 8,
                  downsample: bool = True):
         super().__init__()
-        if not downsample:
-            raise NotImplementedError("only downsample=True is ported")
         d = diffusion_step_embed_dim
         self.input_dim = input_dim
         self.global_cond_dim = global_cond_dim
@@ -78,6 +79,7 @@ class ConditionalUnet1D(nn.Module):
         self.down_dims = tuple(down_dims)
         self.kernel_size = kernel_size
         self.n_groups = n_groups
+        self.downsample = bool(downsample)
         self.time_emb = SinusoidalPosEmb(d)
         self.time_dense0 = nn.Linear(d, 4 * d)
         self.time_dense1 = nn.Linear(4 * d, d)
@@ -98,11 +100,12 @@ class ConditionalUnet1D(nn.Module):
                        FiLMResBlock1D(ch, ch, cond_dim, kernel_size, n_groups)]
             cin = ch
         self.blocks = nn.ModuleList(blocks)
+        resampled = self.down_dims[:-1] if self.downsample else ()
         self.downs = nn.ModuleList(nn.Conv1d(ch, ch, 3, stride=2)
-                                   for ch in self.down_dims[:-1])
+                                   for ch in resampled)
         self.ups = nn.ModuleList(
             nn.ConvTranspose1d(ch, ch, 4, stride=2, padding=1)
-            for ch in reversed(self.down_dims[:-1]))
+            for ch in reversed(resampled))
         self.final_block = ConvBlock1D(self.down_dims[0], self.down_dims[0],
                                        kernel_size, n_groups)
         self.final_conv = nn.Conv1d(self.down_dims[0], input_dim, 1)
@@ -110,7 +113,7 @@ class ConditionalUnet1D(nn.Module):
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 global_cond: torch.Tensor) -> torch.Tensor:
         B, T, _ = sample.shape
-        factor = 2 ** (len(self.down_dims) - 1)
+        factor = 2 ** (len(self.down_dims) - 1) if self.downsample else 1
         if T % factor:
             raise ValueError(f"sequence length {T} must be divisible by "
                              f"{factor} (downsample levels)")
@@ -127,14 +130,26 @@ class ConditionalUnet1D(nn.Module):
             x = next(blocks)(x, mcond)
             x = next(blocks)(x, mcond)
             skips.append(x)
-            if i < L - 1:
+            if self.downsample and i < L - 1:
                 x = self.downs[i](F.pad(x, (0, 1)))
         x = next(blocks)(x, mcond)
         x = next(blocks)(x, mcond)
-        for up in self.ups:
+        for j in range(L - 1):
             x = torch.cat([x, skips.pop()], 1)
             x = next(blocks)(x, mcond)
             x = next(blocks)(x, mcond)
-            x = up(x)
+            if self.downsample:
+                x = self.ups[j](x)
         x = self.final_conv(self.final_block(x))
         return x.transpose(1, 2)
+
+
+def unet_from_config(cfg, input_dim: int,
+                     global_cond_dim: int) -> ConditionalUnet1D:
+    """A U-Net from a net section of an agent config (the yaml's keys, the
+    Flax module's defaults where a key is missing)."""
+    return ConditionalUnet1D(
+        input_dim, global_cond_dim, cfg.get("diffusion_step_embed_dim", 256),
+        tuple(cfg.get("down_dims", (256, 512, 1024))),
+        cfg.get("kernel_size", 5), cfg.get("n_groups", 8),
+        cfg.get("downsample", True))

@@ -31,10 +31,13 @@ global-condition half. ``vectors`` holds biases and GroupNorm scales.
 
 The net reaches the kernel as that buffer plus a small program of 12-int
 records (``build_program``), so any ``down_dims``, ``n_groups`` and embedding
-width runs through the same kernel. The twin computes the same update with
-the module's own weights in fp32; to hold the kernel against it on the card,
-give the twin ``rounding_twin(net)``: bf16-rounded weights and every conv and
-dense input rounded through bf16, which is where the kernel rounds.
+width runs through the same kernel, and so does a net that does not
+downsample (``downsample=False``, LDP-hier's planner and chunk IDM): its
+program has no DOWN or UP record, and every level runs at the full length.
+The twin computes the same update with the module's own weights in fp32; to
+hold the kernel against it on the card, give the twin ``rounding_twin(net)``:
+bf16-rounded weights and every conv and dense input rounded through bf16,
+which is where the kernel rounds.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def ld32(C: int) -> int:
 def check_supported(net: ConditionalUnet1D, T: int) -> None:
     """Raise ValueError, with the reason, for a call the kernel cannot run."""
     dd = net.down_dims
-    stride = 2 ** (len(dd) - 1)
+    stride = 2 ** (len(dd) - 1) if net.downsample else 1
     if T % stride:
         raise ValueError(f"plan length {T} not divisible by the U-Net stride "
                          f"{stride}")
@@ -118,10 +121,11 @@ def _conv_kio(conv: torch.nn.Conv1d) -> torch.Tensor:
     return conv.weight.permute(2, 1, 0)
 
 
-def _walk(L: int):
+def _walk(L: int, downsample: bool):
     """The ops of a U-Net of L levels in execution order: ("film", block
     index, level), ("save", level), ("down", i), ("concat", level),
-    ("up", j), ("final_block",), ("final_conv",)."""
+    ("up", j), ("final_block",), ("final_conv",); no "down" or "up" when
+    the net does not downsample."""
     n = 0
     for i in range(L):
         yield ("film", n, i)
@@ -129,7 +133,7 @@ def _walk(L: int):
         n += 2
         if i:
             yield ("save", i)
-        if i < L - 1:
+        if downsample and i < L - 1:
             yield ("down", i)
     yield ("film", n, L - 1)
     yield ("film", n + 1, L - 1)
@@ -139,7 +143,8 @@ def _walk(L: int):
         yield ("film", n, lvl)
         yield ("film", n + 1, lvl)
         n += 2
-        yield ("up", j)
+        if downsample:
+            yield ("up", j)
     yield ("final_block",)
     yield ("final_conv",)
 
@@ -152,7 +157,7 @@ def _gemms(net: ConditionalUnet1D) -> dict:
     block = lambda b: (_conv_kio(b.conv), [b.conv.bias, b.norm.weight,
                                            b.norm.bias])
     main = []
-    for op in _walk(len(net.down_dims)):
+    for op in _walk(len(net.down_dims), net.downsample):
         if op[0] == "film":
             i, blk = op[1], net.blocks[op[1]]
             main += [(f"conv1.{i}", *block(blk.block0)),
@@ -216,7 +221,7 @@ def _pad_taps(w: torch.Tensor) -> torch.Tensor:
 def _signature(net: ConditionalUnet1D) -> tuple:
     """What the net's structure follows from (its constructor arguments)."""
     return (net.input_dim, net.global_cond_dim, net.dsed, net.down_dims,
-            net.kernel_size, net.n_groups)
+            net.kernel_size, net.n_groups, net.downsample)
 
 
 def layout(net: ConditionalUnet1D) -> dict:
@@ -316,7 +321,7 @@ def _build_program(signature: tuple, T: int, nb: int) -> dict:
     """
     lay = _layout(signature)
     gm = lay["gemm"]
-    D, _, _, dd, _, n_groups = signature
+    D, _, _, dd, _, n_groups, downsample = signature
     dd = list(dd)
     recs = []
     max32 = T * ld32(D)          # floats per sample, fp32 buffers
@@ -329,10 +334,10 @@ def _build_program(signature: tuple, T: int, nb: int) -> dict:
     slot, skip_total = {}, 0
     for i in range(1, len(dd)):
         slot[i] = skip_total
-        skip_total += nb * (T >> i) * ldb(dd[i])
+        skip_total += nb * (T >> i if downsample else T) * ldb(dd[i])
 
     Tl, cin = T, D
-    for op in _walk(len(dd)):
+    for op in _walk(len(dd), downsample):
         kind = op[0]
         if kind == "film":
             i = op[1]
@@ -409,7 +414,8 @@ def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
         if prog["smem_bytes"] <= SMEM_LIMIT:
             fits.append((nb, prog))
     if not fits:
-        raise ValueError("net too wide for the kernel's shared memory")
+        raise ValueError("net too wide for the kernel's shared memory at "
+                         f"length {T}")
     if B is None:
         return fits[0]
     return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))

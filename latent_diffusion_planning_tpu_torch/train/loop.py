@@ -5,8 +5,9 @@ Counterpart of ``latent_diffusion_planning_tpu/train/loop.py``'s
 ``Workspace`` on one device (the JAX package's mesh and replication are
 not ported). The config is a plain dict (the keys of
 ``configs.bench_train_config()``, ``lift_dp_vae_train_config()``,
-``lift_dp_train_config()`` or ``lift_mixed_study_config(arm)``; the
-agent's ``name``, ``ldp``, ``dp_vae`` or ``dp``, picks its class), since
+``lift_dp_train_config()``, ``lift_ldp_hier_train_config()`` or
+``lift_mixed_study_config(arm)``; the agent's ``name``, ``ldp``,
+``ldp_hier``, ``dp_vae`` or ``dp``, picks its class), since
 the machine with the card has no YAML reader. Its agent section takes the bounds the data normalizes with
 (``stats_from_data`` measures them) before the agent is built, and
 ``config.json`` is written again with them. A data section (``data``, and
@@ -19,10 +20,11 @@ every ``log_every`` steps the metrics are read and logged (the
 only reads of the device inside the loop), every ``save_every`` a snapshot,
 every ``eval_every`` an eval; at the end a snapshot and an eval. ``eval``
 logs the offline action MSE (``sample_action``: kernel A on the card for
-LDP, B for DPVAE and DP), the losses and, for LDP, the plan statistics
-(``sample_plan_stats``, kernel B) on a train and an eval batch, then runs
-``n_eval_episodes`` closed-loop episodes (``run_batched_eval``: kernels C,
-B and, for LDP, A every decision; the policy is handed the ``optimal``
+LDP, B for LDP-hier, DPVAE and DP), the losses and, for LDP and LDP-hier,
+the plan statistics (``sample_plan_stats``, kernel B) on a train and an
+eval batch, then runs ``n_eval_episodes`` closed-loop episodes
+(``run_batched_eval``: kernels C, B (twice for LDP-hier) and, for LDP, A
+every decision; the policy is handed the ``optimal``
 flag when its observation keys name it); ``env_steps_per_sec`` counts each
 episode's steps up to its end, as the JAX log does, and
 ``computed_env_steps_per_sec`` every step the engine ran, masked ones too.
@@ -43,12 +45,14 @@ from ..data.datasets import MixedOfflineData, OfflineData
 from ..models.agents.dp import DPAgent
 from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
+from ..models.agents.ldp_hier import LDPHierAgent
 from ..rollout import engine as rollout_engine
 from ..utils.logger import Logger
 from ..utils.timers import Every, Timer
 from .checkpoint import Checkpointer, apply_params_snapshot
 
-AGENTS = {"ldp": LDPAgent, "dp_vae": DPVAEAgent, "dp": DPAgent}
+AGENTS = {"ldp": LDPAgent, "ldp_hier": LDPHierAgent, "dp_vae": DPVAEAgent,
+          "dp": DPAgent}
 
 
 def _tensors(tree) -> list[torch.Tensor]:

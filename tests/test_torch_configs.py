@@ -203,6 +203,47 @@ def test_lift_dp_train_config_matches_the_baselines():
     assert got is not configs.lift_dp_train_config()
 
 
+def test_lift_ldp_hier_train_config_matches_the_baselines():
+    """Stage 3 of ``tools/run_lift_baselines.sh`` through the JAX config
+    system (configs/train_bc.yaml, agent ldp_hier_agent, data
+    lift/latent_img, at the 15000 steps of its recorded run), and that
+    recorded run's own config, ``assets/runs/baselines/ldp_hier/
+    config.yaml``: both nets without downsampling, chunks of 4."""
+    from latent_diffusion_planning_tpu.utils.config import load_config
+    vae = "experiments/pipeline3/vae/ckpt/4000.ckpt"
+    want = _plain(load_config("train_bc", [
+        "agent=ldp_hier_agent", "data=lift/latent_img",
+        "model_vae.block_out_channels=[64,128,128,128]",
+        "model_vae.patch_size=4", "model_vae.norm_groups=16",
+        f"agent.vae_pretrain_path={vae}",
+        "agent.planner.down_dims=[64,128,256]",
+        "agent.idm_net.down_dims=[64,128]",
+        "agent.planner_n_diffusion_steps=50",
+        "agent.idm_n_diffusion_steps=50", "agent.planner_inference_steps=25",
+        "agent.idm_inference_steps=25", "horizon=9", "pred_horizon=8",
+        "idm_horizon=4", "n_grad_steps=15000", "eval_every=7500",
+        "save_every=7500", "resume=true",
+        "data.env_params.env.episode_len=80", "obs_horizon=1",
+        "action_horizon=4", "batch_size=128", "warmup_steps=200", "lr=3e-4",
+        "n_eval_episodes=256"]))
+    recorded = _plain(yaml.safe_load(
+        (Path(__file__).resolve().parent.parent / "assets" / "runs"
+         / "baselines" / "ldp_hier" / "config.yaml").read_text()))
+    got = configs.lift_ldp_hier_train_config()
+    for reference in (want, recorded):
+        _assert_port_config(got, reference, skip=("agent", "data"))
+        agent = dict(got["agent"])
+        assert agent.pop("fused_dtype") == "bfloat16"
+        assert agent == reference["agent"]
+        assert got["data"] == reference["data"]
+    for net in ("planner", "idm_net"):
+        assert got["agent"][net]["downsample"] is False
+    assert got["idm_horizon"] == got["agent"]["idm_horizon"] == 4
+    other = configs.lift_ldp_hier_train_config(vae_pretrain_path="x.ckpt")
+    assert other["agent"]["vae_pretrain_path"] == "x.ckpt"
+    assert got is not configs.lift_ldp_hier_train_config()
+
+
 STUDY_VAE = "experiments/pipeline3/vae/ckpt/4000.ckpt"
 # tools/run_lift_mixed_study.sh's $VAE_ARGS and $COMMON
 STUDY_COMMON = [

@@ -220,16 +220,13 @@ def _program_tiles(net, prog):
     return out
 
 
-def test_unet_kernel_program_covers_every_weight():
-    """The kernel's op program reads each GEMM of the main stream exactly
-    once, in the order the stream holds them (the kernel never seeks: it
-    consumes tiles in order), checked on the CPU: no card needed."""
-    mine = bridge.ConditionalUnet1D(25, 25, 64, (16, 32, 64), 5, 8)
-    prog = kunet.build_program(mine, 8, 4)
+def _assert_program_covers_every_weight(mine, T, nb):
+    prog = kunet.build_program(mine, T, nb)
     lay = kunet.layout(mine)
     kinds = [r[0] for r in prog["records"]]
     assert kinds.count(kunet.FILM) == len(mine.blocks)
-    assert kinds.count(kunet.DOWN) == kinds.count(kunet.UP) == 2
+    n_resample = len(mine.down_dims) - 1 if mine.downsample else 0
+    assert kinds.count(kunet.DOWN) == kinds.count(kunet.UP) == n_resample
     main = [g for g in lay["gemm"].values() if g["stream"] == "main"]
     starts = [g["tile_off"] for g in main]
     used = _program_tiles(mine, prog)
@@ -247,6 +244,92 @@ def test_unet_kernel_program_covers_every_weight():
     widths = [2 * r[2] for r in prog["records"] if r[0] == kunet.FILM]
     assert foffs == [sum(widths[:i]) for i in range(len(widths))]
     assert sum(widths) == lay["film_total"]
+    return prog
+
+
+def test_unet_kernel_program_covers_every_weight():
+    """The kernel's op program reads each GEMM of the main stream exactly
+    once, in the order the stream holds them (the kernel never seeks: it
+    consumes tiles in order), checked on the CPU: no card needed."""
+    mine = bridge.ConditionalUnet1D(25, 25, 64, (16, 32, 64), 5, 8)
+    _assert_program_covers_every_weight(mine, 8, 4)
+
+
+@pytest.mark.parametrize("dd,k,T", [((64, 128, 256), 5, 2),
+                                    ((64, 128), 3, 4)])
+def test_unet_kernel_program_covers_every_weight_without_downsampling(
+        dd, k, T):
+    """LDP-hier's planner and chunk IDM at the recipe's widths: no DOWN or
+    UP record, every record at the full length, a skip slot of the full
+    length per level, and the same once-in-order reading of the stream.
+    A net that downsamples and one that does not, at equal widths, get
+    different layouts and programs (the caches key on the flag)."""
+    D, Dc = (25, 25) if T == 2 else (7, 50)
+    mine = kunet.ConditionalUnet1D(D, Dc, 256, dd, k, 8, False)
+    nb, _ = kunet.choose_tile(mine, T, 1024)
+    prog = _assert_program_covers_every_weight(mine, T, nb)
+    lens = {r[3] for r in prog["records"] if r[0] in (kunet.FILM,
+                                                      kunet.FINAL_BLOCK,
+                                                      kunet.FINAL_CONV)}
+    lens |= {r[3] for r in prog["records"] if r[0] == kunet.SAVE}
+    lens |= {r[4] for r in prog["records"] if r[0] == kunet.CONCAT}
+    assert lens == {T}
+    assert prog["skip_total"] == nb * T * sum(kunet.ldb(c) for c in dd[1:])
+    kunet.check_supported(mine, T + 1)      # any length: no stride
+    down = kunet.ConditionalUnet1D(D, Dc, 256, dd, k, 8, True)
+    assert kunet.layout(down)["numel"] > kunet.layout(mine)["numel"]
+    assert (kunet.build_program(down, 8, 1)["records"]
+            != kunet.build_program(mine, 8, 1)["records"])
+
+
+# the bench planner's program (8 samples a block, T 8) and a SHA-256 of its
+# packed buffer on numpy-drawn weights (seed 2024, N(0, 0.1²)), recorded
+# before kernel B learned nets that do not downsample: a downsampling net's
+# records and packed layout must not move by a bit
+BENCH_PLANNER_RECORDS = [
+    [0, 25, 64, 8, 0, 5, 0, 15, 0, 256, 512, 0],
+    [0, 64, 64, 8, 16, 26, 128, -1, 640, 896, 0, 0],
+    [3, 64, 8, 36, 1152, 0, 0, 0, 0, 0, 0, 0],
+    [0, 64, 128, 4, 42, 52, 256, 72, 1280, 1664, 2048, 0],
+    [0, 128, 128, 4, 74, 94, 512, -1, 2176, 2560, 0, 0],
+    [1, 0, 128, 4, 0, 0, 0, 0, 0, 0, 0, 0],
+    [3, 128, 4, 114, 2944, 0, 0, 0, 0, 0, 0, 0],
+    [0, 128, 256, 2, 126, 166, 768, 246, 3072, 3840, 4608, 0],
+    [0, 256, 256, 2, 254, 334, 1280, -1, 4864, 5632, 0, 0],
+    [1, 4352, 256, 2, 0, 0, 0, 0, 0, 0, 0, 0],
+    [0, 256, 256, 2, 414, 494, 1792, -1, 6400, 7168, 0, 0],
+    [0, 256, 256, 2, 574, 654, 2304, -1, 7936, 8704, 0, 0],
+    [2, 4352, 256, 256, 2, 0, 0, 0, 0, 0, 0, 0],
+    [0, 512, 128, 2, 734, 814, 2816, 834, 9472, 9856, 10240, 0],
+    [0, 128, 128, 2, 850, 870, 3072, -1, 10368, 10752, 0, 0],
+    [4, 128, 2, 890, 11136, 0, 0, 0, 0, 0, 0, 0],
+    [2, 0, 128, 128, 4, 0, 0, 0, 0, 0, 0, 0],
+    [0, 256, 64, 4, 906, 946, 3328, 956, 11264, 11520, 11776, 0],
+    [0, 64, 64, 4, 964, 974, 3456, -1, 11904, 12160, 0, 0],
+    [4, 64, 4, 984, 12416, 0, 0, 0, 0, 0, 0, 0],
+    [5, 64, 64, 8, 992, 12544, 0, 0, 0, 0, 0, 0],
+    [6, 64, 25, 8, 1002, 12800, 0, 0, 0, 0, 0, 0]]
+BENCH_PLANNER_PACK_SHA256 = (
+    "ad844c3fadac745f82d1347658f1694c922f91ebd4988fd1623105d4b594bec5")
+
+
+def test_bench_planner_program_and_pack_are_pinned():
+    import hashlib
+    net = kunet.ConditionalUnet1D(25, 25, 256, (64, 128, 256), 5, 8)
+    rng = np.random.default_rng(2024)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.from_numpy(
+                rng.normal(size=tuple(p.shape)).astype(np.float32) * 0.1))
+    prog = kunet.build_program(net, 8, 8)
+    assert prog["records"] == BENCH_PLANNER_RECORDS
+    assert (prog["max32"], prog["maxb"], prog["skip_total"], prog["stages"],
+            prog["smem_bytes"]) == (4608, 8448, 8576, 5, 217632)
+    assert kunet.choose_tile(net, 8, 1024)[0] == 8
+    packed = kunet.pack_params(net)
+    assert packed.numel() == kunet.layout(net)["numel"] == 5707136
+    digest = hashlib.sha256(packed.view(torch.int16).numpy().tobytes())
+    assert digest.hexdigest() == BENCH_PLANNER_PACK_SHA256
 
 
 def _run_unet_program(net, gcond, x, ts, coefs, clip):
@@ -388,20 +471,26 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip):
     return xcur.reshape(B, T, D)
 
 
-@pytest.mark.parametrize("dd,G,Dc", [
-    pytest.param((8, 16, 32), 4, 6, id="dd0-4"),
-    pytest.param((24, 40), 8, 6, id="dd1-8"),
+@pytest.mark.parametrize("dd,G,Dc,T,k,down", [
+    pytest.param((8, 16, 32), 4, 6, 8, 5, True, id="dd0-4"),
+    pytest.param((24, 40), 8, 6, 8, 5, True, id="dd1-8"),
     # DP's condition is 1033 wide: several 32-row K tiles of the condition
     # half, the last one ragged (Dc 75 pads to 96: two full tiles and 11 of
     # 32 rows; with the 16-wide step embedding the FiLM input is 91 wide)
-    pytest.param((8, 16), 4, 75, id="wide-ragged-cond")])
-def test_unet_kernel_program_matches_twin(dd, G, Dc):
+    pytest.param((8, 16), 4, 75, 8, 5, True, id="wide-ragged-cond"),
+    # LDP-hier's nets do not downsample: its planner's 2-long plans under
+    # 5 taps (the SAME conv's zero rows on both sides of every sample) and
+    # its chunk IDM's 4-long chunks under 3 taps
+    pytest.param((8, 16, 32), 4, 6, 2, 5, False, id="no-downsample-T2-k5"),
+    pytest.param((8, 16), 4, 10, 4, 3, False, id="no-downsample-T4-k3")])
+def test_unet_kernel_program_matches_twin(dd, G, Dc, T, k, down):
     """Kernel B's record program and tiled weights, run by the NumPy
     transcription of its data path (bf16 operands, hoisted FiLM), compute
     what the rounding twin computes (fp64 vs fp32 sums: atol 1e-4)."""
-    B, T, D = 3, 8, 5
+    B, D = 3, 5
     torch.manual_seed(0)
-    net = kunet.rounding_twin(kunet.ConditionalUnet1D(D, Dc, 16, dd, 5, G))
+    net = kunet.rounding_twin(kunet.ConditionalUnet1D(D, Dc, 16, dd, k, G,
+                                                      down))
     rng = np.random.default_rng(5)
     g = rng.normal(size=(B, Dc)).astype(np.float32)
     x0 = rng.normal(size=(B, T, D)).astype(np.float32)

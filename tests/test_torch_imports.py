@@ -57,5 +57,5 @@ def test_port_and_smoke_exist():
     assert (REPO / "chip_smoke.py").exists()
     port = REPO / "latent_diffusion_planning_tpu_torch"
     for module in ("models/nets/resnet.py", "models/agents/dp.py",
-                   "utils/precision.py"):
+                   "models/agents/ldp_hier.py", "utils/precision.py"):
         assert port / module in FILES, module
