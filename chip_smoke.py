@@ -100,6 +100,20 @@
    time over 1024 frames beside its conv FLOPs and fp32 bound, one DP
    decision at 1024 envs stage by stage, the state's round trip and a step
    timed part by part.
+6. Drives the Lift pipeline from the command line (``phase_drivers``): the
+   lines that ``tools/run_lift_pipeline_torch.sh`` and
+   ``tools/run_lift_mixed_study_torch.sh`` run, read off the scripts, with
+   their step and episode counts cut, each driver's ``main`` in process at
+   the recipe widths, in a scratch folder under ``build/``: demos (256 + 32 envs × 80 steps) to ``.npz``, the VAE
+   (``DRIVER_VAE_STEPS``), latents, LDP (``DRIVER_LDP_STEPS`` saved every
+   ``DRIVER_SAVE_EVERY``), ``eval_bc`` over the three checkpoints at
+   ``DRIVER_EVAL_EPISODES`` episodes with ``sweep_batch=3`` (launches during
+   the fused sweep: C once, B and A three times a decision, checked
+   exactly; its per-episode success must equal three ``run_batched_eval``
+   calls with the same seeds, and where any result differs the first
+   decision at which they part is printed), ``collect_data`` of the first
+   checkpoint (``DRIVER_COLLECT`` episodes) with its latents, and the mixed
+   arm (``DRIVER_MIXED_STEPS``). Every file must be there and read back.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -111,6 +125,7 @@ phase's numbers) as JSON.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import subprocess
@@ -148,6 +163,15 @@ SUBOPT_CAP = 92
 N_EXPERT = 8
 MIXED_STEPS = 400
 HIER_STEPS = 400             # LDP-hier, of the baselines' 15000, at batch 128
+# the drivers phase: tools/run_lift_pipeline_torch.sh's stages and
+# overrides from the command line, with short runs
+DRIVER_VAE_STEPS = 200        # of 4000
+DRIVER_LDP_STEPS = 300        # of 30000, saved every DRIVER_SAVE_EVERY
+DRIVER_SAVE_EVERY = 100
+DRIVER_EVAL_EPISODES = 64     # the pipeline's n_eval_episodes
+DRIVER_SWEEP_BATCH = 3
+DRIVER_COLLECT = 64           # episodes of collect_data
+DRIVER_MIXED_STEPS = 100      # the mixed arm, warm-up cut to 50 steps
 
 
 def card_line() -> str:
@@ -469,18 +493,9 @@ def phase_unet(smoke: Smoke):
         info = smoke.shape_line(
             f"B {name}", f"unet1d_sampler_kernelILi{entry}E", shape, mm,
             PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
-        by_nb = {}
-        for nb in K.NB_CHOICES:
-            try:
-                by_nb[nb] = time_ms(lambda: K.fused_unet1d_ddim_sample(
-                    net, gc, x0, ts, coefs, packed=packed, nb=nb), iters=3)
-            except ValueError:
-                continue        # this many samples do not fit a block
-        print(f"   B {name}: ms by samples per block {by_nb} "
-              f"[{smoke.card}]", flush=True)
         out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
-                         bytes=nbytes, shape=info, ms_by_samples_per_block=by_nb)
+                         bytes=nbytes, shape=info)
     smoke.kernels["diffusion_unet1d"] = dict(out["bench"])
     return out
 
@@ -2172,10 +2187,312 @@ def phase_dp(smoke: Smoke, run: TrainRun):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the command-line drivers
+# ---------------------------------------------------------------------------
+def recipe_lines(script: str, work: Path, env: dict) -> list:
+    """(driver, argv) of each ``python tools/<driver>_torch.py`` line that
+    the recipe script ``tools/<script>`` runs, read off a run of a copy of
+    it in ``work`` with ``env`` set and a ``python`` on PATH that records
+    its arguments and does nothing else (``python -``, the study's report,
+    is left out)."""
+    import os
+    import shutil
+    import subprocess
+    (work / "tools").mkdir(parents=True, exist_ok=True)
+    (work / "bin").mkdir(exist_ok=True)
+    shutil.copy(REPO / "tools" / script, work / "tools" / script)
+    shim = work / "bin" / "python"
+    shim.write_text('#!/bin/bash\n[ "$1" = "-" ] && { cat > /dev/null; '
+                    'exit 0; }\nline=$(printf "%s\\037" "$@")\n'
+                    'printf "%s\\n" "$line" >> "$CMDS"\n')
+    shim.chmod(0o755)
+    cmds = work / f"{script}.lines"
+    subprocess.run(["bash", str(work / "tools" / script)], cwd=work,
+                   check=True, capture_output=True, timeout=60,
+                   env={**os.environ, **env, "CMDS": str(cmds),
+                        "PATH": f"{work / 'bin'}:{os.environ['PATH']}"})
+    lines = [line.split("\x1f")[:-1]
+             for line in cmds.read_text().splitlines()]
+    return [(Path(line[0]).stem.removesuffix("_torch"), line[1:])
+            for line in lines]
+
+
+def _sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _recording_policy(store: list):
+    """A policy that records what it saw and returned, then acts as the
+    engine's default does."""
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+
+    def policy(agent, view, gen):
+        actions = engine.agent_sample_policy(agent, view, gen)
+        store.append(({k: v.clone() for k, v in view.items()},
+                      actions.clone()))
+        return actions
+    return policy
+
+
+def _first_parting(env, agents, n, seeds, kw) -> dict:
+    """Replay the fused sweep and the sequential evals with recording
+    policies; the first decision where an agent's observations or its
+    actions differ, and by how much."""
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    fused: list = []
+    engine.run_batched_eval_multi(env, agents, n, seeds,
+                                  policy=_recording_policy(fused), **kw)
+    alone = []
+    for agent, seed in zip(agents, seeds):
+        store: list = []
+        engine.run_batched_eval(env, agent, n, seed,
+                                policy=_recording_policy(store), **kw)
+        alone.append(store)
+    K = len(agents)
+    for d in range(len(alone[0])):
+        for k in range(K):
+            (view_f, act_f), (view_s, act_s) = fused[d * K + k], alone[k][d]
+            obs = {key: float((view_f[key].double() - view_s[key].double())
+                              .abs().max()) for key in view_f}
+            if any(v != 0.0 for v in obs.values()):
+                return dict(decision=d, agent=k, part="observations (the "
+                            "env's states or their render)", max_diff=obs)
+            act = float((act_f.double() - act_s.double()).abs().max())
+            if act != 0.0:
+                return dict(decision=d, agent=k, part="actions (the policy)",
+                            max_diff=act)
+    return dict(decision=None)
+
+
+def phase_drivers(smoke: Smoke, device: str = "cuda"):
+    """The stages of ``tools/run_lift_pipeline_torch.sh`` and
+    ``tools/run_lift_mixed_study_torch.sh`` from the command line: the
+    lines the scripts run (``recipe_lines``) with their step and episode
+    counts cut, each driver's ``main`` called in process in a scratch
+    folder under the checkout's git-ignored ``build/`` (removed after), at
+    the recipe widths: demos (256 + 32 physics
+    envs × 80 steps), the VAE (``DRIVER_VAE_STEPS``), latents, LDP
+    (``DRIVER_LDP_STEPS``, saved every ``DRIVER_SAVE_EVERY``), ``eval_bc``
+    over the three checkpoints at ``DRIVER_EVAL_EPISODES`` episodes with
+    ``sweep_batch=3`` (launches during the fused sweep counted: C once, B
+    and A three times a decision), the fused sweep's per-episode results
+    against three ``run_batched_eval`` calls with the same seeds,
+    ``collect_data`` (``DRIVER_COLLECT`` episodes of the first checkpoint)
+    and its latents, and the mixed arm (``DRIVER_MIXED_STEPS``). Every file
+    must be there and read back."""
+    import os
+    import shutil
+    import tempfile
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=build))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        return _drive_pipeline(smoke, work, device)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _drive_pipeline(smoke: Smoke, work: Path, device: str) -> dict:
+    import csv
+    import numpy as np
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.data import ingest
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+
+    # the recipe scripts' stages, their counts cut; the paths are
+    # relative, so the drivers run in the scratch folder
+    ds, exp = work / "datasets", work / "experiments"
+    knobs = {"DATA": "datasets",
+             "ARGS": "" if device == "cuda" else f"device={device}"}
+    pipeline = recipe_lines("run_lift_pipeline_torch.sh", work, knobs)
+    V, L, S, M = (DRIVER_VAE_STEPS, DRIVER_LDP_STEPS, DRIVER_SAVE_EVERY,
+                  DRIVER_MIXED_STEPS)
+    study = recipe_lines("run_lift_mixed_study_torch.sh", work, {
+        **knobs, "STEPS": str(M), "N_EVAL": str(DRIVER_EVAL_EPISODES),
+        "SUBOPT_CKPT": f"{S}.ckpt"})
+    vae_path = f"experiments/pipeline_torch/vae/ckpt/{V}.ckpt"
+    cuts = {
+        "train_vae": [f"n_grad_steps={V}", f"eval_every={V}",
+                      f"save_every={V}"],
+        "process_latents": [f"vae_snapshot_path={vae_path}"],
+        "train_bc": [f"agent.vae_pretrain_path={vae_path}",
+                     f"n_grad_steps={L}", f"save_every={S}",
+                     f"eval_every={L}"],
+        "collect_data": [f"n_episodes={DRIVER_COLLECT}"],
+        # the study's own STEPS; warm-up cut to half of them
+        "train_mixed_bc": [f"agent.vae_pretrain_path={vae_path}",
+                           f"warmup_steps={M // 2}"],
+    }
+    print(f"   stages of the recipe scripts: "
+          f"{[d for d, _ in pipeline + study]}", flush=True)
+    if [d for d, _ in pipeline] != ["collect_demos", "collect_demos",
+                                    "train_vae", "process_latents",
+                                    "train_bc"]:
+        raise AssertionError(f"pipeline stages {pipeline}")
+    out: dict = {"stage_s": {}}
+
+    def stage(name, line):
+        driver, argv = line
+        module = importlib.import_module(
+            f"latent_diffusion_planning_tpu_torch.drivers.{driver}")
+        t0 = time.perf_counter()
+        module.main(argv + cuts.get(driver, []))
+        _sync(device)
+        out["stage_s"][name] = time.perf_counter() - t0
+        print(f"   {name}: {out['stage_s'][name]:.1f} s [{smoke.card}]",
+              flush=True)
+
+    def need(path: Path) -> Path:
+        if not path.exists():
+            raise AssertionError(f"{path.relative_to(work)} was not written")
+        return path
+
+    for (split, _, _), line in zip(DEMO_SPLITS, pipeline[:2]):
+        stage(f"collect_demos {split}", line)
+    stage("train_vae", pipeline[2])
+    need(work / vae_path)
+    need(exp / "pipeline_torch" / "vae" / "html" / f"recon_{V}.html")
+    stage("process_latents", pipeline[3])
+    stage("train_bc", pipeline[4])
+    ldp = exp / "pipeline_torch" / "ldp"
+    steps = list(range(S, L + 1, S))
+    for step in steps:
+        need(ldp / "ckpt" / f"{step}.ckpt")
+
+    # every file reads back
+    demos = ingest.load_npz(str(need(ds / "demos.npz")),
+                            configs.BENCH_POLICY_KEYS)
+    lat = ingest.load_npz(str(ds / "demos_eval.npz"),
+                          ["robot0_eef_pos", "latent_agentview_image"],
+                          latent_path=str(need(ds / "demos_eval_latent.npz")))
+    z = lat.arrays["latent_agentview_image"]
+    with np.load(ds / "demos_latent.npz") as f:
+        bounds = (float(f["data/min_z"]), float(f["data/max_z"]))
+    img = demos.arrays["agentview_image"]
+    meta = demos.env_meta
+    print(f"   read back: {demos.n_demos} demos, {demos.total_steps} frames "
+          f"{tuple(img.shape[1:])} {img.dtype}, env {meta}; eval latents "
+          f"{tuple(z.shape)}, train bounds {bounds}", flush=True)
+    if not (demos.n_demos >= 0.95 * DEMO_SPLITS[0][1]
+            and img.dtype == torch.uint8
+            and meta["env_name"] == "LiftPhysicsEnv"
+            and meta["env_kwargs"]["episode_len"] == DEMO_LEN
+            and z.shape[1] == 16 and bool(z.isfinite().all())
+            and bool((demos.demo_lengths == DEMO_LEN + 1).all())):
+        raise AssertionError("the demos or latents do not read back as "
+                             "written")
+    run_cfg = load_config(str(need(ldp / "config.json")))
+    if run_cfg.agent.planner.down_dims != [64, 128, 256]:
+        raise AssertionError(f"config.json: {run_cfg.agent.planner}")
+    out.update(demos=demos.n_demos, latent_bounds=bounds)
+
+    # the fused sweep, its launches counted around the engine call
+    fused = {}
+    real = engine.run_batched_eval_multi
+
+    def counted(*args, **kw):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = real(*args, **kw)
+        _sync(device)
+        fused.update(counts=kernels.launch_counts(), args=args, kw=kw,
+                     results=res, wall_s=time.perf_counter() - t0)
+        return res
+    engine.run_batched_eval_multi = counted
+    try:
+        stage("eval_bc", ("eval_bc", [
+            f"run_dir={ldp.relative_to(work)}",
+            f"n_eval_episodes={DRIVER_EVAL_EPISODES}",
+            f"sweep_batch={DRIVER_SWEEP_BATCH}", *knobs["ARGS"].split()]))
+    finally:
+        engine.run_batched_eval_multi = real
+    with open(need(ldp / "eval_sweep" / "eval.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    got_steps = [int(float(r["step"])) for r in rows]
+    print(f"   eval_sweep/eval.csv: steps {got_steps}, success "
+          f"{[float(r['success']) for r in rows]}", flush=True)
+    if got_steps != steps:
+        raise AssertionError(f"eval.csv rows {got_steps}, expected {steps}")
+    n_dec = math.ceil(80 / 4)
+    want = {"raycast": n_dec, "diffusion_unet1d": DRIVER_SWEEP_BATCH * n_dec,
+            "diffusion_mlp": DRIVER_SWEEP_BATCH * n_dec}
+    print(f"   fused sweep of {DRIVER_SWEEP_BATCH} checkpoints x "
+          f"{DRIVER_EVAL_EPISODES} episodes: launches {fused['counts']} "
+          f"(stated: {want}), {fused['wall_s']:.3f} s", flush=True)
+    if device == "cuda" and fused["counts"] != want:
+        raise AssertionError(f"sweep launches {fused['counts']} != {want}")
+
+    # the same episodes one checkpoint at a time, then fused again: the
+    # first fused sweep also captured the physics step's graph at K·N envs
+    env, agents, n, seeds = fused["args"]
+    kw = fused["kw"]
+    t0 = time.perf_counter()
+    alone = [engine.run_batched_eval(env, a, n, seed, **kw)
+             for a, seed in zip(agents, seeds)]
+    _sync(device)
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.run_batched_eval_multi(env, agents, n, seeds, **kw)
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    same = {key: all(np.array_equal(f["per_episode"][key],
+                                    a["per_episode"][key])
+                     for f, a in zip(fused["results"], alone))
+            for key in ("success", "horizon", "reward", "reward_sum")}
+    print(f"   sequential: {seq_s:.3f} s; fused {fused['wall_s']:.3f} s "
+          f"first, {warm_s:.3f} s warm ({seq_s / warm_s:.2f}x); "
+          f"per-episode results equal {same} [{smoke.card}]", flush=True)
+    out.update(sweep_launches=fused["counts"], sweep_fused_s=fused["wall_s"],
+               sweep_fused_warm_s=warm_s, sweep_sequential_s=seq_s,
+               sweep_equal=same,
+               success={s: float(r["success"]) for s, r in zip(steps, rows)})
+    if not all(same.values()):
+        parting = _first_parting(env, agents, n, seeds, kw)
+        print(f"   fused and sequential part at {parting}", flush=True)
+        out["parting"] = parting
+    if not same["success"]:
+        raise AssertionError("the fused sweep's per-episode success differs "
+                             "from the sequential evals'")
+
+    # the suboptimal corpus and the mixed arm
+    if [d for d, _ in study[:2]] != ["collect_data", "process_latents"]:
+        raise AssertionError(f"study stages {study}")
+    stage("collect_data", study[0])
+    stage("process_latents suboptimal", study[1])
+    sub = ingest.load_npz(str(need(ds / "suboptimal.npz")),
+                          ["robot0_eef_pos", "latent_agentview_image"],
+                          latent_path=str(need(ds / "suboptimal_latent.npz")))
+    print(f"   suboptimal corpus: {sub.n_demos} failures of "
+          f"{DRIVER_COLLECT}", flush=True)
+    if sub.n_demos < 1:
+        raise AssertionError("collect_data kept no failure")
+    arm = [line for line in study if "experiment_name=mixed8" in line[1]]
+    stage("train_mixed_bc", arm[0])
+    mixed = exp / "mixed_study_torch" / "mixed8"
+    need(mixed / "ckpt" / f"{M}.ckpt")
+    with open(need(mixed / "eval.csv"), newline="") as f:
+        last = list(csv.DictReader(f))[-1]
+    if "mixed_data" not in load_config(str(mixed / "config.json")):
+        raise AssertionError("the mixed run's config.json has no mixed_data")
+    out.update(suboptimal_demos=sub.n_demos,
+               mixed_success=float(last["success"]))
+    return out
+
+
 def _training_phases(smoke: Smoke) -> None:
     """The recipe's training phases in one scratch run directory under the
     checkout's git-ignored ``build/``, removed after; each phase runs only
     if the ones it reads from passed."""
+    import os
     import shutil
     import tempfile
     build = REPO / "build"
@@ -2202,6 +2519,8 @@ def _training_phases(smoke: Smoke) -> None:
                     lambda: phase_dp(smoke, run))
     finally:
         shutil.rmtree(run.work, ignore_errors=True)
+    smoke.phase("drivers: the Lift pipeline from the command line",
+                lambda: phase_drivers(smoke))
 
 
 REPLACES = {   # the pl.pallas_call of each TPU kernel

@@ -4,11 +4,11 @@ weighted mixture of train sub-datasets.
 Counterpart of ``latent_diffusion_planning_tpu/data/datasets.py``'s
 ``OfflineData`` (``welded``, ``device_dataset``, ``train_dataloader``,
 ``eval_dataloader``, ``env_meta``, ``sample_traj``, ``shape_meta``) and
-``MixedOfflineData``. The splits come either from robomimic HDF5 files
+``MixedOfflineData``. The splits come either from robomimic datasets
 (``train_path`` / ``eval_path`` with optional latent companions, through
-``ingest.load_robomimic``), or already welded (``train`` / ``eval``, for
-example from ``writer.weld_collection`` and ``latents.encode_latents``),
-which is the route on a machine without ``h5py``. Either way each split
+``ingest.load_demos``: ``.npz`` files, or HDF5 where ``h5py`` is
+installed), or already welded (``train`` / ``eval``, for example from
+``writer.weld_collection`` and ``latents.encode_latents``). Either way each split
 keeps the facade's obs keys (``meta``'s lowdim and rgb keys) and its first
 ``*_n_episode_overfit`` demos. Batches are drawn on the device by
 ``windows.DeviceDataset`` (``windows.MixedDeviceDataset`` for a mixture).
@@ -102,9 +102,9 @@ def _load_split(obs_keys: Sequence[str], given: ingest.WeldedDemos | None,
         return given.select(obs_keys).first_demos(n_demos)
     if path is None:
         raise ValueError(f"no data for {name}: give a path or welded demos")
-    return ingest.load_robomimic(path, obs_keys, n_demos=n_demos,
-                                 latent_path=latent_path, optimal=optimal,
-                                 name=name)
+    return ingest.load_demos(path, obs_keys, n_demos=n_demos,
+                             latent_path=latent_path, optimal=optimal,
+                             name=name)
 
 
 class _Facade:

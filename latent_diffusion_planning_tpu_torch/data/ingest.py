@@ -6,12 +6,15 @@ torch tensors, on the CPU when read from a file and wherever the collection
 lay when welded in memory (``data/writer.py``); ``data/windows.py`` puts
 them on the device once.
 
-A robomimic HDF5 holds ``data/demo_i/{obs,next_obs,actions}``; per demo the
-obs stream gains its final ``next_obs`` frame and the actions a duplicated
-last action, so every state, the terminal one too, is indexable. Latent
-companions hold ``data/demo_i/latent/<rgb_key>``, read as obs key
-``latent_<rgb_key>``. ``h5py`` is imported inside ``load_robomimic``: the
-machine with the card has none, and nothing on its path reads HDF5.
+A robomimic dataset holds ``data/demo_i/{obs,next_obs,actions}``; per demo
+the obs stream gains its final ``next_obs`` frame and the actions a
+duplicated last action, so every state, the terminal one too, is
+indexable. Latent companions hold ``data/demo_i/latent/<rgb_key>``, read as
+obs key ``latent_<rgb_key>``. ``load_demos`` picks the reader by the
+file's suffix: ``.npz`` (``load_npz``: the same groups as flat keys, the
+container ``data/writer.write_trajectories`` writes, readable with numpy
+alone) or ``.hdf5`` (``load_robomimic``: ``h5py`` is imported inside it,
+and the machine with the card has none).
 """
 
 from __future__ import annotations
@@ -91,7 +94,12 @@ def load_robomimic(path: str, obs_keys: Sequence[str],
                    optimal: float = 1.0, name: str = "") -> WeldedDemos:
     """Load and weld a robomimic-format HDF5 (with an optional latent
     companion) into CPU tensors."""
-    import h5py
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs h5py, which is not "
+                          f"installed; write the dataset as .npz "
+                          f"(data/writer.write_trajectories)") from e
     import numpy as np
 
     obs_keys = tuple(obs_keys)
@@ -137,6 +145,83 @@ def load_robomimic(path: str, obs_keys: Sequence[str],
         demo_lengths=torch.tensor(lengths, dtype=torch.int64),
         obs_keys=obs_keys, dataset_keys=("actions",), env_meta=env_meta,
         name=name)
+
+
+def npz_demo_names(files) -> list[str]:
+    """The demo names of an ``.npz`` dataset's keys, in index order."""
+    names = {k.split("/")[1] for k in files
+             if k.startswith("data/demo_") and k.count("/") >= 2}
+    return sorted(names, key=lambda n: int(n.split("_")[-1]))
+
+
+def load_npz(path: str, obs_keys: Sequence[str],
+             n_demos: int | Sequence[str] | None = None,
+             latent_path: str | None = None, optimal: float = 1.0,
+             name: str = "") -> WeldedDemos:
+    """``load_robomimic`` for an ``.npz`` dataset (and an ``.npz`` latent
+    companion): the same welded demos for the same data."""
+    import numpy as np
+
+    obs_keys = tuple(obs_keys)
+    out: dict[str, list] = {k: [] for k in obs_keys}
+    out["actions"] = []
+    starts, lengths = [], []
+    total = 0
+    lat = np.load(latent_path) if latent_path else None
+    try:
+        with np.load(path) as f:
+            env_meta = (json.loads(str(f["data/env_args"]))
+                        if "data/env_args" in f.files else None)
+            for demo in _select_demos(npz_demo_names(f.files), n_demos):
+                g = f"data/{demo}/"
+                T = int(f[g + "num_samples"]) + 1     # + the terminal frame
+                for key in obs_keys:
+                    if key == "optimal":
+                        arr = np.full((T, 1), optimal, dtype=np.float32)
+                    elif key.startswith("latent_"):
+                        if lat is None:
+                            raise ValueError(f"obs key {key} needs latent_path")
+                        arr = lat[f"{g}latent/{key[len('latent_'):]}"]
+                        if len(arr) != T:
+                            raise ValueError(
+                                f"latent stream for {demo}/{key} has "
+                                f"{len(arr)} frames, expected {T}")
+                    else:
+                        arr = np.concatenate([f[f"{g}obs/{key}"],
+                                              f[f"{g}next_obs/{key}"][-1:]], 0)
+                    out[key].append(arr)
+                actions = f[g + "actions"]
+                out["actions"].append(np.concatenate([actions, actions[-1:]],
+                                                     0))
+                starts.append(total)
+                lengths.append(T)
+                total += T
+    finally:
+        if lat is not None:
+            lat.close()
+    return WeldedDemos(
+        arrays={k: torch.from_numpy(np.concatenate(v, 0)) for k, v in out.items()},
+        demo_starts=torch.tensor(starts, dtype=torch.int64),
+        demo_lengths=torch.tensor(lengths, dtype=torch.int64),
+        obs_keys=obs_keys, dataset_keys=("actions",), env_meta=env_meta,
+        name=name)
+
+
+def load_demos(path: str, obs_keys: Sequence[str],
+               n_demos: int | Sequence[str] | None = None,
+               latent_path: str | None = None, optimal: float = 1.0,
+               name: str = "") -> WeldedDemos:
+    """``load_npz`` for an ``.npz`` file, ``load_robomimic`` for an
+    ``.hdf5`` one."""
+    suffix = str(path).rsplit(".", 1)[-1]
+    if suffix == "npz":
+        load = load_npz
+    elif suffix == "hdf5":
+        load = load_robomimic
+    else:
+        raise ValueError(f"{path}: a dataset is an .npz or .hdf5 file")
+    return load(path, obs_keys, n_demos=n_demos, latent_path=latent_path,
+                optimal=optimal, name=name)
 
 
 def concat_welded(parts: Sequence[WeldedDemos], name: str = "") -> WeldedDemos:

@@ -6,9 +6,10 @@ from [0, 255] to [-1, 1] and encoded by the frozen VAE to its posterior
 mean, flattened, in fixed-size shards (the last padded by repeating its
 final frame) so one shape serves every call. The result goes into
 ``latent_<key>`` beside the frames; the global ``min_z``/``max_z`` are
-returned, as the tool records them. ``process_latents`` is the tool's
-``main``: the VAE restored from a snapshot of the port's VAE training (its
-EMA weights when it has them), then every split encoded.
+returned, as the tool records them. ``load_vae`` restores the VAE of a
+snapshot of the port's VAE training (its EMA weights when it has them);
+``process_latents`` encodes welded splits with it (the command-line driver
+is ``drivers/process_latents.py``).
 """
 
 from __future__ import annotations
@@ -55,16 +56,23 @@ def encode_latents(welded: WeldedDemos, vae: KLVAE, rgb_keys: Sequence[str],
     return float(lo), float(hi)
 
 
+def load_vae(snapshot_path: str | Path, vae_config: Mapping[str, Any],
+             device: torch.device | str | None = None) -> KLVAE:
+    """The VAE of a ``{vae_params, vae_ema_params}`` snapshot
+    (``VAEModel.get_params``, saved by the VAE workspace) built as
+    ``vae_config`` says, with its EMA weights when it has them."""
+    snap = torch.load(snapshot_path, map_location="cpu", weights_only=True)
+    vae = KLVAE(**vae_config)
+    vae.load_state_dict(snap.get("vae_ema_params") or snap["vae_params"])
+    return vae.to(resolve_device(device)).eval()
+
+
 def process_latents(splits: Sequence[WeldedDemos], snapshot_path: str | Path,
                     vae_config: Mapping[str, Any], rgb_keys: Sequence[str],
                     device: torch.device | str | None = None,
                     shard: int = 128) -> tuple[float, float]:
-    """Encode every split with the VAE of a ``{vae_params, vae_ema_params}``
-    snapshot (``VAEModel.get_params``, saved by the VAE workspace) built as
-    ``vae_config`` says; returns (min_z, max_z) over all splits."""
-    snap = torch.load(snapshot_path, map_location="cpu", weights_only=True)
-    vae = KLVAE(**vae_config)
-    vae.load_state_dict(snap.get("vae_ema_params") or snap["vae_params"])
-    vae = vae.to(resolve_device(device)).eval()
+    """Encode every split with the VAE of a snapshot (``load_vae``);
+    returns (min_z, max_z) over all splits."""
+    vae = load_vae(snapshot_path, vae_config, device)
     bounds = [encode_latents(w, vae, rgb_keys, shard) for w in splits]
     return min(b[0] for b in bounds), max(b[1] for b in bounds)

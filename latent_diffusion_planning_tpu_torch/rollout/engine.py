@@ -2,8 +2,8 @@
 collection over N envs on one device.
 
 Counterpart of ``latent_diffusion_planning_tpu/rollout/engine.py``'s
-``run_batched_eval``, ``run_data_collection`` and
-``run_scripted_collection``. The JAX engine fuses an episode into one
+``run_batched_eval``, ``run_batched_eval_multi``, ``run_data_collection``
+and ``run_scripted_collection``. The JAX engine fuses an episode into one
 ``lax.scan``; here the steps are a Python loop of eager device work. Eval
 episode semantics are the same:
 
@@ -25,7 +25,14 @@ the same in a run of any size and can be replayed alone. The policy's draws
 and the action noise come from a ``torch.Generator`` seeded with ``seed``.
 Threefry cannot be matched, so the spawns are not the JAX package's.
 
-Not ported yet: env meshes, video capture and ``run_batched_eval_multi``.
+``run_batched_eval_multi`` evaluates K agents (the checkpoints of one run)
+over N episodes each as one env batch of K·N: every decision renders the
+K·N frames at once and steps them as one batch, while each agent plans its
+own N rows from its own generator. Agent k's rows reset and draw exactly
+as ``run_batched_eval`` with ``seeds[k]`` would, so its result does not
+depend on which agents share its batch.
+
+Not ported yet: env meshes and video capture.
 """
 
 from __future__ import annotations
@@ -133,37 +140,86 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     the device that the policy draws from. ``add_optimal`` hands the policy
     the ``optimal`` flag (``policy_view``). ``device`` None means the card.
     """
+    return _run_eval(env, [agent], n_episodes, [seed], obs_horizon,
+                     action_horizon, episode_len, policy_obs_keys,
+                     add_optimal, episode_seeds, plan_blend, policy,
+                     init_states, device)[0]
+
+
+@torch.no_grad()
+def run_batched_eval_multi(env, agents, n_episodes: int, seeds, *,
+                           obs_horizon: int = 1, action_horizon: int = 4,
+                           episode_len: int | None = None,
+                           policy_obs_keys: tuple[str, ...] | None = None,
+                           add_optimal: bool = False,
+                           episode_seeds=None,
+                           plan_blend: float = 0.0,
+                           policy: PolicyFn = agent_sample_policy,
+                           device: torch.device | str | None = None) -> list:
+    """Evaluate K agents × ``n_episodes`` as one env batch of K·N; returns
+    one ``run_batched_eval``-shaped result per agent, agent k's equal to
+    ``run_batched_eval(env, agents[k], n_episodes, seeds[k], ...)``. The
+    agents must share one class and config (the checkpoints of one run);
+    ``episode_seeds`` are shared by all of them."""
+    agents = list(agents)
+    if len(agents) != len(seeds):
+        raise ValueError(f"{len(agents)} agents but {len(seeds)} seeds")
+    for a in agents[1:]:
+        if type(a) is not type(agents[0]) or a.config != agents[0].config:
+            raise ValueError("run_batched_eval_multi needs agents that "
+                             "share one class and config")
+    return _run_eval(env, agents, n_episodes, list(seeds), obs_horizon,
+                     action_horizon, episode_len, policy_obs_keys,
+                     add_optimal, episode_seeds, plan_blend, policy, None,
+                     device)
+
+
+def _run_eval(env, agents, n_episodes, seeds, obs_horizon, action_horizon,
+              episode_len, policy_obs_keys, add_optimal, episode_seeds,
+              plan_blend, policy, init_states, device) -> list:
+    """The eval loop over K agents' N-row slices of one env batch."""
     if not 0.0 <= plan_blend < 1.0:
         raise ValueError(f"plan_blend must be in [0, 1), got {plan_blend}")
     dev = resolve_device(device)
     episode_len = episode_len or env.episode_len
     n_decisions = math.ceil(episode_len / action_horizon)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    states = _initial_states(env, n_episodes, seed, episode_seeds,
-                             init_states, gen)
+    K, n = len(agents), n_episodes
+    gens = [torch.Generator(device=dev) for _ in range(K)]
+    for gen, seed in zip(gens, seeds):
+        gen.manual_seed(seed)
+    parts = [_initial_states(env, n, seed, episode_seeds, init_states, gen)
+             for seed, gen in zip(seeds, gens)]
+    states = parts[0].map(lambda *xs: torch.cat(xs), *parts[1:])
     history = [states] * obs_horizon
+    rows = [slice(k * n, (k + 1) * n) for k in range(K)]
 
-    done = torch.zeros(n_episodes, dtype=torch.bool, device=dev)
+    done = torch.zeros(K * n, dtype=torch.bool, device=dev)
     success = torch.zeros_like(done)
-    reward = torch.zeros(n_episodes, device=dev)
+    reward = torch.zeros(K * n, device=dev)
     reward_sum = torch.zeros_like(reward)
-    steps = torch.zeros(n_episodes, dtype=torch.int32, device=dev)
-    prev_plan = None
+    steps = torch.zeros(K * n, dtype=torch.int32, device=dev)
+    prev_plans = [None] * K
 
     for _ in range(n_decisions):
         obs_h = [env.obs(s) for s in history]
         window = {k: torch.stack([o[k] for o in obs_h], 1) for k in obs_h[0]}
-        actions = policy(agent, policy_view(window, policy_obs_keys,
-                                            add_optimal, obs_horizon), gen)
-        if plan_blend > 0.0:
-            if prev_plan is not None:
-                overlap = actions.shape[1] - action_horizon
-                prev_tail = torch.cat([prev_plan[:, action_horizon:],
-                                       actions[:, overlap:]], 1)
-                actions = (1.0 - plan_blend) * actions + plan_blend * prev_tail
-            prev_plan = actions
-        for a_t in actions[:, :action_horizon].unbind(1):
+        view = policy_view(window, policy_obs_keys, add_optimal, obs_horizon)
+        chunks = []
+        for k, agent in enumerate(agents):
+            actions = policy(agent, {key: v[rows[k]]
+                                     for key, v in view.items()}, gens[k])
+            if plan_blend > 0.0:
+                prev_plan = prev_plans[k]
+                if prev_plan is not None:
+                    overlap = actions.shape[1] - action_horizon
+                    prev_tail = torch.cat([prev_plan[:, action_horizon:],
+                                           actions[:, overlap:]], 1)
+                    actions = ((1.0 - plan_blend) * actions
+                               + plan_blend * prev_tail)
+                prev_plans[k] = actions
+            chunks.append(actions[:, :action_horizon])
+        actions = torch.cat(chunks)
+        for a_t in actions.unbind(1):
             new_states, r, s = env.transition(states, a_t)
             states = new_states.map(
                 lambda new, old: torch.where(
@@ -178,20 +234,22 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
             success = success | (~done & s & finite)
             done = done | s | ~finite | (steps >= episode_len)
 
-    per_episode = {"success": success.cpu().numpy(),
-                   "reward": reward.cpu().numpy(),
-                   "reward_sum": reward_sum.cpu().numpy(),
-                   "horizon": steps.cpu().numpy()}
-    horizon = per_episode["horizon"]
-    metrics = {
-        "success": float(per_episode["success"].mean()),
-        "reward": float(per_episode["reward"].mean()),
-        "horizon": float(horizon.mean()),
-        "avg_reward": float((per_episode["reward_sum"]
-                             / horizon.clip(min=1)).mean()),
-        "n_episodes": n_episodes,
-    }
-    return {"metrics": metrics, "per_episode": per_episode}
+    host = {"success": success.cpu().numpy(), "reward": reward.cpu().numpy(),
+            "reward_sum": reward_sum.cpu().numpy(),
+            "horizon": steps.cpu().numpy()}
+    results = []
+    for r in rows:
+        per_episode = {k: v[r] for k, v in host.items()}
+        horizon = per_episode["horizon"]
+        results.append({"metrics": {
+            "success": float(per_episode["success"].mean()),
+            "reward": float(per_episode["reward"].mean()),
+            "horizon": float(horizon.mean()),
+            "avg_reward": float((per_episode["reward_sum"]
+                                 / horizon.clip(min=1)).mean()),
+            "n_episodes": n_episodes,
+        }, "per_episode": per_episode})
+    return results
 
 
 @torch.no_grad()

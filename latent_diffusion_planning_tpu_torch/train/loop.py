@@ -7,8 +7,10 @@ not ported). The config is a plain dict (the keys of
 ``configs.bench_train_config()``, ``lift_dp_vae_train_config()``,
 ``lift_dp_train_config()``, ``lift_ldp_hier_train_config()`` or
 ``lift_mixed_study_config(arm)``; the agent's ``name``, ``ldp``,
-``ldp_hier``, ``dp_vae`` or ``dp``, picks its class), since
-the machine with the card has no YAML reader. Its agent section takes the bounds the data normalizes with
+``ldp_hier``, ``dp_vae`` or ``dp``, picks its class), or a config of the
+port's config system (``utils/config.load_config``, as the drivers load
+it), whose ``_target_`` sections ``instantiate`` builds. Its agent section
+takes the bounds the data normalizes with
 (``stats_from_data`` measures them) before the agent is built, and
 ``config.json`` is written again with them. A data section (``data``, and
 the optional ``mixed_data``) is a ``MixedOfflineData`` when it sets
@@ -47,6 +49,7 @@ from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
 from ..models.agents.ldp_hier import LDPHierAgent
 from ..rollout import engine as rollout_engine
+from ..utils.config import instantiate
 from ..utils.logger import Logger
 from ..utils.timers import Every, Timer
 from .checkpoint import Checkpointer, apply_params_snapshot
@@ -75,12 +78,60 @@ def make_env(name: str, **kwargs):
 
 def make_data(section: Mapping[str, Any], device: torch.device | str,
               **given) -> OfflineData | MixedOfflineData:
-    """A data section as its facade: ``MixedOfflineData`` when it sets
-    ``"mixed": true``, else ``OfflineData``; ``given`` (for example welded
-    ``train``/``eval`` splits) joins the section's keys."""
-    kw = {k: v for k, v in section.items() if k != "_target_"}
+    """A data section as its facade: its ``_target_`` instantiated, or
+    ``MixedOfflineData`` when it sets ``"mixed": true``, else
+    ``OfflineData``; ``given`` (for example welded ``train``/``eval``
+    splits) joins the section's keys."""
+    if "_target_" in section:
+        return instantiate(section, device=device, **given)
+    kw = dict(section)
     cls = MixedOfflineData if kw.pop("mixed", False) else OfflineData
     return cls(**kw, **given, device=device)
+
+
+def build_agent(agent_cfg: Mapping[str, Any], shape_meta: Mapping[str, Any],
+                seed: int, device: torch.device):
+    """An agent config (its ``_target_`` instantiated, else the class its
+    ``name`` picks) with weights drawn from ``seed``."""
+    if "_target_" in agent_cfg:
+        return instantiate(agent_cfg, shape_meta, seed=seed, device=device)
+    return AGENTS[agent_cfg.get("name", "ldp")].create(
+        agent_cfg, shape_meta, seed=seed, device=device)
+
+
+def agent_config(section: Mapping[str, Any], data) -> tuple[dict, str | None]:
+    """An agent section as ``build_agent`` takes it: with the bounds
+    ``data`` normalizes with, and without its ``vae_pretrain_path``, which
+    is returned beside it."""
+    agent_cfg = dict(section)
+    vae_path = agent_cfg.pop("vae_pretrain_path", None)
+    agent_cfg["obs_normalization"] = data.meta["obs_normalization"]
+    return agent_cfg, vae_path
+
+
+def eval_env(data):
+    """The eval env of a data facade: the dataset's recorded env
+    (``env_meta``) when it names one, else its ``env_params.env`` (a config
+    section with ``_target_`` or ``name``, or an env already built); the
+    config's ``episode_len`` wins over the recorded one. None when neither
+    names an env."""
+    spec = data.env_params.get("env") or {}
+    spec_len = (spec.get("episode_len") if isinstance(spec, Mapping)
+                else spec.episode_len)
+    meta = data.env_meta or {}
+    if meta.get("env_name"):
+        kwargs = dict(meta.get("env_kwargs", {}))
+        if spec_len:
+            kwargs["episode_len"] = int(spec_len)
+        return make_env(meta["env_name"], **kwargs)
+    if not isinstance(spec, Mapping):
+        return spec
+    if not spec:
+        return None
+    if "_target_" in spec:
+        return instantiate(spec)
+    kwargs = {k: v for k, v in spec.items() if k != "name"}
+    return make_env(spec["name"], **kwargs)
 
 
 class Workspace:
@@ -134,12 +185,9 @@ class Workspace:
         """The config's agent with seeded weights and, when
         ``vae_pretrain_path`` names a VAE snapshot, its VAE's (EMA)
         weights."""
-        agent_cfg = dict(self.cfg["agent"])
-        vae_path = agent_cfg.pop("vae_pretrain_path", None)
-        agent_cfg["obs_normalization"] = self.data.meta["obs_normalization"]
-        agent = AGENTS[agent_cfg.get("name", "ldp")].create(
-            agent_cfg, self.data.shape_meta, seed=self.cfg.get("seed", 0),
-            device=self.device)
+        agent_cfg, vae_path = agent_config(self.cfg["agent"], self.data)
+        agent = build_agent(agent_cfg, self.data.shape_meta,
+                            self.cfg.get("seed", 0), self.device)
         if vae_path:
             snap = self.ckpt.restore_raw(vae_path)
             agent.vae.load_state_dict(snap.get("vae_ema_params")
@@ -273,21 +321,9 @@ class Workspace:
             for k in meta["rgb_obs"])
 
     def _make_env(self):
-        """The dataset's recorded env (``env_meta``) when it names one, else
-        the config's ``env_params.env``; the config's ``episode_len`` wins
-        over the recorded one."""
+        """The data's eval env (``eval_env``), built once."""
         if self._env is None:
-            spec = dict(self.data.env_params.get("env") or {})
-            meta = self.data.env_meta or {}
-            if meta.get("env_name"):
-                name, kwargs = meta["env_name"], dict(meta.get("env_kwargs", {}))
-            elif spec:
-                name, kwargs = spec.pop("name"), spec
-            else:
-                return None
-            if spec.get("episode_len"):
-                kwargs["episode_len"] = int(spec["episode_len"])
-            self._env = make_env(name, **kwargs)
+            self._env = eval_env(self.data)
         return self._env
 
     # ------------------------------------------------------------------

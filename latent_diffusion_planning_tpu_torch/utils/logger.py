@@ -1,13 +1,17 @@
-"""Metrics logging: values averaged between dumps, written as JSON lines.
+"""Metrics logging: values averaged between dumps, written as CSV and JSON
+lines.
 
 The part of ``latent_diffusion_planning_tpu/utils/logger.py`` the
-``Workspace`` calls (``log_metrics``, ``dump``, ``note``), with one JSON
-object a dump in ``train.jsonl`` / ``eval.jsonl`` instead of CSV, and no
-TensorBoard or wandb.
+``Workspace`` and the drivers call (``log_metrics``, ``dump``, ``note``):
+a dump is a row of ``train.csv`` / ``eval.csv`` (rows at or after its step
+from an earlier run dropped, the header widened when new keys appear, as
+the JAX logger does) and a JSON object in ``train.jsonl`` / ``eval.jsonl``;
+no TensorBoard or wandb.
 """
 
 from __future__ import annotations
 
+import csv
 import datetime
 import json
 from collections import defaultdict
@@ -48,10 +52,25 @@ class Logger:
         if data:
             with open(self.log_dir / f"{prefix}.jsonl", "a") as f:
                 f.write(json.dumps({"step": step, **data}) + "\n")
+            self._write_csv(self.log_dir / f"{prefix}.csv",
+                            {"step": step, **data})
             shown = " | ".join(f"{k}: {v:.4g}"
                                for k, v in sorted(data.items())[:12])
             print(f"step: {step} | {prefix}: {shown}", flush=True)
         return data
+
+    @staticmethod
+    def _write_csv(path: Path, row: dict) -> None:
+        rows = []
+        if path.exists():
+            with open(path, newline="") as f:
+                rows = [r for r in csv.DictReader(f)
+                        if r.get("step") and float(r["step"]) < row["step"]]
+        fields = sorted(set(row) | {k for r in rows for k in r})
+        with open(path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=fields, restval=0.0)
+            writer.writeheader()
+            writer.writerows(rows + [row])
 
     def note(self, text: str) -> None:
         stamp = datetime.datetime.now().strftime("%H:%M:%S")

@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py import nothing of JAX or the JAX package,
-and nothing the card's machine lacks (``h5py``, ``yaml``, ``PIL``,
-``imageio``) at module level.
+"""The port, its command-line tools (``tools/*_torch.py``) and
+chip_smoke.py import nothing of JAX or the JAX package, and nothing the
+card's machine lacks (``h5py``, ``yaml``, ``PIL``, ``imageio``) at module
+level; the config system reads its JSON tree with no YAML reader at all.
 
 Checked on the source with ``ast`` (not by importing), so a forbidden import
 anywhere in a module fails even on a path the tests do not run.
@@ -14,8 +15,12 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax",
              "latent_diffusion_planning_tpu")
+# tools/export_bench_torch.py reads the JAX package's orbax checkpoint into
+# the port's format, so it is the one tool that must import JAX
 FILES = sorted((REPO / "latent_diffusion_planning_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted(
+        p for p in (REPO / "tools").glob("*_torch.py")
+        if p.name != "export_bench_torch.py")
 
 
 def _imported(tree: ast.AST):
@@ -59,3 +64,22 @@ def test_port_and_smoke_exist():
     for module in ("models/nets/resnet.py", "models/agents/dp.py",
                    "models/agents/ldp_hier.py", "utils/precision.py"):
         assert port / module in FILES, module
+
+
+def test_drivers_and_their_tools_are_covered():
+    port = REPO / "latent_diffusion_planning_tpu_torch"
+    for name in ("collect_demos", "train_vae", "process_latents", "train_bc",
+                 "collect_data", "train_mixed_bc", "eval_bc"):
+        assert port / "drivers" / f"{name}.py" in FILES, name
+        assert REPO / "tools" / f"{name}_torch.py" in FILES, name
+
+
+def test_config_tree_has_no_yaml_reader_behind_it():
+    """``utils/config.py`` imports ``yaml`` nowhere, not even inside a
+    function, and its tree holds JSON files only."""
+    module = REPO / "latent_diffusion_planning_tpu_torch" / "utils" / "config.py"
+    tree = ast.parse(module.read_text())
+    assert not [m for m in _imported(tree) if m.split(".")[0] == "yaml"]
+    conf = REPO / "latent_diffusion_planning_tpu_torch" / "conf"
+    files = [p for p in conf.rglob("*") if p.is_file()]
+    assert files and all(p.suffix == ".json" for p in files)

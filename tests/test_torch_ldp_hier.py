@@ -396,6 +396,59 @@ def test_one_update_matches_jax(pair):
                     share * lr * 1.001), f"{name}.{pname}"
 
 
+def test_fifty_updates_match_jax():
+    """50 ``update`` steps at the recipe's schedule (lr 3e-4 for both nets,
+    warm-up 200, decay over 15000) with an EMA of decay 0.5 (the recipe's
+    0.0 makes the EMA a copy), each step on its own batch with JAX's draws
+    handed in. Every step's losses within 1e-4 relative of JAX's (the
+    weights they are taken at drift by fp32 rounding); after the 50th step
+    each net's weights and EMA weights within 1e-4. An element whose
+    gradient fell below 1e-7 at some step, where Adam's step turns on its
+    rounding (as in ``test_one_update_matches_jax``), is held to Adam's
+    bound: a move of at most the sum of the learning rates so far."""
+    cfg = _config(lr=3e-4, end_lr=1e-6, idm_lr=3e-4, idm_end_lr=1e-6,
+                  warmup_steps=200, decay_steps=15000, ema_decay=0.5)
+    jagent = _jax_agent(cfg)
+    agent = _bridged(jagent, cfg)
+    nets = ("planner", "idm")
+    start = {n: [p.detach().clone() for p in getattr(agent, n).parameters()]
+             for n in nets}
+    tiny = {n: [torch.zeros_like(p, dtype=torch.bool)
+                for p in getattr(agent, n).parameters()] for n in nets}
+    lr_sum, worst = 0.0, 0.0
+    for t in range(50):
+        batch, rng = _batch(seed=100 + t), jax.random.PRNGKey(200 + t)
+        draws = _jax_loss_draws(rng, jagent, 3, 9)
+        got = agent.backward(_torch_batch(batch), True, True, draws=draws)
+        for n in nets:
+            for mask, p in zip(tiny[n], getattr(agent, n).parameters()):
+                mask |= p.grad.abs() < 1e-7
+        got.update(agent.apply_gradients(True, True))
+        jagent, want = jagent.update(_jnp(batch), rng, t)
+        for k in ("plan_loss", "idm_loss"):
+            rel = abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+            worst = max(worst, rel)
+            assert rel <= 1e-4, (t, k, float(got[k]), float(want[k]))
+        lr_sum += float(want["planner_lr"])
+    assert agent.planner_state.step == agent.idm_state.step == 50
+    assert 0.0 < lr_sum < 50 * 3e-4 * 50 / 200
+    moved = _bridged(jagent, cfg)
+    for n in nets:
+        for mine, theirs in ((getattr(agent, n), getattr(moved, n)),
+                             (getattr(agent, f"{n}_state").ema,
+                              getattr(moved, f"{n}_state").ema)):
+            for i, ((pname, p), q) in enumerate(zip(mine.named_parameters(),
+                                                    theirs.parameters())):
+                p, q, small = p.detach(), q.detach(), tiny[n][i]
+                np.testing.assert_allclose(p[~small].numpy(),
+                                           q[~small].numpy(), atol=1e-4,
+                                           rtol=0, err_msg=f"{n}.{pname}")
+                step = (p - start[n][i])[small].abs()
+                assert not step.numel() or float(step.max()) <= (
+                    lr_sum * 1.001), f"{n}.{pname}"
+    print(f"50 steps: worst loss gap {worst:.2e} relative")
+
+
 def test_mixed_losses_match_jax(pair):
     """``update_mixed``'s loss: the IDM's chunks from a mixed batch of
     another size, the planner's targets from the expert batch."""

@@ -1,0 +1,12 @@
+#!/usr/bin/env python
+"""The port's ``tools/eval_bc.py``: ``python tools/eval_bc_torch.py
+key=value ...`` runs ``latent_diffusion_planning_tpu_torch/drivers/
+eval_bc.py`` on the card (``device=cpu``: on the CPU)."""
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from latent_diffusion_planning_tpu_torch.drivers.eval_bc import main  # noqa: E402
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,12 @@
+#!/usr/bin/env python
+"""The port's ``tools/process_latents.py``: ``python tools/process_latents_torch.py
+key=value ...`` runs ``latent_diffusion_planning_tpu_torch/drivers/
+process_latents.py`` on the card (``device=cpu``: on the CPU)."""
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from latent_diffusion_planning_tpu_torch.drivers.process_latents import main  # noqa: E402
+
+if __name__ == "__main__":
+    main()
