@@ -324,8 +324,8 @@ def dp_agent_from_flax(snapshot: Mapping, config: Mapping, shape_meta: Mapping,
     it holds them) and the agent config dict (the ``agent`` of
     ``configs.lift_dp_train_config()``)."""
     dev = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        planner, encoders = build_dp_nets(config, shape_meta)
+    # the weights are loaded below: the draws go to a throwaway generator
+    planner, encoders = build_dp_nets(config, shape_meta, torch.Generator())
     load_unet1d(planner, snapshot["planner_params"])
     for key, net in encoders.items():
         load_resnet(net, snapshot["encoder_params"][f"{key}_params"])

@@ -79,11 +79,11 @@ def _make_world() -> ph.World:
         geoms=geoms, plane_z=TABLE_Z, kinematic=[False, True, True])
 
 
-class _GraphedStep:
-    """One control step captured in a CUDA graph over static buffers."""
+class GraphedStep:
+    """One control step of an env's ``_step`` captured in a CUDA graph over
+    static buffers (the state a dataclass with ``map``)."""
 
-    def __init__(self, env: "LiftPhysicsEnv", state: LiftPhysState,
-                 action: torch.Tensor):
+    def __init__(self, env, state, action: torch.Tensor):
         self.state = state.map(torch.clone)
         self.action = action.clone()
         side = torch.cuda.Stream()
@@ -96,12 +96,24 @@ class _GraphedStep:
         with torch.cuda.graph(self.graph):
             self.out = env._step(self.state, self.action)
 
-    def __call__(self, state: LiftPhysState, action: torch.Tensor):
+    def __call__(self, state, action: torch.Tensor):
         self.state.map(lambda dst, src: dst.copy_(src), state)
         self.action.copy_(action)
         self.graph.replay()
         new_state, reward, success = self.out
         return new_state.map(torch.clone), reward.clone(), success.clone()
+
+
+def graphed_transition(env, state, action: torch.Tensor):
+    """``env._step`` replayed from a ``GraphedStep`` that ``env._graphs``
+    keeps per device and batch size; eager off the card or where
+    ``env.cuda_graph`` is off."""
+    if action.device.type != "cuda" or not env.cuda_graph:
+        return env._step(state, action)
+    key = (action.device, action.shape[0])
+    if key not in env._graphs:
+        env._graphs[key] = GraphedStep(env, state, action)
+    return env._graphs[key](state, action)
 
 
 class LiftPhysicsEnv:
@@ -222,12 +234,7 @@ class LiftPhysicsEnv:
         """``step`` without the observation → (state, reward, success). On
         the card with ``cuda_graph`` the control step replays from a CUDA
         graph captured for this batch size."""
-        if action.device.type != "cuda" or not self.cuda_graph:
-            return self._step(state, action)
-        key = (action.device, action.shape[0])
-        if key not in self._graphs:
-            self._graphs[key] = _GraphedStep(self, state, action)
-        return self._graphs[key](state, action)
+        return graphed_transition(self, state, action)
 
     def _step(self, state: LiftPhysState, action: torch.Tensor):
         c = self._const(action.device)

@@ -32,6 +32,7 @@ with the static world, reads body 0's count, as the JAX engine does).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -489,15 +490,23 @@ def free_body_step(world: World, body: RigidBody, params: PhysicsParams,
     return new.map(lambda n, o: torch.where(w["kinematic"], o, n), body)
 
 
+@functools.cache
+def _pair_columns(body_a: tuple, body_b: tuple, body_i: int, body_j: int,
+                  device: torch.device) -> torch.Tensor | None:
+    """The contact columns between bodies i and j, as a tensor on
+    ``device`` made once (a CUDA graph may capture the caller), or None."""
+    cols = [c for c, (a, b) in enumerate(zip(body_a, body_b))
+            if (a, b) in ((body_i, body_j), (body_j, body_i))]
+    return torch.as_tensor(cols).to(device) if cols else None
+
+
 def pair_in_contact(contacts: Contact, body_i: int, body_j: int) -> torch.Tensor:
     """(N,) bool: any active contact between bodies i and j (−1: the static
     world)."""
-    cols = [c for c, (a, b) in enumerate(zip(contacts.body_a, contacts.body_b))
-            if (a, b) in ((body_i, body_j), (body_j, body_i))]
-    if not cols:
-        return torch.zeros(contacts.depth.shape[0], dtype=torch.bool,
-                           device=contacts.depth.device)
-    idx = torch.as_tensor(cols, device=contacts.depth.device)
+    idx = _pair_columns(contacts.body_a, contacts.body_b, body_i, body_j,
+                        contacts.depth.device)
+    if idx is None:
+        return torch.zeros_like(contacts.depth[:, 0], dtype=torch.bool)
     return (contacts.depth[:, idx] > 0.0).any(-1)
 
 

@@ -69,17 +69,19 @@ OPTIMIZER_DEFAULTS = dict(lr=1e-4, end_lr=1e-6, warmup_steps=1000,
                           encoder_ema_decay=0.75)
 
 
-def build_nets(config: Mapping, shape_meta: Mapping
+def build_nets(config: Mapping, shape_meta: Mapping,
+               generator: torch.Generator | None = None
                ) -> tuple[ConditionalUnet1D, dict[str, ResNetEncoder]]:
     """The action U-Net and the encoders (per ``rgb_obs`` key, or
-    ``shared``) with freshly drawn weights."""
+    ``shared``) with weights drawn from ``generator``."""
     rgb_obs = tuple(config["rgb_obs"])
     shared = bool(config.get("shared_encoder", False))
     shapes = shape_meta["all_shapes"]
     enc_cfg = {k: v for k, v in config.get("encoder", {}).items()
                if k not in ("_target_", "_defer_")}
     encoders = {key: ResNetEncoder(shapes[rgb_obs[0] if key == "shared"
-                                          else key], **enc_cfg)
+                                          else key], **enc_cfg,
+                                   generator=generator)
                 for key in (["shared"] if shared else rgb_obs)}
     if shared:
         vision = encoders["shared"].n_features * len(rgb_obs)
@@ -88,7 +90,7 @@ def build_nets(config: Mapping, shape_meta: Mapping
     lowdim = sum(math.prod(shapes[k]) for k in config["lowdim_obs"])
     cond_dim = (vision + lowdim) * config.get("obs_horizon", 1)
     planner = unet_from_config(config["planner"], int(shape_meta["ac_dim"]),
-                               cond_dim)
+                               cond_dim, generator)
     return planner, encoders
 
 
@@ -148,9 +150,8 @@ class DPAgent:
         ``configs.lift_dp_train_config()``) with weights drawn from
         ``seed``."""
         dev = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            planner, encoders = build_nets(config, shape_meta)
+        planner, encoders = build_nets(config, shape_meta,
+                                       torch.Generator().manual_seed(seed))
         return cls.assemble(planner, encoders, config, shape_meta, dev)
 
     @classmethod

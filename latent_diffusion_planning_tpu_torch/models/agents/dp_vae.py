@@ -111,15 +111,14 @@ class DPVAEAgent:
         ``configs.lift_dp_vae_train_config()``) with weights drawn from
         ``seed``."""
         dev = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            obs_dim, action_dim = common.obs_dims(
-                shape_meta, config["rgb_obs"], config["lowdim_obs"],
-                config.get("vae_feature_dim", 16))
-            planner = unet_from_config(
-                config["planner"], action_dim,
-                obs_dim * config.get("obs_horizon", 1))
-            vae = KLVAE(**config.get("vae", {}))
+        generator = torch.Generator().manual_seed(seed)
+        obs_dim, action_dim = common.obs_dims(
+            shape_meta, config["rgb_obs"], config["lowdim_obs"],
+            config.get("vae_feature_dim", 16))
+        planner = unet_from_config(
+            config["planner"], action_dim,
+            obs_dim * config.get("obs_horizon", 1), generator)
+        vae = KLVAE(**config.get("vae", {}), generator=generator)
         return cls.assemble(planner, vae, config, obs_dim, action_dim, dev)
 
     @classmethod

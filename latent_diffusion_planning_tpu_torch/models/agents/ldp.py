@@ -174,29 +174,27 @@ class LDPAgent:
         """Build from an agent config dict (``configs.BENCH_AGENT``'s keys,
         plus the JAX ``create``'s training keywords: ``lr``, ``warmup_steps``,
         ``update_*_every`` and so on) with weights drawn from ``seed``."""
-        dev = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            # the nets initialise from the CPU generator; seeding a fork of
-            # it leaves the caller's random state as it was
-            torch.manual_seed(seed)
-            return cls._create(config, shape_meta, dev)
+        return cls._create(config, shape_meta, resolve_device(device),
+                           torch.Generator().manual_seed(seed))
 
     @classmethod
-    def _create(cls, config: Mapping, shape_meta: Mapping,
-                dev: torch.device) -> "LDPAgent":
+    def _create(cls, config: Mapping, shape_meta: Mapping, dev: torch.device,
+                generator: torch.Generator) -> "LDPAgent":
         obs_dim, action_dim = common.obs_dims(
             shape_meta, config["rgb_obs"], config["lowdim_obs"],
             config["vae_feature_dim"])
         oh = config["obs_horizon"]
-        planner = unet_from_config(config["planner"], obs_dim, obs_dim * oh)
+        planner = unet_from_config(config["planner"], obs_dim, obs_dim * oh,
+                                   generator)
         i = config["idm_net"]
         idm = MLPDiffusion(2 * obs_dim, action_dim, i.get("time_dim", 64),
                            i.get("cond_hidden_dims", (128, 128)),
                            i.get("cond_activation", "swish"),
                            i.get("n_blocks", 3), i.get("hidden_dim", 256),
                            i.get("use_layer_norm", True),
-                           i.get("dropout_rate"), i.get("learnable_time", True))
-        vae = KLVAE(**config.get("vae", {}))
+                           i.get("dropout_rate"), i.get("learnable_time", True),
+                           generator)
+        vae = KLVAE(**config.get("vae", {}), generator=generator)
         return cls.assemble(planner, idm, vae, config, obs_dim, action_dim,
                             dev)
 

@@ -65,16 +65,17 @@ class LDPHierAgent(LDPAgent):
     """Strided planner U-Net + chunk IDM U-Net + frozen VAE, on one device."""
 
     @classmethod
-    def _create(cls, config: Mapping, shape_meta: Mapping,
-                dev: torch.device) -> "LDPHierAgent":
+    def _create(cls, config: Mapping, shape_meta: Mapping, dev: torch.device,
+                generator: torch.Generator) -> "LDPHierAgent":
         obs_dim, action_dim = common.obs_dims(
             shape_meta, config["rgb_obs"], config["lowdim_obs"],
             config["vae_feature_dim"])
         planner = unet_from_config(config["planner"], obs_dim,
-                                   obs_dim * config["obs_horizon"])
+                                   obs_dim * config["obs_horizon"], generator)
         # chunk-decoding U-Net: sample (N, idm_horizon, A), cond (N, 2D)
-        idm = unet_from_config(config["idm_net"], action_dim, 2 * obs_dim)
-        vae = KLVAE(**config.get("vae", {}))
+        idm = unet_from_config(config["idm_net"], action_dim, 2 * obs_dim,
+                               generator)
+        vae = KLVAE(**config.get("vae", {}), generator=generator)
         return cls.assemble(planner, idm, vae, config, obs_dim, action_dim,
                             dev)
 

@@ -42,13 +42,14 @@ class FourierFeatures(nn.Module):
     when learnable, else the sinusoidal frequencies scale x directly."""
 
     def __init__(self, output_size: int = 64, learnable: bool = True,
-                 in_features: int = 1):
+                 in_features: int = 1,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.output_size = output_size
         self.learnable = learnable
         if learnable:
-            self.kernel = nn.Parameter(
-                torch.randn(output_size // 2, in_features) * 0.2)
+            self.kernel = nn.Parameter(torch.randn(
+                output_size // 2, in_features, generator=generator) * 0.2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()

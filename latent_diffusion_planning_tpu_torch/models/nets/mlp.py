@@ -15,6 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from . import init
 from .embeddings import FourierFeatures, mish
 
 LN_EPS = 1e-6
@@ -36,14 +37,17 @@ def activation(name: str):
 class MLP(nn.Module):
     """Dense stack with an activation between layers, none after the last
     (the JAX MLP's LayerNorm, dropout and final-activation options are not
-    ported: the IDM's cond MLP uses none of them)."""
+    ported: the IDM's cond MLP uses none of them). Every Dense draws
+    xavier-uniform, the JAX MLP's default ``kernel_init``."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
-                 activation_name: str = "relu"):
+                 activation_name: str = "relu",
+                 generator: torch.Generator | None = None):
         super().__init__()
         dims = [in_dim, *hidden_dims]
-        self.dense = nn.ModuleList(nn.Linear(a, b)
-                                   for a, b in zip(dims[:-1], dims[1:]))
+        self.dense = nn.ModuleList(
+            init.layer(nn.Linear, a, b, init="xavier", generator=generator)
+            for a, b in zip(dims[:-1], dims[1:]))
         self.act = activation(activation_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -56,12 +60,15 @@ class MLPResNetBlock(nn.Module):
     """Pre-norm residual block: LN → Dense(4h) → act → Dense(h) + skip."""
 
     def __init__(self, features: int, activation_name: str = "relu",
-                 use_layer_norm: bool = True):
+                 use_layer_norm: bool = True,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.norm = (nn.LayerNorm(features, eps=LN_EPS) if use_layer_norm
                      else nn.Identity())
-        self.dense0 = nn.Linear(features, 4 * features)
-        self.dense1 = nn.Linear(4 * features, features)
+        self.dense0 = init.layer(nn.Linear, features, 4 * features,
+                                 generator=generator)
+        self.dense1 = init.layer(nn.Linear, 4 * features, features,
+                                 generator=generator)
         self.act = activation(activation_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,13 +78,17 @@ class MLPResNetBlock(nn.Module):
 class MLPResNet(nn.Module):
     def __init__(self, in_dim: int, n_blocks: int, out_dim: int,
                  hidden_dim: int = 256, activation_name: str = "relu",
-                 use_layer_norm: bool = True):
+                 use_layer_norm: bool = True,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        self.dense0 = nn.Linear(in_dim, hidden_dim)
+        self.dense0 = init.layer(nn.Linear, in_dim, hidden_dim, init="xavier",
+                                 generator=generator)
         self.blocks = nn.ModuleList(
-            MLPResNetBlock(hidden_dim, activation_name, use_layer_norm)
+            MLPResNetBlock(hidden_dim, activation_name, use_layer_norm,
+                           generator)
             for _ in range(n_blocks))
-        self.dense1 = nn.Linear(hidden_dim, out_dim)
+        self.dense1 = init.layer(nn.Linear, hidden_dim, out_dim,
+                                 init="xavier", generator=generator)
         self.act = activation(activation_name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +106,10 @@ class MLPDiffusion(nn.Module):
                  cond_activation: str = "swish", n_blocks: int = 3,
                  hidden_dim: int = 256, use_layer_norm: bool = True,
                  dropout_rate: float | None = None,
-                 learnable_time: bool = True):
+                 learnable_time: bool = True,
+                 generator: torch.Generator | None = None):
+        """Weights as the Flax module initialises them, drawn from
+        ``generator``."""
         super().__init__()
         if dropout_rate:
             raise NotImplementedError("dropout is not ported (inference only)")
@@ -104,11 +118,14 @@ class MLPDiffusion(nn.Module):
         self.cond_activation = cond_activation
         self.use_layer_norm = use_layer_norm
         self.learnable_time = learnable_time
-        self.time = FourierFeatures(time_dim, learnable_time)
-        self.cond = MLP(time_dim, cond_hidden_dims, cond_activation)
+        self.time = FourierFeatures(time_dim, learnable_time,
+                                    generator=generator)
+        self.cond = MLP(time_dim, cond_hidden_dims, cond_activation,
+                        generator=generator)
         self.trunk = MLPResNet(out_dim + s_dim + cond_hidden_dims[-1],
                                n_blocks, out_dim, hidden_dim,
-                               use_layer_norm=use_layer_norm)
+                               use_layer_norm=use_layer_norm,
+                               generator=generator)
 
     def forward(self, s: torch.Tensor, a: torch.Tensor,
                 t: torch.Tensor) -> torch.Tensor:

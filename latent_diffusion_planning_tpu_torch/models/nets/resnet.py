@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from . import init
 from .mlp import MLP, activation
 
 NORM_EPS = 1e-5
@@ -54,23 +55,24 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
     return F.pad(x, (w0, w1, h0, h1), value=value), (0, 0)
 
 
-def _kaiming_normal_(w: torch.Tensor) -> torch.Tensor:
-    """Flax's ``kaiming_normal``: a normal truncated at ±2σ, scaled so the
-    variance is 2 / fan_in."""
-    std = math.sqrt(2.0 / (w[0].numel())) / 0.87962566103423978
-    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
-
-
 class SameConv2d(nn.Conv2d):
     """Bias-free conv with Flax's ``"SAME"`` padding."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
-        super().__init__(cin, cout, kernel, stride, bias=False)
-        _kaiming_normal_(self.weight)
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 device=None):
+        super().__init__(cin, cout, kernel, stride, bias=False, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, pad = _pad_same(x, self.kernel_size[0], self.stride[0])
         return F.conv2d(x, self.weight, None, self.stride, pad)
+
+
+def same_conv(cin: int, cout: int, kernel: int, stride: int = 1,
+              generator: torch.Generator | None = None) -> SameConv2d:
+    """A ``SameConv2d`` drawn as Flax's ``kaiming_normal`` (a normal
+    truncated at ±2σ, variance 2 / fan_in)."""
+    return init.layer(SameConv2d, cin, cout, kernel, stride,
+                      init="kaiming_normal", generator=generator)
 
 
 class ChannelLayerNorm(nn.Module):
@@ -99,16 +101,16 @@ class ResNetBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, norm: str,
-                 act: str):
+                 act: str, generator: torch.Generator | None = None):
         super().__init__()
-        self.conv0 = SameConv2d(cin, filters, 3, stride)
+        self.conv0 = same_conv(cin, filters, 3, stride, generator)
         self.norm0 = make_norm(norm, filters)
-        self.conv1 = SameConv2d(filters, filters, 3)
+        self.conv1 = same_conv(filters, filters, 3, generator=generator)
         self.norm1 = make_norm(norm, filters)
         self.act = activation(act)
         self.proj = self.norm_proj = None
         if stride != 1 or cin != filters:
-            self.proj = SameConv2d(cin, filters, 1, stride)
+            self.proj = same_conv(cin, filters, 1, stride, generator)
             self.norm_proj = make_norm(norm, filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,19 +125,19 @@ class BottleneckResNetBlock(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, norm: str,
-                 act: str):
+                 act: str, generator: torch.Generator | None = None):
         super().__init__()
-        self.conv0 = SameConv2d(cin, filters, 1)
+        self.conv0 = same_conv(cin, filters, 1, generator=generator)
         self.norm0 = make_norm(norm, filters)
-        self.conv1 = SameConv2d(filters, filters, 3, stride)
+        self.conv1 = same_conv(filters, filters, 3, stride, generator)
         self.norm1 = make_norm(norm, filters)
-        self.conv2 = SameConv2d(filters, 4 * filters, 1)
+        self.conv2 = same_conv(filters, 4 * filters, 1, generator=generator)
         self.norm2 = make_norm(norm, 4 * filters)
         nn.init.zeros_(self.norm2.weight)
         self.act = activation(act)
         self.proj = self.norm_proj = None
         if stride != 1 or cin != 4 * filters:
-            self.proj = SameConv2d(cin, 4 * filters, 1, stride)
+            self.proj = same_conv(cin, 4 * filters, 1, stride, generator)
             self.norm_proj = make_norm(norm, 4 * filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -191,12 +193,13 @@ class SpatialLearnedEmbeddings(nn.Module):
     → (B, C·num_features). The kernel keeps the JAX layout (H, W, C, F)."""
 
     def __init__(self, height: int, width: int, channels: int,
-                 num_features: int = 8):
+                 num_features: int = 8,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(height, width, channels,
                                                num_features))
-        std = math.sqrt(1.0 / (height * width * channels)) / 0.87962566103423978
-        nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std)
+        init.lecun_normal_(self.kernel.data, height * width * channels,
+                           generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW features."""
@@ -220,7 +223,8 @@ class ResNetEncoder(nn.Module):
                  use_film: bool = False, use_multiplicative_cond: bool = False,
                  use_sigmoid: bool = False, use_tanh: bool = False,
                  use_simnorm: bool = False, use_simnorm_rescale: bool = False,
-                 simnorm_dim: int = 8, compute_dtype: str = "float32"):
+                 simnorm_dim: int = 8, compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
         super().__init__()
         if use_film or use_multiplicative_cond:
             raise ValueError("FiLM and multiplicative conditioning of the "
@@ -241,8 +245,9 @@ class ResNetEncoder(nn.Module):
         self.use_simnorm_rescale = use_simnorm_rescale
         self.simnorm_dim = simnorm_dim
         cin = C + 2 if add_spatial_coordinates else C
-        self.conv_init = nn.Conv2d(cin, n_filters, 7, 2, padding=3, bias=False)
-        _kaiming_normal_(self.conv_init.weight)
+        self.conv_init = init.layer(nn.Conv2d, cin, n_filters, 7, 2,
+                                    padding=3, bias=False,
+                                    init="kaiming_normal", generator=generator)
         self.norm_init = make_norm(norm, n_filters)
         self.act = activation(act)
         H, W = (H + 6 - 7) // 2 + 1, (W + 6 - 7) // 2 + 1     # the stem
@@ -254,7 +259,8 @@ class ResNetEncoder(nn.Module):
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 filters = n_filters * 2 ** i
-                blocks.append(block(cin, filters, stride, norm, act))
+                blocks.append(block(cin, filters, stride, norm, act,
+                                    generator))
                 cin = filters * block.expansion
                 H, W = -(-H // stride), -(-W // stride)
         self.blocks = nn.ModuleList(blocks)
@@ -263,11 +269,13 @@ class ResNetEncoder(nn.Module):
             self.pool = SpatialSoftmax(softmax_temperature)
             feat = 2 * cin
         elif pooling_method == "spatial_learned_embeddings":
-            self.pool = SpatialLearnedEmbeddings(H, W, cin, n_spatial_blocks)
+            self.pool = SpatialLearnedEmbeddings(H, W, cin, n_spatial_blocks,
+                                                 generator)
             feat = cin * n_spatial_blocks
         else:
             feat = cin
-        self.mlp = MLP(feat, feature_layers) if feature_layers else None
+        self.mlp = (MLP(feat, feature_layers, generator=generator)
+                    if feature_layers else None)
         # features an image gives once flattened
         self.n_features = ((feature_layers[-1] if feature_layers else feat)
                            * (H * W if pooling_method == "none" else 1))

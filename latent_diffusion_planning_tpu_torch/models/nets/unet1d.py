@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from . import init
 from .embeddings import SinusoidalPosEmb, mish
 
 GN_EPS = 1e-6
@@ -34,10 +35,10 @@ class ConvBlock1D(nn.Module):
     """Conv1d(k, SAME) → GroupNorm → Mish."""
 
     def __init__(self, cin: int, channels: int, kernel_size: int = 5,
-                 n_groups: int = 8):
+                 n_groups: int = 8, generator: torch.Generator | None = None):
         super().__init__()
-        self.conv = nn.Conv1d(cin, channels, kernel_size,
-                              padding=kernel_size // 2)
+        self.conv = init.layer(nn.Conv1d, cin, channels, kernel_size,
+                               padding=kernel_size // 2, generator=generator)
         self.norm = nn.GroupNorm(n_groups, channels, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -46,13 +47,19 @@ class ConvBlock1D(nn.Module):
 
 class FiLMResBlock1D(nn.Module):
     def __init__(self, cin: int, channels: int, cond_dim: int,
-                 kernel_size: int = 5, n_groups: int = 8):
+                 kernel_size: int = 5, n_groups: int = 8,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.channels = channels
-        self.block0 = ConvBlock1D(cin, channels, kernel_size, n_groups)
-        self.film = nn.Linear(cond_dim, 2 * channels)
-        self.block1 = ConvBlock1D(channels, channels, kernel_size, n_groups)
-        self.proj = nn.Conv1d(cin, channels, 1) if cin != channels else None
+        self.block0 = ConvBlock1D(cin, channels, kernel_size, n_groups,
+                                  generator)
+        self.film = init.layer(nn.Linear, cond_dim, 2 * channels,
+                               init="xavier", generator=generator)
+        self.block1 = ConvBlock1D(channels, channels, kernel_size, n_groups,
+                                  generator)
+        self.proj = (init.layer(nn.Conv1d, cin, channels, 1,
+                                generator=generator)
+                     if cin != channels else None)
 
     def forward(self, x: torch.Tensor, mcond: torch.Tensor) -> torch.Tensor:
         """x: (B, Cin, T); mcond: mish(cond), (B, cond_dim)."""
@@ -70,7 +77,10 @@ class ConditionalUnet1D(nn.Module):
                  diffusion_step_embed_dim: int = 256,
                  down_dims: Sequence[int] = (256, 512, 1024),
                  kernel_size: int = 5, n_groups: int = 8,
-                 downsample: bool = True):
+                 downsample: bool = True,
+                 generator: torch.Generator | None = None):
+        """Weights as the Flax module initialises them (convs lecun-normal,
+        Denses xavier-uniform, biases 0), drawn from ``generator``."""
         super().__init__()
         d = diffusion_step_embed_dim
         self.input_dim = input_dim
@@ -81,34 +91,41 @@ class ConditionalUnet1D(nn.Module):
         self.n_groups = n_groups
         self.downsample = bool(downsample)
         self.time_emb = SinusoidalPosEmb(d)
-        self.time_dense0 = nn.Linear(d, 4 * d)
-        self.time_dense1 = nn.Linear(4 * d, d)
+        self.time_dense0 = init.layer(nn.Linear, d, 4 * d, init="xavier",
+                                      generator=generator)
+        self.time_dense1 = init.layer(nn.Linear, 4 * d, d, init="xavier",
+                                      generator=generator)
         cond_dim = d + global_cond_dim
+
+        def block(cin: int, ch: int) -> FiLMResBlock1D:
+            return FiLMResBlock1D(cin, ch, cond_dim, kernel_size, n_groups,
+                                  generator)
+
         blocks = []
         cin = input_dim
         for ch in self.down_dims:
-            blocks += [FiLMResBlock1D(cin, ch, cond_dim, kernel_size, n_groups),
-                       FiLMResBlock1D(ch, ch, cond_dim, kernel_size, n_groups)]
+            blocks += [block(cin, ch), block(ch, ch)]
             cin = ch
         mid = self.down_dims[-1]
-        blocks += [FiLMResBlock1D(mid, mid, cond_dim, kernel_size, n_groups)
-                   for _ in range(2)]
+        blocks += [block(mid, mid) for _ in range(2)]
         for ch, skip in zip(reversed(self.down_dims[:-1]),
                             reversed(self.down_dims[1:])):
-            blocks += [FiLMResBlock1D(cin + skip, ch, cond_dim, kernel_size,
-                                      n_groups),
-                       FiLMResBlock1D(ch, ch, cond_dim, kernel_size, n_groups)]
+            blocks += [block(cin + skip, ch), block(ch, ch)]
             cin = ch
         self.blocks = nn.ModuleList(blocks)
         resampled = self.down_dims[:-1] if self.downsample else ()
-        self.downs = nn.ModuleList(nn.Conv1d(ch, ch, 3, stride=2)
-                                   for ch in resampled)
+        self.downs = nn.ModuleList(
+            init.layer(nn.Conv1d, ch, ch, 3, stride=2, generator=generator)
+            for ch in resampled)
+        # Flax's ConvTranspose kernel is (4, in, out): fan_in 4·in
         self.ups = nn.ModuleList(
-            nn.ConvTranspose1d(ch, ch, 4, stride=2, padding=1)
+            init.layer(nn.ConvTranspose1d, ch, ch, 4, stride=2, padding=1,
+                       generator=generator)
             for ch in reversed(resampled))
         self.final_block = ConvBlock1D(self.down_dims[0], self.down_dims[0],
-                                       kernel_size, n_groups)
-        self.final_conv = nn.Conv1d(self.down_dims[0], input_dim, 1)
+                                       kernel_size, n_groups, generator)
+        self.final_conv = init.layer(nn.Conv1d, self.down_dims[0], input_dim,
+                                     1, generator=generator)
 
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 global_cond: torch.Tensor) -> torch.Tensor:
@@ -117,12 +134,13 @@ class ConditionalUnet1D(nn.Module):
         if T % factor:
             raise ValueError(f"sequence length {T} must be divisible by "
                              f"{factor} (downsample levels)")
+        dtype = self.final_conv.weight.dtype   # fp32; fp64 in checks
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
-        temb = self.time_emb(t.expand(B))
+        temb = self.time_emb(t.expand(B)).to(dtype)
         temb = self.time_dense1(mish(self.time_dense0(temb)))
-        mcond = mish(torch.cat([temb, global_cond.float()], -1))
+        mcond = mish(torch.cat([temb, global_cond.to(dtype)], -1))
 
-        x = sample.float().transpose(1, 2)
+        x = sample.to(dtype).transpose(1, 2)
         blocks = iter(self.blocks)
         skips = []
         L = len(self.down_dims)
@@ -144,12 +162,13 @@ class ConditionalUnet1D(nn.Module):
         return x.transpose(1, 2)
 
 
-def unet_from_config(cfg, input_dim: int,
-                     global_cond_dim: int) -> ConditionalUnet1D:
+def unet_from_config(cfg, input_dim: int, global_cond_dim: int,
+                     generator: torch.Generator | None = None
+                     ) -> ConditionalUnet1D:
     """A U-Net from a net section of an agent config (the yaml's keys, the
     Flax module's defaults where a key is missing)."""
     return ConditionalUnet1D(
         input_dim, global_cond_dim, cfg.get("diffusion_step_embed_dim", 256),
         tuple(cfg.get("down_dims", (256, 512, 1024))),
         cfg.get("kernel_size", 5), cfg.get("n_groups", 8),
-        cfg.get("downsample", True))
+        cfg.get("downsample", True), generator)

@@ -27,6 +27,7 @@ from torch.nn import functional as F
 
 from .. import resolve_device
 from ..ops import normalize as nz
+from .nets import init
 from ..train.state import TrainState
 from ..utils.precision import fp32_math
 
@@ -34,15 +35,19 @@ GN_EPS = 1e-6
 
 
 class ResBlock2D(nn.Module):
-    def __init__(self, cin: int, channels: int, norm_groups: int = 32):
+    def __init__(self, cin: int, channels: int, norm_groups: int = 32,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.norm0 = nn.GroupNorm(min(norm_groups, cin), cin, eps=GN_EPS)
-        self.conv0 = nn.Conv2d(cin, channels, 3, padding=1)
+        self.conv0 = init.layer(nn.Conv2d, cin, channels, 3, padding=1,
+                                generator=generator)
         self.norm1 = nn.GroupNorm(min(norm_groups, channels), channels,
                                   eps=GN_EPS)
-        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
-        self.shortcut = (nn.Conv2d(cin, channels, 1) if cin != channels
-                         else None)
+        self.conv1 = init.layer(nn.Conv2d, channels, channels, 3, padding=1,
+                                generator=generator)
+        self.shortcut = (init.layer(nn.Conv2d, cin, channels, 1,
+                                    generator=generator)
+                         if cin != channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv0(F.silu(self.norm0(x)))
@@ -54,14 +59,14 @@ class MidAttention(nn.Module):
     """Single-head self-attention over the bottleneck grid, as explicit
     matmuls and a softmax."""
 
-    def __init__(self, channels: int, norm_groups: int = 32):
+    def __init__(self, channels: int, norm_groups: int = 32,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.norm = nn.GroupNorm(min(norm_groups, channels), channels,
                                  eps=GN_EPS)
-        self.q = nn.Linear(channels, channels)
-        self.k = nn.Linear(channels, channels)
-        self.v = nn.Linear(channels, channels)
-        self.out = nn.Linear(channels, channels)
+        self.q, self.k, self.v, self.out = (
+            init.layer(nn.Linear, channels, channels, generator=generator)
+            for _ in range(4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
@@ -76,33 +81,41 @@ class Encoder(nn.Module):
     def __init__(self, block_out_channels: Sequence[int], latent_channels: int,
                  in_channels: int = 3, layers_per_block: int = 2,
                  norm_groups: int = 32, use_mid_attention: bool = True,
-                 patch_size: int = 1, downsample_pad: str = "same"):
+                 patch_size: int = 1, downsample_pad: str = "same",
+                 generator: torch.Generator | None = None):
         super().__init__()
         boc = list(block_out_channels)
         self.downsample_pad = downsample_pad
         if patch_size > 1:
-            self.stem = nn.Conv2d(in_channels, boc[0], patch_size,
-                                  stride=patch_size)
+            self.stem = init.layer(nn.Conv2d, in_channels, boc[0],
+                                   patch_size, stride=patch_size,
+                                   generator=generator)
         else:
-            self.stem = nn.Conv2d(in_channels, boc[0], 3, padding=1)
+            self.stem = init.layer(nn.Conv2d, in_channels, boc[0], 3,
+                                   padding=1, generator=generator)
         levels = []
         cin = boc[0]
         for i, ch in enumerate(boc):
             blocks = []
             for _ in range(layers_per_block):
-                blocks.append(ResBlock2D(cin, ch, norm_groups))
+                blocks.append(ResBlock2D(cin, ch, norm_groups, generator))
                 cin = ch
             levels.append(nn.ModuleList(blocks))
         self.levels = nn.ModuleList(levels)
-        self.downs = nn.ModuleList(nn.Conv2d(ch, ch, 3, stride=2)
-                                   for ch in boc[:-1])
+        self.downs = nn.ModuleList(
+            init.layer(nn.Conv2d, ch, ch, 3, stride=2, generator=generator)
+            for ch in boc[:-1])
         top = boc[-1]
-        self.mid0 = ResBlock2D(top, top, norm_groups)
-        self.attn = MidAttention(top, norm_groups) if use_mid_attention else None
-        self.mid1 = ResBlock2D(top, top, norm_groups)
+        self.mid0 = ResBlock2D(top, top, norm_groups, generator)
+        self.attn = (MidAttention(top, norm_groups, generator)
+                     if use_mid_attention else None)
+        self.mid1 = ResBlock2D(top, top, norm_groups, generator)
         self.norm_out = nn.GroupNorm(min(norm_groups, top), top, eps=GN_EPS)
-        self.conv_out = nn.Conv2d(top, 2 * latent_channels, 3, padding=1)
-        self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
+        self.conv_out = init.layer(nn.Conv2d, top, 2 * latent_channels, 3,
+                                   padding=1, generator=generator)
+        self.quant_conv = init.layer(nn.Conv2d, 2 * latent_channels,
+                                     2 * latent_channels, 1,
+                                     generator=generator)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = self.stem(x)
@@ -127,34 +140,41 @@ class Decoder(nn.Module):
     def __init__(self, block_out_channels: Sequence[int], latent_channels: int,
                  out_channels: int = 3, layers_per_block: int = 2,
                  norm_groups: int = 32, use_mid_attention: bool = True,
-                 patch_size: int = 1):
+                 patch_size: int = 1,
+                 generator: torch.Generator | None = None):
         super().__init__()
         boc = list(block_out_channels)
         top = boc[-1]
         self.patch_size = patch_size
         self.out_channels = out_channels
-        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
-        self.conv_in = nn.Conv2d(latent_channels, top, 3, padding=1)
-        self.mid0 = ResBlock2D(top, top, norm_groups)
-        self.attn = MidAttention(top, norm_groups) if use_mid_attention else None
-        self.mid1 = ResBlock2D(top, top, norm_groups)
+        self.post_quant_conv = init.layer(nn.Conv2d, latent_channels,
+                                          latent_channels, 1,
+                                          generator=generator)
+        self.conv_in = init.layer(nn.Conv2d, latent_channels, top, 3,
+                                  padding=1, generator=generator)
+        self.mid0 = ResBlock2D(top, top, norm_groups, generator)
+        self.attn = (MidAttention(top, norm_groups, generator)
+                     if use_mid_attention else None)
+        self.mid1 = ResBlock2D(top, top, norm_groups, generator)
         levels = []
         cin = top
         for ch in reversed(boc):
             blocks = []
             for _ in range(layers_per_block + 1):
-                blocks.append(ResBlock2D(cin, ch, norm_groups))
+                blocks.append(ResBlock2D(cin, ch, norm_groups, generator))
                 cin = ch
             levels.append(nn.ModuleList(blocks))
         self.levels = nn.ModuleList(levels)
-        self.ups = nn.ModuleList(nn.Conv2d(ch, ch, 3, padding=1)
-                                 for ch in list(reversed(boc))[:-1])
+        self.ups = nn.ModuleList(
+            init.layer(nn.Conv2d, ch, ch, 3, padding=1, generator=generator)
+            for ch in list(reversed(boc))[:-1])
         bottom = boc[0]
         self.norm_out = nn.GroupNorm(min(norm_groups, bottom), bottom,
                                      eps=GN_EPS)
         # patch_size > 1: p·p·C channels per cell, pixel-shuffled out
-        self.conv_out = nn.Conv2d(bottom, out_channels * patch_size ** 2, 3,
-                                  padding=1)
+        self.conv_out = init.layer(nn.Conv2d, bottom,
+                                   out_channels * patch_size ** 2, 3,
+                                   padding=1, generator=generator)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(self.post_quant_conv(z))
@@ -183,14 +203,17 @@ class Decoder(nn.Module):
 
 
 class KLVAE(nn.Module):
-    """The autoencoder; images NHWC in [-1, 1]."""
+    """The autoencoder; images NHWC in [-1, 1]. Every conv and Dense starts
+    as Flax's default does (lecun-normal, bias 0), drawn from
+    ``generator``."""
 
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 256, 256,
                                                             256, 256),
                  in_channels: int = 3, out_channels: int = 3,
                  latent_channels: int = 4, layers_per_block: int = 2,
                  norm_groups: int = 32, use_mid_attention: bool = True,
-                 patch_size: int = 1, downsample_pad: str = "same"):
+                 patch_size: int = 1, downsample_pad: str = "same",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.latent_channels = latent_channels
         self.in_channels = in_channels
@@ -198,10 +221,10 @@ class KLVAE(nn.Module):
                              + len(block_out_channels) - 1)
         self.encoder = Encoder(block_out_channels, latent_channels, in_channels,
                                layers_per_block, norm_groups, use_mid_attention,
-                               patch_size, downsample_pad)
+                               patch_size, downsample_pad, generator)
         self.decoder = Decoder(block_out_channels, latent_channels,
                                out_channels, layers_per_block, norm_groups,
-                               use_mid_attention, patch_size)
+                               use_mid_attention, patch_size, generator)
 
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, C) → (mean, logvar), each (B, h, w, latent_channels)."""
@@ -282,9 +305,8 @@ class VAEModel:
         ``model``: ``vae``, ``rgb_obs``, ``obs_normalization``, ``beta``,
         the optimizer keys) with weights drawn from ``seed``."""
         dev = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            vae = KLVAE(**config.get("vae", {}))
+        vae = KLVAE(**config.get("vae", {}),
+                    generator=torch.Generator().manual_seed(seed))
         return cls(vae, config["obs_normalization"], config, dev)
 
     @property

@@ -44,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..data.datasets import MixedOfflineData, OfflineData
+from ..envs.from_meta import make_env_from_meta
 from ..models.agents.dp import DPAgent
 from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
@@ -63,17 +64,6 @@ def _tensors(tree) -> list[torch.Tensor]:
     if isinstance(tree, Mapping):
         return [t for v in tree.values() for t in _tensors(v)]
     return [] if tree is None else [tree]
-
-
-def make_env(name: str, **kwargs):
-    """The eval env a dataset's ``env_meta`` names."""
-    if name == "LiftEnv":
-        from ..envs.lift import LiftEnv
-        return LiftEnv(**kwargs)
-    if name == "LiftPhysicsEnv":
-        from ..envs.lift_physics import LiftPhysicsEnv
-        return LiftPhysicsEnv(**kwargs)
-    raise KeyError(f"env {name!r} is not ported")
 
 
 def make_data(section: Mapping[str, Any], device: torch.device | str,
@@ -123,7 +113,8 @@ def eval_env(data):
         kwargs = dict(meta.get("env_kwargs", {}))
         if spec_len:
             kwargs["episode_len"] = int(spec_len)
-        return make_env(meta["env_name"], **kwargs)
+        return make_env_from_meta({"env_name": meta["env_name"],
+                                   "env_kwargs": kwargs})
     if not isinstance(spec, Mapping):
         return spec
     if not spec:
@@ -131,7 +122,7 @@ def eval_env(data):
     if "_target_" in spec:
         return instantiate(spec)
     kwargs = {k: v for k, v in spec.items() if k != "name"}
-    return make_env(spec["name"], **kwargs)
+    return make_env_from_meta({"env_name": spec["name"], "env_kwargs": kwargs})
 
 
 class Workspace:

@@ -446,6 +446,13 @@ TARGETS: dict[str, tuple[str, bool]] = {
     _JAX + "envs.lift_physics.LiftPhysicsEnv":
         (_PORT + "envs.lift_physics:LiftPhysicsEnv", False),
     _JAX + "envs.lift.LiftEnv": (_PORT + "envs.lift:LiftEnv", False),
+    _JAX + "envs.pick_place.CanEnv": (_PORT + "envs.pick_place:CanEnv", False),
+    _JAX + "envs.pick_place.SquareEnv":
+        (_PORT + "envs.pick_place:SquareEnv", False),
+    _JAX + "envs.pick_place_physics.CanPhysicsEnv":
+        (_PORT + "envs.pick_place_physics:CanPhysicsEnv", False),
+    _JAX + "envs.pick_place_physics.SquarePhysicsEnv":
+        (_PORT + "envs.pick_place_physics:SquarePhysicsEnv", False),
     _JAX + "data.datasets.OfflineData":
         (_PORT + "data.datasets:OfflineData", False),
     _JAX + "data.datasets.MixedOfflineData":

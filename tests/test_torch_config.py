@@ -3,10 +3,11 @@ the JAX package's YAML system.
 
 - Every JSON file under ``latent_diffusion_planning_tpu_torch/conf`` is
   ``yaml.safe_load`` of its YAML, and the tree holds every YAML file the
-  Lift recipes compose.
+  Lift, Can and Square recipes compose.
 - ``load_config`` equals the JAX ``load_config`` on every command line of
-  ``tools/run_lift_pipeline.sh``, ``run_lift_baselines.sh`` and
-  ``run_lift_mixed_study.sh`` (read off the scripts by running them in a
+  ``tools/run_lift_pipeline.sh``, ``run_lift_baselines.sh``,
+  ``run_lift_mixed_study.sh``, ``run_can_pipeline.sh`` and
+  ``run_square_pipeline.sh`` (read off the scripts by running them in a
   scratch copy with a ``python`` that records its arguments), on the port's
   own recipe scripts (the same stages with ``.npz`` files), on a case of
   each override form, and on a run's resolved ``config.json``.
@@ -34,25 +35,28 @@ from latent_diffusion_planning_tpu_torch.utils import config as pcfg
 REPO = Path(__file__).resolve().parent.parent
 YAML_ROOT = REPO / "latent_diffusion_planning_tpu" / "configs"
 JSON_ROOT = REPO / "latent_diffusion_planning_tpu_torch" / "conf"
-LIFT_TREE = sorted(
+JSON_TREE = sorted(
     ["collect_data", "collect_demos", "eval_bc", "process_latents",
      "train_bc", "train_mixed_bc", "train_mixed_bc_actionfree", "train_vae",
      "agent/ldp_agent", "agent/ldp_hier_agent", "agent/dp_agent",
-     "agent/dp_repr_agent", "model/stable_vae", "data/lift/img",
-     "data/lift/latent_img", "data/lift/mixed_img",
-     "data/lift/mixed_latent_img"])
+     "agent/dp_repr_agent", "model/stable_vae"]
+    + [f"data/{task}/{name}" for task in ("lift", "can", "square")
+       for name in ("img", "latent_img", "mixed_img", "mixed_latent_img")])
 
 
-@pytest.mark.parametrize("name", LIFT_TREE)
+@pytest.mark.parametrize("name", JSON_TREE)
 def test_json_file_is_its_yaml(name):
     want = yaml.safe_load((YAML_ROOT / f"{name}.yaml").read_text())
     assert json.loads((JSON_ROOT / f"{name}.json").read_text()) == want
 
 
 def test_json_tree_holds_the_lift_files_only():
+    """The tree holds the files the recipes compose and nothing else: the
+    Lift recipes' and the Can and Square data groups (the name predates
+    them)."""
     got = sorted(p.relative_to(JSON_ROOT).with_suffix("").as_posix()
                  for p in JSON_ROOT.rglob("*") if p.is_file())
-    assert got == LIFT_TREE
+    assert got == JSON_TREE
 
 
 def _command_lines(script: str, tmp: Path, env=None) -> list[list[str]]:
@@ -110,6 +114,12 @@ JAX_SCRIPTS = {
     "run_lift_mixed_study.sh": ({"STEPS": "20000"}, [
         "collect_data", "process_latents", "train_bc", "train_mixed_bc",
         "train_mixed_bc"]),
+    "run_can_pipeline.sh": ({}, [
+        "collect_demos", "collect_demos", "train_vae", "process_latents",
+        "train_bc"]),
+    "run_square_pipeline.sh": ({}, [
+        "collect_demos", "collect_demos", "train_vae", "process_latents",
+        "train_bc"]),
 }
 
 
@@ -131,6 +141,8 @@ PORT_SCRIPTS = {
     "run_lift_mixed_study_torch.sh": ("run_lift_mixed_study.sh",
                                       {"RUN": "mixed_study",
                                        "STEPS": "20000"}),
+    "run_can_pipeline_torch.sh": ("run_can_pipeline.sh", {}),
+    "run_square_pipeline_torch.sh": ("run_square_pipeline.sh", {}),
 }
 
 

@@ -11,6 +11,8 @@ held against the JAX scan samplers, which the JAX package holds its
 kernels against.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -471,33 +473,56 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip):
     return xcur.reshape(B, T, D)
 
 
-@pytest.mark.parametrize("dd,G,Dc,T,k,down", [
-    pytest.param((8, 16, 32), 4, 6, 8, 5, True, id="dd0-4"),
-    pytest.param((24, 40), 8, 6, 8, 5, True, id="dd1-8"),
+UNET_PROGRAM_CASES = [
+    ((8, 16, 32), 4, 6, 8, 5, True, "dd0-4"),
+    ((24, 40), 8, 6, 8, 5, True, "dd1-8"),
     # DP's condition is 1033 wide: several 32-row K tiles of the condition
     # half, the last one ragged (Dc 75 pads to 96: two full tiles and 11 of
     # 32 rows; with the 16-wide step embedding the FiLM input is 91 wide)
-    pytest.param((8, 16), 4, 75, 8, 5, True, id="wide-ragged-cond"),
+    ((8, 16), 4, 75, 8, 5, True, "wide-ragged-cond"),
     # LDP-hier's nets do not downsample: its planner's 2-long plans under
     # 5 taps (the SAME conv's zero rows on both sides of every sample) and
     # its chunk IDM's 4-long chunks under 3 taps
-    pytest.param((8, 16, 32), 4, 6, 2, 5, False, id="no-downsample-T2-k5"),
-    pytest.param((8, 16), 4, 10, 4, 3, False, id="no-downsample-T4-k3")])
-def test_unet_kernel_program_matches_twin(dd, G, Dc, T, k, down):
+    ((8, 16, 32), 4, 6, 2, 5, False, "no-downsample-T2-k5"),
+    ((8, 16), 4, 10, 4, 3, False, "no-downsample-T4-k3")]
+
+
+@pytest.mark.parametrize("dd,G,Dc,T,k,down,torch_init", [
+    pytest.param(*case[:-1], torch_init, id=case[-1] + suffix)
+    for torch_init, suffix in ((False, ""), (True, "-torch-init"))
+    for case in UNET_PROGRAM_CASES])
+def test_unet_kernel_program_matches_twin(dd, G, Dc, T, k, down, torch_init):
     """Kernel B's record program and tiled weights, run by the NumPy
     transcription of its data path (bf16 operands, hoisted FiLM), compute
-    what the rounding twin computes (fp64 vs fp32 sums: atol 1e-4)."""
+    what the rounding twin computes, on the port's own weights (Flax's
+    init) and on torch's default draws (``-torch-init``), whose nonzero
+    biases exercise the bias paths that Flax's zero biases leave idle.
+
+    The twin runs here with fp64 sums, as the transcription does: a bf16
+    product is exact in fp64, so neither side's summation order shows. With
+    fp32 sums the twin flips a bf16 rounding wherever a value lies within
+    fp32 rounding of a tie, and on Flax's init such flips carry the output
+    past 1e-4 (dd1-8). atol 1e-4."""
     B, D = 3, 5
-    torch.manual_seed(0)
-    net = kunet.rounding_twin(kunet.ConditionalUnet1D(D, Dc, 16, dd, k, G,
-                                                      down))
+    net = kunet.ConditionalUnet1D(D, Dc, 16, dd, k, G, down,
+                                  generator=torch.Generator().manual_seed(0))
+    if torch_init:
+        torch.manual_seed(0)
+        for m in net.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+    net = kunet.rounding_twin(net)
     rng = np.random.default_rng(5)
     g = rng.normal(size=(B, Dc)).astype(np.float32)
     x0 = rng.normal(size=(B, T, D)).astype(np.float32)
     ts, coefs = dlib.ddim_coef_table(
         dlib.DiffusionSchedule.create(12, "squaredcos_cap_v2"), 4)
-    twin = kunet.fused_unet1d_ddim_sample(net, torch.from_numpy(g),
-                                          torch.from_numpy(x0), ts, coefs)
+    twin64 = copy.deepcopy(net).double()
+    g64 = torch.from_numpy(g).double()
+    with torch.no_grad():
+        twin = dlib.sample_with_coefs(
+            lambda x, t: twin64(x, t, g64), torch.from_numpy(x0).double(),
+            ts, coefs.double(), None, 1.0)
     got = _run_unet_program(net, g.astype(np.float64), x0, ts, coefs, 1.0)
     np.testing.assert_allclose(got, twin.numpy(), atol=1e-4, rtol=0)
 

@@ -66,6 +66,13 @@ def test_port_and_smoke_exist():
         assert port / module in FILES, module
 
 
+def test_can_square_and_init_modules_are_covered():
+    port = REPO / "latent_diffusion_planning_tpu_torch"
+    for module in ("envs/pick_place.py", "envs/pick_place_physics.py",
+                   "envs/from_meta.py", "models/nets/init.py"):
+        assert port / module in FILES, module
+
+
 def test_drivers_and_their_tools_are_covered():
     port = REPO / "latent_diffusion_planning_tpu_torch"
     for name in ("collect_demos", "train_vae", "process_latents", "train_bc",

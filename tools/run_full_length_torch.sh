@@ -1,0 +1,83 @@
+#!/bin/bash
+# The port's recipes at full length on one card, each task's chain in its
+# own background job (every stage is host-bound, so the chains share the
+# card with little loss), and their logs and CSVs gathered under $OUT.
+#
+#   lift: tools/run_lift_pipeline_torch.sh (demos -> VAE 4000 -> latents ->
+#         LDP 30000, Workspace evals of 64 episodes at 10k/20k/30k), then
+#         tools/eval_bc_torch.py over its checkpoints (64 episodes,
+#         sweep_batch=3); then, if the 10000-step checkpoint lifts in at
+#         least 0.3 of those episodes,
+#         tools/run_lift_mixed_study_torch.sh with STEPS=20000 N_EVAL=512
+#         (its corpus comes from that checkpoint)
+#   can:  tools/run_can_pipeline_torch.sh with STEPS=30000 (Workspace evals
+#         of 256 episodes x 400 steps at 10k/20k/30k)
+#
+# Knobs: TASKS="lift can"  OUT=chiprun_out/full_length
+# Datasets go to build/<task>, runs to experiments/ (both git-ignored).
+# Every stage's command line is echoed beside the Unix time (xtrace), so
+# each stage's wall time is read off the task's log.
+set -e
+cd "$(dirname "$0")/.."
+TASKS=${TASKS:-lift can}
+OUT=${OUT:-chiprun_out/full_length}
+# the mixed study's corpus needs a checkpoint that lifts in 30% of its
+# episodes or more, else it would not be comparable to the JAX study's
+MIN_SUBOPT=0.3
+mkdir -p "$OUT"
+
+xtrace() {  # run a script with each command echoed beside the Unix time
+  bash -c 'PS4="+ \$(date +%s.%N) "; set -x; . "$0"' "$@"
+}
+
+lift() {
+  DATA=build/lift xtrace tools/run_lift_pipeline_torch.sh
+  echo "+ $(date +%s.%N) eval_bc"
+  python tools/eval_bc_torch.py \
+    run_dir=experiments/pipeline_torch/ldp n_eval_episodes=64 sweep_batch=3
+  local rate
+  rate=$(python - <<'EOF'
+import csv
+rows = {int(float(r["step"])): r for r in csv.DictReader(
+    open("experiments/pipeline_torch/ldp/eval_sweep/eval.csv"))}
+print(rows[10000]["success"])
+EOF
+)
+  echo "lift: eval_bc success at 10000 steps: $rate"
+  if python -c "import sys; sys.exit(float('$rate') < $MIN_SUBOPT)"; then
+    DATA=build/lift STEPS=20000 N_EVAL=512 \
+      xtrace tools/run_lift_mixed_study_torch.sh
+  else
+    echo "lift: the 10000-step checkpoint lifts in $rate < $MIN_SUBOPT" \
+         "of its episodes: the mixed study is not run"
+  fi
+}
+
+can() {
+  DATA=build/can STEPS=30000 xtrace tools/run_can_pipeline_torch.sh
+  echo "+ $(date +%s.%N) done"
+}
+
+if [ $# -gt 0 ]; then   # one task, as the loop below starts it
+  "$1"
+  exit
+fi
+for task in $TASKS; do
+  { bash "$0" "$task" > "$OUT/$task.log" 2>&1 && echo "exit 0" \
+      || echo "exit $?"; } >> "$OUT/$task.log" &
+done
+wait
+
+# the runs' CSVs, configs and study logs (not the checkpoints)
+for f in $(find experiments -name '*.csv' -o -name 'config.json' \
+             -o -name '*.log' 2>/dev/null); do
+  mkdir -p "$OUT/$(dirname "$f")"
+  cp "$f" "$OUT/$f"
+done
+for task in $TASKS; do
+  echo "== $task: $(tail -n 1 "$OUT/$task.log")"
+  grep -a -E "^\++ [0-9.]+ (python|eval_bc|done)|success|Wilson" \
+    "$OUT/$task.log" \
+    | cut -c1-200 || true
+done
+! grep -q -x -v "exit 0" <(for t in $TASKS; do tail -n 1 "$OUT/$t.log"; done)

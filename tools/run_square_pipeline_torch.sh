@@ -1,0 +1,61 @@
+#!/bin/bash
+# The Square LDP pipeline on the contact-physics SquarePhysicsEnv through the
+# PyTorch/CUDA port's drivers: the stages and overrides of
+# tools/run_square_pipeline.sh (demos at episode_len=300 -> VAE -> latents ->
+# LDP, with Workspace evals of 256 episodes at the 400-step protocol), with
+# .npz datasets and runs in experiments/$RUN. It writes nothing under
+# assets/ (the JAX script snapshots its runs into the tracked tree).
+#
+# Knobs: RUN=square_pipeline  STEPS=30000  DATA=datasets/square  ARGS=""
+# (added to every stage, e.g. ARGS=device=cpu).
+# Stages whose output exists are skipped, so an interrupted run resumes.
+set -e
+cd "$(dirname "$0")/.."
+RUN=${RUN:-square_pipeline}
+STEPS=${STEPS:-30000}
+DATA=${DATA:-datasets/square}
+ARGS=${ARGS:-}
+ENV=latent_diffusion_planning_tpu.envs.pick_place_physics.SquarePhysicsEnv
+VAE=experiments/$RUN/vae/ckpt/4000.ckpt
+
+if [ ! -f $DATA/demos.npz ]; then
+python tools/collect_demos_torch.py env._target_=$ENV env.episode_len=300 \
+  n_episodes=256 episode_len=300 out_path=$DATA/demos.npz seed=0 $ARGS
+fi
+if [ ! -f $DATA/demos_eval.npz ]; then
+python tools/collect_demos_torch.py env._target_=$ENV env.episode_len=300 \
+  n_episodes=32 episode_len=300 out_path=$DATA/demos_eval.npz seed=77 $ARGS
+fi
+if [ ! -f $VAE ]; then
+python tools/train_vae_torch.py data=square/img \
+  data.train_path=$DATA/demos.npz data.eval_path=$DATA/demos_eval.npz \
+  'model.vae.block_out_channels=[64,128,128,128]' model.vae.patch_size=4 \
+  model.vae.norm_groups=16 \
+  batch_size=64 n_grad_steps=4000 warmup_steps=100 lr=3e-4 \
+  eval_every=2000 save_every=2000 \
+  experiment_folder=$RUN experiment_name=vae $ARGS
+fi
+if [ ! -f $DATA/demos_latent.npz ]; then
+python tools/process_latents_torch.py vae_snapshot_path=$VAE \
+  'vae.block_out_channels=[64,128,128,128]' vae.patch_size=4 vae.norm_groups=16 \
+  "src_paths=[$DATA/demos.npz,$DATA/demos_eval.npz]" \
+  "dst_paths=[$DATA/demos_latent.npz,$DATA/demos_eval_latent.npz]" $ARGS
+fi
+if [ ! -f experiments/$RUN/ldp/ckpt/$STEPS.ckpt ]; then
+python tools/train_bc_torch.py agent=ldp_agent data=square/latent_img \
+  data.train_path=$DATA/demos.npz data.eval_path=$DATA/demos_eval.npz \
+  data.train_latent_path=$DATA/demos_latent.npz \
+  data.eval_latent_path=$DATA/demos_eval_latent.npz \
+  'model_vae.block_out_channels=[64,128,128,128]' model_vae.patch_size=4 \
+  model_vae.norm_groups=16 \
+  agent.vae_pretrain_path=$VAE \
+  'agent.planner.down_dims=[64,128,256]' \
+  agent.planner_n_diffusion_steps=50 agent.idm_n_diffusion_steps=50 \
+  agent.planner_inference_steps=25 agent.idm_inference_steps=25 \
+  'data.stats_from_data=[latent_agentview_image]' \
+  data.env_params.env.episode_len=400 \
+  horizon=9 obs_horizon=1 action_horizon=4 pred_horizon=8 batch_size=128 \
+  n_grad_steps=$STEPS warmup_steps=200 lr=3e-4 n_eval_episodes=256 \
+  eval_every=10000 save_every=10000 \
+  experiment_folder=$RUN experiment_name=ldp $ARGS
+fi
