@@ -198,6 +198,15 @@ PP_EXPERT_LEN = 300
 PP_VAE_STEPS = 200            # of 4000
 PP_LDP_STEPS = 300            # of 30000
 PP_EVAL_EPISODES = 256        # the recipe's n_eval_episodes
+# ALOHA (phase_aloha): the phys4 recipe's demos at full count
+AL_RENDER_ENVS = 1024
+AL_RENDER_SPREAD = 40
+AL_EXPERT_ENVS = 1024
+AL_EXPERT_LEN = {"cube": 120, "insertion": 160}
+AL_VAE_STEPS = 200            # of 4000
+AL_LDP_STEPS = 300            # of 200000
+AL_EVAL_EPISODES = 256        # the recipe's eval_bc n_eval_episodes
+AL_LOOP_ENVS = 256
 
 
 def card_line() -> str:
@@ -376,7 +385,7 @@ def phase_mlp(smoke: Smoke):
               f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); on the fp32 CUDA cores "
               f"alone it would be {fp32_ms:.3f} ms", flush=True)
         info = smoke.shape_line(
-            f"A {mode}", "mlp_sampler_kernelILi4E",
+            f"A {mode}", "mlp_sampler_kernelILi4ELi64E",
             K.kernel_info(net, N, A, S, int(ts.shape[0])), 3 * products,
             PEAK_TF32_FLOPS, "TF32 tensor-core", ms)
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
@@ -661,14 +670,16 @@ def raycast_case(smoke: Smoke, name: str, scene, cam, n_convex: int,
     """Kernel C on ``scene`` against its twin (at least 99.9% of pixels
     within 2.0, the image finite), timed through its wrapper and as the
     launch alone beside the twin, with its operations counted from
-    ``csrc/raycast.cu`` and its bound."""
+    ``csrc/raycast.cu`` and its bound. ``cam`` is one camera for every env
+    or an ``R.CameraBatch``, one per env."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops import render as R
     from latent_diffusion_planning_tpu_torch.ops.kernels import _build
     from latent_diffusion_planning_tpu_torch.ops.kernels import raycast as K
 
     dev = scene.pos.device
-    rays = R.camera_rays(cam, H, W, dev)
+    per_env = isinstance(cam, R.CameraBatch)
+    rays = K.default_rays(cam, H, W, dev)
     run_k = lambda: K.render_batch_cuda(scene, cam, H, W, n_convex, rays)
     run_p = lambda: R.render_batch(scene, cam, H, W)
     got, ref = run_k(), run_p()
@@ -700,32 +711,41 @@ def raycast_case(smoke: Smoke, name: str, scene, cam, n_convex: int,
     # tint 12; per box the bounding-sphere test 7, and only for the rays
     # that pass it (counted on this run's scenes) the body-frame
     # direction 15, 3 reciprocals, 6 products; per sphere 5 + 2 + 1 + 2;
-    # per k-DOP 15 and 6 a half-space
+    # per k-DOP 15 and 6 a half-space; with a camera per env, the ray's
+    # rotation into the env's frame 18 and the plane's reciprocal 1
     boxes = [n_convex + i for i, k in enumerate(kinds) if k == 0]
     slab_tests = 0
-    if boxes:
-        oc = torch.tensor(cam.pos, device=dev) - scene.pos[:, boxes]
-        b = oc @ rays.reshape(-1, 3).t()                  # (N, boxes, HW)
-        c_bound = (oc * oc).sum(-1) - 1.0201 * (
-            scene.size[:, boxes] ** 2).sum(-1)
-        passes = (b * b - c_bound[..., None] >= 0) & ~(
-            (b > 0) & (c_bound[..., None] > 0))
-        slab_tests = int(passes.sum())
+    if per_env:
+        origin = cam.pos[:, None]                         # (N, 1, 3)
+        world = torch.einsum("nij,xj->nxi", cam.basis,
+                             rays.reshape(-1, 3))         # (N, HW, 3)
+    else:
+        origin = torch.tensor(cam.pos, device=dev)
+        world = rays.reshape(1, -1, 3)
+    for box in boxes:      # one box at a time: (N, HW) at most
+        oc = origin.reshape(-1, 3) - scene.pos[:, box]    # (N, 3)
+        b = (world * oc[:, None]).sum(-1)                 # (N, HW)
+        c_bound = ((oc * oc).sum(-1) - 1.0201 * (
+            scene.size[:, box] ** 2).sum(-1))[:, None]
+        passes = (b * b - c_bound >= 0) & ~((b > 0) & (c_bound > 0))
+        slab_tests += int(passes.sum())
     per_pixel = (43 + 7 * n_box + 10 * n_sphere
-                 + (15 + 6 * K_planes) * n_convex)
+                 + (15 + 6 * K_planes) * n_convex + (19 if per_env else 0))
     ops = N * H * W * per_pixel + 24 * slab_tests
     per_pixel = ops / (N * H * W)
-    nbytes = 4 * (N * H * W * 3 + H * W * 3 + 12) + scene_bytes(
-        scene, n_convex)
+    nbytes = 4 * (N * H * W * 3 + H * W * 3 + 12
+                  + (12 * N if per_env else 0)) + scene_bytes(scene,
+                                                              n_convex)
     b_ms, b_by = bound(ops, nbytes)
     E = args[-1]
     print(f"   C {name}: {slab_tests / max(1, N * H * W * n_box):.2%} of "
           "the (ray, box) pairs pass the bounding sphere", flush=True)
     info = smoke.shape_line(
-        f"C {name}", "raycast_kernelILb1E",
+        f"C {name}", f"raycast_kernelILb1ELb{int(per_env)}E",
         dict(pixels_per_thread=4, pixels_per_block=1024,
              envs_per_block=E, grid=[-(-H * W // 1024), -(-N // E)],
-             smem_bytes=K.smem_bytes(P, K_planes, n_convex, E),
+             camera_per_env=per_env,
+             smem_bytes=K.smem_bytes(P, K_planes, n_convex, E, per_env),
              flops_per_pixel=per_pixel, weight_bytes_streamed=0), ops,
         PEAK_FP32_FLOPS, "fp32 CUDA-core", ms)
     return dict(max_abs_err=err, frac_within_2=frac, ms=ms,
@@ -2599,23 +2619,37 @@ def _training_phases(smoke: Smoke) -> None:
         shutil.rmtree(run.work, ignore_errors=True)
     smoke.phase("drivers: the Lift pipeline from the command line",
                 lambda: phase_drivers(smoke))
-    smoke.phase("pick_place: Can and Square on the contact engine",
-                lambda: phase_pick_place(smoke))
+    smoke.phase(PP_PHASE, lambda: phase_pick_place(smoke))
+    smoke.phase(AL_PHASE, lambda: phase_aloha(smoke))
 
 
 # ---------------------------------------------------------------------------
 # Can and Square (contact physics)
 # ---------------------------------------------------------------------------
 
+def _float_leaves(state) -> list:
+    """Every floating-point tensor of an env state (through its ``map``)."""
+    leaves = []
+
+    def keep(x):
+        if x.is_floating_point():
+            leaves.append(x)
+        return x
+    state.map(keep)
+    return leaves
+
+
 def _expert_run(env, n: int, steps: int, device: str, seed: int = 9) -> dict:
     """The env's scripted expert over ``n`` envs × ``steps`` control steps
-    (the physics step from its CUDA graph on the card): the share of
-    episodes that succeed, whether every state stayed finite, and how high
-    the object ever rose above its spawn."""
+    (the step from its CUDA graph on the card): the share of episodes that
+    succeed, whether every float of every state stayed finite, and, for a
+    one-object task (Can, Square), how high the object ever rose above its
+    spawn."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     state = env.reset_state(n, g)
-    z0 = state.obj_pos[:, 2].clone()
+    one_object = hasattr(state, "obj_pos")
+    z0 = state.obj_pos[:, 2].clone() if one_object else None
     rise = torch.zeros(n, device=device)
     success = torch.zeros(n, dtype=torch.bool, device=device)
     finite = torch.ones((), dtype=torch.bool, device=device)
@@ -2624,27 +2658,32 @@ def _expert_run(env, n: int, steps: int, device: str, seed: int = 9) -> dict:
     for _ in range(steps):
         state, reward, ok = env.transition(state, env.scripted_action(state))
         success |= ok
-        rise = torch.maximum(rise, state.obj_pos[:, 2] - z0)
-        for leaf in (state.bodies.pos, state.bodies.quat, state.qpos, reward):
+        if one_object:
+            rise = torch.maximum(rise, state.obj_pos[:, 2] - z0)
+        for leaf in [reward] + _float_leaves(state):
             finite &= torch.isfinite(leaf).all()
     _sync(device)
-    return dict(success=float(success.float().mean()),
-                wins=int(success.sum()), finite=bool(finite),
-                lifted_share=float((rise > 0.02).float().mean()),
-                wall_s=time.perf_counter() - t0)
+    out = dict(success=float(success.float().mean()),
+               wins=int(success.sum()), finite=bool(finite),
+               wall_s=time.perf_counter() - t0)
+    if one_object:
+        out["lifted_share"] = float((rise > 0.02).float().mean())
+    return out
 
 
-def _expert_against_jax(name: str, wins: int, n: int) -> dict:
+def _expert_against_jax(name: str, wins: int, n: int,
+                        fixture: str = "pick_place_golden.npz") -> dict:
     """The expert's ``wins`` of ``n`` envs beside the JAX expert's over the
-    episodes of ``tests/fixtures/pick_place_golden.npz`` (its
-    ``run_scripted_collection`` from ``PRNGKey(1)``, 300 steps). After the
-    squeeze an object's path hangs on float rounding, so episodes are not
-    compared one by one: Fisher's exact test must not tell the two rates
-    apart at the 3-sigma level (two-sided p ≥ 0.0027). Success is rare on
-    Square, too rare for a normal approximation."""
+    episodes of ``tests/fixtures/<fixture>`` (its ``run_scripted_collection``
+    from ``PRNGKey(1)``: 300 steps for Can and Square, 120 and 160 for the
+    ALOHA tasks). After the squeeze an object's path hangs on float
+    rounding, so episodes are not compared one by one: Fisher's exact test
+    must not tell the two rates apart at the 3-sigma level (two-sided p ≥
+    0.0027). Success is rare on Square, too rare for a normal
+    approximation."""
     import numpy as np
     from scipy.stats import fisher_exact
-    f = np.load(REPO / "tests" / "fixtures" / "pick_place_golden.npz")
+    f = np.load(REPO / "tests" / "fixtures" / fixture)
     jax_wins = f[f"{name}_expert_success"].any(1)
     m = len(jax_wins)
     k = int(jax_wins.sum())
@@ -2853,10 +2892,11 @@ def _drive_can(smoke: Smoke, work: Path, device: str) -> dict:
             smoke, f"B can planner {list(agent.planner.down_dims)} "
             f"{PP_EVAL_EPISODES} x T 8, DDIM-{len(table[0])}", agent.planner,
             PP_EVAL_EPISODES, table, agent._clip(agent.planner_sched), g)
+        # a decision decodes the plan's pred_horizon latent pairs an env
+        rows = PP_EVAL_EPISODES * agent.config.pred_horizon
         out["A can"] = _time_idm(
-            smoke, f"A can IDM {PP_EVAL_EPISODES * 4} rows, DDIM-"
-            f"{agent.config.idm_inference_steps}", agent,
-            PP_EVAL_EPISODES * 4, g)
+            smoke, f"A can IDM {rows} rows, DDIM-"
+            f"{agent.config.idm_inference_steps}", agent, rows, g)
         out["can decision ms"] = _can_decision(smoke, seen["env"], agent,
                                                PP_EVAL_EPISODES)
     out["demos"] = demos.n_demos
@@ -2947,6 +2987,271 @@ def _square_loop(smoke: Smoke, device: str) -> dict:
                                 env_steps_per_s=n * 400 / wall)}
 
 
+# ---------------------------------------------------------------------------
+# ALOHA: bimanual transfer-cube and insertion
+# ---------------------------------------------------------------------------
+
+def phase_aloha(smoke: Smoke, device: str = "cuda"):
+    """Bimanual ALOHA: kernel C with a camera per env (``wrist64``) on
+    transfer-cube scenes in both mesh modes and on insertion scenes; both
+    scripted experts from the CUDA graph; the phys4 recipe from the command
+    line (``tools/run_aloha_phys4_torch.sh``'s lines, counts cut, in a
+    scratch folder under ``build/``) with ``eval_bc`` at
+    ``eval_action_horizon=1`` and ``plan_blend=0.7``; kernels B (x0
+    prediction) and A (S = 540) alone on the trained agent; an insertion
+    closed loop on seeded weights. Launch counts are stated before each
+    closed loop and checked after."""
+    import os
+    import shutil
+    import tempfile
+    from latent_diffusion_planning_tpu_torch.envs import aloha_base as AB
+    from latent_diffusion_planning_tpu_torch.envs.aloha_cube import (
+        AlohaTransferCubeEnv)
+    from latent_diffusion_planning_tpu_torch.envs.aloha_insertion import (
+        AlohaInsertionEnv)
+
+    out: dict = {}
+    # prims: box mode the cube, 2 x 4 arm boxes, 4 pad spheres (insertion:
+    # peg, socket, 8 arm boxes); kdop 18 hulls first
+    cases = (("cube box", AlohaTransferCubeEnv, {"mesh_mode": "box"}, 13, 0),
+             ("cube kdop", AlohaTransferCubeEnv, {"mesh_mode": "kdop"}, 23,
+              18),
+             ("insertion", AlohaInsertionEnv, {}, 10, 0))
+    for name, cls, kw, n_prims, n_convex in cases:
+        env = cls(render_images=False, **kw)
+        states = physics_states(env, AL_RENDER_ENVS, device, seed=5,
+                                spread=AL_RENDER_SPREAD)
+        scene, cam = env.scene(states), AB.wrist64_camera(states.right)
+        kinds = scene.kind[0].tolist()
+        print(f"   C aloha {name}: {len(kinds)} prims ({kinds.count(1)} "
+              f"spheres, {kinds.count(2)} convex), a camera per env",
+              flush=True)
+        if len(kinds) != n_prims or kinds.count(2) != n_convex:
+            raise AssertionError(f"C aloha {name}: scene kinds {kinds}")
+        if device == "cuda":
+            out[f"C aloha {name}"] = raycast_case(
+                smoke, f"aloha {name}", scene, cam, env.n_convex)
+
+    for name, key, cls in (("cube", "cube", AlohaTransferCubeEnv),
+                           ("insertion", "ins", AlohaInsertionEnv)):
+        steps = AL_EXPERT_LEN[name]
+        res = _expert_run(cls(render_images=False, episode_len=steps),
+                          AL_EXPERT_ENVS, steps, device)
+        print(f"   ALOHA {name} expert, {AL_EXPERT_ENVS} envs x {steps} "
+              f"steps: success {res['success']:.4f}, all finite "
+              f"{res['finite']}, wall {res['wall_s']:.2f} s incl. the "
+              f"graph's capture [{smoke.card}]", flush=True)
+        if not res["finite"]:
+            raise AssertionError(f"ALOHA {name} expert: {res}")
+        res["jax"] = _expert_against_jax(key, res["wins"], AL_EXPERT_ENVS,
+                                         "aloha_golden.npz")
+        print(f"   ALOHA {name} expert against the JAX expert: "
+              f"{res['jax']}", flush=True)
+        out[f"aloha {name} expert"] = res
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_aloha_", dir=build))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        out.update(_drive_aloha(smoke, work, device))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _drive_aloha(smoke: Smoke, work: Path, device: str) -> dict:
+    """The phys4 recipe's lines, counts cut (demos at full count), then
+    ``eval_bc`` as the recipe runs it with its launches counted, B and A
+    alone on the trained agent, and an insertion closed loop."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.data import ingest
+    from latent_diffusion_planning_tpu_torch.drivers import run_data
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA)
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.train.loop import build_agent
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+
+    knobs = {"DATA": "datasets",
+             "ARGS": "" if device == "cuda" else f"device={device}"}
+    lines = recipe_lines("run_aloha_phys4_torch.sh", work, knobs)
+    V, L = AL_VAE_STEPS, AL_LDP_STEPS
+    vae_path = f"experiments/aloha_phys4/vae/ckpt/{V}.ckpt"
+    cuts = {
+        "train_vae": [f"n_grad_steps={V}", f"eval_every={V}",
+                      f"save_every={V}"],
+        "process_latents": [f"vae_snapshot_path={vae_path}"],
+        # eval_bc scores the run: the run's own eval is cut to 0 episodes;
+        # the recipe's 500 warm-up steps to 100 of the 300
+        "train_bc": [f"agent.vae_pretrain_path={vae_path}",
+                     f"n_grad_steps={L}", f"save_every={L}",
+                     f"eval_every={L}", "n_eval_episodes=0",
+                     f"warmup_steps={L // 3}"],
+    }
+    stages = [d for d, _ in lines]
+    print(f"   stages of run_aloha_phys4_torch.sh: {stages}", flush=True)
+    if stages != ["collect_demos"] * 4 + ["train_vae", "process_latents",
+                                          "train_bc"]:
+        raise AssertionError(f"ALOHA recipe stages {stages}")
+    out: dict = {"stage_s": {}}
+
+    def stage(name, line):
+        driver, argv = line
+        module = importlib.import_module(
+            f"latent_diffusion_planning_tpu_torch.drivers.{driver}")
+        t0 = time.perf_counter()
+        module.main(argv + cuts.get(driver, []))
+        _sync(device)
+        out["stage_s"][name] = time.perf_counter() - t0
+        print(f"   {name}: {out['stage_s'][name]:.1f} s [{smoke.card}]",
+              flush=True)
+
+    for split, line in zip(("clean", "noise 0.003", "noise 0.005", "eval"),
+                           lines[:4]):
+        stage(f"collect_demos {split}", line)
+    kept = {}
+    for split in ("demos", "demos_n3", "demos_n5", "demos_eval"):
+        demos = ingest.load_npz(f"datasets/{split}.npz",
+                                ["qpos", "wrist64_image"])
+        kept[split] = demos.n_demos
+        if not (demos.n_demos >= 1
+                and demos.env_meta["env_name"] == "AlohaTransferCubeEnv"
+                and demos.arrays["qpos"].shape[1] == 14
+                and tuple(demos.arrays["wrist64_image"].shape[1:])
+                == (64, 64, 3)):
+            raise AssertionError(f"the ALOHA demos {split} do not read back")
+    print(f"   ALOHA demos kept (of 128, 288, 320, 32): {kept}", flush=True)
+    out["demos"] = kept
+    stage("train_vae", lines[4])
+    stage("process_latents", lines[5])
+    stage("train_bc", lines[6])
+    ldp = Path("experiments/aloha_phys4/ldp")
+    if not (ldp / "ckpt" / f"{L}.ckpt").exists():
+        raise AssertionError("train_bc wrote no checkpoint")
+
+    # eval_bc as the recipe runs it: one checkpoint, AL_EVAL_EPISODES envs
+    # x 400 steps at eval_action_horizon=1 = 400 decisions, each one
+    # render (C), one plan (B) and one IDM decode of the plan's 8 pairs (A)
+    want = {"raycast": 400, "diffusion_unet1d": 400, "diffusion_mlp": 400}
+    print(f"   eval_bc launches stated before the run: {want}", flush=True)
+    seen = {}
+    real = engine.run_batched_eval_multi
+
+    def counted(env, agents, n, seeds, **kw):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = real(env, agents, n, seeds, **kw)
+        _sync(device)
+        seen.update(launches=kernels.launch_counts(), env=env,
+                    agent=agents[0], wall_s=time.perf_counter() - t0,
+                    metrics=res[0]["metrics"], kw=kw)
+        return res
+    engine.run_batched_eval_multi = counted
+    try:
+        stage("eval_bc", ("eval_bc", [
+            f"run_dir={ldp}", f"n_eval_episodes={AL_EVAL_EPISODES}",
+            "eval_action_horizon=1", "plan_blend=0.7",
+            *knobs["ARGS"].split()]))
+    finally:
+        engine.run_batched_eval_multi = real
+    env = seen.get("env")
+    if not (type(env).__name__ == "AlohaTransferCubeEnv"
+            and env.episode_len == 400
+            and seen["kw"]["action_horizon"] == 1
+            and seen["kw"]["plan_blend"] == 0.7):
+        raise AssertionError(f"eval_bc did not run the recipe's eval: {seen}")
+    m = seen["metrics"]
+    print(f"   ALOHA eval_bc: {AL_EVAL_EPISODES} envs x 400 steps, launches "
+          f"{seen['launches']} (stated: {want}), success {m['success']:.4f}, "
+          f"max reward {m['reward']:.3f}, "
+          f"{AL_EVAL_EPISODES * 400 / seen['wall_s']:.1f} computed "
+          f"env-steps/s, wall {seen['wall_s']:.3f} s [{smoke.card}]",
+          flush=True)
+    if device == "cuda" and seen["launches"] != want:
+        raise AssertionError(f"ALOHA eval_bc launches {seen['launches']} != "
+                             f"{want}")
+    out["aloha_eval"] = {k: v for k, v in seen.items()
+                         if k not in ("env", "agent", "kw")}
+    agent = seen["agent"]
+    print(f"   the trained agent: planner {list(agent.planner.down_dims)} "
+          f"predicting {agent.planner_sched.prediction_type!r} over "
+          f"{agent.config.obs_dim} channels, IDM S = "
+          f"{2 * agent.config.obs_dim}, A = {agent.config.action_dim}",
+          flush=True)
+    if device == "cuda":
+        g = torch.Generator(device="cuda").manual_seed(11)
+        table = agent._table(agent.planner_sched,
+                             agent.config.planner_inference_steps)
+        out["B aloha"] = _time_unet(
+            smoke, f"B aloha planner {list(agent.planner.down_dims)} x "
+            f"{agent.config.obs_dim} ch, x0 prediction, {AL_EVAL_EPISODES} "
+            f"x T 8, DDIM-{len(table[0])}", agent.planner, AL_EVAL_EPISODES,
+            table, agent._clip(agent.planner_sched), g)
+        rows = AL_EVAL_EPISODES * agent.config.pred_horizon
+        what = (f"A aloha IDM S={2 * agent.config.obs_dim} {rows} rows, "
+                f"DDIM-{agent.config.idm_inference_steps}")
+        out["A aloha"] = _time_idm(smoke, what, agent, rows, g)
+        S = 2 * agent.config.obs_dim
+        products, _, _ = idm_flops_bytes(
+            agent.idm, rows, S, agent.config.action_dim,
+            agent.config.idm_inference_steps, False)
+        info = KA.kernel_info(agent.idm, rows, agent.config.action_dim, S,
+                              agent.config.idm_inference_steps)
+        n_tiles = agent.idm.trunk.dense0.out_features // 64
+        entry = f"mlp_sampler_kernelILi{n_tiles}ELi{info['rows_per_block']}E"
+        out["A aloha"]["shape"] = smoke.shape_line(
+            what, entry, info, 3 * products, PEAK_TF32_FLOPS,
+            "TF32 tensor-core", out["A aloha"]["ms"])
+    # the recipe's agent on seeded weights, for the insertion closed loop
+    data, agent_cfg = run_data(load_config(str(ldp / "config.json")),
+                               torch.device(device))
+    seeded = build_agent(agent_cfg, data.shape_meta, 0, device)
+    out.update(_insertion_loop(smoke, seeded, device))
+    return out
+
+
+def _insertion_loop(smoke: Smoke, agent, device: str) -> dict:
+    """``agent`` (the recipe's widths, seeded weights) closing the loop on
+    ``AlohaInsertionEnv`` (``AL_LOOP_ENVS`` × 400 steps at the recipe's
+    action horizon 4: 100 decisions), its launches stated and checked."""
+    from latent_diffusion_planning_tpu_torch.envs.aloha_insertion import (
+        AlohaInsertionEnv)
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+
+    c = agent.config
+    env = AlohaInsertionEnv(episode_len=400)
+    n = AL_LOOP_ENVS
+    want = {"raycast": 100, "diffusion_unet1d": 100, "diffusion_mlp": 100}
+    print(f"   insertion closed loop launches stated before the run: {want}",
+          flush=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.run_batched_eval(
+        env, agent, n, 1, obs_horizon=c.obs_horizon,
+        action_horizon=c.action_horizon, episode_len=400,
+        policy_obs_keys=("qpos", "wrist64_image"), device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    m = res["metrics"]
+    print(f"   insertion closed loop (seeded weights): {n} envs x 400 "
+          f"steps, launches {counts}, success {m['success']:.4f}, "
+          f"{n * 400 / wall:.1f} computed env-steps/s, wall {wall:.3f} s "
+          f"[{smoke.card}]", flush=True)
+    if device == "cuda" and counts != want:
+        raise AssertionError(f"insertion closed loop: launches {counts} != "
+                             f"{want}")
+    if not (0 <= m["success"] <= 1 and math.isfinite(m["reward"])):
+        raise AssertionError(f"insertion closed loop: implausible {m}")
+    return {"insertion_loop": dict(launches=counts, metrics=m, wall_s=wall,
+                                   env_steps_per_s=n * 400 / wall)}
+
+
 REPLACES = {   # the pl.pallas_call of each TPU kernel
     "diffusion_mlp": ("latent_diffusion_planning_tpu/ops/pallas/"
                       "diffusion_mlp.py:145"),
@@ -2954,6 +3259,48 @@ REPLACES = {   # the pl.pallas_call of each TPU kernel
                          "diffusion_unet1d.py:533"),
     "raycast": "latent_diffusion_planning_tpu/ops/pallas/raycast.py:268",
 }
+
+# the paths beside the main path whose launches are counted from 0: (phase,
+# path, the phase's record of its launches, each kernel's record at the
+# path's shapes)
+PP_PHASE = "pick_place: Can and Square on the contact engine"
+AL_PHASE = "aloha: bimanual transfer-cube and insertion, a camera per env"
+PATHS = (
+    (PP_PHASE, "Can eval_bc", "can_eval",
+     {"raycast": "C can", "diffusion_unet1d": "B can",
+      "diffusion_mlp": "A can"}),
+    (PP_PHASE, "Square closed loop", "square_loop",
+     {"raycast": "C square", "diffusion_unet1d": "B can",
+      "diffusion_mlp": "A can"}),
+    (AL_PHASE, "ALOHA transfer-cube eval_bc", "aloha_eval",
+     {"raycast": "C aloha cube box", "diffusion_unet1d": "B aloha",
+      "diffusion_mlp": "A aloha"}),
+    (AL_PHASE, "ALOHA insertion closed loop", "insertion_loop",
+     {"raycast": "C aloha insertion", "diffusion_unet1d": "B aloha",
+      "diffusion_mlp": "A aloha"}),
+)
+
+
+def kernel_entries(smoke: Smoke) -> list:
+    """The ``kernels`` line: every kernel on the main path, then on each of
+    ``PATHS`` (the launches counted on that path, the times at its shapes;
+    B's max_abs_err against its rounding twin after the whole process)."""
+    def entry(name, k, launches, path):
+        err = k["max_abs_err"] if "max_abs_err" in k else k["kernel"]["max"]
+        return {"name": name, "path": path, "route": "cuda",
+                "source": f"latent_diffusion_planning_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None}
+    out = [entry(name, k, k["launches"], "Lift main path")
+           for name, k in smoke.kernels.items()]
+    for phase, path, counted, records in PATHS:
+        rec = smoke.record["phases"][phase]
+        launches = rec[counted]["launches"]
+        out += [entry(name, rec[key], launches[name], path)
+                for name, key in records.items()]
+    return out
 
 
 def main() -> int:
@@ -3017,16 +3364,7 @@ def main() -> int:
         print(f"FAILED phases: {smoke.failures}", file=sys.stderr)
         return 1
 
-    line = []
-    for name, k in smoke.kernels.items():
-        line.append({
-            "name": name, "route": "cuda",
-            "source": f"latent_diffusion_planning_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": k["launches"],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": line}))
+    print(json.dumps({"kernels": kernel_entries(smoke)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

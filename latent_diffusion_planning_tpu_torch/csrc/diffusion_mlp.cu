@@ -7,8 +7,8 @@
 // whole DDPM/DDIM reverse process in one call. Per step and row:
 //   Fourier features [cos, sin](2*pi*t*W) -> cond MLP (Dense, swish, Dense)
 //   -> Dense([x, s, cond]) -> n_blocks x [LayerNorm(1e-6) -> Dense(4h) ->
-//   ReLU -> Dense(h) + skip] -> ReLU -> Dense(A) = eps, then
-//   x0 = clip(c0 (x - c1 eps)), x = c2 x0 + c3 x + c4 noise[step].
+//   ReLU -> Dense(h) + skip] -> ReLU -> Dense(A) = y (eps, x0 or v), then
+//   x0 = clip(c0 (cx x - c1 y)), x = c2 x0 + c3 x + c4 noise[step].
 //
 // The function is fp32 in the JAX package, so the products cannot simply
 // drop to TF32 (three decimal digits). Each operand is split a = hi + lo,
@@ -25,7 +25,10 @@
 // GFLOP of tensor-core work for DDIM-10 at 8192 rows, bench widths) and,
 // about as long, the weight stream: every 64-row block reads all 6.4 MB of
 // fp32 weights from L2 once per step. The design:
-//  * A block owns 64 rows for all steps. The residual h (64 x H) never
+//  * A block owns 64 rows for all steps (32 where a wide condition's 64-row
+//    [x|s] tile leaves no room for the weight ring: an IDM over two
+//    270-wide observations, S = 540, needs 32; the host picks, see
+//    ops/kernels/diffusion_mlp.py). The residual h (64 x H) never
 //    leaves registers: it is the accumulator of the H-wide products, in mma
 //    C-fragment layout, warp w holding columns [w H/8, (w+1) H/8) of all 64
 //    rows. LayerNorm reduces it across warps through a few hundred bytes of
@@ -59,17 +62,15 @@
 namespace {
 
 constexpr float kLnEps = 1e-6f;
-constexpr int kRows = 64;       // rows per block
-constexpr int kMt = kRows / 16; // m16 row tiles
 constexpr int kThreads = 256;
 constexpr int kWarps = 8;
 constexpr int kStageK = 16;     // K-rows per ring stage
 
 struct Dims {
   int N, S, A, T, half, C0, C1, H, n_blocks, kxs, stages, stream_stages,
-      vec_base, smem_main, smem_pro;
+      vec_base, smem_main, smem_pro, rows;
 };
-constexpr int kNDims = 15;
+constexpr int kNDims = 16;
 
 struct Vecs {
   const float *ff, *cw0, *cb0, *cw1, *cb1, *twc, *tb0, *blocks, *ow, *ob;
@@ -136,10 +137,10 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = ldp::to_tf32(x - __uint_as_float(hi));
 }
 
-// acc[mt][nt] += A (64 rows x K, shared, stride lda) * W (K x H, the next
-// K / 16 stages of the stream), as hi*hi + hi*lo + lo*hi in TF32. Warp w
-// computes columns [8 NT w, 8 NT (w + 1)).
-template <int NT, typename Ring>
+// acc[mt][nt] += A (16 kMt rows x K, shared, stride lda) * W (K x H, the
+// next K / 16 stages of the stream), as hi*hi + hi*lo + lo*hi in TF32. Warp
+// w computes columns [8 NT w, 8 NT (w + 1)).
+template <int NT, int kMt, typename Ring>
 __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
                                       int lda, int K, Ring& ring, int warp,
                                       int lane) {
@@ -188,12 +189,13 @@ __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
   }
 }
 
-template <int NT>
+template <int NT, int kRows>
 __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
     const float* __restrict__ s, const float* __restrict__ x_init,
     const float* __restrict__ coefs, const float* __restrict__ noise,
     const float* __restrict__ w, const float* __restrict__ cbias,
     float* __restrict__ out, Dims d, float clip) {
+  constexpr int kMt = kRows / 16;   // m16 row tiles
   constexpr int H = 64 * NT;
   constexpr int kStageBytes = kStageK * H * 4;
   constexpr int lda = H + 4;
@@ -205,10 +207,10 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   const int N = d.N, S = d.S, A = d.A, kxs = d.kxs;
 
   float* xs = reinterpret_cast<float*>(smc + d.stages * kStageBytes);
-  float* ln = xs + kRows * kxs;      // 64 x lda: LayerNorm output, relu(h)
-  float* act = ln + kRows * lda;     // 64 x lda: one chunk of the 4H layer
-  float* part = act + kRows * lda;   // 64 x 8 partial row sums
-  float* eps = part + kRows * kWarps;  // 64 x A
+  float* ln = xs + kRows * kxs;      // rows x lda: LayerNorm out, relu(h)
+  float* act = ln + kRows * lda;     // rows x lda: a chunk of the 4H layer
+  float* part = act + kRows * lda;   // rows x 8 partial row sums
+  float* eps = part + kRows * kWarps;  // rows x A: the net's output y
 
   const Vecs v = vecs(w + d.vec_base, d);
   ldp::WeightRing<kStageBytes> ring;
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
         h[mt][nt][2] = c0; h[mt][nt][3] = c1;
       }
     }
-    gemm3<NT>(h, xs, kxs, Kin, ring, warp, lane);
+    gemm3<NT, kMt>(h, xs, kxs, Kin, ring, warp, lane);
 
     // ---- residual blocks ----
     for (int b = 0; b < d.n_blocks; ++b) {
@@ -338,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
             a1[mt][nt][2] = c0; a1[mt][nt][3] = c1;
           }
         }
-        gemm3<NT>(a1, ln, lda, H, ring, warp, lane);
+        gemm3<NT, kMt>(a1, ln, lda, H, ring, warp, lane);
         // every warp is past its reads of `act` from the chunk before: the
         // ring's barriers inside the product above saw to that
 #pragma unroll
@@ -354,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
                   act + (mt * 16 + g + 8 * hf) * lda + col0 + 8 * nt) = y;
             }
         __syncthreads();
-        gemm3<NT>(h, act, lda, H, ring, warp, lane);
+        gemm3<NT, kMt>(h, act, lda, H, ring, warp, lane);
       }
     }
 
@@ -381,13 +383,16 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
       eps[i] = e;
     }
     __syncthreads();
-    const float k0 = coefs[step * 5 + 0], k1 = coefs[step * 5 + 1];
-    const float k2 = coefs[step * 5 + 2], k3 = coefs[step * 5 + 3];
-    const float k4 = coefs[step * 5 + 4];
+    const float k0 = coefs[step * 6 + 0], k1 = coefs[step * 6 + 1];
+    const float k2 = coefs[step * 6 + 2], k3 = coefs[step * 6 + 3];
+    const float k4 = coefs[step * 6 + 4], kx = coefs[step * 6 + 5];
     for (int i = tid; i < kRows * A; i += kThreads) {
       const int r = i / A, a = i - r * A, row = row0 + r;
       const float x = xs[r * kxs + a];
-      const float x0 = fminf(fmaxf(k0 * (x - k1 * eps[i]), -clip), clip);
+      // x0 = clip(k0 (kx x - k1 y)): kx = 1 for eps, 0 for sample (x0
+      // prediction), sqrt(abar) for v; 1 * x is x, so eps runs as before
+      const float x0 = fminf(
+          fmaxf(k0 * fmaf(-k1, eps[i], __fmul_rn(kx, x)), -clip), clip);
       float xn = k2 * x0 + k3 * x;
       if (noise != nullptr && row < N)
         xn += k4 * noise[(static_cast<size_t>(step) * N + row) * A + a];
@@ -403,11 +408,11 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   }
 }
 
-template <int NT>
-int launch(const float* s, const float* x_init, const float* coefs,
-           const float* noise, const float* w, const float* cbias, float* out,
-           const Dims& d, float clip, cudaStream_t stream) {
-  auto kernel = mlp_sampler_kernel<NT>;
+template <int NT, int kRows>
+int launch_rows(const float* s, const float* x_init, const float* coefs,
+                const float* noise, const float* w, const float* cbias,
+                float* out, const Dims& d, float clip, cudaStream_t stream) {
+  auto kernel = mlp_sampler_kernel<NT, kRows>;
   cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (d.N + kRows - 1) / kRows;
@@ -416,10 +421,22 @@ int launch(const float* s, const float* x_init, const float* coefs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NT>
+int launch(const float* s, const float* x_init, const float* coefs,
+           const float* noise, const float* w, const float* cbias, float* out,
+           const Dims& d, float clip, cudaStream_t stream) {
+  if (d.rows == 64)
+    return launch_rows<NT, 64>(s, x_init, coefs, noise, w, cbias, out, d,
+                               clip, stream);
+  return launch_rows<NT, 32>(s, x_init, coefs, noise, w, cbias, out, d, clip,
+                             stream);
+}
+
 }  // namespace
 
 // `dims` is kNDims host ints in the order of Dims; H must be 64, 128, 192 or
-// 256; noise may be null (DDIM); cbias (T x H) is scratch. Returns a
+// 256 and rows 64 or 32; coefs is the (T, 6) table of ops/diffusion.py;
+// noise may be null (DDIM); cbias (T x H) is scratch. Returns a
 // cudaError_t.
 extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
                                const int* ts, const float* coefs,
@@ -430,7 +447,8 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
   Dims d;
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
-  if (d.H % 64 || d.H < 64 || d.H > 256 || d.stages < 2 || d.stages > 8)
+  if (d.H % 64 || d.H < 64 || d.H > 256 || d.stages < 2 || d.stages > 8 ||
+      (d.rows != 64 && d.rows != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   mlp_time_kernel<<<d.T, kThreads, d.smem_pro, st>>>(ts, w, cbias, d);

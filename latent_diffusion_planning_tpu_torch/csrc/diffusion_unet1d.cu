@@ -11,7 +11,7 @@
 //   Mish -> FiLM -> conv -> GN -> Mish, + 1x1 projection when Cin != Cout),
 //   stride-2 k3 downsample (Flax SAME pads (0, 1)), ConvTranspose k4 s2
 //   upsample (x[t] w[j] -> y[2t+2-j]), skip concat, final conv block, 1x1
-//   conv to eps; x0 = clip(c0 (x - c1 eps)), x = c2 x0 + c3 x.
+//   conv to y (eps, x0 or v); x0 = clip(c0 (cx x - c1 y)), x = c2 x0 + c3 x.
 //
 // What bounds it on H100: by its operations the bf16 tensor-core rate, by
 // its shape the weight stream. A block holds few GEMM rows (nb x T, at most
@@ -561,14 +561,18 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     }
     tiles.align();
 
-    const float k0 = coefs[step * 5 + 0], k1 = coefs[step * 5 + 1];
-    const float k2 = coefs[step * 5 + 2], k3 = coefs[step * 5 + 3];
+    const float k0 = coefs[step * 6 + 0], k1 = coefs[step * 6 + 1];
+    const float k2 = coefs[step * 6 + 2], k3 = coefs[step * 6 + 3];
+    const float kx = coefs[step * 6 + 5];
     const int lf = ld32(D);
     for (int i = tid; i < nb * T * D; i += NT) {
       const int r = i / D, c = i - r * D;
       const float x = xcur[i];
-      const float x0 = fminf(fmaxf(k0 * (x - k1 * Y32[r * lf + c]), -clip),
-                             clip);
+      // x0 = clip(k0 (kx x - k1 y)): kx = 1 for eps, 0 for sample (x0
+      // prediction), sqrt(abar) for v; 1 * x is x, so eps runs as before
+      const float x0 = fminf(
+          fmaxf(k0 * fmaf(-k1, Y32[r * lf + c], __fmul_rn(kx, x)), -clip),
+          clip);
       xcur[i] = k2 * x0 + k3 * x;
     }
     __syncthreads();

@@ -18,8 +18,17 @@
 //    of kRec floats: the camera origin in the body frame folded into the
 //    slab bounds (-half - ob, half - ob), the sphere's o - c, |o - c|^2 -
 //    r^2 and 1/r, and for a k-DOP half-space (n, off - n.ob). The camera
-//    origin is one per launch, so none of this depends on the pixel. Per
-//    pixel there remain db = R^T d, the slab or quadric test and a compare.
+//    origin is one per env at most, so none of this depends on the pixel.
+//    Per pixel there remain db = R^T d, the slab or quadric test and a
+//    compare.
+//  - The camera is one per launch (a shared camera: the rays are world
+//    directions) or one per env (kCamPerEnv: a camera riding a robot's
+//    gripper). Then the rays are one camera-frame table (x right, y down, z
+//    forward) shared by every env, and each env brings its origin (N, 3)
+//    and basis (N, 3, 3), whose columns are the world's right, down and
+//    forward axes: a thread rotates its kPix rays into each env's frame
+//    (9 FMAs a pixel) instead of reading N x H x W x 3 rays. The shared
+//    camera's code is what it was.
 //  - A thread renders kPix = 4 consecutive pixels: it reads their rays as
 //    three float4 (the rays are (H*W, 3) floats, so 4 pixels are 48
 //    contiguous, 16-byte-aligned bytes) and writes their colours as three
@@ -59,7 +68,9 @@
 // Layouts: pos (N, P, 3), rot (N, P, 3, 3) world-from-body row-major, size
 // (N, P, 3), color (N, P, 3), kind (N, P) int32 (0 box, else sphere),
 // planes (N, P, K, 4) rows (nx, ny, nz, d), inside iff n.x <= d in the body
-// frame; plane_z (N,), plane_color (N, 3); dirs (H*W, 3); light (3 x 4) =
+// frame; plane_z (N,), plane_color (N, 3); dirs (H*W, 3), world directions
+// or, with a camera per env, camera-frame ones; cam_pos (N, 3) and
+// cam_basis (N, 3, 3) row-major, null for a shared camera; light (3 x 4) =
 // normalized dir(3), color(1); out (N, H*W, 3).
 #include "common.cuh"
 
@@ -71,6 +82,9 @@ constexpr int kPix = 4;      // consecutive pixels a thread renders
 constexpr int kRec = 28;     // floats per (env, prim) record, see fill_record
 constexpr int kMinBlocks = 3;   // resident blocks an SM: at most 85 registers
 constexpr int kEnvRec = 4;   // per env: plane_z - oz, plane r, g, b
+// per env with its own camera: plane_z - oz, plane r, g, b | ox, oy, oz, 0
+// | the camera basis B (9, row-major), 0, 0, 0
+constexpr int kEnvRecCam = 20;
 
 struct RaycastArgs {
   const float* pos;
@@ -83,8 +97,11 @@ struct RaycastArgs {
   const float* plane_color;
   const float* dirs;
   const float* light;
+  const float* cam_pos;     // (N, 3), or null: the shared camera (ox, oy, oz)
+  const float* cam_basis;   // (N, 3, 3)
   long long s_pos, s_rot, s_size, s_color, s_kind, s_planes, s_plane_z,
-      s_plane_color;      // env strides in elements (0: shared by all envs)
+      s_plane_color, s_cam_pos, s_cam_basis;   // env strides in elements
+                                               // (0: shared by all envs)
   float ox, oy, oz, ambient;
   float* out;
   int N, HW, P, K, n_convex, E;
@@ -101,12 +118,13 @@ struct RaycastArgs {
 //  21..23  colour
 //  24      |oc|^2 - (1.01 |half|)^2: the box's bounding sphere
 //  25..27  unused
-__device__ void fill_record(const RaycastArgs& a, int env, int p, float* rec) {
+__device__ void fill_record(const RaycastArgs& a, int env, int p,
+                            const float* o, float* rec) {
   const float* c = a.pos + env * a.s_pos + p * 3;
   const float* R = a.rot + env * a.s_rot + p * 9;
   const float* s = a.size + env * a.s_size + p * 3;
   const float* col = a.color + env * a.s_color + p * 3;
-  const float relx = a.ox - c[0], rely = a.oy - c[1], relz = a.oz - c[2];
+  const float relx = o[0] - c[0], rely = o[1] - c[1], relz = o[2] - c[2];
   float ob[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j)
@@ -134,9 +152,25 @@ __device__ __forceinline__ float safe_dir(float d) {
   return fabsf(d) < 1e-9f ? (d >= 0.f ? 1e-9f : -1e-9f) : d;
 }
 
+// The camera origin of an env: its own, or the launch's.
+__device__ __forceinline__ void origin_of(const RaycastArgs& a, int env,
+                                          float* o) {
+  if (a.cam_pos != nullptr) {
+    const float* c = a.cam_pos + env * a.s_cam_pos;
+    o[0] = c[0];
+    o[1] = c[1];
+    o[2] = c[2];
+  } else {
+    o[0] = a.ox;
+    o[1] = a.oy;
+    o[2] = a.oz;
+  }
+}
+
 // kVec: float4 loads of the rays and stores of the image (H*W a multiple of
-// 4); else scalar ones, for any image size.
-template <bool kVec>
+// 4); else scalar ones, for any image size. kCamPerEnv: a camera per env
+// (the rays are camera-frame directions, see the note at the top).
+template <bool kVec, bool kCamPerEnv>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 raycast_kernel(RaycastArgs a) {
   extern __shared__ float4 sh4[];
@@ -144,21 +178,28 @@ raycast_kernel(RaycastArgs a) {
   const int P = a.P, K = a.K, E = a.E, nc = a.n_convex;
   float* recs = sh;                            // E x P x kRec
   float* hs = recs + E * P * kRec;             // E x nc x K x 4
-  float* envs = hs + E * nc * K * 4;           // E x kEnvRec
-  float* lights = envs + E * kEnvRec;          // 12
+  constexpr int kRecE = kCamPerEnv ? kEnvRecCam : kEnvRec;
+  float* envs = hs + E * nc * K * 4;           // E x kRecE
+  float* lights = envs + E * kRecE;            // 12
   const int env0 = blockIdx.y * E;
   const int n_env = min(E, a.N - env0);
 
   // ---- prologue: the constants of every (env, prim) this block renders
-  for (int i = threadIdx.x; i < n_env * P; i += kThreads)
-    fill_record(a, env0 + i / P, i % P, recs + i * kRec);
+  for (int i = threadIdx.x; i < n_env * P; i += kThreads) {
+    float o[3];
+    origin_of(a, env0 + i / P, o);
+    fill_record(a, env0 + i / P, i % P, o, recs + i * kRec);
+  }
   for (int i = threadIdx.x; i < n_env * nc * K; i += kThreads) {
     const int k = i % K, p = (i / K) % nc, e = i / (K * nc);
     const int env = env0 + e;
     const float* c = a.pos + env * a.s_pos + p * 3;
     const float* R = a.rot + env * a.s_rot + p * 9;
     const float* h = a.planes + env * a.s_planes + (p * K + k) * 4;
-    const float relx = a.ox - c[0], rely = a.oy - c[1], relz = a.oz - c[2];
+    float org[3];
+    origin_of(a, env, org);
+    const float relx = org[0] - c[0], rely = org[1] - c[1],
+                relz = org[2] - c[2];
     const float ob0 = R[0] * relx + R[3] * rely + R[6] * relz;
     const float ob1 = R[1] * relx + R[4] * rely + R[7] * relz;
     const float ob2 = R[2] * relx + R[5] * rely + R[8] * relz;
@@ -171,18 +212,32 @@ raycast_kernel(RaycastArgs a) {
   }
   for (int e = threadIdx.x; e < n_env; e += kThreads) {
     const int env = env0 + e;
-    envs[e * kEnvRec] = a.plane_z[env * a.s_plane_z] - a.oz;
+    float* rec = envs + e * kRecE;
+    float org[3];
+    origin_of(a, env, org);
+    rec[0] = a.plane_z[env * a.s_plane_z] - org[2];
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      envs[e * kEnvRec + 1 + j] = a.plane_color[env * a.s_plane_color + j];
+      rec[1 + j] = a.plane_color[env * a.s_plane_color + j];
+    if (kCamPerEnv) {
+      rec[4] = org[0];
+      rec[5] = org[1];
+      rec[6] = org[2];
+      rec[7] = 0.f;
+      const float* B = a.cam_basis + env * a.s_cam_basis;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) rec[8 + j] = B[j];
+      rec[17] = rec[18] = rec[19] = 0.f;
+    }
   }
   if (threadIdx.x < 12) lights[threadIdx.x] = a.light[threadIdx.x];
   __syncthreads();
 
-  // ---- this thread's kPix rays, kept in registers across the envs
+  // ---- this thread's kPix rays, kept in registers across the envs (world
+  // directions, or camera-frame ones with a camera per env)
   const int pix0 = (blockIdx.x * kThreads + threadIdx.x) * kPix;
   if (pix0 >= a.HW) return;
-  float d[kPix][3];
+  float dc[kPix][3];
   if (kVec) {
     const float4* src = reinterpret_cast<const float4*>(a.dirs + 3 * pix0);
     const float4 v0 = src[0], v1 = src[1], v2 = src[2];
@@ -191,22 +246,42 @@ raycast_kernel(RaycastArgs a) {
 #pragma unroll
     for (int j = 0; j < kPix; ++j)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) d[j][c] = f[3 * j + c];
+      for (int c = 0; c < 3; ++c) dc[j][c] = f[3 * j + c];
   } else {
 #pragma unroll
     for (int j = 0; j < kPix; ++j) {
       const int pix = min(pix0 + j, a.HW - 1);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) d[j][c] = a.dirs[3 * pix + c];
+      for (int c = 0; c < 3; ++c) dc[j][c] = a.dirs[3 * pix + c];
     }
   }
-  float inv_dz[kPix];
+  float d[kPix][3], inv_dz[kPix];
+  float ox = a.ox, oy = a.oy;
+  if (!kCamPerEnv) {
 #pragma unroll
-  for (int j = 0; j < kPix; ++j)
-    inv_dz[j] = __frcp_rn(fabsf(d[j][2]) < 1e-9f ? -1e-9f : d[j][2]);
+    for (int j = 0; j < kPix; ++j) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) d[j][c] = dc[j][c];
+      inv_dz[j] = __frcp_rn(fabsf(d[j][2]) < 1e-9f ? -1e-9f : d[j][2]);
+    }
+  }
 
   for (int e = 0; e < n_env; ++e) {
-    const float4 ev = *reinterpret_cast<const float4*>(envs + e * kEnvRec);
+    const float4 ev = *reinterpret_cast<const float4*>(envs + e * kRecE);
+    if (kCamPerEnv) {
+      // this env's world directions: d = B dc
+      const float* rec = envs + e * kRecE;
+      ox = rec[4];
+      oy = rec[5];
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          d[j][c] = rec[8 + 3 * c] * dc[j][0] + rec[9 + 3 * c] * dc[j][1] +
+                    rec[10 + 3 * c] * dc[j][2];
+        inv_dz[j] = __frcp_rn(fabsf(d[j][2]) < 1e-9f ? -1e-9f : d[j][2]);
+      }
+    }
     float best_t[kPix], bn[kPix][3];
     int best_p[kPix];
     // implicit ground plane as the initial nearest hit
@@ -345,8 +420,8 @@ raycast_kernel(RaycastArgs a) {
       if (best_p[j] < 0) {
         // the ground plane won: best_t is its hit; checker tint from the
         // hit point, (floor(x / 0.2) + floor(y / 0.2)) mod 2
-        const float px = a.ox + d[j][0] * best_t[j];
-        const float py = a.oy + d[j][1] * best_t[j];
+        const float px = ox + d[j][0] * best_t[j];
+        const float py = oy + d[j][1] * best_t[j];
         const float s = floorf(px * 5.f) + floorf(py * 5.f);
         const float tint = 0.85f + 0.15f * (s - 2.f * floorf(s * 0.5f));
         cr = ev.y * tint;
@@ -381,36 +456,48 @@ raycast_kernel(RaycastArgs a) {
 
 }  // namespace
 
-// Bytes of shared memory a block needs for E envs.
-extern "C" int ldp_raycast_smem_bytes(int P, int K, int n_convex, int E) {
-  return (E * (P * kRec + n_convex * K * 4 + kEnvRec) + 12) *
+// Bytes of shared memory a block needs for E envs (cam_per_env: whether
+// each env has its own camera).
+extern "C" int ldp_raycast_smem_bytes(int P, int K, int n_convex, int E,
+                                      int cam_per_env) {
+  const int env_rec = cam_per_env ? kEnvRecCam : kEnvRec;
+  return (E * (P * kRec + n_convex * K * 4 + env_rec) + 12) *
          static_cast<int>(sizeof(float));
 }
 
 // Each scene field comes with its env stride in elements. planes may be
-// null when n_convex == 0. E is the number of envs a block renders.
-// Returns a cudaError_t.
+// null when n_convex == 0. cam_pos and cam_basis are null for one camera
+// at (ox, oy, oz) whose world directions dirs holds; else each env has its
+// own camera and dirs holds camera-frame directions. E is the number of
+// envs a block renders. Returns a cudaError_t.
 extern "C" int ldp_raycast(
     const float* pos, long long s_pos, const float* rot, long long s_rot,
     const float* size, long long s_size, const float* color,
     long long s_color, const int* kind, long long s_kind, const float* planes,
     long long s_planes, const float* plane_z, long long s_plane_z,
-    const float* plane_color, long long s_plane_color, const float* dirs,
-    const float* light, float ox, float oy, float oz, float ambient,
-    float* out, int N, int HW, int P, int K, int n_convex, int E,
-    void* stream) {
+    const float* plane_color, long long s_plane_color, const float* cam_pos,
+    long long s_cam_pos, const float* cam_basis, long long s_cam_basis,
+    const float* dirs, const float* light, float ox, float oy, float oz,
+    float ambient, float* out, int N, int HW, int P, int K, int n_convex,
+    int E, void* stream) {
   if (N == 0 || HW == 0) return 0;
+  const bool per_env = cam_pos != nullptr;
+  if (per_env != (cam_basis != nullptr)) return cudaErrorInvalidValue;
   RaycastArgs a{pos, rot, size, color, kind, planes, plane_z, plane_color,
-                dirs, light, s_pos, s_rot, s_size, s_color, s_kind, s_planes,
-                s_plane_z, s_plane_color, ox, oy, oz, ambient, out, N, HW, P,
+                dirs, light, cam_pos, cam_basis, s_pos, s_rot, s_size,
+                s_color, s_kind, s_planes, s_plane_z, s_plane_color,
+                s_cam_pos, s_cam_basis, ox, oy, oz, ambient, out, N, HW, P,
                 K, n_convex, E};
-  const int smem = ldp_raycast_smem_bytes(P, K, n_convex, E);
+  const int smem = ldp_raycast_smem_bytes(P, K, n_convex, E, per_env);
   // float4 loads and stores need every env's image and the rays 16-byte
   // aligned: H*W a multiple of 4 (cudaMalloc'ed bases are)
   const bool vec = HW % kPix == 0 &&
                    reinterpret_cast<size_t>(out) % 16 == 0 &&
                    reinterpret_cast<size_t>(dirs) % 16 == 0;
-  auto kernel = vec ? raycast_kernel<true> : raycast_kernel<false>;
+  auto kernel = per_env ? (vec ? raycast_kernel<true, true>
+                                : raycast_kernel<false, true>)
+                        : (vec ? raycast_kernel<true, false>
+                               : raycast_kernel<false, false>);
   cudaError_t err = ldp::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = (HW + kPix - 1) / kPix;

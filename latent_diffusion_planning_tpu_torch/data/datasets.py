@@ -85,13 +85,32 @@ def event_weights(welded: ingest.WeldedDemos,
                                    for k, v in kw.items()})
 
 
+def _companions(latent_path, n: int) -> list:
+    """The latent files that pair, positionally, with ``n`` welded parts:
+    None for none; a list must have one per part, and a single path pairs
+    only with a single part."""
+    if latent_path is None:
+        return [None] * n
+    if isinstance(latent_path, (list, tuple)):
+        if len(latent_path) != n:
+            raise ValueError(f"path list length mismatch: got "
+                             f"{len(latent_path)} latent files for {n} "
+                             f"welded parts (they pair positionally)")
+        return list(latent_path)
+    if n != 1:
+        raise ValueError(f"a single latent file cannot pair with a {n}-file "
+                         "weld: give one per part")
+    return [latent_path]
+
+
 def _load_split(obs_keys: Sequence[str], given: ingest.WeldedDemos | None,
-                path: str | None, latent_path: str | None,
-                n_demos: int | None, name: str,
+                path, latent_path, n_demos: int | None, name: str,
                 optimal: float = 1.0) -> ingest.WeldedDemos:
     """A split's first ``n_demos`` demos with ``obs_keys``: handed in welded
     (its ``optimal`` flag set to ``optimal`` when the keys name it) or read
-    from ``path``."""
+    from ``path``. A list of paths welds several collections into one (the
+    ALOHA recipe's clean and DART-noised segments), each part capped at
+    ``n_demos``, their latent files paired positionally."""
     if given is not None:
         if "optimal" in obs_keys:
             like = next(iter(given.arrays.values()))
@@ -102,9 +121,14 @@ def _load_split(obs_keys: Sequence[str], given: ingest.WeldedDemos | None,
         return given.select(obs_keys).first_demos(n_demos)
     if path is None:
         raise ValueError(f"no data for {name}: give a path or welded demos")
-    return ingest.load_demos(path, obs_keys, n_demos=n_demos,
-                             latent_path=latent_path, optimal=optimal,
-                             name=name)
+    paths = list(path) if isinstance(path, (list, tuple)) else [path]
+    parts = [ingest.load_demos(p, obs_keys, n_demos=n_demos, latent_path=lp,
+                               optimal=optimal,
+                               name=name if len(paths) == 1 else
+                               f"{name}[{i}]")
+             for i, (p, lp) in enumerate(zip(paths, _companions(
+                 latent_path, len(paths))))]
+    return parts[0] if len(parts) == 1 else ingest.concat_welded(parts, name)
 
 
 class _Facade:

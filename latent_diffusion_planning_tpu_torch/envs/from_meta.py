@@ -7,8 +7,9 @@ dataset records the env it was collected in (``env_args``: ``env_name`` and
 task names (``ENV_REGISTRY``) map onto the contact-physics envs, with the
 robosuite kwargs this stack understands (camera size, horizon) honoured and
 the robosuite-internal ones (controller configs, renderer flags) dropped,
-since their capability is built into the envs. The ALOHA tasks are not
-ported yet and raise.
+since their capability is built into the envs. The ALOHA task names (the
+reference's ``SIM_TASK_CONFIGS`` variants, exact keys only) take the same
+robosuite path.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ ENV_REGISTRY = {
     "Lift": _ENVS + "lift_physics:LiftPhysicsEnv",
     "PickPlaceCan": _ENVS + "pick_place_physics:CanPhysicsEnv",
     "NutAssemblySquare": _ENVS + "pick_place_physics:SquarePhysicsEnv",
+    "sim_transfer_cube": _ENVS + "aloha_cube:AlohaTransferCubeEnv",
+    "sim_transfer_cube_scripted": _ENVS + "aloha_cube:AlohaTransferCubeEnv",
+    "sim_transfer_cube_human": _ENVS + "aloha_cube:AlohaTransferCubeEnv",
+    "sim_insertion": _ENVS + "aloha_insertion:AlohaInsertionEnv",
+    "sim_insertion_scripted": _ENVS + "aloha_insertion:AlohaInsertionEnv",
+    "sim_insertion_human": _ENVS + "aloha_insertion:AlohaInsertionEnv",
 }
 
 NATIVE_REGISTRY = {
@@ -31,13 +38,8 @@ NATIVE_REGISTRY = {
     "SquareEnv": _ENVS + "pick_place:SquareEnv",
     "CanPhysicsEnv": _ENVS + "pick_place_physics:CanPhysicsEnv",
     "SquarePhysicsEnv": _ENVS + "pick_place_physics:SquarePhysicsEnv",
-}
-
-# the JAX package's ALOHA env names, robosuite-style and native
-NOT_PORTED = {
-    "sim_transfer_cube", "sim_transfer_cube_scripted",
-    "sim_transfer_cube_human", "sim_insertion", "sim_insertion_scripted",
-    "sim_insertion_human", "AlohaTransferCubeEnv", "AlohaInsertionEnv",
+    "AlohaTransferCubeEnv": _ENVS + "aloha_cube:AlohaTransferCubeEnv",
+    "AlohaInsertionEnv": _ENVS + "aloha_insertion:AlohaInsertionEnv",
 }
 
 # robosuite-internal kwargs whose capability is built into the envs
@@ -58,8 +60,6 @@ def make_env_from_meta(env_meta: Mapping[str, Any], **overrides) -> Any:
     """``{"env_name", "env_kwargs"}`` → the port's batched env;
     ``overrides`` join (and win over) the recorded kwargs."""
     name = env_meta.get("env_name", "")
-    if name in NOT_PORTED:
-        raise KeyError(f"env {name!r} (ALOHA) is not ported yet")
     if name in NATIVE_REGISTRY:
         kwargs = {**env_meta.get("env_kwargs", {}), **overrides}
         return _load(NATIVE_REGISTRY[name])(**kwargs)

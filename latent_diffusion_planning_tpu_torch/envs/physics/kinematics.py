@@ -114,3 +114,41 @@ def dls_ik_step(chain: JointChain, qpos: torch.Tensor,
     if lo is not None:
         q = torch.minimum(torch.maximum(q, lo), hi)
     return q
+
+
+def viperx300s_chain(base_pos=(0.0, 0.0, 0.0),
+                     base_yaw: float = 0.0) -> JointChain:
+    """ViperX-300s 6-DoF chain (waist, shoulder, elbow, forearm-roll,
+    wrist-angle, wrist-rotate) with the MJCF link offsets and axes of the
+    reference assets (``vx300s_left.xml:3-35``); the grasp point sits
+    (0.112, 0, 0) from the gripper_link frame, between the finger pads. The
+    JAX package's ``kinematics.viperx300s_chain``."""
+    offsets = torch.tensor([
+        [0.0, 0.0, 0.079],
+        [0.0, 0.0, 0.04805],
+        [0.05955, 0.0, 0.3],
+        [0.2, 0.0, 0.0],
+        [0.1, 0.0, 0.0],
+        [0.069744, 0.0, 0.0],
+    ])
+    axes = torch.tensor([
+        [0.0, 0.0, 1.0],   # waist
+        [0.0, 1.0, 0.0],   # shoulder
+        [0.0, 1.0, 0.0],   # elbow
+        [1.0, 0.0, 0.0],   # forearm_roll
+        [0.0, 1.0, 0.0],   # wrist_angle
+        [1.0, 0.0, 0.0],   # wrist_rotate
+    ])
+    return JointChain(
+        offsets=offsets, axes=axes,
+        base_pos=torch.tensor(base_pos, dtype=torch.float32),
+        base_quat=rot.axis_angle_to_quat(
+            torch.tensor([0.0, 0.0, base_yaw], dtype=torch.float32)),
+        tip_offset=torch.tensor([0.112, 0.0, 0.0]))
+
+
+# Joint limits: the MJCF position-actuator ctrlranges (envs/aloha_constants)
+VIPERX_LO = torch.tensor([-3.14158, -1.85005, -1.76278, -3.14158, -1.8675,
+                          -3.14158])
+VIPERX_HI = torch.tensor([3.14158, 1.25664, 1.6057, 3.14158, 2.23402,
+                          3.14158])

@@ -170,8 +170,6 @@ class ActionSampler:
         if not strided_ddim(self.inference_steps, self.sched):
             raise ValueError("the fused action sampler is DDIM only: set "
                              "inference_steps < n_diffusion_steps")
-        if self.sched.prediction_type != "epsilon":
-            raise ValueError("the fused action sampler needs ε prediction")
         if getattr(torch, fused_dtype) != kunet.WEIGHT_DTYPE:
             raise ValueError("the fused action kernel reads bf16 weights")
         kunet.check_supported(net, pred_horizon)

@@ -13,9 +13,9 @@ the first ``action_horizon`` actions; ``use_ema`` samples the EMA weights.
 
 On the card a configuration kernel B does not take raises, with the reason,
 when the agent is built: DDPM sampling (``inference_steps`` unset or not
-below ``n_diffusion_steps``), non-ε prediction, a ``fused_dtype`` other than
-bfloat16, a prediction horizon not divisible by the U-Net's stride, or
-widths the kernel refuses. On the CPU DDIM and DDPM run through the plain
+below ``n_diffusion_steps``), a ``fused_dtype`` other than bfloat16, a
+prediction horizon not divisible by the U-Net's stride, or widths the
+kernel refuses. On the CPU DDIM and DDPM run through the plain
 versions.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in

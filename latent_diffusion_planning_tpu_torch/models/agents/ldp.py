@@ -23,8 +23,9 @@ configuration, this agent raises on CUDA with the reason: DDPM planning
 (the U-Net kernel is DDIM only), a plan length not divisible by the U-Net
 stride, or an IDM the MLP kernel does not take (non-swish cond MLP, no
 LayerNorm, fixed time features); on the CPU those run through the plain
-versions. Non-ε prediction raises on every device: the samplers' coefficient
-tables assume ε, and no config of the port uses another.
+versions. Every prediction type (ε, sample, v) runs through the kernels:
+their coefficient tables hold x0 = clip(c1 (cx x - c2 y)) for the net's
+output y (``ops/diffusion.py``); the ALOHA recipe's planner predicts x0.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: for sampling the planner's initial sample
@@ -112,10 +113,6 @@ class LDPAgent:
         self.config = config
         self.codec = common.VAECodec(self.vae, config.rgb_obs,
                                      config.vae_feature_dim)
-        for name, sched in (("planner", planner_sched), ("idm", idm_sched)):
-            if sched.prediction_type != "epsilon":
-                raise ValueError(f"the {name} samplers need ε prediction, "
-                                 f"got {sched.prediction_type!r}")
         # coefficient tables on the agent's device, made once: a table made
         # on the host per decision would cost a host-to-device copy that
         # waits for the stream

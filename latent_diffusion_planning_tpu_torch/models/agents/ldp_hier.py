@@ -16,8 +16,7 @@ through kernel B, which takes U-Nets that do not downsample; on the CPU
 through its plain twin. Where the JAX agent samples a net with its XLA
 scan, this agent raises on CUDA, with the reason, when it is built: DDPM
 (inference steps unset or not below the train steps), a ``fused_dtype``
-other than bfloat16, or widths kernel B refuses; non-ε prediction raises on
-every device (``LDPAgent``).
+other than bfloat16, or widths kernel B refuses.
 
 Behaviours of the JAX agent reproduced as they are:
 - ``pred_plan[:, :action_horizon]`` keeps all P latents when P is shorter

@@ -148,9 +148,31 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Unified per-step coefficient tables, consumed by the fused samplers:
-#   x0 = clip(c1 * (x_t - c2 * eps)),  x_prev = m_x0 * x0 + m_xt * x_t + s_var * noise
+# Unified per-step coefficient tables (T, 6), consumed by the fused samplers:
+#   x0 = clip(c1 * (cx * x_t - c2 * y)),
+#   x_prev = m_x0 * x0 + m_xt * x_t + s_var * noise,
+# with y the model output. Columns [c1, c2, m_x0, m_xt, s_var, cx]: x0 is
+# linear in (x_t, y) for every prediction type (``predict_x0``), and so is
+# the step, since DDIM re-derives eps from the clipped x0:
+#   epsilon       c1 = 1/sqrt(abar), c2 = sqrt(1 - abar), cx = 1
+#   sample        c1 = 1,            c2 = -1,             cx = 0
+#   v_prediction  c1 = 1,            c2 = sqrt(1 - abar), cx = sqrt(abar)
+# The first five columns of an ε table are the JAX package's (T, 5) table,
+# bit for bit; cx = 1 leaves the ε update as it was (1·x is x).
 # ---------------------------------------------------------------------------
+
+
+def _x0_columns(schedule: DiffusionSchedule, abar_t: torch.Tensor):
+    """(c1, c2, cx) of the x0 rule for the schedule's prediction type."""
+    ones = torch.ones_like(abar_t)
+    kind = schedule.prediction_type
+    if kind == "epsilon":
+        return 1.0 / torch.sqrt(abar_t), torch.sqrt(1.0 - abar_t), ones
+    if kind == "sample":
+        return ones, -ones, torch.zeros_like(abar_t)
+    if kind == "v_prediction":
+        return ones, torch.sqrt(1.0 - abar_t), torch.sqrt(abar_t)
+    raise ValueError(f"unknown prediction_type {kind!r}")
 
 def ddim_timesteps(num_train_steps: int,
                    num_inference_steps: int) -> torch.Tensor:
@@ -161,7 +183,7 @@ def ddim_timesteps(num_train_steps: int,
 
 def ddpm_coef_table(schedule: DiffusionSchedule
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(timesteps (T,), coefs (T, 5)) for the full ancestral reverse process."""
+    """(timesteps (T,), coefs (T, 6)) for the full ancestral reverse process."""
     ts = torch.arange(schedule.num_steps - 1, -1, -1, dtype=torch.int64)
     acp = schedule.alphas_cumprod
     abar_t = acp[ts]
@@ -169,13 +191,12 @@ def ddpm_coef_table(schedule: DiffusionSchedule
                             torch.ones_like(abar_t))
     beta_t = schedule.betas[ts]
     alpha_t = schedule.alphas[ts]
-    c1 = 1.0 / torch.sqrt(abar_t)
-    c2 = torch.sqrt(1.0 - abar_t)
+    c1, c2, cx = _x0_columns(schedule, abar_t)
     m_x0 = torch.sqrt(abar_prev) * beta_t / (1.0 - abar_t)
     m_xt = torch.sqrt(alpha_t) * (1.0 - abar_prev) / (1.0 - abar_t)
     var = torch.clamp(beta_t * (1.0 - abar_prev) / (1.0 - abar_t), min=1e-20)
     s_var = torch.sqrt(var) * (ts > 0)
-    return ts, torch.stack([c1, c2, m_x0, m_xt, s_var], -1).float()
+    return ts, torch.stack([c1, c2, m_x0, m_xt, s_var, cx], -1).float()
 
 
 def ddim_coef_table(schedule: DiffusionSchedule, num_inference_steps: int
@@ -187,14 +208,14 @@ def ddim_coef_table(schedule: DiffusionSchedule, num_inference_steps: int
     abar_t = acp[ts]
     abar_prev = torch.where(ts_prev >= 0, acp[ts_prev.clamp(min=0)],
                             torch.ones_like(abar_t))
-    c1 = 1.0 / torch.sqrt(abar_t)
-    c2 = torch.sqrt(1.0 - abar_t)
+    sq = torch.sqrt(1.0 - abar_t)
     sp = torch.sqrt(abar_prev)
     dp = torch.sqrt(torch.clamp(1.0 - abar_prev, min=0.0))
-    m_x0 = sp - dp * torch.sqrt(abar_t) / c2
-    m_xt = dp / c2
+    m_x0 = sp - dp * torch.sqrt(abar_t) / sq
+    m_xt = dp / sq
+    c1, c2, cx = _x0_columns(schedule, abar_t)
     s_var = torch.zeros_like(c1)
-    return ts, torch.stack([c1, c2, m_x0, m_xt, s_var], -1).float()
+    return ts, torch.stack([c1, c2, m_x0, m_xt, s_var, cx], -1).float()
 
 
 def sample_ddpm(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
@@ -228,14 +249,16 @@ def sample_with_coefs(denoise_fn: DenoiseFn, x_init: torch.Tensor,
                       clip_range: float) -> torch.Tensor:
     """The fused samplers' update rule as a plain loop (their twins' core).
 
+    ``coefs`` is a (T, 6) table of ``ddim_coef_table``/``ddpm_coef_table``;
     ``noise`` is (T, *x.shape) or None for DDIM.
     """
     x = x_init
     for i, t in enumerate(timesteps.tolist()):
         tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        eps = denoise_fn(x, tb)
+        y = denoise_fn(x, tb)
         c = coefs[i].tolist()
-        x0 = torch.clamp(c[0] * (x - c[1] * eps), -clip_range, clip_range)
+        x0 = torch.clamp(c[0] * (c[5] * x - c[1] * y), -clip_range,
+                         clip_range)
         x = c[2] * x0 + c[3] * x
         if noise is not None:
             x = x + c[4] * noise[i]

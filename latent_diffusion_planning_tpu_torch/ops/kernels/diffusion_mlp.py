@@ -9,7 +9,10 @@ TF32 (each operand split ``hi + lo``, ``hi·hi + hi·lo + lo·hi`` summed in
 fp32), which keeps about fp32's accuracy where plain TF32 would not. On the
 card it is bound by those three tensor-core passes and, about as long, by the
 weight stream: every 64-row block reads all the weights (6.4 MB at the bench
-widths) from L2 once per step. The design keeps the residual in registers as
+widths) from L2 once per step. A block holds 64 rows, or 32 where a wide
+condition's 64-row ``[x|s]`` tile would leave the weight ring fewer than two
+stages of shared memory (``_smem``): the ALOHA recipe's IDM conditions on
+two 270-wide observations (S = 540) and runs 32 rows a block. The design keeps the residual in registers as
 the products' accumulator for all steps, keeps only the products' left
 operands in shared memory, and streams the weights, pre-tiled here in the
 order and fragment layout the kernel consumes, through a shared-memory ring
@@ -23,8 +26,8 @@ to 16) and then, per block and per chunk ``c`` of H columns of the 4H layer,
 CUDA cores read: the time path, biases, LayerNorm and the output layer.
 
 The caller supplies the initial sample, every step's noise (None for DDIM)
-and the (T, 5) coefficient table from ``ops.diffusion``, so kernel and twin
-consume identical draws.
+and the (T, 6) coefficient table from ``ops.diffusion`` (any prediction
+type), so kernel and twin consume identical draws.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ...models.nets.mlp import MLPDiffusion
 from .. import diffusion as dlib
 from . import _build
 
-ROWS = 64               # rows per block
+ROW_CHOICES = (64, 32)  # the kernel's instances, widest first
 STAGE_K = 16            # K-rows per ring stage
 MAX_STAGES = 8
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
@@ -136,14 +139,22 @@ def pack_params(net: MLPDiffusion) -> torch.Tensor:
 
 
 def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
+    """Rows a block, its shared memory and the ring's stages: 64 rows where
+    the ring keeps at least two stages beside them, else 32; a net that does
+    not fit at 32 raises."""
     H = net.trunk.dense0.out_features
     kxs = _up(A + S, STAGE_K) + 4
-    rest = 4 * (ROWS * kxs + 2 * ROWS * (H + 4) + ROWS * 8 + ROWS * A)
     stage = STAGE_K * H * 4
-    stages = min(MAX_STAGES, (SMEM_LIMIT - rest) // stage)
-    if stages < 2:
-        raise ValueError("net too wide for the kernel's shared memory")
-    return dict(kxs=kxs, stages=stages, smem_bytes=stages * stage + rest)
+    for rows in ROW_CHOICES:
+        rest = 4 * (rows * kxs + 2 * rows * (H + 4) + rows * 8 + rows * A)
+        stages = min(MAX_STAGES, (SMEM_LIMIT - rest) // stage)
+        if stages >= 2:
+            return dict(rows=rows, kxs=kxs, stages=stages,
+                        smem_bytes=stages * stage + rest)
+    raise ValueError(
+        f"net too wide for the kernel's shared memory: {ROW_CHOICES[-1]} rows "
+        f"of a {A + S}-wide [x|s] tile and hidden {H} leave the weight ring "
+        f"under two {stage}-byte stages of {SMEM_LIMIT} bytes")
 
 
 def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
@@ -151,9 +162,10 @@ def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
     the bytes of weights its blocks stream in all."""
     H = net.trunk.dense0.out_features
     sm = _smem(net, A, S)
-    grid = -(-N // ROWS)
+    grid = -(-N // sm["rows"])
     per_step = layout(net)["stream_stages"] * STAGE_K * H * 4
-    return dict(rows_per_block=ROWS, grid=grid, smem_bytes=sm["smem_bytes"],
+    return dict(rows_per_block=sm["rows"], grid=grid,
+                smem_bytes=sm["smem_bytes"],
                 ring_stages=sm["stages"],
                 weight_bytes_per_step_and_block=per_step,
                 weight_bytes_streamed=grid * T * per_step)
@@ -178,7 +190,8 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
                                ) -> torch.Tensor:
     """Run the full reverse process for (N, S) conditions → (N, A) fp32.
 
-    timesteps (T,) descending; coefs (T, 5); noise (T, N, A) or None (DDIM).
+    timesteps (T,) descending; coefs (T, 6) from ``ops.diffusion``; noise
+    (T, N, A) or None (DDIM).
     CPU tensors run the plain twin; CUDA tensors launch the kernel.
     ``packed`` is ``pack_params(net)`` on the device, to reuse across calls.
     """
@@ -199,6 +212,9 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
         raise ValueError("condition width does not match the net")
     if noise is not None and tuple(noise.shape) != (T, N, A):
         raise ValueError(f"noise must be {(T, N, A)}, got {tuple(noise.shape)}")
+    if tuple(coefs.shape) != (T, 6):
+        raise ValueError(f"coefs must be the (T, 6) table of ops.diffusion, "
+                         f"got {tuple(coefs.shape)}")
     sm = _smem(net, A, S)
     lay = layout(net)
     dev = s.device
@@ -218,7 +234,8 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
     dims = torch.tensor(
         [N, S, A, T, half, C0, C1, H, len(net.trunk.blocks), sm["kxs"],
          sm["stages"], lay["stream_stages"], lay["vec_base"],
-         sm["smem_bytes"], 4 * (2 * half + C0 + C1)], dtype=torch.int32)
+         sm["smem_bytes"], 4 * (2 * half + C0 + C1), sm["rows"]],
+        dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
     fn = _build.function("ldp_mlp_sampler", [P] * 9 + [I, F, P])
     err = fn(s.data_ptr(), x_init.data_ptr(), ts.data_ptr(), coefs.data_ptr(),

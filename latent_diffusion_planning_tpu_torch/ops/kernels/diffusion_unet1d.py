@@ -491,8 +491,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              nb: int | None = None) -> torch.Tensor:
     """DDIM reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
 
-    coefs (S, 5) from ``ops.diffusion.ddim_coef_table`` (the s_var column is
-    ignored: η = 0). CPU tensors run the plain twin (with the net's own
+    coefs (S, 6) from ``ops.diffusion.ddim_coef_table``, for any prediction
+    type (the s_var column is ignored: η = 0). CPU tensors run the plain twin (with the net's own
     weights); CUDA tensors launch the kernel with bf16 weights.
     ``packed`` is ``pack_params(net)`` on the device; ``nb`` overrides the
     samples per block (for measurements).
@@ -519,6 +519,9 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     if packed.dtype != WEIGHT_DTYPE or packed.numel() != lay["numel"]:
         raise ValueError("packed weights are not pack_params(net) in bf16")
     S = int(timesteps.shape[0])
+    if tuple(coefs.shape) != (S, 6):
+        raise ValueError(f"coefs must be the (S, 6) table of "
+                         f"ops.diffusion, got {tuple(coefs.shape)}")
     recs = _records_on(_signature(net), T, nb, dev)
     gcond = global_cond.float().contiguous()
     x_init = x_init.float().contiguous()

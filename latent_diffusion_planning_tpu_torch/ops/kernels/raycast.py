@@ -12,8 +12,12 @@ By bytes it is bound by the image write (N×H×W×3 fp32); in fact by
 instruction issue.
 
 Prims ``[0, n_convex)`` are convex polytopes whose half-spaces come from
-``scene.planes``; the rest dispatch box/sphere on ``kind``. The twin is
-``ops.render.render_batch``.
+``scene.planes``; the rest dispatch box/sphere on ``kind``. The camera is
+one ``R.Camera`` for every env (the rays are its world directions) or an
+``R.CameraBatch``, one camera per env: then the rays are one camera-frame
+table (``R.camera_frame_rays``) that the kernel rotates by each env's basis,
+and the origins (N, 3) and bases (N, 3, 3) go in with their env strides.
+The twin is ``ops.render.render_batch``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from . import _build
 
 MAX_SMEM_BYTES = 200 * 1024
 REC_FLOATS = 28     # csrc/raycast.cu kRec: floats per (env, prim) record
+ENV_REC_FLOATS = 4  # kEnvRec: floats per env with the launch's camera
+ENV_REC_CAM_FLOATS = 20   # kEnvRecCam: floats per env with its own camera
 MAX_ENVS_PER_BLOCK = 4
 
 
@@ -55,27 +61,43 @@ def default_envs_per_block(N: int, HW: int) -> int:
     return max(1, min(MAX_ENVS_PER_BLOCK, N * pixel_chunks // 1024))
 
 
-def smem_bytes(P: int, K: int, n_convex: int, envs_per_block: int) -> int:
+def smem_bytes(P: int, K: int, n_convex: int, envs_per_block: int,
+               cam_per_env: bool = False) -> int:
     """Shared memory of one block (``ldp_raycast_smem_bytes``)."""
-    return 4 * (envs_per_block * (P * REC_FLOATS + n_convex * K * 4 + 4) + 12)
+    env_rec = ENV_REC_CAM_FLOATS if cam_per_env else ENV_REC_FLOATS
+    return 4 * (envs_per_block * (P * REC_FLOATS + n_convex * K * 4
+                                  + env_rec) + 12)
 
 
-def launch_args(scene: R.Scene, cam: R.Camera, height: int, width: int,
-                n_convex: int = 0, rays: torch.Tensor | None = None,
+def default_rays(cam, height: int, width: int, device) -> torch.Tensor:
+    """The ray table the kernel reads for ``cam``: world directions of a
+    shared camera, camera-frame ones for a ``CameraBatch``."""
+    if isinstance(cam, R.CameraBatch):
+        return R.camera_frame_rays(cam.fov_deg, height, width, device)
+    return R.camera_rays(cam, height, width, device)
+
+
+def launch_args(scene: R.Scene, cam: R.Camera | R.CameraBatch, height: int,
+                width: int, n_convex: int = 0,
+                rays: torch.Tensor | None = None,
                 envs_per_block: int | None = None):
     """Check a scene and marshal it for ``ldp_raycast`` → (arguments but
     for the stream, output tensor, tensors the pointers refer to).
     ``envs_per_block`` is how many envs one block renders with the same rays
     (``default_envs_per_block``; less where the half-spaces would not fit
-    in shared memory)."""
+    in shared memory). ``rays`` is ``default_rays(cam, ...)``, to reuse."""
     dev = scene.pos.device
     N, P = scene.pos.shape[:2]
     if n_convex and scene.planes is None:
         raise ValueError("n_convex > 0 needs scene.planes")
     if not 0 <= n_convex <= P:
         raise ValueError(f"n_convex must be in [0, {P}]")
+    per_env = isinstance(cam, R.CameraBatch)
+    if per_env and tuple(cam.pos.shape) != (N, 3):
+        raise ValueError(f"a camera per env needs pos ({N}, 3), got "
+                         f"{tuple(cam.pos.shape)}")
     if rays is None:
-        rays = R.camera_rays(cam, height, width, dev)
+        rays = default_rays(cam, height, width, dev)
     if rays.numel() != height * width * 3 or rays.shape[-1] != 3:
         raise ValueError(f"rays are {tuple(rays.shape)}, expected "
                          f"({height * width}, 3)")
@@ -89,35 +111,42 @@ def launch_args(scene: R.Scene, cam: R.Camera, height: int, width: int,
     fields.append(_field(scene.planes, f32) if n_convex else (None, 0))
     fields.append(_field(scene.plane_z.reshape(N), f32))
     fields.append(_field(scene.plane_color.expand(N, 3), f32))
+    if per_env:
+        fields.append(_field(cam.pos, f32))
+        fields.append(_field(cam.basis.reshape(N, 9), f32))
+        ox = oy = oz = 0.0
+    else:
+        fields += [(None, 0), (None, 0)]
+        ox, oy, oz = cam.pos
     E = max(1, min(envs_per_block or default_envs_per_block(
         N, height * width), N))
-    while E > 1 and smem_bytes(P, K, n_convex, E) > MAX_SMEM_BYTES:
+    need = lambda e: smem_bytes(P, K, n_convex, e, per_env)
+    while E > 1 and need(E) > MAX_SMEM_BYTES:
         E -= 1
-    if smem_bytes(P, K, n_convex, E) > MAX_SMEM_BYTES:
+    if need(E) > MAX_SMEM_BYTES:
         raise ValueError(
             f"one env's scene ({P} prims, {n_convex} x {K} half-spaces) "
-            f"needs {smem_bytes(P, K, n_convex, E)} bytes of shared memory; "
+            f"needs {need(E)} bytes of shared memory; "
             f"the kernel has {MAX_SMEM_BYTES}")
     light = R.light_rig(dev)
     out = torch.empty((N, height, width, 3), device=dev, dtype=f32)
-    ox, oy, oz = cam.pos
     args = [x for t, stride in fields for x in (_build.ptr(t), stride)]
     args += [rays.data_ptr(), light.data_ptr(), ox, oy, oz, R.AMBIENT,
              out.data_ptr(), N, height * width, P, K, n_convex, E]
     return args, out, (fields, rays, light)
 
 
-ARGTYPES = ([_build.P, _build.LL] * 8 + [_build.P] * 2 + [_build.F] * 4
+ARGTYPES = ([_build.P, _build.LL] * 10 + [_build.P] * 2 + [_build.F] * 4
             + [_build.P] + [_build.I] * 6 + [_build.P])
 
 
-def render_batch_cuda(scene: R.Scene, cam: R.Camera, height: int = 64,
-                      width: int = 64, n_convex: int = 0,
+def render_batch_cuda(scene: R.Scene, cam: R.Camera | R.CameraBatch,
+                      height: int = 64, width: int = 64, n_convex: int = 0,
                       rays: torch.Tensor | None = None) -> torch.Tensor:
     """Render every env's scene → (N, H, W, 3) float32 in [0, 255].
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel.
-    ``rays`` is ``R.camera_rays(cam, height, width)`` on the device, to reuse
+    ``rays`` is ``default_rays(cam, height, width)`` on the device, to reuse
     across calls.
     """
     if scene.pos.device.type == "cpu":

@@ -6,8 +6,11 @@ plane, nearest hit, Lambert shading from a fixed 3-light rig plus ambient,
 sky gradient for misses. Images are HWC float32 in [0, 255].
 
 Unlike the JAX ``Scene`` (one scene, batched by ``vmap``), a ``Scene`` here
-carries the env axis: every field leads with N. ``render_batch`` is the
-plain version; ``ops/kernels/raycast.py`` holds the CUDA kernel.
+carries the env axis: every field leads with N. A ``Camera`` is one camera
+for every env; a ``CameraBatch`` is one camera per env (a camera that rides
+a robot's gripper: under ``vmap`` the JAX package batches the camera with
+the scene). ``render_batch`` is the plain version; ``ops/kernels/raycast.py``
+holds the CUDA kernel.
 """
 
 from __future__ import annotations
@@ -53,34 +56,82 @@ class Camera:
     fov_deg: float
 
 
+@dataclass
+class CameraBatch:
+    """One camera per env: origin ``pos`` (N, 3) and ``basis`` (N, 3, 3)
+    whose columns are the camera's right, down and forward axes in the
+    world (``camera_basis``), so a camera-frame direction c maps to the
+    world direction ``basis @ c``."""
+
+    pos: torch.Tensor
+    basis: torch.Tensor
+    fov_deg: float
+
+
 def look_at(pos, lookat, up=(0.0, 0.0, 1.0)) -> Camera:
     return Camera(tuple(float(v) for v in pos), tuple(float(v) for v in lookat),
                   tuple(float(v) for v in up), 45.0)
 
 
-def camera_rays(cam: Camera, height: int, width: int,
-                device=None) -> torch.Tensor:
-    """Unit ray directions (H, W, 3), float32."""
-    pos = torch.tensor(cam.pos, dtype=torch.float32, device=device)
-    fwd = torch.tensor(cam.lookat, dtype=torch.float32, device=device) - pos
-    up = torch.tensor(cam.up, dtype=torch.float32, device=device)
-    fwd = fwd / torch.linalg.norm(fwd)
+def camera_basis(pos: torch.Tensor, lookat: torch.Tensor,
+                 up: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 3) columns right, down, forward of cameras at ``pos`` looking
+    at ``lookat`` with ``up`` (each (N, 3)): the JAX package's
+    ``_camera_rays`` frame batched, its fallback for a view along ``up``
+    included (the world axis least aligned with the view)."""
+    fwd = lookat - pos
+    fwd = fwd / torch.linalg.norm(fwd, dim=-1, keepdim=True)
     right = torch.linalg.cross(fwd, up)
-    # degenerate look-at (view along up): use the world axis least aligned
-    # with the view direction
-    axis = torch.argmin(fwd.abs())
+    axis = torch.argmin(fwd.abs(), -1)
     alt = torch.linalg.cross(
         fwd, torch.nn.functional.one_hot(axis, 3).to(fwd.dtype))
-    right = right if torch.linalg.norm(right) > 1e-6 else alt
-    right = right / torch.linalg.norm(right)
+    right = torch.where(torch.linalg.norm(right, dim=-1, keepdim=True) > 1e-6,
+                        right, alt)
+    right = right / torch.linalg.norm(right, dim=-1, keepdim=True)
     down = torch.linalg.cross(fwd, right)
-    half_h = math.tan(math.radians(cam.fov_deg) / 2.0)
+    return torch.stack([right, down, fwd], -1)
+
+
+def camera_batch(pos: torch.Tensor, lookat: torch.Tensor, up: torch.Tensor,
+                 fov_deg: float) -> CameraBatch:
+    return CameraBatch(pos, camera_basis(pos, lookat, up), fov_deg)
+
+
+def _image_plane(fov_deg: float, height: int, width: int, device):
+    half_h = math.tan(math.radians(fov_deg) / 2.0)
     half_w = half_h * (width / height)
     ys = torch.linspace(-half_h, half_h, height, device=device)
     xs = torch.linspace(-half_w, half_w, width, device=device)
-    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-    dirs = fwd + xx[..., None] * right + yy[..., None] * down
+    return torch.meshgrid(ys, xs, indexing="ij")
+
+
+def camera_frame_rays(fov_deg: float, height: int, width: int,
+                      device=None) -> torch.Tensor:
+    """Unit ray directions (H, W, 3) in the camera frame (x right, y down,
+    z forward): what kernel C rotates by each env's ``basis``."""
+    yy, xx = _image_plane(fov_deg, height, width, device)
+    dirs = torch.stack([xx, yy, torch.ones_like(xx)], -1)
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+
+
+def camera_batch_rays(cam: CameraBatch, height: int,
+                      width: int) -> torch.Tensor:
+    """World ray directions (N, H, W, 3) of every env's camera, summed and
+    normalized in the JAX package's order (fwd + x right + y down)."""
+    yy, xx = _image_plane(cam.fov_deg, height, width, cam.pos.device)
+    b = cam.basis[:, None, None]                          # (N, 1, 1, 3, 3)
+    dirs = (b[..., 2] + xx[..., None] * b[..., 0]
+            + yy[..., None] * b[..., 1])
+    return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+
+
+def camera_rays(cam: Camera, height: int, width: int,
+                device=None) -> torch.Tensor:
+    """Unit ray directions (H, W, 3) of one camera, float32."""
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)[None]
+    return camera_batch_rays(camera_batch(t(cam.pos), t(cam.lookat),
+                                          t(cam.up), cam.fov_deg),
+                             height, width)[0]
 
 
 def euler_z(theta: torch.Tensor) -> torch.Tensor:
@@ -178,15 +229,22 @@ def _ray_sphere(origin, d, pos, radius):
     return t_hit, (p - pos) / torch.clamp(radius, min=1e-9)[..., None]
 
 
-def render_batch(scene: Scene, cam: Camera, height: int = 64,
+def render_batch(scene: Scene, cam: Camera | CameraBatch, height: int = 64,
                  width: int = 64) -> torch.Tensor:
-    """Plain renderer: (N, H, W, 3) float32 in [0, 255]."""
+    """Plain renderer: (N, H, W, 3) float32 in [0, 255]. ``cam`` is one
+    camera for every env or a ``CameraBatch``."""
     dev = scene.pos.device
-    dirs = camera_rays(cam, height, width, dev).reshape(1, 1, -1, 3)
-    origin = torch.tensor(cam.pos, dtype=torch.float32, device=dev)
+    if isinstance(cam, CameraBatch):
+        dirs = camera_batch_rays(cam, height, width).reshape(
+            cam.pos.shape[0], 1, -1, 3)                   # (N, 1, HW, 3)
+        origin = cam.pos.float()[:, None, None, :]        # (N, 1, 1, 3)
+    else:
+        dirs = camera_rays(cam, height, width, dev).reshape(1, 1, -1, 3)
+        origin = torch.tensor(cam.pos, dtype=torch.float32,
+                              device=dev).reshape(1, 1, 1, 3)
     rot = scene.rot                                       # (N, P, 3, 3)
     # body frame: o' = Rᵀ(o - c), d' = Rᵀ d (row-vector form: v @ R)
-    o_b = ((origin - scene.pos)[:, :, None, :] @ rot)     # (N, P, 1, 3)
+    o_b = ((origin[:, :, 0] - scene.pos)[:, :, None, :] @ rot)  # (N, P, 1, 3)
     d_b = dirs @ rot                                      # (N, P, HW, 3)
     t_box, n_box = _ray_box(o_b, d_b, scene.size[:, :, None, :])
     t_sph, n_sph = _ray_sphere(origin, dirs, scene.pos[:, :, None, :],
@@ -201,11 +259,12 @@ def render_batch(scene: Scene, cam: Camera, height: int = 64,
         t = torch.where(kind == 2, t_cvx, t)
         n = torch.where(kind[..., None] == 2, n_cvx, n)
 
-    dz = dirs[0, 0, :, 2]
+    dz = dirs[:, 0, :, 2]                                       # (1|N, HW)
     safe_dz = torch.where(dz.abs() < 1e-9, torch.full_like(dz, -1e-9), dz)
-    t_plane = (scene.plane_z[:, None] - origin[2]) / safe_dz     # (N, HW)
+    o_env = origin[:, 0]                                        # (1|N, 1, 3)
+    t_plane = (scene.plane_z[:, None] - o_env[..., 2]) / safe_dz  # (N, HW)
     t_plane = torch.where(t_plane > 1e-4, t_plane, torch.full_like(t_plane, BIG))
-    p_hit = origin + dirs[0, 0] * t_plane[..., None]
+    p_hit = o_env + dirs[:, 0] * t_plane[..., None]
     checker = torch.remainder(torch.floor(p_hit[..., 0] / 0.2)
                               + torch.floor(p_hit[..., 1] / 0.2), 2.0)
     plane_rgb = scene.plane_color[:, None, :] * (0.85 + 0.15 * checker)[..., None]
@@ -226,6 +285,6 @@ def render_batch(scene: Scene, cam: Camera, height: int = 64,
     diffuse = (torch.clamp(n_best @ -rig[:, :3].t(), min=0.0) * rig[:, 3]).sum(-1)
     shade = AMBIENT + diffuse[..., None]
     sky = torch.tensor([0.7, 0.8, 0.9], device=dev) * (
-        0.6 + 0.4 * torch.clamp(dz, 0, 1))[:, None]
+        0.6 + 0.4 * torch.clamp(dz, 0, 1))[..., None]
     rgb = torch.where(hit[..., None], c_best * shade, sky)
     return (torch.clamp(rgb, 0.0, 1.0) * 255.0).reshape(-1, height, width, 3)

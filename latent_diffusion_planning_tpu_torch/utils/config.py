@@ -453,6 +453,10 @@ TARGETS: dict[str, tuple[str, bool]] = {
         (_PORT + "envs.pick_place_physics:CanPhysicsEnv", False),
     _JAX + "envs.pick_place_physics.SquarePhysicsEnv":
         (_PORT + "envs.pick_place_physics:SquarePhysicsEnv", False),
+    _JAX + "envs.aloha_cube.AlohaTransferCubeEnv":
+        (_PORT + "envs.aloha_cube:AlohaTransferCubeEnv", False),
+    _JAX + "envs.aloha_insertion.AlohaInsertionEnv":
+        (_PORT + "envs.aloha_insertion:AlohaInsertionEnv", False),
     _JAX + "data.datasets.OfflineData":
         (_PORT + "data.datasets:OfflineData", False),
     _JAX + "data.datasets.MixedOfflineData":

@@ -41,7 +41,12 @@ JSON_TREE = sorted(
      "agent/ldp_agent", "agent/ldp_hier_agent", "agent/dp_agent",
      "agent/dp_repr_agent", "model/stable_vae"]
     + [f"data/{task}/{name}" for task in ("lift", "can", "square")
-       for name in ("img", "latent_img", "mixed_img", "mixed_latent_img")])
+       for name in ("img", "latent_img", "mixed_img", "mixed_latent_img")]
+    + [f"data/aloha_cube/{name}" for name in (
+        "wrist", "latent_wrist", "latent_wrist256", "mixed_wrist",
+        "mixed_latent_wrist")]
+    + [f"data/aloha_insertion/{name}" for name in (
+        "latent_wrist", "latent_wrist256")])
 
 
 @pytest.mark.parametrize("name", JSON_TREE)
@@ -52,8 +57,8 @@ def test_json_file_is_its_yaml(name):
 
 def test_json_tree_holds_the_lift_files_only():
     """The tree holds the files the recipes compose and nothing else: the
-    Lift recipes' and the Can and Square data groups (the name predates
-    them)."""
+    Lift recipes' and the Can, Square and ALOHA data groups (the name
+    predates them)."""
     got = sorted(p.relative_to(JSON_ROOT).with_suffix("").as_posix()
                  for p in JSON_ROOT.rglob("*") if p.is_file())
     assert got == JSON_TREE
@@ -339,3 +344,120 @@ def test_instantiate_builds_a_port_agent():
     for (k, v), w in zip(agent.get_params()["planner_params"].items(),
                          same.get_params()["planner_params"].values()):
         assert torch.equal(v, w), k
+
+
+# ---------------------------------------------------------------------------
+# ALOHA: the registries, the phys4 recipe and its agent
+# ---------------------------------------------------------------------------
+
+ALOHA_NAMES = {
+    "sim_transfer_cube": "AlohaTransferCubeEnv",
+    "sim_transfer_cube_scripted": "AlohaTransferCubeEnv",
+    "sim_transfer_cube_human": "AlohaTransferCubeEnv",
+    "sim_insertion": "AlohaInsertionEnv",
+    "sim_insertion_scripted": "AlohaInsertionEnv",
+    "sim_insertion_human": "AlohaInsertionEnv",
+    "AlohaTransferCubeEnv": "AlohaTransferCubeEnv",
+    "AlohaInsertionEnv": "AlohaInsertionEnv",
+}
+
+
+@pytest.mark.parametrize("name", list(ALOHA_NAMES))
+def test_aloha_names_resolve_through_make_env_from_meta(name):
+    """The eight names the JAX package registers build the port's env (the
+    robosuite-style names honour ``camera_heights`` and ``horizon``), as
+    the JAX ``make_env_from_meta`` builds its own."""
+    from latent_diffusion_planning_tpu.envs.from_meta import (
+        make_env_from_meta as jax_make)
+    from latent_diffusion_planning_tpu_torch.envs.from_meta import (
+        make_env_from_meta)
+    native = name.startswith("Aloha")
+    kwargs = ({"image_size": 32, "episode_len": 150} if native else
+              {"camera_heights": 32, "camera_widths": 32, "horizon": 150,
+               "camera_names": ["wrist64"]})
+    meta = {"env_name": name, "env_kwargs": kwargs}
+    env = make_env_from_meta(meta, render_images=False)
+    want = jax_make(meta, render_images=False)
+    assert type(env).__name__ == type(want).__name__ == ALOHA_NAMES[name]
+    assert (env.image_size, env.episode_len) == (32, 150)
+    assert (want.image_size, want.episode_len) == (32, 150)
+    assert env.obs_keys == want.obs_keys and env.action_dim == 14
+
+
+def test_aloha_targets_instantiate_the_port_envs():
+    from latent_diffusion_planning_tpu_torch.envs.aloha_cube import (
+        AlohaTransferCubeEnv)
+    from latent_diffusion_planning_tpu_torch.envs.aloha_insertion import (
+        AlohaInsertionEnv)
+    for task, cls in (("aloha_cube", AlohaTransferCubeEnv),
+                      ("aloha_insertion", AlohaInsertionEnv)):
+        cfg = pcfg.load_config("train_bc", [f"data={task}/latent_wrist256"])
+        env = pcfg.instantiate(cfg.data.env_params.env, mesh_mode="kdop")
+        assert type(env) is cls and env.episode_len == 400
+        assert env.n_convex == 18
+
+
+def test_port_aloha_recipe_makes_the_jax_stages(tmp_path):
+    """``tools/run_aloha_phys4_torch.sh`` runs the JAX recipe's stages
+    (``tools/run_aloha_phys4.sh`` without its TPU streamed-sampler smoke):
+    each loads, through the port, the config the JAX stage loads through
+    JAX, up to the file suffix. A ``git`` on PATH that does nothing keeps
+    the JAX script's commit of its smoke log inside the scratch copy."""
+    (tmp_path / "git").mkdir()
+    git = tmp_path / "git" / "git"
+    git.write_text("#!/bin/bash\nexit 0\n")
+    git.chmod(0o755)
+    env = lambda sub: {"STEPS": "20000", "PATH": f"{tmp_path / sub / 'bin'}:"
+                       f"{tmp_path / 'git'}:{os.environ['PATH']}"}
+    got_lines = _command_lines("run_aloha_phys4_torch.sh", tmp_path / "port",
+                               env("port"))
+    want_lines = [line for line in _command_lines(
+        "run_aloha_phys4.sh", tmp_path / "jax", env("jax"))
+        if _driver(line) != "smoke_streamed_sampler"]
+    assert [_driver(line) for line in got_lines] == [
+        _driver(line) for line in want_lines] == [
+        "collect_demos"] * 4 + ["train_vae", "process_latents", "train_bc"]
+    for got_line, want_line in zip(got_lines, want_lines):
+        name, overrides = pcfg.parse_cli(got_line[1:])
+        got = pcfg.load_config(name or _driver(got_line), overrides)
+        want = _both(want_line)[0]
+        assert _as_jax_files(got.to_dict()) == want, got_line
+    assert not (tmp_path / "port" / "assets").exists()
+
+
+def _phys4_agent_config(tmp):
+    """The phys4 recipe's train_bc stage, read off the port's script and
+    loaded through the port: (agent config, shape meta)."""
+    line = next(ln for ln in _command_lines("run_aloha_phys4_torch.sh", tmp)
+                if _driver(ln) == "train_bc")
+    name, overrides = pcfg.parse_cli(line[1:])
+    cfg = pcfg.load_config(name or "train_bc", overrides)
+    agent_cfg = dict(cfg.agent)
+    agent_cfg.pop("vae_pretrain_path")
+    agent_cfg["obs_normalization"] = cfg.data.meta.obs_normalization
+    return agent_cfg, cfg.data.meta.shape_meta
+
+
+def test_ldp_agent_builds_the_phys4_agent(tmp_path):
+    """At the recipe's widths: the planner predicts x0 over 270-wide
+    latents-plus-qpos with down_dims [128,256,512], the IDM conditions on
+    two observations (S = 540) for 14 actions; both pass the kernels'
+    check, and kernel A's launch fits at 32 rows a block."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as kmlp)
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    agent_cfg, meta = _phys4_agent_config(tmp_path)
+    agent = LDPAgent.create(agent_cfg, meta, device="cpu")
+    assert agent.planner_sched.prediction_type == "sample"
+    assert agent.idm_sched.prediction_type == "epsilon"
+    assert agent.config.obs_dim == 270 and agent.config.action_dim == 14
+    assert agent.idm.s_dim == 540 and agent.idm.out_dim == 14
+    agent._check_kernels()
+    info = kmlp.kernel_info(agent.idm, 256, 14, 540, 25)
+    assert info["rows_per_block"] == 32 and info["smem_bytes"] <= (
+        kmlp.SMEM_LIMIT)
+    ts, coefs = agent._table(agent.planner_sched,
+                             agent.config.planner_inference_steps)
+    assert coefs.shape == (25, 6)
+    assert torch.equal(coefs[:, 5], torch.zeros(25))

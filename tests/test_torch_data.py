@@ -31,6 +31,7 @@ from latent_diffusion_planning_tpu_torch.data.writer import weld_collection
 from latent_diffusion_planning_tpu_torch.envs import lift
 from latent_diffusion_planning_tpu_torch.models.vae import KLVAE
 from latent_diffusion_planning_tpu_torch.rollout import engine
+from torch_thread import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -50,12 +50,15 @@ def test_coef_tables_match_jax(train, inf):
                                rtol=1e-5)
     np.testing.assert_array_equal(dlib.ddim_timesteps(train, inf).numpy(),
                                   np.asarray(jdlib.ddim_timesteps(train, inf)))
+    # the port's (T, 6) ε tables are JAX's (T, 5) ones and a column of
+    # ones (cx, the x_t factor of the x0 rule)
     for mine, ref in ((dlib.ddim_coef_table(ts, inf),
                        jdlib.ddim_coef_table(js, inf)),
                       (dlib.ddpm_coef_table(ts), jdlib.ddpm_coef_table(js))):
         np.testing.assert_array_equal(mine[0].numpy(), np.asarray(ref[0]))
-        np.testing.assert_allclose(mine[1].numpy(), np.asarray(ref[1]),
+        np.testing.assert_allclose(mine[1][:, :5].numpy(), np.asarray(ref[1]),
                                    atol=1e-6, rtol=1e-5)
+        np.testing.assert_array_equal(mine[1][:, 5].numpy(), 1.0)
 
 
 def _jax_draws(key, shape, n_steps):
@@ -468,7 +471,7 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip):
                          1, "same")
         assert cur.pos == lay["stream"]["main"]["n_tiles"]
         c = coefs[step].tolist()
-        x0 = np.clip(c[0] * (xcur - c[1] * h), -clip, clip)
+        x0 = np.clip(c[0] * (c[5] * xcur - c[1] * h), -clip, clip)
         xcur = c[2] * x0 + c[3] * xcur
     return xcur.reshape(B, T, D)
 

@@ -37,6 +37,7 @@ from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
     ConditionalUnet1D)
 from latent_diffusion_planning_tpu_torch.train.checkpoint import (
     Checkpointer, apply_params_snapshot)
+from torch_thread import one_torch_thread  # noqa: F401
 
 UNET = "latent_diffusion_planning_tpu.models.nets.unet1d.ConditionalUnet1D"
 RESNET = "latent_diffusion_planning_tpu.models.nets.resnet.ResNetEncoder"
@@ -49,17 +50,6 @@ AGENT_ENCODER = dict(stage_sizes=[1, 1], n_filters=8)
 def _precise_matmul():
     with jax.default_matmul_precision("highest"):
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's convolutions: beside the
-    suite's other workers, a pool of spinning threads on every core slows
-    their processes several times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -465,7 +455,8 @@ def test_shared_encoder_condition_matches_jax(pair):
     (dict(inference_steps=12), "DDIM only"),
     (dict(pred_horizon=7), "not divisible"),
     (dict(fused_dtype="float32"), "bf16"),
-    (dict(prediction_type="sample"), "ε prediction"),
+    (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
+                   "diffusion_step_embed_dim": 32}), "odd kernel_size"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the

@@ -37,6 +37,7 @@ from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
 from latent_diffusion_planning_tpu_torch.ops import augment
 from latent_diffusion_planning_tpu_torch.train.checkpoint import (
     Checkpointer, apply_params_snapshot)
+from torch_thread import one_torch_thread  # noqa: F401
 
 SMALL_VAE = dict(block_out_channels=[8, 16, 16, 16], norm_groups=4,
                  latent_channels=4, patch_size=4)
@@ -46,17 +47,6 @@ SMALL_VAE = dict(block_out_channels=[8, 16, 16, 16], norm_groups=4,
 def _precise_matmul():
     with jax.default_matmul_precision("highest"):
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's convolutions: beside the
-    suite's other workers, a pool of spinning threads on every core slows
-    their processes several times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -368,7 +358,8 @@ def test_sample_action_matches_jax(pair, use_ema):
     (dict(inference_steps=12), "DDIM only"),
     (dict(pred_horizon=7), "not divisible"),
     (dict(fused_dtype="float32"), "bf16"),
-    (dict(prediction_type="sample"), "ε prediction"),
+    (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
+                   "diffusion_step_embed_dim": 32}), "odd kernel_size"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the

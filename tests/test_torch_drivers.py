@@ -20,6 +20,7 @@ import torch
 from latent_diffusion_planning_tpu_torch import configs
 from latent_diffusion_planning_tpu_torch.data import ingest, writer
 from latent_diffusion_planning_tpu_torch.utils.config import ConfigError
+from torch_thread import one_torch_thread  # noqa: F401
 
 OBS_KEYS = ("robot0_eef_pos", "agentview_image")
 

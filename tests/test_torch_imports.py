@@ -90,3 +90,11 @@ def test_config_tree_has_no_yaml_reader_behind_it():
     conf = REPO / "latent_diffusion_planning_tpu_torch" / "conf"
     files = [p for p in conf.rglob("*") if p.is_file()]
     assert files and all(p.suffix == ".json" for p in files)
+
+
+def test_aloha_modules_are_covered():
+    port = REPO / "latent_diffusion_planning_tpu_torch"
+    for module in ("envs/aloha_constants.py", "envs/aloha_kdops.py",
+                   "envs/aloha_base.py", "envs/aloha_cube.py",
+                   "envs/aloha_insertion.py"):
+        assert port / module in FILES, module

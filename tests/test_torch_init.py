@@ -39,6 +39,7 @@ from latent_diffusion_planning_tpu_torch.models.nets.mlp import (
 from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
     ConditionalUnet1D as TorchUnet1D)
 from latent_diffusion_planning_tpu_torch.models.vae import KLVAE as TorchKLVAE
+from torch_thread import one_torch_thread  # noqa: F401
 
 SEEDS = (0, 1, 2)
 STD_RTOL = 0.10

@@ -27,6 +27,7 @@ from latent_diffusion_planning_tpu_torch import bridge, configs
 from latent_diffusion_planning_tpu_torch.envs import lift
 from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
 from latent_diffusion_planning_tpu_torch.rollout import engine
+from torch_thread import one_torch_thread  # noqa: F401
 
 ACTION_ATOL = 1e-3
 CKPT = Path(__file__).resolve().parent.parent / "assets" / "bench"
@@ -233,10 +234,37 @@ def test_kernel_refusals(change, reason):
 
 
 def test_non_epsilon_prediction_refused():
+    """A prediction type outside the x0 rule's three (ε, sample, v) is
+    refused with the reason when the agent builds its coefficient table;
+    sample and v are not refused (the next test)."""
     cfg = _small_config()
-    cfg["idm_prediction_type"] = "sample"
-    with pytest.raises(ValueError, match="ε prediction"):
-        LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+    cfg["planner_prediction_type"] = "x_start"
+    agent = LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+    with pytest.raises(ValueError, match="unknown prediction_type 'x_start'"):
+        agent._table(agent.planner_sched, agent.config.planner_inference_steps)
+
+
+def test_every_prediction_type_builds_with_its_x0_rule():
+    """The (T, 6) tables take every prediction type, so sample and v agents
+    build and their tables carry x0's rule (sample: c1 = 1, c2 = -1, cx = 0;
+    v: cx = sqrt(abar)). (This small agent's 32-wide IDM is one kernel A
+    refuses; ``tests/test_torch_config.py`` checks the ALOHA recipe's agent,
+    whose planner predicts x0, against the kernels.)"""
+    for kind in ("sample", "v_prediction"):
+        cfg = _small_config()
+        cfg["planner_prediction_type"] = kind
+        cfg["idm_prediction_type"] = kind
+        agent = LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+        for sched, steps in ((agent.planner_sched,
+                              agent.config.planner_inference_steps),
+                             (agent.idm_sched,
+                              agent.config.idm_inference_steps)):
+            ts, coefs = agent._table(sched, steps)
+            assert sched.prediction_type == kind
+            abar = sched.alphas_cumprod.cpu()[ts.long().cpu()]
+            want = (torch.zeros_like(abar) if kind == "sample"
+                    else torch.sqrt(abar))
+            torch.testing.assert_close(coefs[:, 5].cpu(), want)
 
 
 def _torch_phys_state(states):

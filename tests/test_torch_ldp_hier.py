@@ -46,6 +46,7 @@ from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
     unet_from_config)
 from latent_diffusion_planning_tpu_torch.train.checkpoint import (
     Checkpointer, apply_params_snapshot)
+from torch_thread import one_torch_thread  # noqa: F401
 
 UNET = "latent_diffusion_planning_tpu.models.nets.unet1d.ConditionalUnet1D"
 SMALL_VAE = {"block_out_channels": [8, 16, 16, 16], "norm_groups": 4,
@@ -54,12 +55,9 @@ D, A, P, K = 25, 7, 2, 4       # obs_dim, action_dim, plan length, chunk
 
 
 @pytest.fixture(autouse=True)
-def _precise_and_one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _precise_matmul():
     with jax.default_matmul_precision("highest"):
         yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -600,9 +598,9 @@ def test_kernel_check_covers_the_planner_at_the_windows_length():
 def test_the_recipe_passes_the_kernel_check_and_refuses_what_it_must():
     LDPHierAgent.create(_config(), configs.SHAPE_META,
                         device="cpu")._check_kernels()
-    with pytest.raises(ValueError, match="ε prediction"):
-        LDPHierAgent.create(_config(idm_prediction_type="sample"),
-                            configs.SHAPE_META, device="cpu")
+    # x0 prediction runs through kernel B's coefficient table (cx = 0)
+    LDPHierAgent.create(_config(idm_prediction_type="sample"),
+                        configs.SHAPE_META, device="cpu")._check_kernels()
     with pytest.raises(ValueError, match="multiple of idm_horizon"):
         LDPHierAgent.create(_config(idm_horizon=3), configs.SHAPE_META,
                             device="cpu")

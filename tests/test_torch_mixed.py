@@ -41,15 +41,13 @@ from latent_diffusion_planning_tpu_torch.models.nets.mlp import MLPDiffusion
 from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
     ConditionalUnet1D)
 from latent_diffusion_planning_tpu_torch.rollout import engine
+from torch_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
-def _precise_and_one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _precise_matmul():
     with jax.default_matmul_precision("highest"):
         yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

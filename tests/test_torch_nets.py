@@ -20,6 +20,7 @@ from latent_diffusion_planning_tpu.models.vae import KLVAE
 from latent_diffusion_planning_tpu.train import transfer
 from latent_diffusion_planning_tpu_torch import bridge
 from latent_diffusion_planning_tpu_torch.models.vae import KLVAE as TorchKLVAE
+from torch_thread import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 FIXTURE = Path(__file__).parent / "fixtures" / "transfer_golden.npz"

@@ -29,6 +29,7 @@ from latent_diffusion_planning_tpu_torch.envs import physics as ph
 from latent_diffusion_planning_tpu_torch.envs import robosuite_arm as ra
 from latent_diffusion_planning_tpu_torch.envs.physics import kinematics as K
 from latent_diffusion_planning_tpu_torch.ops import rotations as rot
+from torch_thread import one_torch_thread  # noqa: F401
 
 FIXTURES = Path(__file__).parent / "fixtures"
 T = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))

@@ -39,6 +39,7 @@ from latent_diffusion_planning_tpu_torch.envs import pick_place as pp
 from latent_diffusion_planning_tpu_torch.envs import pick_place_physics as phys
 from latent_diffusion_planning_tpu_torch.envs.physics import kinematics as K
 from latent_diffusion_planning_tpu_torch.rollout import engine
+from torch_thread import one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).parent / "fixtures" / "pick_place_golden.npz"
 PHYS = ("CanPhysicsEnv", "SquarePhysicsEnv")
@@ -296,15 +297,18 @@ def test_make_env_from_meta_kwargs_and_refusals():
         {"env_name": "SquarePhysicsEnv", "env_kwargs": {"episode_len": 300}},
         episode_len=400)
     assert env.episode_len == 400
-    for name in ("sim_transfer_cube", "sim_insertion_scripted",
-                 "AlohaTransferCubeEnv"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            from_meta.make_env_from_meta({"env_name": name})
+    # the ALOHA names, refused until the envs were ported, now build them
+    # (tests/test_torch_config.py holds all eight against the JAX registry)
+    for name, cls in (("sim_transfer_cube", "AlohaTransferCubeEnv"),
+                      ("sim_insertion_scripted", "AlohaInsertionEnv"),
+                      ("AlohaTransferCubeEnv", "AlohaTransferCubeEnv")):
+        env = from_meta.make_env_from_meta({"env_name": name})
+        assert type(env).__name__ == cls
     with pytest.raises(KeyError, match="no env registered"):
         from_meta.make_env_from_meta({"env_name": "PickPlaceMilk"})
     assert set(from_meta.NATIVE_REGISTRY) == {
         "LiftEnv", "LiftPhysicsEnv", "CanEnv", "SquareEnv", "CanPhysicsEnv",
-        "SquarePhysicsEnv"}
+        "SquarePhysicsEnv", "AlohaTransferCubeEnv", "AlohaInsertionEnv"}
 
 
 def test_a_can_dataset_evaluates_in_its_env():

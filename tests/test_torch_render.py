@@ -21,6 +21,7 @@ from latent_diffusion_planning_tpu.ops import render as JR
 from latent_diffusion_planning_tpu_torch.envs import lift
 from latent_diffusion_planning_tpu_torch.ops import render as R
 from latent_diffusion_planning_tpu_torch.ops.kernels import raycast
+from torch_thread import one_torch_thread  # noqa: F401
 
 STATE_ATOL = 1e-5
 
@@ -293,12 +294,12 @@ def _kernel_records(scene, cam, n_convex):
         width = width or t[0].numel()
         # the kernel reads base + env * stride + i for i < width
         read.append(torch.as_strided(t, (N, width), (stride, 1)).numpy())
-    assert [a for a in args[1:16:2]] == [s for _, s in fields]
+    assert [a for a in args[1:20:2]] == [s for _, s in fields]
     pos, rot9, size, color, kind, planes, plane_z, plane_color = read
     pos, size, color = (a.reshape(N, P, 3) for a in (pos, size, color))
     Rm = rot9.reshape(N, P, 3, 3)
-    o = np.asarray(cam.pos, np.float32)
-    rel = o - pos
+    o = _origins(cam, N, fields)
+    rel = o[:, None] - pos
     ob = np.einsum("npij,npi->npj", Rm, rel)                  # Rᵀ (o - c)
     rec = np.zeros((N, P, raycast.REC_FLOATS), np.float32)
     rec[..., 0:9] = rot9.reshape(N, P, 9)
@@ -317,17 +318,39 @@ def _kernel_records(scene, cam, n_convex):
         hs = h.copy()
         hs[..., 3] = h[..., 3] - np.einsum("npkj,npj->npk", h[..., :3],
                                            ob[:, :n_convex])
-    env_rec = np.concatenate([plane_z - o[2], plane_color], -1)
+    env_rec = np.concatenate([plane_z - o[:, 2:], plane_color], -1)
     return rec, hs, env_rec
+
+
+def _origins(cam, N, fields):
+    """(N, 3) camera origins as the kernel reads them: the launch's, or
+    each env's from the ``cam_pos`` field (the marshalled pointer and
+    stride)."""
+    if isinstance(cam, R.CameraBatch):
+        t, stride = fields[8]
+        return torch.as_strided(t, (N, 3), (stride, 1)).numpy()
+    assert fields[8:] == [(None, 0), (None, 0)]   # no per-env camera
+    return np.broadcast_to(np.asarray(cam.pos, np.float32), (N, 3))
+
+
+def _world_rays(cam, H, W, N):
+    """(N, HW, 3) world directions: the shared table, or the camera-frame
+    table rotated by each env's basis, as the kernel does it."""
+    if isinstance(cam, R.CameraBatch):
+        frame = R.camera_frame_rays(cam.fov_deg, H, W).reshape(-1, 3)
+        d = torch.einsum("nij,xj->nxi", cam.basis, frame).numpy()
+        return d.astype(np.float32), cam.pos.numpy()
+    d = R.camera_rays(cam, H, W).reshape(-1, 3).numpy()
+    return (np.broadcast_to(d, (N,) + d.shape),
+            np.broadcast_to(np.asarray(cam.pos, np.float32), (N, 3)))
 
 
 def _kernel_pixels(rec, hs, env_rec, cam, H, W, n_convex):
     BIG = np.float32(1e9)
-    d = R.camera_rays(cam, H, W).reshape(-1, 3).numpy()       # (HW, 3)
-    o = np.asarray(cam.pos, np.float32)
     N, P = rec.shape[:2]
-    inv_dz = 1.0 / np.where(np.abs(d[:, 2]) < 1e-9, -1e-9, d[:, 2])
-    t = env_rec[:, :1] * inv_dz[None]
+    d, o = _world_rays(cam, H, W, N)                          # (N, HW, 3)
+    inv_dz = 1.0 / np.where(np.abs(d[..., 2]) < 1e-9, -1e-9, d[..., 2])
+    t = env_rec[:, :1] * inv_dz
     best_t = np.where(t > 1e-4, t, BIG).astype(np.float32)    # (N, HW)
     best_p = np.full(best_t.shape, -1)
     bn = np.zeros(best_t.shape + (3,), np.float32)
@@ -335,7 +358,7 @@ def _kernel_pixels(rec, hs, env_rec, cam, H, W, n_convex):
     for p in range(P):
         r = rec[:, p]
         Rm = r[:, 0:9].reshape(N, 3, 3)
-        db = np.einsum("nij,xi->nxj", Rm, d)                  # Rᵀ d
+        db = np.einsum("nij,nxi->nxj", Rm, d)                 # Rᵀ d
         if p < n_convex:
             h = hs[:, p]                                      # (N, K, 4)
             ndotd = np.einsum("nxj,nkj->nxk", db, h[..., :3])
@@ -356,7 +379,7 @@ def _kernel_pixels(rec, hs, env_rec, cam, H, W, n_convex):
         elif r[0, 20] < 0.5:
             # the bounding-sphere test only skips work: a ray it rejects
             # must miss the box in the slab test below
-            b_s = (r[:, None, 15:18] * d[None]).sum(-1)
+            b_s = (r[:, None, 15:18] * d).sum(-1)
             c_b = r[:, None, 24]
             reject = ~((b_s * b_s - c_b >= 0) & ~((b_s > 0) & (c_b > 0)))
             safe = np.where(np.abs(db) < 1e-9,
@@ -374,14 +397,14 @@ def _kernel_pixels(rec, hs, env_rec, cam, H, W, n_convex):
             assert reject.mean() > 0.5       # and it does skip most rays
         else:
             oc = r[:, None, 15:18]
-            b = (oc * d[None]).sum(-1)
+            b = (oc * d).sum(-1)
             disc = b * b - r[:, None, 18]
             sq = np.sqrt(np.maximum(disc, 0.0))
             t0, t1 = -b - sq, -b + sq
             t_s = np.where(t0 > 1e-4, t0, t1)
             t_near = np.where((disc > 0) & (t_s > 1e-4), t_s, BIG)
             t_far = BIG
-            normal = (oc + d[None] * t_near[..., None]) * r[:, None, 19:20]
+            normal = (oc + d * t_near[..., None]) * r[:, None, 19:20]
         if p < n_convex or r[0, 20] < 0.5:
             hit = (t_near <= t_far) & (t_far > 1e-4)
             t_p = np.where(hit, np.where(t_near > 1e-4, t_near, t_far), BIG)
@@ -394,17 +417,50 @@ def _kernel_pixels(rec, hs, env_rec, cam, H, W, n_convex):
     rig = R.light_rig("cpu").numpy()
     diffuse = (np.maximum(-(bn @ rig[:, :3].T), 0.0) * rig[:, 3]).sum(-1)
     shade = R.AMBIENT + diffuse
-    px = o[0] + d[None, :, 0] * best_t
-    py = o[1] + d[None, :, 1] * best_t
+    px = o[:, None, 0] + d[..., 0] * best_t
+    py = o[:, None, 1] + d[..., 1] * best_t
     s = np.floor(px * 5.0) + np.floor(py * 5.0)
     tint = 0.85 + 0.15 * (s - 2.0 * np.floor(s * 0.5))
     plane_rgb = env_rec[:, None, 1:4] * tint[..., None]
     prim_rgb = rec[np.arange(N)[:, None], np.maximum(best_p, 0), 21:24]
     col = np.where((best_p < 0)[..., None], plane_rgb, prim_rgb)
-    sky = (0.6 + 0.4 * np.clip(d[:, 2], 0, 1))[None, :, None] * np.asarray(
+    sky = (0.6 + 0.4 * np.clip(d[..., 2], 0, 1))[..., None] * np.asarray(
         [0.7, 0.8, 0.9], np.float32)
     rgb = np.where((best_t < BIG * 0.5)[..., None], col * shade[..., None], sky)
     return (np.clip(rgb, 0, 1) * 255.0).reshape(N, H, W, 3)
+
+
+@pytest.mark.parametrize("which", ["cube_box", "cube_kdop", "insertion"])
+def test_kernel_prologue_transcription_per_env_camera(which):
+    """With a camera per env (ALOHA's ``wrist64``): the kernel's records
+    from each env's own origin, its rays the camera-frame table rotated by
+    each env's basis, reproduce the twin (which sums the rays in the JAX
+    package's order). The two ray tables differ by rounding (up to 2.4e-7),
+    which moves about 0.03% of the pixels (at silhouettes and box edges,
+    where a hit or its face turns on the last bits): 16 envs give the 99.9%
+    bar enough pixels."""
+    from latent_diffusion_planning_tpu_torch.envs import aloha_base as AB
+    from latent_diffusion_planning_tpu_torch.envs import aloha_cube as AC
+    from latent_diffusion_planning_tpu_torch.envs import aloha_insertion as AI
+    H, W = 32, 48
+    g = torch.Generator().manual_seed(2)
+    if which == "insertion":
+        env = AI.AlohaInsertionEnv(render_images=False)
+    else:
+        env = AC.AlohaTransferCubeEnv(render_images=False,
+                                      mesh_mode=which.split("_")[1])
+    state = env.reset_state(16, g)
+    for _ in range(12):
+        state, _, _ = env.transition(state, env.scripted_action(state))
+    scene, cam = env.scene(state), AB.wrist64_camera(state.right)
+    rec, hs, env_rec = _kernel_records(scene, cam, env.n_convex)
+    got = _kernel_pixels(rec, hs, env_rec, cam, H, W, env.n_convex)
+    ref = R.render_batch(scene, cam, H, W).numpy()
+    assert _frac_close(got, ref) >= 0.999
+    args = raycast.launch_args(scene, cam, H, W, env.n_convex)[0]
+    assert args[17] == 3 and args[19] == 9        # origin and basis strides
+    assert raycast.smem_bytes(13, 0, 0, 4, cam_per_env=True) == 4 * (
+        4 * (13 * 28 + 20) + 12)
 
 
 def _chip_smoke_convex_scenes(n):

@@ -31,6 +31,7 @@ from latent_diffusion_planning_tpu_torch import bridge, configs
 from latent_diffusion_planning_tpu_torch.models.vae import (
     VAEModel, kl_divergence, latent_grid_shape)
 from latent_diffusion_planning_tpu_torch.utils import media
+from torch_thread import one_torch_thread  # noqa: F401
 
 CKPT = Path(__file__).resolve().parent.parent / "assets" / "bench"
 SMALL_VAE = dict(block_out_channels=[8, 16, 16], norm_groups=4,
@@ -41,17 +42,6 @@ SMALL_VAE = dict(block_out_channels=[8, 16, 16], norm_groups=4,
 def _precise_matmul():
     with jax.default_matmul_precision("highest"):
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's convolutions: beside the
-    suite's other workers, a pool of spinning threads on every core slows
-    their processes several times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -26,6 +26,8 @@ kernel are wrong by construction; only its time is read. Variants:
   minblocks2, minblocks4  ``__launch_bounds__`` asks for 2 or 4 resident
               blocks an SM (128 or 64 registers a thread at most; the
               committed kernel asks for 3)
+  percam2     2 resident blocks for the camera-per-env instance only (it
+              spills 16 bytes under the 85 registers of 3 blocks)
 
 Scene sets, 1024 envs at 64x64: ``lift3`` the kinematic Lift scenes (3
 axis-aligned boxes), ``lift1`` their first prim alone, ``phys6`` the physics
@@ -33,12 +35,22 @@ Lift scenes (cube, two sphere pads, three rotated arm-link boxes) after a few
 scripted steps. The time is the kernel's launch alone (arguments marshalled
 once), over 50 launches between two CUDA events.
 
-``previous`` is the kernel this one replaced, built from
-``build/raycast_previous.cu`` (save it there with ``git show
+``previous`` is the kernel as it was before it took a camera per env, built
+from ``build/raycast_previous.cu`` (save it there with ``git show
 <commit>:latent_diffusion_planning_tpu_torch/csrc/raycast.cu``; skipped with
-a note when the file is missing). It is timed in turns with ``full``
-(previous, full, full, previous), launch alone and with the packing its
-wrapper did before each launch.
+a note when the file is missing). Its arguments are the committed kernel's
+without the per-env camera's two (pointer, stride) pairs. It is timed in
+turns with ``full`` (previous, full, full, previous), launch alone, and the
+two images are compared. Both wrappers, the parent's ``render_batch_cuda``
+(``build/raycast_previous.py``, from ``git show
+<commit>:latent_diffusion_planning_tpu_torch/ops/kernels/raycast.py``) on
+the previous kernel and the committed one on ``full``, are also timed in
+turns (previous, full, full, previous), each handed its library's function
+the same way; the committed wrapper through ``_build`` is timed beside them.
+
+The camera-per-env instance is timed as ``full`` and ``percam2`` in turns on
+1024 ALOHA scenes seen from ``wrist64`` (transfer-cube, box mode, 13 prims;
+insertion, 10 prims), a few scripted steps apart as in ``chip_smoke.py``.
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. ``--sass PATH`` also disassembles the committed kernel there
@@ -58,6 +70,9 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 N_ENVS, H, W = 1024, 64, 64
 PREVIOUS = REPO / "build" / "raycast_previous.cu"
+PREVIOUS_WRAPPER = REPO / "build" / "raycast_previous.py"
+KERNEL_HEAD = ("template <bool kVec, bool kCamPerEnv>\n"
+               "__global__ void __launch_bounds__(kThreads, kMinBlocks)\n")
 
 PATCHES = {
     "full": [],
@@ -84,12 +99,12 @@ PATCHES = {
     "noprims": [("    for (int p = 0; p < P; ++p) {\n      const float4* r4",
                  "    for (int p = 0; p < 0; ++p) {\n      const float4* r4")],
     "noprologue": [
-        ("  for (int i = threadIdx.x; i < n_env * P; i += kThreads)\n",
-         "  for (int i = threadIdx.x; i < 0; i += kThreads)\n"),
+        ("  for (int i = threadIdx.x; i < n_env * P; i += kThreads) {\n",
+         "  for (int i = threadIdx.x; i < 0; i += kThreads) {\n"),
         ("  for (int e = threadIdx.x; e < n_env; e += kThreads) {\n"
-         "    const int env = env0 + e;\n    envs[",
+         "    const int env = env0 + e;\n    float* rec = envs",
          "  for (int e = threadIdx.x; e < 0; e += kThreads) {\n"
-         "    const int env = env0 + e;\n    envs["),
+         "    const int env = env0 + e;\n    float* rec = envs"),
         ("  if (threadIdx.x < 12) lights[threadIdx.x] = a.light[threadIdx.x];\n"
          "  __syncthreads();\n", "")],
     "constdirs": [("    const float4 v0 = src[0], v1 = src[1], v2 = src[2];\n",
@@ -108,6 +123,8 @@ PATCHES = {
                     "constexpr int kMinBlocks = 2;")],
     "minblocks4": [("constexpr int kMinBlocks = 3;",
                     "constexpr int kMinBlocks = 4;")],
+    "percam2": [(KERNEL_HEAD, KERNEL_HEAD.replace(
+        "kMinBlocks)", "kCamPerEnv ? 2 : kMinBlocks)"))],
 }
 
 
@@ -156,7 +173,7 @@ def sass_of(name: str, out: Path) -> dict | None:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(done.stdout)
     body = next((p for p in done.stdout.split("Function : ")
-                 if "raycast_kernelILb1E" in p[:200]), "")
+                 if "raycast_kernelILb1ELb0E" in p[:200]), "")
     ins = re.findall(r"^\s+/\*[0-9a-f]{4,5}\*/\s+(.*?);", body, re.M)
     first = lambda op: next((i for i, t in enumerate(ins) if op in t), None)
     last = lambda op: max((i for i, t in enumerate(ins) if op in t),
@@ -219,23 +236,64 @@ def scene_sets(dev):
             "phys6": (penv.scene(ps), penv.camera)}
 
 
-def previous_args(scene, rays, cam, out):
-    """The packing the previous wrapper did before each launch, and its
-    argument list."""
+def aloha_sets(dev, spread: int = 40):
+    """1024 ALOHA scenes and their ``wrist64`` cameras: env i has taken
+    ``i % spread`` + 1 scripted steps (``chip_smoke.physics_states``)."""
     import torch
-    from latent_diffusion_planning_tpu_torch.ops import render as R
-    N, P = scene.pos.shape[:2]
-    packed = torch.cat([scene.pos, scene.rot.reshape(N, P, 9), scene.size,
-                        scene.color, scene.kind.float()[..., None],
-                        scene.pos.new_zeros(N, P, 3)], -1).float().contiguous()
-    plane = torch.cat([scene.plane_z.reshape(N, 1),
-                       scene.plane_color.expand(N, 3)], -1).float().contiguous()
-    light = R.light_rig(scene.pos.device)
-    ox, oy, oz = cam.pos
-    return ([packed.data_ptr(), None, plane.data_ptr(), rays.data_ptr(),
-             light.data_ptr(), ox, oy, oz, R.AMBIENT, out.data_ptr(), N,
-             H * W, P, 0, 0,
-             torch.cuda.current_stream().cuda_stream], (packed, plane, light))
+    from latent_diffusion_planning_tpu_torch.envs import aloha_base as AB
+    from latent_diffusion_planning_tpu_torch.envs.aloha_cube import (
+        AlohaTransferCubeEnv)
+    from latent_diffusion_planning_tpu_torch.envs.aloha_insertion import (
+        AlohaInsertionEnv)
+    sets = {}
+    for name, env in (("aloha_cube_box",
+                       AlohaTransferCubeEnv(render_images=False,
+                                            mesh_mode="box")),
+                      ("aloha_insertion",
+                       AlohaInsertionEnv(render_images=False))):
+        g = torch.Generator(device=dev).manual_seed(5)
+        state = keep = env.reset_state(N_ENVS, g)
+        steps = torch.arange(N_ENVS, device=dev) % spread + 1
+        for i in range(spread):
+            state = env.transition(state, env.scripted_action(state))[0]
+            took = steps == i + 1
+            keep = keep.map(lambda k, s: torch.where(
+                took.reshape((-1,) + (1,) * (s.ndim - 1)), s, k), state)
+        sets[name] = (env.scene(keep), AB.wrist64_camera(keep.right),
+                      env.n_convex)
+    return sets
+
+
+def wrapper_of(path: Path, fn):
+    """The wrapper module at ``path`` (a ``raycast.py``), loaded in the
+    port's ``ops.kernels`` package, with its ``_build.function`` handing it
+    ``fn`` as ``_build.function`` hands the library's (argtypes compared,
+    and set where they differ)."""
+    import importlib.util
+    import types
+    from latent_diffusion_planning_tpu_torch.ops.kernels import _build
+    spec = importlib.util.spec_from_file_location(
+        "latent_diffusion_planning_tpu_torch.ops.kernels._probe_"
+        + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def function(name, argtypes):
+        if fn.argtypes != argtypes:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return fn
+    mod._build = types.SimpleNamespace(**{
+        k: getattr(_build, k) for k in dir(_build) if not k.startswith("__")})
+    mod._build.function = function
+    return mod
+
+
+def previous_args(args: list) -> list:
+    """The previous kernel's arguments: the committed marshalling without
+    the per-env camera's (pointer, stride) pairs (``cam_pos``,
+    ``cam_basis``: entries 16 to 19)."""
+    return args[:16] + args[20:]
 
 
 def main() -> int:
@@ -246,21 +304,20 @@ def main() -> int:
     dev = torch.device("cuda")
     where = card()
     say = lambda **kw: print(json.dumps({**kw, "card": where}), flush=True)
-    P_, I, F = _build.P, _build.I, _build.F
     jobs = {n: (patched(n), "ldp_raycast", raycast.ARGTYPES) for n in PATCHES}
     jobs["noprims+stagedstore"] = (
         patched("noprims", patched("stagedstore")), "ldp_raycast",
         raycast.ARGTYPES)
     if PREVIOUS.exists():
         jobs["previous"] = (PREVIOUS.read_text(), "ldp_raycast",
-                            [P_] * 5 + [F] * 4 + [P_] + [I] * 5 + [P_])
+                            previous_args(raycast.ARGTYPES))
     else:
         print(f"no {PREVIOUS.relative_to(REPO)}: the previous kernel is not "
               "timed", flush=True)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(
             lambda n: build_variant(n, *jobs[n]), jobs)))
-    for name in ("full", "minblocks2", "minblocks4", "previous"):
+    for name in ("full", "minblocks2", "minblocks4", "percam2", "previous"):
         if name in built:
             say(variant=name, ptxas=built[name][1])
 
@@ -279,7 +336,7 @@ def main() -> int:
         rays = R.camera_rays(cam, H, W, dev)
         args, out, keep = raycast.launch_args(scene, cam, H, W, 0, rays)
         for name in built:
-            if name == "previous":
+            if name in ("previous", "percam2"):
                 continue
             fn = built[name][0]
             say(scenes=set_name, variant=name,
@@ -294,27 +351,58 @@ def main() -> int:
                                                        rays)))
         if "previous" not in built:
             continue
+        if PREVIOUS_WRAPPER.exists():
+            wrappers = {
+                "previous": wrapper_of(PREVIOUS_WRAPPER,
+                                       built["previous"][0]),
+                "full": wrapper_of(REPO / "latent_diffusion_planning_tpu_torch"
+                                   / "ops" / "kernels" / "raycast.py",
+                                   built["full"][0])}
+            turns = []
+            for who in ("previous", "full", "full", "previous"):
+                w = wrappers[who].render_batch_cuda
+                turns.append((who, timed(lambda: w(scene, cam, H, W, 0,
+                                                   rays))))
+            turns.append(("full through _build", timed(
+                lambda: raycast.render_batch_cuda(scene, cam, H, W, 0,
+                                                  rays))))
+            say(scenes=set_name, wrapper_in_turns=turns)
         old = built["previous"][0]
-        flat = rays.reshape(-1, 3).contiguous()
-        old_args, keep_old = previous_args(scene, flat, cam, out)
         new = built["full"][0]
         turns = []
         for who in ("previous", "full", "full", "previous"):
-            if who == "full":
-                turns.append((who, timed(lambda: new(*args, stream))))
-            else:
-                turns.append((who, timed(lambda: old(*old_args))))
+            fn, a = (new, args) if who == "full" else (old, previous_args(args))
+            turns.append((who, timed(lambda: fn(*a, stream))))
         say(scenes=set_name, in_turns=turns)
-        say(scenes=set_name, variant="previous, with its packing",
-            ms=timed(lambda: old(*previous_args(scene, flat, cam, out)[0])))
         got = torch.empty_like(out)
-        o_args, _k = previous_args(scene, flat, cam, got)
-        old(*o_args)
+        o_args = previous_args(args)
+        o_args[o_args.index(out.data_ptr())] = got.data_ptr()
+        old(*o_args, stream)
         new(*args, stream)
         torch.cuda.synchronize()
         diff = (got - out).abs().amax(-1)
         say(scenes=set_name, new_vs_previous_frac_within_2=float(
             (diff < 2.0).float().mean()), max_abs_diff=float(diff.max()))
+
+    for set_name, (scene, cam, n_convex) in aloha_sets(dev).items():
+        rays = raycast.default_rays(cam, H, W, dev)
+        args, out, keep = raycast.launch_args(scene, cam, H, W, n_convex,
+                                              rays)
+        turns = []
+        for who in ("full", "percam2", "percam2", "full"):
+            fn = built[who][0]
+            turns.append((who, timed(lambda: fn(*args, stream))))
+        say(scenes=set_name, camera_per_env=True, in_turns=turns)
+        images = {}
+        for who in ("full", "percam2"):
+            img = torch.empty_like(out)
+            a = list(args)
+            a[a.index(out.data_ptr())] = img.data_ptr()
+            built[who][0](*a, stream)
+            images[who] = img
+        torch.cuda.synchronize()
+        say(scenes=set_name, percam2_equal_to_full=bool(
+            torch.equal(images["full"], images["percam2"])))
     return 0
 
 

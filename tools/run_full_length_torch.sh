@@ -12,6 +12,10 @@
 #         (its corpus comes from that checkpoint)
 #   can:  tools/run_can_pipeline_torch.sh with STEPS=30000 (Workspace evals
 #         of 256 episodes x 400 steps at 10k/20k/30k)
+#   aloha: tools/run_aloha_phys4_torch.sh with STEPS=50000, the length the
+#         JAX phys4 run reached (assets/runs/aloha_phys4: Workspace evals of
+#         64 episodes at 20k/40k, then eval_bc over the 30k/40k/50k
+#         checkpoints, 256 episodes at eval_action_horizon=1, plan_blend=0.7)
 #
 # Knobs: TASKS="lift can"  OUT=chiprun_out/full_length
 # Datasets go to build/<task>, runs to experiments/ (both git-ignored).
@@ -55,6 +59,11 @@ EOF
 
 can() {
   DATA=build/can STEPS=30000 xtrace tools/run_can_pipeline_torch.sh
+  echo "+ $(date +%s.%N) done"
+}
+
+aloha() {
+  DATA=build/aloha STEPS=50000 xtrace tools/run_aloha_phys4_torch.sh
   echo "+ $(date +%s.%N) done"
 }
 
