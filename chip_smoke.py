@@ -38,6 +38,24 @@
    action beyond 0.1, for the reason given under B). Then times one decision
    stage by stage, the physics and the render separately, the env
    transitions eagerly and from their CUDA graph.
+4b. The rest of the main path's runtime (``phase_video``, ``phase_dist``,
+   ``phase_roundtrip``, ``phase_prefetch``): the same 1024 × 400 eval with
+   ``video_envs=2`` (C once a decision and once a step for the two filmed
+   envs, 100 + 400; B and A 100; every frame equal to its state rendered
+   alone; the APNG files decode back bit for bit; the wall beside the eval
+   without videos; C timed on the two filmed scenes); a process group of
+   one rank over NCCL in this process (one dp update at the bench widths
+   equal to the plain one bit for bit, the env-sharded eval equal to the
+   plain eval), then two ranks on the card over gloo started by ``torchrun
+   --nproc_per_node 2`` on this file's ``--dist-worker`` (each rank's half
+   of a 256 × 80 eval launching C, B and A 20 times, the gathered results
+   equal to each half run alone); the bench agent's seeded weights through
+   the reference's naming and back with the tools, then both agents over
+   1024 × 400 on identical seeds (equal actions at every decision, success
+   delta exactly 0, launches counted); ``HostPrefetcher`` built here,
+   batches of 128 windows of raw frames streamed to the card (equal to the
+   device gather at their indices), µs a batch beside
+   ``DeviceDataset.sample``.
 5. Runs the Lift recipe's training on the card (``_training_phases``):
    scripted demos on ``LiftPhysicsEnv`` (256 envs × 80 steps seed 0 for
    train, 32 seed 77 for eval, every frame through kernel C; successful
@@ -50,7 +68,9 @@
    ``bench_train_config(vae_pretrain_path=...)`` for ``TRAIN_STEPS`` steps
    at batch 128; both losses must be finite and fall. ``Workspace.run`` ends
    with an eval (offline action MSE through A, plan statistics through B, a
-   closed loop of 256 envs × 80 steps), launch counts checked. The trained
+   closed loop of 256 envs × 80 steps that films two envs), launch counts
+   checked (every ``Workspace`` eval's closed loop launches C 20 + 80
+   times: once a decision for the policy, once a step for the videos). The trained
    agent's kernels are held against their plain versions on its trained
    weights (the bars of A and B above; the packs were built from the seeded
    weights before training, so a missed repack fails here); ``sample_viz``
@@ -134,7 +154,9 @@ Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device, when the port's package is not beside this file,
 or when any phase fails. ``--out PATH`` also writes the full record (every
-phase's numbers) as JSON.
+phase's numbers) as JSON; ``--only WORDS`` runs the build and the phases
+whose names hold one of the comma-separated words, and prints no kernels
+line (a development run).
 """
 
 from __future__ import annotations
@@ -249,13 +271,17 @@ def bound(flops: float, nbytes: float, bf16_flops: float = 0.0,
 
 
 class Smoke:
-    def __init__(self, card: str):
+    def __init__(self, card: str, only: list[str] | None = None):
         self.card = card
+        self.only = only
         self.record: dict = {"card": card, "phases": {}}
         self.kernels: dict = {}
         self.failures: list[str] = []
 
     def phase(self, name, fn):
+        if self.only and name != "build" and not any(w in name
+                                                     for w in self.only):
+            return
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -1004,6 +1030,13 @@ class TrainRun:
         self.ldp_agent = None
 
 
+def eval_raycasts(n_dec: int, action_horizon: int) -> int:
+    """Kernel C's launches in a ``Workspace`` eval's closed loop: one a
+    decision for the policy's frames, and one every env step for the two
+    envs it films (``video_envs = min(2, n_eval_episodes)``)."""
+    return n_dec + n_dec * action_horizon
+
+
 def _loss_means(curve, n=20) -> tuple[dict, dict]:
     first = {k: float(v[:n].mean()) for k, v in curve.items()}
     last = {k: float(v[-n:].mean()) for k, v in curve.items()}
@@ -1383,10 +1416,10 @@ def phase_ldp_training(smoke: Smoke, run: TrainRun):
     n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
     counts = kernels.launch_counts()
     want = {"diffusion_mlp": 2 + n_dec, "diffusion_unet1d": 2 + n_dec,
-            "raycast": n_dec}
+            "raycast": eval_raycasts(n_dec, cfg["action_horizon"])}
     print(f"   eval: launches {counts} (expected {want}: one offline batch "
-          f"of each split through A and B, then {n_dec} decisions)",
-          flush=True)
+          f"of each split through A and B, then {n_dec} decisions, C also "
+          f"every step for the two filmed envs)", flush=True)
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
     for split in ("train", "eval"):
@@ -1629,7 +1662,7 @@ def phase_mixed(smoke: Smoke, run: TrainRun):
         _falls(curve, ("plan_loss", "idm_loss"), first, last)
         counts = kernels.launch_counts()
         want = {"diffusion_mlp": 2 + n_dec, "diffusion_unet1d": 2 + n_dec,
-                "raycast": n_dec}
+                "raycast": eval_raycasts(n_dec, cfg["action_horizon"])}
         ev = ws.last_eval
         print(f"   {arm} eval: launches {counts} (expected {want}); closed "
               f"loop {EVAL_ENVS} envs x {DEMO_LEN} steps (a reading): "
@@ -1842,7 +1875,7 @@ def phase_dp_vae(smoke: Smoke, run: TrainRun):
     n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
     counts = kernels.launch_counts()
     want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 + n_dec,
-            "raycast": n_dec}
+            "raycast": eval_raycasts(n_dec, cfg["action_horizon"])}
     print(f"   DPVAE eval: launches {counts} (expected {want}: one offline "
           f"batch of each split through B, then {n_dec} decisions through C "
           f"and B)", flush=True)
@@ -1954,7 +1987,7 @@ def phase_ldp_hier(smoke: Smoke, run: TrainRun):
     # C for the frame; no MLP-IDM
     n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
     want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 * 2 + 2 * n_dec,
-            "raycast": n_dec}
+            "raycast": eval_raycasts(n_dec, cfg["action_horizon"])}
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2171,7 +2204,7 @@ def phase_dp(smoke: Smoke, run: TrainRun):
     ev = ws.last_eval
     n_dec = math.ceil(DEMO_LEN / cfg["action_horizon"])
     want = {"diffusion_mlp": 0, "diffusion_unet1d": 2 + n_dec,
-            "raycast": n_dec}
+            "raycast": eval_raycasts(n_dec, cfg["action_horizon"])}
     print(f"   DP eval: launches {counts} (expected {want}: one offline "
           f"batch of each split through B, then {n_dec} decisions through C "
           f"and B)", flush=True)
@@ -3252,6 +3285,443 @@ def _insertion_loop(smoke: Smoke, agent, device: str) -> dict:
                                    env_steps_per_s=n * 400 / wall)}
 
 
+# ---------------------------------------------------------------------------
+# eval videos, training and eval across ranks, the reference-naming round
+# trip, host prefetch
+# ---------------------------------------------------------------------------
+
+class _Filmed:
+    """An env whose ``render`` keeps every state it is handed (the engine's
+    video frames), delegating everything else."""
+
+    def __init__(self, env):
+        self.env = env
+        self.states = []
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def render(self, state):
+        self.states.append(state)
+        return self.env.render(state)
+
+
+def phase_video(smoke: Smoke):
+    """The main path's eval with videos: the bench agent (seeded weights)
+    on 1024 ``LiftPhysicsEnv`` envs × 400 steps with ``video_envs=2``,
+    launch counts read around it (C once a decision for the policy and once
+    a step for the two filmed envs: 100 + 400; B and A 100 each). Every
+    frame equals its env's state rendered alone through C; the two videos
+    written by ``save_video`` decode back bit for bit; the wall time stands
+    beside the same eval without videos, and C is timed on the two filmed
+    scenes against its twin."""
+    import shutil
+    import numpy as np
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.utils import media
+
+    cfg = configs.bench_agent_config()
+    agent = LDPAgent.create(cfg, configs.SHAPE_META, seed=0, device="cuda")
+    env = configs.make_bench_env(EPISODE_LEN)
+    K = 2
+    run = lambda e, n, steps, video: engine.run_batched_eval(
+        e, agent, n, 1, obs_horizon=cfg["obs_horizon"],
+        action_horizon=cfg["action_horizon"], episode_len=steps,
+        policy_obs_keys=configs.BENCH_POLICY_KEYS, video_envs=video,
+        device="cuda")
+    run(env, N_ENVS, 8, K)          # warm-up: the graph, cuDNN plans
+    walls = {}
+    for video in (0, K):
+        filmed = _Filmed(env)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(filmed, N_ENVS, EPISODE_LEN, video)
+        torch.cuda.synchronize()
+        walls[video] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    n_dec = math.ceil(EPISODE_LEN / cfg["action_horizon"])
+    want = {"diffusion_mlp": n_dec, "diffusion_unet1d": n_dec,
+            "raycast": n_dec + n_dec * cfg["action_horizon"]}
+    plain_s, video_s = walls[0], walls[K]
+    print(f"   launches {counts} (expected {want}); wall {video_s:.3f} s "
+          f"with {K} videos against {plain_s:.3f} s without "
+          f"(+{(video_s / plain_s - 1):.2%}) [{smoke.card}]", flush=True)
+    if counts != want:
+        raise AssertionError(f"video eval launches {counts} != {want}")
+    videos = res["videos"]
+    T = n_dec * cfg["action_horizon"]
+    if videos.shape != (K, T, 64, 64, 3) or videos.dtype != np.uint8:
+        raise AssertionError(f"videos {videos.shape} {videos.dtype}")
+    # every frame: the filmed state's envs rendered one at a time
+    if len(filmed.states) != T:
+        raise AssertionError(f"{len(filmed.states)} filmed states, {T} steps")
+    for t, state in enumerate(filmed.states):
+        for k in range(K):
+            alone = env.render(state.map(lambda x: x[k:k + 1]))
+            alone = alone.to(torch.uint8)[0].cpu().numpy()
+            if not np.array_equal(alone, videos[k, t]):
+                raise AssertionError(f"video {k} frame {t} differs from its "
+                                     "state rendered alone")
+    moving = int((videos[:, 0] != videos[:, -1]).any(-1).sum())
+    print(f"   {K} x {T} frames equal their states rendered alone through "
+          f"C; {moving} pixels differ between the first and last frames",
+          flush=True)
+    out_dir = REPO / "build" / "smoke_video"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sizes = []
+    for k in range(K):
+        path = media.save_video(out_dir / f"0_{k}.mp4", videos[k])
+        if not np.array_equal(media.read_video(path), videos[k]):
+            raise AssertionError(f"{path} does not decode to its frames")
+        sizes.append(path.stat().st_size)
+    print(f"   save_video: {[p.name for p in sorted(out_dir.iterdir())]} "
+          f"decode back bit for bit, {sizes} bytes", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    scene = env.scene(filmed.states[-1])
+    c_video = raycast_case(smoke, "video", scene, env.camera, 0)
+    return {"video_eval": dict(launches=counts, wall_s=video_s,
+                               wall_s_without=plain_s,
+                               overhead=video_s / plain_s - 1,
+                               metrics=res["metrics"], file_bytes=sizes),
+            "C video": c_video,
+            **{f"{k} main": dict(smoke.kernels[name]) for k, name in
+               (("B", "diffusion_unet1d"), ("A", "diffusion_mlp"))
+               if name in smoke.kernels}}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _bench_batch(B: int, seed: int):
+    """A latent-form training batch at the bench agent's shapes."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    H = 9
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    return {"obs": {
+        "robot0_eef_pos": t(rng.normal(size=(B, H, 3)) * 0.1 + [0, 0, 1.0]),
+        "robot0_eef_quat": t(rng.uniform(-1, 1, (B, H, 4))),
+        "robot0_gripper_qpos": t(rng.uniform(size=(B, H, 2)) * [0.05, -0.05]),
+        "latent_agentview_image": t(rng.normal(0, 3, (B, H, 16)))},
+        "actions": t(rng.uniform(-1, 1, (B, H, 7)))}
+
+
+DIST_EPISODES, DIST_LEN = 256, 80
+
+
+def phase_dist(smoke: Smoke):
+    """(a) A process group of one rank over NCCL in this process: one LDP
+    update at the bench widths through ``replicate``, ``sharded_draws`` and
+    the train states' all-reduce equals the plain update bit for bit (cuDNN
+    deterministic), and ``run_batched_eval`` over the env mesh (the gather
+    included) equals it without one. (b) Two ranks on the one card over
+    gloo, started by ``torchrun --nproc_per_node 2`` running this file's
+    ``--dist-worker``: each rank's half of a 256 × 80 eval launches C, B
+    and A 20 times each, and the gathered per-episode results equal each
+    half run alone; a rank that fails fails the phase."""
+    import json as _json
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.parallel import mesh as meshlib
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+
+    out = {}
+    cfg = configs.bench_agent_config()
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = meshlib.make_mesh()
+        dp = meshlib.replicate(LDPAgent.create(
+            cfg, configs.SHAPE_META, seed=0, device="cuda"), mesh)
+        plain = LDPAgent.create(cfg, configs.SHAPE_META, seed=0,
+                                device="cuda")
+        batch = _bench_batch(128, 3)
+        gens = [torch.Generator(device="cuda").manual_seed(5)
+                for _ in range(2)]
+        with meshlib.sharded_draws(mesh):
+            m_dp = dp.update(meshlib.shard_batch(batch, mesh), 0, gens[0])
+        m_plain = plain.update(batch, 0, gens[1])
+        torch.cuda.synchronize()
+        diff = _max_diff(dp.state_dict(), plain.state_dict())
+        print(f"   (a) world 1 over NCCL, mesh {mesh.shape}: one dp update "
+              f"vs the plain update, max |diff| over the whole state "
+              f"{diff:.3e} (bar 0: bit for bit); losses "
+              f"{float(m_dp['loss']):.6f} / {float(m_plain['loss']):.6f}",
+              flush=True)
+        if diff != 0.0:
+            raise AssertionError(f"dp update differs from the plain one: "
+                                 f"{diff}")
+        env = configs.make_bench_env(DIST_LEN)
+        run = lambda **kw: engine.run_batched_eval(
+            env, plain, DIST_EPISODES, 1, obs_horizon=cfg["obs_horizon"],
+            action_horizon=cfg["action_horizon"],
+            policy_obs_keys=configs.BENCH_POLICY_KEYS, device="cuda",
+            **kw)["per_episode"]
+        sharded, alone = run(env_mesh=meshlib.make_env_mesh()), run()
+        same = all((sharded[k] == alone[k]).all() for k in alone)
+        print(f"   (a) env-sharded eval at world 1 ({DIST_EPISODES} x "
+              f"{DIST_LEN}) equals run_batched_eval: {same}", flush=True)
+        if not same:
+            raise AssertionError("the env-sharded eval differs at world 1")
+        out["world1"] = dict(max_diff=diff, eval_equal=same)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            prev)
+
+    work = REPO / "build" / "smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", "2", "--master_addr", "localhost",
+           "--master_port", str(_free_port()), str(REPO / "chip_smoke.py"),
+           "--dist-worker", str(work)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, OMP_NUM_THREADS="2"))
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines()[-30:]:
+        print(f"   | {line}", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"torchrun exited {proc.returncode}")
+    ranks = [_json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    n_dec = math.ceil(DIST_LEN / cfg["action_horizon"])
+    want = {"diffusion_mlp": n_dec, "diffusion_unet1d": n_dec,
+            "raycast": n_dec}
+    for r in ranks:
+        print(f"   (b) rank {r['rank']} of 2 (gloo, one card): launches "
+              f"{r['launches']} (expected {want}); its half alone equals "
+              f"its slice of the gathered results: {r['half_equal']}; "
+              f"eval {r['wall_s']:.3f} s [{smoke.card}]", flush=True)
+        if r["launches"] != want or not r["half_equal"]:
+            raise AssertionError(f"rank {r['rank']}: {r}")
+    if ranks[0]["gathered"] != ranks[1]["gathered"]:
+        raise AssertionError("the ranks gathered different results")
+    print(f"   (b) both ranks gathered the same {DIST_EPISODES} episodes "
+          f"(success {ranks[0]['success']:.4f}); torchrun wall {wall:.1f} s",
+          flush=True)
+    out["two_ranks"] = dict(ranks=[{k: v for k, v in r.items()
+                                    if k != "gathered"} for r in ranks],
+                            torchrun_wall_s=wall)
+    return out
+
+
+def dist_worker(work: Path) -> int:
+    """One rank of ``phase_dist`` (b), under ``torchrun``: its half of the
+    env-sharded eval, its launches, and its half run alone."""
+    import json as _json
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.parallel import mesh as meshlib
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    meshlib.maybe_init_distributed(backend="gloo")
+    mesh = meshlib.make_env_mesh()
+    cfg = configs.bench_agent_config()
+    agent = meshlib.replicate(LDPAgent.create(
+        cfg, configs.SHAPE_META, seed=0, device="cuda"), mesh)
+    env = configs.make_bench_env(DIST_LEN)
+    run = lambda n, **kw: engine.run_batched_eval(
+        env, agent, n, 1, obs_horizon=cfg["obs_horizon"],
+        action_horizon=cfg["action_horizon"],
+        policy_obs_keys=configs.BENCH_POLICY_KEYS, device="cuda", **kw)
+    run(DIST_EPISODES, env_mesh=mesh, episode_len=8)        # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(DIST_EPISODES, env_mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n = DIST_EPISODES // mesh.world
+    rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    half = run(n, episode_seeds=torch.arange(DIST_EPISODES)[rows])
+    equal = all((res["per_episode"][k][rows] == v).all()
+                for k, v in half["per_episode"].items())
+    (work / f"rank{mesh.rank}.json").write_text(_json.dumps(dict(
+        rank=mesh.rank, launches=counts, half_equal=bool(equal), wall_s=wall,
+        success=res["metrics"]["success"],
+        gathered={k: v.tolist() for k, v in res["per_episode"].items()})))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_roundtrip(smoke: Smoke):
+    """The bench agent's seeded weights written as a snapshot, exported to
+    the reference's naming and imported back by the tools
+    (``tools/{export,import}_reference_ckpt_torch.py``), every planner and
+    IDM tensor bit for bit; then ``tools/roundtrip_eval_torch.py``'s check:
+    both agents over 1024 × 400 on identical seeds (cuDNN deterministic),
+    equal actions at every decision and a success delta of exactly 0,
+    launches of each eval counted."""
+    import importlib
+    import shutil
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.agents.ldp import LDPAgent
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.train.checkpoint import (
+        Checkpointer)
+
+    sys.path.insert(0, str(REPO / "tools"))
+    exp_tool = importlib.import_module("export_reference_ckpt_torch")
+    imp_tool = importlib.import_module("import_reference_ckpt_torch")
+    rt = importlib.import_module("roundtrip_eval_torch")
+    work = REPO / "build" / "smoke_roundtrip"
+    shutil.rmtree(work, ignore_errors=True)
+    agent = LDPAgent.create(configs.bench_agent_config(), configs.SHAPE_META,
+                            seed=0, device="cuda")
+    src = Checkpointer(work).save_params(0, agent.get_params())
+    t0 = time.perf_counter()
+    exp_tool.main([f"src={src}", f"dst={work / 'ref_format.npz'}"])
+    imp_tool.main([f"src={work / 'ref_format.npz'}",
+                   f"dst={work / 'reimported.ckpt'}"])
+    tools_s = time.perf_counter() - t0
+    reimported = Checkpointer(work).restore_raw(work / "reimported.ckpt")
+    rt.compare(agent, reimported)
+    npz_bytes = (work / "ref_format.npz").stat().st_size
+    shutil.rmtree(work, ignore_errors=True)
+    counts = []
+    real = engine.run_batched_eval
+
+    def counted(*args, **kw):
+        kernels.reset_launch_counts()
+        res = real(*args, **kw)
+        counts.append(kernels.launch_counts())
+        return res
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    engine.run_batched_eval = counted
+    try:
+        t0 = time.perf_counter()
+        res = rt.roundtrip_eval(agent, reimported,
+                                configs.make_bench_env(EPISODE_LEN), N_ENVS,
+                                7, configs.BENCH_POLICY_KEYS, "cuda")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        engine.run_batched_eval = real
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            prev)
+    n_dec = math.ceil(EPISODE_LEN / 4)
+    want = {"diffusion_mlp": n_dec, "diffusion_unet1d": n_dec,
+            "raycast": n_dec}
+    print(f"   export + import: {npz_bytes} bytes of reference-named "
+          f".npz, {tools_s:.1f} s; planner and IDM bit for bit", flush=True)
+    print(f"   {N_ENVS} x {EPISODE_LEN} twice on identical seeds: success "
+          f"{res['original']:.4f} / {res['roundtrip']:.4f}, delta "
+          f"{res['delta_pp']} pp (bar: exactly 0), actions equal at all "
+          f"{res['decisions']} decisions; launches {counts} (expected "
+          f"{want} each); {eval_s:.1f} s [{smoke.card}]", flush=True)
+    if res["delta_pp"] != 0 or any(c != want for c in counts):
+        raise AssertionError(f"round trip: {res}, launches {counts}")
+    return {"roundtrip_eval": dict(res, launches=counts[0], eval_s=eval_s,
+                                   npz_bytes=npz_bytes)}
+
+
+PREFETCH_DEMOS, PREFETCH_LEN, PREFETCH_BATCH = 256, 81, 128
+
+
+def phase_prefetch(smoke: Smoke):
+    """``HostPrefetcher`` built on this machine's host compiler over host
+    arrays at the Lift demos' shapes with raw 64×64 frames (256 demos × 81
+    frames, 255 MB), batches of 128 windows of 9 streamed to the card from
+    pinned slots: every batch of a check run equals ``DeviceDataset.gather``
+    on the card at its indices; µs a batch beside ``DeviceDataset.sample``
+    of the same arrays held on the card."""
+    import numpy as np
+    import torch
+    from latent_diffusion_planning_tpu_torch.data import host_prefetch
+    from latent_diffusion_planning_tpu_torch.data.ingest import WeldedDemos
+    from latent_diffusion_planning_tpu_torch.data.windows import DeviceDataset
+
+    t0 = time.perf_counter()
+    if not host_prefetch.available():
+        raise AssertionError("the host prefetcher does not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    total = PREFETCH_DEMOS * PREFETCH_LEN
+    arrays = {
+        "robot0_eef_pos": rng.normal(size=(total, 3)).astype(np.float32),
+        "robot0_eef_quat": rng.normal(size=(total, 4)).astype(np.float32),
+        "robot0_gripper_qpos": rng.normal(size=(total, 2)).astype(np.float32),
+        "agentview_image": rng.integers(0, 256, (total, 64, 64, 3),
+                                        dtype=np.uint8),
+        "actions": rng.uniform(-1, 1, (total, 7)).astype(np.float32)}
+    obs = ("robot0_eef_pos", "robot0_eef_quat", "robot0_gripper_qpos",
+           "agentview_image")
+    welded = WeldedDemos(
+        arrays={k: torch.from_numpy(v) for k, v in arrays.items()},
+        demo_starts=torch.arange(PREFETCH_DEMOS) * PREFETCH_LEN,
+        demo_lengths=torch.full((PREFETCH_DEMOS,), PREFETCH_LEN),
+        obs_keys=obs, dataset_keys=("actions",))
+    dd = DeviceDataset.from_welded(welded, 1, 9, "cuda")
+    batch_bytes = sum(PREFETCH_BATCH * 9 * a[0].nbytes
+                      for a in arrays.values())
+    out = {"build_s": build_s, "batch_bytes": batch_bytes}
+    for threads in (2, 4):
+        pf = host_prefetch.HostPrefetcher(
+            welded, 1, 9, PREFETCH_BATCH, n_slots=4, n_threads=threads,
+            seed=1, device="cuda")
+        try:
+            for _ in range(5):      # check, and warm up
+                got, idx = pf.next_batch(return_indices=True)
+                ref = dd.gather(idx.cuda())
+                same = all(torch.equal(got["obs"][k], ref["obs"][k])
+                           for k in obs)
+                if not (same and torch.equal(got["actions"], ref["actions"])):
+                    raise AssertionError("a streamed batch differs from "
+                                         "the gather at its indices")
+            torch.cuda.synchronize()
+            n = 200
+            t0 = time.perf_counter()
+            for _ in range(n):
+                got = pf.next_batch()
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / n * 1e6
+        finally:
+            pf.close()
+        out[f"us_per_batch_{threads}_threads"] = us
+        print(f"   HostPrefetcher, {threads} threads, 4 pinned slots: "
+              f"{us:.1f} us a batch of {PREFETCH_BATCH} windows x 9 "
+              f"({batch_bytes / 1e6:.2f} MB, {batch_bytes / us / 1e3:.2f} "
+              f"GB/s to the card) [{smoke.card}]", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev_us = time_ms(lambda: dd.sample(PREFETCH_BATCH, g), iters=50) * 1e3
+    out["device_sample_us"] = dev_us
+    print(f"   DeviceDataset.sample of the same arrays on the card: "
+          f"{dev_us:.1f} us a batch; the engine built in {build_s:.1f} s "
+          f"[{smoke.card}]", flush=True)
+    return out
+
+
 REPLACES = {   # the pl.pallas_call of each TPU kernel
     "diffusion_mlp": ("latent_diffusion_planning_tpu/ops/pallas/"
                       "diffusion_mlp.py:145"),
@@ -3264,8 +3734,13 @@ REPLACES = {   # the pl.pallas_call of each TPU kernel
 # path, the phase's record of its launches, each kernel's record at the
 # path's shapes)
 PP_PHASE = "pick_place: Can and Square on the contact engine"
+VIDEO_PHASE = "video: the main path's eval with two videos"
 AL_PHASE = "aloha: bimanual transfer-cube and insertion, a camera per env"
 PATHS = (
+    (VIDEO_PHASE, "Lift eval with 2 videos (C: 100 at 1024 scenes, 400 at "
+     "the 2 filmed, timed here)", "video_eval",
+     {"raycast": "C video", "diffusion_unet1d": "B main",
+      "diffusion_mlp": "A main"}),
     (PP_PHASE, "Can eval_bc", "can_eval",
      {"raycast": "C can", "diffusion_unet1d": "B can",
       "diffusion_mlp": "A can"}),
@@ -3307,6 +3782,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the full record as JSON here")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated words: run only the phases whose "
+                    "names hold one of them (a development run; it prints "
+                    "no kernels line)")
+    ap.add_argument("--dist-worker", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # one rank of phase_dist (b)
     args = ap.parse_args()
     try:
         import torch
@@ -3321,13 +3802,15 @@ def main() -> int:
     except ImportError:
         print("the port's package is not beside chip_smoke.py", file=sys.stderr)
         return 2
+    if args.dist_worker is not None:
+        return dist_worker(args.dist_worker)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    smoke = Smoke(card)
+    smoke = Smoke(card, args.only.split(",") if args.only else None)
 
     def build():
         t0 = time.perf_counter()
@@ -3353,6 +3836,14 @@ def main() -> int:
                         "kinematic", lambda: phase_slice(smoke))
             smoke.phase("one decision, stage by stage",
                         lambda: phase_breakdown(smoke))
+            smoke.phase(VIDEO_PHASE, lambda: phase_video(smoke))
+            smoke.phase("dist: one dp update and the env-sharded eval at "
+                        "world 1 over NCCL, then two ranks over gloo",
+                        lambda: phase_dist(smoke))
+            smoke.phase("roundtrip: the bench agent through the reference's "
+                        "naming and back", lambda: phase_roundtrip(smoke))
+            smoke.phase("prefetch: host windows streamed to the card",
+                        lambda: phase_prefetch(smoke))
             _training_phases(smoke)
 
     if args.out is not None:
@@ -3363,6 +3854,9 @@ def main() -> int:
     if smoke.failures:
         print(f"FAILED phases: {smoke.failures}", file=sys.stderr)
         return 1
+    if smoke.only:
+        print(f"development run of {smoke.only}: phases passed", flush=True)
+        return 0
 
     print(json.dumps({"kernels": kernel_entries(smoke)}))
     print(card)

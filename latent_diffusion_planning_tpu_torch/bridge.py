@@ -1,4 +1,4 @@
-"""Flax parameter pytrees → the port's modules.
+"""Flax parameter pytrees → the port's modules, and back.
 
 The input is what the JAX package's checkpoints hold: nested dicts of
 arrays (numpy or anything ``np.asarray`` takes), for example the
@@ -13,6 +13,12 @@ Mapping rules:
 - ConvTranspose taps are flipped: Flax maps ``x[t] w[j] → y[2t+2-j]``,
   torch's ``conv_transpose1d`` ``x[t] w[j] → y[2t+j-p]``;
 - GroupNorm/LayerNorm ``scale`` becomes ``weight``.
+
+``export_unet1d``, ``export_mlp_diffusion`` and ``export_klvae`` run the
+same loaders in the other direction: handed an ``_Export`` tree, each leaf
+helper writes the module's tensor, transformed back, where it would have
+read it. One walk serves both directions, so export then load returns
+every weight bit for bit (the transforms are transposes and flips).
 """
 
 from __future__ import annotations
@@ -40,6 +46,33 @@ def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+class _Export(dict):
+    """A Flax tree that the loaders fill from a module instead of reading
+    it: a missing key is a new subtree."""
+
+    def __missing__(self, key):
+        self[key] = _Export()
+        return self[key]
+
+    def get(self, key, default=None):
+        return self[key]
+
+
+def _put(p: Mapping, name: str, value: torch.Tensor) -> bool:
+    """In an export, ``p[name]`` = ``value`` as a float32 numpy array;
+    True when ``p`` is an export (the caller then reads nothing)."""
+    if isinstance(p, _Export):
+        p[name] = np.ascontiguousarray(
+            value.detach().to("cpu", torch.float32).numpy())
+        return True
+    return False
+
+
+def _plain(tree: Mapping) -> dict:
+    return {k: _plain(v) if isinstance(v, Mapping) else v
+            for k, v in tree.items()}
+
+
 def _copy(param: torch.Tensor, value: torch.Tensor) -> None:
     if tuple(param.shape) != tuple(value.shape):
         raise ValueError(f"shape mismatch: {tuple(param.shape)} vs "
@@ -48,30 +81,39 @@ def _copy(param: torch.Tensor, value: torch.Tensor) -> None:
         param.copy_(value)
 
 
+def _bias(param: torch.Tensor | None, p: Mapping) -> None:
+    if param is not None and not _put(p, "bias", param):
+        _copy(param, _t(p["bias"]))
+
+
 def _dense(lin: nn.Linear, p: Mapping) -> None:
-    _copy(lin.weight, _t(p["kernel"]).t())
-    _copy(lin.bias, _t(p["bias"]))
+    if not _put(p, "kernel", lin.weight.t()):
+        _copy(lin.weight, _t(p["kernel"]).t())
+    _bias(lin.bias, p)
 
 
 def _conv1d(conv: nn.Conv1d, p: Mapping) -> None:
-    _copy(conv.weight, _t(p["kernel"]).permute(2, 1, 0))
-    _copy(conv.bias, _t(p["bias"]))
+    if not _put(p, "kernel", conv.weight.permute(2, 1, 0)):
+        _copy(conv.weight, _t(p["kernel"]).permute(2, 1, 0))
+    _bias(conv.bias, p)
 
 
 def _conv2d(conv: nn.Conv2d, p: Mapping) -> None:
-    _copy(conv.weight, _t(p["kernel"]).permute(3, 2, 0, 1))
-    if conv.bias is not None:
-        _copy(conv.bias, _t(p["bias"]))
+    if not _put(p, "kernel", conv.weight.permute(2, 3, 1, 0)):
+        _copy(conv.weight, _t(p["kernel"]).permute(3, 2, 0, 1))
+    _bias(conv.bias, p)
 
 
 def _conv_transpose1d(conv: nn.ConvTranspose1d, p: Mapping) -> None:
-    _copy(conv.weight, _t(p["kernel"]).flip(0).permute(1, 2, 0))
-    _copy(conv.bias, _t(p["bias"]))
+    if not _put(p, "kernel", conv.weight.permute(2, 0, 1).flip(0)):
+        _copy(conv.weight, _t(p["kernel"]).flip(0).permute(1, 2, 0))
+    _bias(conv.bias, p)
 
 
 def _norm(norm: nn.Module, p: Mapping) -> None:
-    _copy(norm.weight, _t(p["scale"]))
-    _copy(norm.bias, _t(p["bias"]))
+    if not _put(p, "scale", norm.weight):
+        _copy(norm.weight, _t(p["scale"]))
+    _bias(norm.bias, p)
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +158,9 @@ def unet1d_from_flax(params: Mapping, *, input_dim: int, global_cond_dim: int,
 
 def load_mlp_diffusion(net: MLPDiffusion, params: Mapping) -> MLPDiffusion:
     if net.learnable_time:
-        _copy(net.time.kernel, _t(params["FourierFeatures_0"]["kernel"]))
+        p = params["FourierFeatures_0"]
+        if not _put(p, "kernel", net.time.kernel):
+            _copy(net.time.kernel, _t(p["kernel"]))
     for i, lin in enumerate(net.cond.dense):
         _dense(lin, params["MLP_0"][f"Dense_{i}"])
     trunk = params["MLPResNet_0"]
@@ -163,7 +207,7 @@ def load_klvae_encoder(vae: KLVAE, params: Mapping) -> KLVAE:
     p = params.get("encoder", params)
     enc = vae.encoder
     n_conv = 0
-    if "patch_stem" in p:
+    if enc.stem.stride != (1, 1):       # the patchified stem
         _conv2d(enc.stem, p["patch_stem"])
     else:
         _conv2d(enc.stem, p["Conv_0"])
@@ -255,6 +299,28 @@ def load_resnet(net: ResNetEncoder, params: Mapping) -> ResNetEncoder:
         for i, lin in enumerate(net.mlp.dense):
             _dense(lin, params["MLP_0"][f"Dense_{i}"])
     return net
+
+
+def export_unet1d(net: ConditionalUnet1D) -> dict:
+    """The Flax tree ``load_unet1d`` reads, of ``net``'s weights (numpy)."""
+    tree = _Export()
+    load_unet1d(net, tree)
+    return _plain(tree)
+
+
+def export_mlp_diffusion(net: MLPDiffusion) -> dict:
+    """The Flax tree ``load_mlp_diffusion`` reads, of ``net``'s weights."""
+    tree = _Export()
+    load_mlp_diffusion(net, tree)
+    return _plain(tree)
+
+
+def export_klvae(vae: KLVAE) -> dict:
+    """The ``{encoder, decoder}`` Flax tree ``load_klvae`` reads, of
+    ``vae``'s weights."""
+    tree = _Export()
+    load_klvae(vae, tree)
+    return _plain(tree)
 
 
 def resnet_from_flax(params: Mapping, **cfg) -> ResNetEncoder:

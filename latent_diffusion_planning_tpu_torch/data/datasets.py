@@ -7,7 +7,7 @@ Counterpart of ``latent_diffusion_planning_tpu/data/datasets.py``'s
 ``MixedOfflineData``. The splits come either from robomimic datasets
 (``train_path`` / ``eval_path`` with optional latent companions, through
 ``ingest.load_demos``: ``.npz`` files, or HDF5 where ``h5py`` is
-installed), or already welded (``train`` / ``eval``, for example from
+installed; ``format: aloha`` reads ALOHA-format HDF5), or already welded (``train`` / ``eval``, for example from
 ``writer.weld_collection`` and ``latents.encode_latents``). Either way each split
 keeps the facade's obs keys (``meta``'s lowdim and rgb keys) and its first
 ``*_n_episode_overfit`` demos. Batches are drawn on the device by
@@ -105,7 +105,8 @@ def _companions(latent_path, n: int) -> list:
 
 def _load_split(obs_keys: Sequence[str], given: ingest.WeldedDemos | None,
                 path, latent_path, n_demos: int | None, name: str,
-                optimal: float = 1.0) -> ingest.WeldedDemos:
+                optimal: float = 1.0,
+                format: str = "robomimic") -> ingest.WeldedDemos:
     """A split's first ``n_demos`` demos with ``obs_keys``: handed in welded
     (its ``optimal`` flag set to ``optimal`` when the keys name it) or read
     from ``path``. A list of paths welds several collections into one (the
@@ -123,7 +124,7 @@ def _load_split(obs_keys: Sequence[str], given: ingest.WeldedDemos | None,
         raise ValueError(f"no data for {name}: give a path or welded demos")
     paths = list(path) if isinstance(path, (list, tuple)) else [path]
     parts = [ingest.load_demos(p, obs_keys, n_demos=n_demos, latent_path=lp,
-                               optimal=optimal,
+                               optimal=optimal, format=format,
                                name=name if len(paths) == 1 else
                                f"{name}[{i}]")
              for i, (p, lp) in enumerate(zip(paths, _companions(
@@ -141,9 +142,10 @@ class _Facade:
                  obs_horizon: int, seq_length: int, format: str, seed: int,
                  device: torch.device | str | None,
                  oversample: Mapping[str, Any] | None):
-        if format != "robomimic":
-            raise ValueError(f"dataset format {format!r} is not ported")
+        if format not in ("robomimic", "aloha"):
+            raise ValueError(f"unknown dataset format {format!r}")
         self.name = name
+        self.format = format
         self.meta = meta
         self.env_params = dict(env_params or {})
         self.batch_size = batch_size
@@ -211,7 +213,8 @@ class OfflineData(_Facade):
         if split not in self._welded:
             self._welded[split] = _load_split(self.obs_keys,
                                               *self._sources[split],
-                                              name=f"{self.name}/{split}")
+                                              name=f"{self.name}/{split}",
+                                              format=self.format)
         return self._welded[split]
 
     def device_dataset(self, split: str) -> DeviceDataset:
@@ -324,7 +327,8 @@ class MixedOfflineData(_Facade):
                 parts = [_load_split(
                     self.obs_keys, given[i] if given is not None else None,
                     paths[i] if given is None else None, latents[i], caps[i],
-                    f"{self.name}/train{i}", optimal=1.0 if i == 0 else 0.0)
+                    f"{self.name}/train{i}", optimal=1.0 if i == 0 else 0.0,
+                    format=self.format)
                     for i in range(len(caps))]
                 self.sub_sizes = [p.total_steps for p in parts]
                 self._welded[split] = ingest.concat_welded(
@@ -336,7 +340,7 @@ class MixedOfflineData(_Facade):
                           f"eval_n_episode_overfit={n_demos} demos")
                 self._welded[split] = _load_split(
                     self.obs_keys, given, path, latent_path, n_demos,
-                    f"{self.name}/eval")
+                    f"{self.name}/eval", format=self.format)
             else:
                 raise ValueError(f"no split {split!r}")
         return self._welded[split]

@@ -14,7 +14,9 @@ obs key ``latent_<rgb_key>``. ``load_demos`` picks the reader by the
 file's suffix: ``.npz`` (``load_npz``: the same groups as flat keys, the
 container ``data/writer.write_trajectories`` writes, readable with numpy
 alone) or ``.hdf5`` (``load_robomimic``: ``h5py`` is imported inside it,
-and the machine with the card has none).
+and the machine with the card has none). An ALOHA-format HDF5
+(``load_aloha``, ``format="aloha"``) holds ``data/demo_i/{obs,action}``
+with no ``next_obs`` splice.
 """
 
 from __future__ import annotations
@@ -94,14 +96,9 @@ def load_robomimic(path: str, obs_keys: Sequence[str],
                    optimal: float = 1.0, name: str = "") -> WeldedDemos:
     """Load and weld a robomimic-format HDF5 (with an optional latent
     companion) into CPU tensors."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(f"reading {path} needs h5py, which is not "
-                          f"installed; write the dataset as .npz "
-                          f"(data/writer.write_trajectories)") from e
     import numpy as np
 
+    h5py = _h5py(path)
     obs_keys = tuple(obs_keys)
     out: dict[str, list] = {k: [] for k in obs_keys}
     out["actions"] = []
@@ -144,6 +141,65 @@ def load_robomimic(path: str, obs_keys: Sequence[str],
         demo_starts=torch.tensor(starts, dtype=torch.int64),
         demo_lengths=torch.tensor(lengths, dtype=torch.int64),
         obs_keys=obs_keys, dataset_keys=("actions",), env_meta=env_meta,
+        name=name)
+
+
+def _h5py(path: str):
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs h5py, which is not "
+                          f"installed; write the dataset as .npz "
+                          f"(data/writer.write_trajectories)") from e
+    return h5py
+
+
+def load_aloha(path: str, obs_keys: Sequence[str],
+               n_demos: int | Sequence[str] | None = None,
+               latent_path: str | None = None,
+               optimal: float = 1.0, name: str = "") -> WeldedDemos:
+    """Load and weld an ALOHA-format HDF5 into CPU tensors: each demo's
+    first ``num_samples`` steps (all of its actions when the attribute is
+    missing) of ``obs/<key>`` and ``actions`` (or ``action``), with no
+    terminal splice; latent companions are cut to the same steps."""
+    import numpy as np
+
+    h5py = _h5py(path)
+    obs_keys = tuple(obs_keys)
+    out: dict[str, list] = {k: [] for k in obs_keys}
+    out["actions"] = []
+    starts, lengths = [], []
+    total = 0
+    lat = h5py.File(latent_path, "r") if latent_path else None
+    try:
+        with h5py.File(path, "r") as f:
+            names = sorted(f["data"].keys(), key=lambda n: int(n.split("_")[-1]))
+            for demo in _select_demos(names, n_demos):
+                g = f[f"data/{demo}"]
+                actions = g["actions" if "actions" in g else "action"][:]
+                T = int(g.attrs.get("num_samples", len(actions)))
+                for key in obs_keys:
+                    if key == "optimal":
+                        arr = np.full((T, 1), optimal, dtype=np.float32)
+                    elif key.startswith("latent_"):
+                        if lat is None:
+                            raise ValueError(f"obs key {key} needs latent_path")
+                        arr = lat[f"data/{demo}/latent/{key[len('latent_'):]}"][:T]
+                    else:
+                        arr = g[f"obs/{key}"][:T]
+                    out[key].append(arr)
+                out["actions"].append(actions[:T])
+                starts.append(total)
+                lengths.append(T)
+                total += T
+    finally:
+        if lat is not None:
+            lat.close()
+    return WeldedDemos(
+        arrays={k: torch.from_numpy(np.concatenate(v, 0)) for k, v in out.items()},
+        demo_starts=torch.tensor(starts, dtype=torch.int64),
+        demo_lengths=torch.tensor(lengths, dtype=torch.int64),
+        obs_keys=obs_keys, dataset_keys=("actions",), env_meta=None,
         name=name)
 
 
@@ -210,11 +266,18 @@ def load_npz(path: str, obs_keys: Sequence[str],
 def load_demos(path: str, obs_keys: Sequence[str],
                n_demos: int | Sequence[str] | None = None,
                latent_path: str | None = None, optimal: float = 1.0,
-               name: str = "") -> WeldedDemos:
+               name: str = "", format: str = "robomimic") -> WeldedDemos:
     """``load_npz`` for an ``.npz`` file, ``load_robomimic`` for an
-    ``.hdf5`` one."""
+    ``.hdf5`` one; ``load_aloha`` for ``format="aloha"`` (HDF5 only)."""
     suffix = str(path).rsplit(".", 1)[-1]
-    if suffix == "npz":
+    if format not in ("robomimic", "aloha"):
+        raise ValueError(f"unknown dataset format {format!r}")
+    if format == "aloha":
+        if suffix != "hdf5":
+            raise ValueError(f"{path}: an aloha-format dataset is an .hdf5 "
+                             "file")
+        load = load_aloha
+    elif suffix == "npz":
         load = load_npz
     elif suffix == "hdf5":
         load = load_robomimic

@@ -57,6 +57,21 @@ def agent_from_snapshot(agent_cfg, data, path: str | Path,
     return agent
 
 
+def run_agent(run_dir: str | Path | None, device: torch.device | str):
+    """A seeded agent as a finished run's ``config.json`` builds it (its
+    agent section, the bounds recorded in it, its data's ``shape_meta``),
+    with no dataset read; the bench agent (``configs.bench_agent_config``)
+    when ``run_dir`` is None."""
+    if run_dir is None:
+        from .. import configs
+        return build_agent(configs.bench_agent_config(), configs.SHAPE_META,
+                           0, device)
+    cfg = load_config(str(Path(run_dir) / "config.json"))
+    agent_cfg = {k: v for k, v in dict(cfg.agent).items()
+                 if k != "vae_pretrain_path"}
+    return build_agent(agent_cfg, cfg.data["meta"]["shape_meta"], 0, device)
+
+
 def policy_keys(meta) -> tuple[str, ...]:
     """What the policy sees in the env: the lowdim keys and the camera
     keys without ``latent_``, the ``optimal`` flag left out."""

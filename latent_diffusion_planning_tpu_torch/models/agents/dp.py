@@ -44,6 +44,7 @@ from ...train.state import TrainState, global_norm
 from ...utils.precision import fp32_math
 from ..nets.resnet import ResNetEncoder
 from ..nets.unet1d import ConditionalUnet1D, unet_from_config
+from ...parallel import mesh as meshlib
 from . import common
 
 
@@ -219,11 +220,14 @@ class DPAgent:
         actions = batch["actions"]
         obs_emb = self._obs_cond(self.encoders, batch["obs"])
         B = actions.shape[0]
-        t = self._draw(draws, "t", lambda: torch.randint(
-            0, self.sched.num_steps, (B,), generator=generator,
-            device=self.device))
-        noise = self._draw(draws, "noise", lambda: torch.randn(
-            actions.shape, generator=generator, device=self.device))
+        t = self._draw(draws, "t", lambda: meshlib.draw_rows(
+            lambda m: torch.randint(0, self.sched.num_steps, (m,),
+                                    generator=generator, device=self.device),
+            B))
+        noise = self._draw(draws, "noise", lambda: meshlib.draw_rows(
+            lambda m: torch.randn((m, *actions.shape[1:]),
+                                  generator=generator, device=self.device),
+            B))
         noisy = self.sched.add_noise(actions, noise, t)
         pred = self.planner(noisy, t, obs_emb)
         sq = torch.square(pred - self.sched.training_target(actions, noise, t))

@@ -38,6 +38,7 @@ from ...ops import normalize as nz
 from ...train.state import TrainState, global_norm
 from ..nets.unet1d import ConditionalUnet1D, unet_from_config
 from ..vae import KLVAE
+from ...parallel import mesh as meshlib
 from . import common
 
 
@@ -193,11 +194,14 @@ class DPVAEAgent:
         actions = batch["actions"]
         obs_emb = self._obs_cond(batch["obs"])
         B = actions.shape[0]
-        t = self._draw(draws, "t", lambda: torch.randint(
-            0, self.sched.num_steps, (B,), generator=generator,
-            device=self.device))
-        noise = self._draw(draws, "noise", lambda: torch.randn(
-            actions.shape, generator=generator, device=self.device))
+        t = self._draw(draws, "t", lambda: meshlib.draw_rows(
+            lambda m: torch.randint(0, self.sched.num_steps, (m,),
+                                    generator=generator, device=self.device),
+            B))
+        noise = self._draw(draws, "noise", lambda: meshlib.draw_rows(
+            lambda m: torch.randn((m, *actions.shape[1:]),
+                                  generator=generator, device=self.device),
+            B))
         noisy = self.sched.add_noise(actions, noise, t)
         pred = self.planner(noisy, t, obs_emb)
         sq = torch.square(pred - self.sched.training_target(actions, noise, t))

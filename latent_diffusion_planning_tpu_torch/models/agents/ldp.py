@@ -51,6 +51,7 @@ from ...train.state import TrainState, global_norm
 from ..nets.mlp import MLPDiffusion
 from ..nets.unet1d import ConditionalUnet1D, unet_from_config
 from ..vae import KLVAE
+from ...parallel import mesh as meshlib
 from . import common
 
 
@@ -457,17 +458,21 @@ class LDPAgent:
         planner's sized by its target, the IDM's by its batch's targets."""
         plan_shape = self._plan_target(obs_emb).shape
         idm_shape = self._idm_target(actions).shape
-        randint = lambda hi, n: torch.randint(0, hi, (n,), generator=generator,
-                                              device=self.device)
+        # under meshlib.sharded_draws: the global batch's draws, this rank's
+        # rows
+        randint = lambda hi, n: meshlib.draw_rows(lambda m: torch.randint(
+            0, hi, (m,), generator=generator, device=self.device), n)
+        randn = lambda shape: meshlib.draw_rows(lambda m: self._randn(
+            (m, *shape[1:]), generator), shape[0])
         return {
             "plan_t": self._draw(draws, "plan_t", lambda: randint(
                 self.planner_sched.num_steps, plan_shape[0])),
-            "plan_noise": self._draw(draws, "plan_noise", lambda: self._randn(
-                plan_shape, generator)),
+            "plan_noise": self._draw(draws, "plan_noise",
+                                     lambda: randn(plan_shape)),
             "idm_t": self._draw(draws, "idm_t", lambda: randint(
                 self.idm_sched.num_steps, idm_shape[0])),
-            "idm_noise": self._draw(draws, "idm_noise", lambda: self._randn(
-                idm_shape, generator)),
+            "idm_noise": self._draw(draws, "idm_noise",
+                                    lambda: randn(idm_shape)),
         }
 
     def _loss(self, batch: Mapping, use_planner: bool, use_idm: bool,

@@ -28,6 +28,7 @@ from torch.nn import functional as F
 from .. import resolve_device
 from ..ops import normalize as nz
 from .nets import init
+from ..parallel import mesh as meshlib
 from ..train.state import TrainState
 from ..utils.precision import fp32_math
 
@@ -344,9 +345,11 @@ class VAEModel:
         given = (draws or {}).get("eps")
         if given is not None:
             return torch.as_tensor(given, device=self.device).float()
-        n = sum(batch["obs"][k].shape[0] for k in self.config["rgb_obs"])
-        return torch.randn((n, *self.latent_hw()), generator=generator,
-                           device=self.device)
+        # one draw per key, each of the global batch's rows under
+        # meshlib.sharded_draws
+        return torch.cat([meshlib.draw_rows(lambda m: torch.randn(
+            (m, *self.latent_hw()), generator=generator, device=self.device),
+            batch["obs"][k].shape[0]) for k in self.config["rgb_obs"]])
 
     def backward(self, batch: Mapping,
                  generator: torch.Generator | None = None,

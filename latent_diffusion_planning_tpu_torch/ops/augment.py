@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh as meshlib
+
 
 def grid_sample(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sample NHWC ``images`` at normalized [-1, 1] ``grid``
@@ -43,8 +45,9 @@ def random_shift(images: torch.Tensor, pad: int,
     if H != W:
         raise ValueError("random_shift expects square images")
     if shift is None:
-        shift = torch.randint(0, 2 * pad + 1, (B, 2), generator=generator,
-                              device=images.device)
+        shift = meshlib.draw_rows(lambda m: torch.randint(
+            0, 2 * pad + 1, (m, 2), generator=generator,
+            device=images.device), B)
     shift = torch.as_tensor(shift, device=images.device).long()
     ar = torch.arange(H, device=images.device)
     rows = torch.clamp(ar[None] + shift[:, :1] - pad, 0, H - 1)   # (B, H)

@@ -6,6 +6,10 @@ interface (no PyTorch headers, so a build takes seconds). The library lands
 in ``build/torch_kernels/`` at the repository root (git-ignored), named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.
+
+``host_library`` builds a C++ source of ``csrc/`` for the host (the window
+prefetcher, ``data/host_prefetch.py``) with ``g++`` (or ``$CXX``) the same
+way; it needs no card.
 """
 
 from __future__ import annotations
@@ -71,6 +75,38 @@ def _build(out: Path, sources: list[Path]) -> None:
                     *[str(work / (s.stem + ".o")) for s in sources]],
                    check=True, capture_output=True, text=True)
     os.replace(tmp, out)
+
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
+
+
+def host_library_path(source: str) -> Path:
+    src = CSRC / source
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """``csrc/<source>`` built for the host at first use and loaded; a
+    failed build raises with the compiler's message."""
+    out = host_library_path(source)
+    if not out.exists():
+        cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+        if not cxx:
+            raise RuntimeError(f"no C++ compiler to build {source}")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(CSRC / source), "-o",
+                               str(tmp)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"{cxx} failed on {source}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return _load(str(out))
+
+
+@functools.cache
+def _load(path: str) -> ctypes.CDLL:
+    return ctypes.CDLL(path)
 
 
 def build_log() -> str:

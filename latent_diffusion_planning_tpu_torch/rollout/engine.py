@@ -32,7 +32,16 @@ own N rows from its own generator. Agent k's rows reset and draw exactly
 as ``run_batched_eval`` with ``seeds[k]`` would, so its result does not
 depend on which agents share its batch.
 
-Not ported yet: env meshes and video capture.
+``run_batched_eval`` also records videos: with ``video_envs`` K > 0 the
+first K envs are rendered through ``env.render`` (kernel C on the card)
+after every env step, from the state as it stands (a finished env's frozen
+state), into ``videos`` (K, n_decisions·action_horizon, H, W, 3) uint8.
+With ``env_mesh`` (``parallel/mesh.make_env_mesh``) the episodes are split
+over the mesh's ranks: rank r runs its contiguous slice of them, with its
+slice of ``episode_seeds`` and a generator seeded with ``seed`` (as JAX's
+``shard_map`` hands every shard the same key), and the per-episode results
+are gathered to every rank in rank order. Videos are not captured under a
+mesh, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -40,9 +49,11 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Mapping
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh as meshlib
 
 PolicyFn = Callable[[Any, Mapping[str, torch.Tensor], torch.Generator],
                     torch.Tensor]
@@ -55,6 +66,14 @@ def agent_sample_policy(agent, obs_window, generator) -> torch.Tensor:
     (``sample_fast`` where it has one, else ``sample_action``)."""
     sample = getattr(agent, "sample_fast", None) or agent.sample_action
     return sample({"obs": dict(obs_window)}, generator=generator)
+
+
+def agent_sample_viz_policy(agent, obs_window, generator) -> torch.Tensor:
+    """Viz adapter: the agent's full ``sample_viz`` path where it has one
+    (LDP decodes its plan to images), else ``sample``; the actions only."""
+    sample = getattr(agent, "sample_viz", None) or agent.sample
+    out = sample({"obs": dict(obs_window)}, generator=generator)
+    return out[0] if isinstance(out, tuple) else out
 
 
 def policy_view(window: dict, policy_obs_keys, add_optimal: bool = False,
@@ -128,7 +147,10 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
                      episode_len: int | None = None,
                      policy_obs_keys: tuple[str, ...] | None = None,
                      add_optimal: bool = False,
+                     video_envs: int = 0,
+                     video_key: str = "agentview_image",
                      episode_seeds=None,
+                     env_mesh: "meshlib.Mesh | None" = None,
                      plan_blend: float = 0.0,
                      policy: PolicyFn = agent_sample_policy,
                      init_states=None,
@@ -138,12 +160,65 @@ def run_batched_eval(env, agent, n_episodes: int, seed: int = 0, *,
     Episode i resets from (``seed``, ``episode_seeds[i]``) unless
     ``init_states`` gives the states; ``seed`` also seeds the generator on
     the device that the policy draws from. ``add_optimal`` hands the policy
-    the ``optimal`` flag (``policy_view``). ``device`` None means the card.
+    the ``optimal`` flag (``policy_view``). ``video_envs`` > 0 adds
+    ``videos`` of that many envs; ``video_key`` names the camera, which is
+    the one ``env.render`` draws (every env renders its policy camera).
+    ``env_mesh`` splits the episodes over the mesh's ranks (see the module
+    docstring). ``device`` None means the card.
     """
+    if video_envs and env_mesh is not None:
+        raise ValueError("video capture is not supported under env_mesh "
+                         "(the JAX engine asserts the same)")
+    if env_mesh is not None:
+        return _run_sharded(env, agent, n_episodes, seed, obs_horizon,
+                            action_horizon, episode_len, policy_obs_keys,
+                            add_optimal, episode_seeds, env_mesh, plan_blend,
+                            policy, init_states, device)
     return _run_eval(env, [agent], n_episodes, [seed], obs_horizon,
                      action_horizon, episode_len, policy_obs_keys,
                      add_optimal, episode_seeds, plan_blend, policy,
-                     init_states, device)[0]
+                     init_states, device, video_envs)[0]
+
+
+def _run_sharded(env, agent, n_episodes, seed, obs_horizon, action_horizon,
+                 episode_len, policy_obs_keys, add_optimal, episode_seeds,
+                 env_mesh, plan_blend, policy, init_states, device) -> dict:
+    """Rank r's slice of the episodes, then every rank's per-episode
+    results gathered in rank order."""
+    world, rank = env_mesh.world, env_mesh.rank
+    if n_episodes % world:
+        raise ValueError(f"{n_episodes} episodes are not divisible over "
+                         f"{world} ranks")
+    n = n_episodes // world
+    rows = slice(rank * n, (rank + 1) * n)
+    if episode_seeds is None:
+        episode_seeds = torch.arange(n_episodes)
+    episode_seeds = torch.as_tensor(episode_seeds)
+    if tuple(episode_seeds.shape) != (n_episodes,):
+        raise ValueError(f"episode_seeds shape {tuple(episode_seeds.shape)} "
+                         f"!= ({n_episodes},)")
+    if init_states is not None:
+        init_states = init_states.map(lambda x: x[rows])
+    local = _run_eval(env, [agent], n, [seed], obs_horizon, action_horizon,
+                      episode_len, policy_obs_keys, add_optimal,
+                      episode_seeds[rows], plan_blend, policy, init_states,
+                      device, 0)[0]
+    parts = meshlib.all_gather_host(local["per_episode"], env_mesh)
+    per_episode = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return _result(per_episode, n_episodes)
+
+
+def _result(per_episode: dict, n_episodes: int) -> dict:
+    """Metrics over host per-episode arrays."""
+    horizon = per_episode["horizon"]
+    return {"metrics": {
+        "success": float(per_episode["success"].mean()),
+        "reward": float(per_episode["reward"].mean()),
+        "horizon": float(horizon.mean()),
+        "avg_reward": float((per_episode["reward_sum"]
+                             / horizon.clip(min=1)).mean()),
+        "n_episodes": n_episodes,
+    }, "per_episode": per_episode}
 
 
 @torch.no_grad()
@@ -155,12 +230,18 @@ def run_batched_eval_multi(env, agents, n_episodes: int, seeds, *,
                            episode_seeds=None,
                            plan_blend: float = 0.0,
                            policy: PolicyFn = agent_sample_policy,
+                           video_envs: int = 0,
                            device: torch.device | str | None = None) -> list:
     """Evaluate K agents × ``n_episodes`` as one env batch of K·N; returns
     one ``run_batched_eval``-shaped result per agent, agent k's equal to
     ``run_batched_eval(env, agents[k], n_episodes, seeds[k], ...)``. The
     agents must share one class and config (the checkpoints of one run);
-    ``episode_seeds`` are shared by all of them."""
+    ``episode_seeds`` are shared by all of them. ``video_envs`` > 0 raises:
+    the JAX engine has no multi-agent video either."""
+    if video_envs:
+        raise ValueError("run_batched_eval_multi records no videos (nor does "
+                         "the JAX engine): evaluate one agent with "
+                         "run_batched_eval(video_envs=...)")
     agents = list(agents)
     if len(agents) != len(seeds):
         raise ValueError(f"{len(agents)} agents but {len(seeds)} seeds")
@@ -176,8 +257,10 @@ def run_batched_eval_multi(env, agents, n_episodes: int, seeds, *,
 
 def _run_eval(env, agents, n_episodes, seeds, obs_horizon, action_horizon,
               episode_len, policy_obs_keys, add_optimal, episode_seeds,
-              plan_blend, policy, init_states, device) -> list:
-    """The eval loop over K agents' N-row slices of one env batch."""
+              plan_blend, policy, init_states, device,
+              video_envs: int = 0) -> list:
+    """The eval loop over K agents' N-row slices of one env batch; the
+    first ``video_envs`` rows rendered after every step."""
     if not 0.0 <= plan_blend < 1.0:
         raise ValueError(f"plan_blend must be in [0, 1), got {plan_blend}")
     dev = resolve_device(device)
@@ -199,6 +282,7 @@ def _run_eval(env, agents, n_episodes, seeds, obs_horizon, action_horizon,
     reward_sum = torch.zeros_like(reward)
     steps = torch.zeros(K * n, dtype=torch.int32, device=dev)
     prev_plans = [None] * K
+    frames = []
 
     for _ in range(n_decisions):
         obs_h = [env.obs(s) for s in history]
@@ -233,22 +317,17 @@ def _run_eval(env, agents, n_episodes, seeds, obs_horizon, action_horizon,
             steps = steps + (~done).int()
             success = success | (~done & s & finite)
             done = done | s | ~finite | (steps >= episode_len)
+            if video_envs:
+                frames.append(env.render(states.map(
+                    lambda x: x[:video_envs])).to(torch.uint8))
 
     host = {"success": success.cpu().numpy(), "reward": reward.cpu().numpy(),
             "reward_sum": reward_sum.cpu().numpy(),
             "horizon": steps.cpu().numpy()}
-    results = []
-    for r in rows:
-        per_episode = {k: v[r] for k, v in host.items()}
-        horizon = per_episode["horizon"]
-        results.append({"metrics": {
-            "success": float(per_episode["success"].mean()),
-            "reward": float(per_episode["reward"].mean()),
-            "horizon": float(horizon.mean()),
-            "avg_reward": float((per_episode["reward_sum"]
-                                 / horizon.clip(min=1)).mean()),
-            "n_episodes": n_episodes,
-        }, "per_episode": per_episode})
+    results = [_result({k: v[r] for k, v in host.items()}, n_episodes)
+               for r in rows]
+    if video_envs:
+        results[0]["videos"] = torch.stack(frames, 1).cpu().numpy()
     return results
 
 

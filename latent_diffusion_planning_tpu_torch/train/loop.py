@@ -2,8 +2,7 @@
 offline and closed-loop eval, snapshots.
 
 Counterpart of ``latent_diffusion_planning_tpu/train/loop.py``'s
-``Workspace`` on one device (the JAX package's mesh and replication are
-not ported). The config is a plain dict (the keys of
+``Workspace``. The config is a plain dict (the keys of
 ``configs.bench_train_config()``, ``lift_dp_vae_train_config()``,
 ``lift_dp_train_config()``, ``lift_ldp_hier_train_config()`` or
 ``lift_mixed_study_config(arm)``; the agent's ``name``, ``ldp``,
@@ -30,6 +29,21 @@ every decision; the policy is handed the ``optimal``
 flag when its observation keys name it); ``env_steps_per_sec`` counts each
 episode's steps up to its end, as the JAX log does, and
 ``computed_env_steps_per_sec`` every step the engine ran, masked ones too.
+A single-process eval also records the first ``min(2, n_eval_episodes)``
+episodes' camera frames (kernel C every env step) and writes them to
+``video/<step>_<i>.png`` (``utils/media.save_video``: animated PNG).
+
+Under ``torchrun`` (``parallel/mesh.maybe_init_distributed``) every rank
+builds the same agent, ``replicate`` broadcasts rank 0's, and each step
+shards the global batch over the ``dp`` axis: every rank draws the global
+batch and the losses' draws from generators seeded alike and keeps its
+rows (``shard_batch``, ``sharded_draws``), and the train states average
+the gradients over the ranks before they clip them, so a W-rank run equals
+the one-process run up to the all-reduce's summation order. Only rank 0
+logs (the losses of its own rows) and writes ``config.json`` and
+checkpoints; the eval's closed loop shards its episodes over every rank
+(``env_mesh``), without videos, which the engine does not capture under a
+mesh.
 """
 
 from __future__ import annotations
@@ -49,7 +63,9 @@ from ..models.agents.dp import DPAgent
 from ..models.agents.dp_vae import DPVAEAgent
 from ..models.agents.ldp import LDPAgent
 from ..models.agents.ldp_hier import LDPHierAgent
+from ..parallel import mesh as meshlib
 from ..rollout import engine as rollout_engine
+from ..utils import media
 from ..utils.config import instantiate
 from ..utils.logger import Logger
 from ..utils.timers import Every, Timer
@@ -133,10 +149,16 @@ class Workspace:
         self.cfg = copy.deepcopy(dict(cfg))
         self.work_dir = Path(work_dir or self.cfg.get("work_dir",
                                                       "experiments/run"))
-        self.work_dir.mkdir(parents=True, exist_ok=True)
+        meshlib.maybe_init_distributed()
+        self.mesh = meshlib.make_mesh()
+        self.env_mesh = (meshlib.make_env_mesh() if self.mesh.world > 1
+                         else None)
+        self.is_main = self.mesh.rank == 0
+        if self.is_main:
+            self.work_dir.mkdir(parents=True, exist_ok=True)
         self._write_config()
         self.device = resolve_device(device)
-        self.logger = Logger(self.work_dir)
+        self.logger = Logger(self.work_dir, write=self.is_main)
         self.ckpt = Checkpointer(self.work_dir / "ckpt")
         self.timer = Timer()
         self.generator = torch.Generator(device=self.device)
@@ -155,6 +177,8 @@ class Workspace:
         self._env = None
 
     def _write_config(self) -> None:
+        if not self.is_main:
+            return
         (self.work_dir / "config.json").write_text(
             json.dumps(self.cfg, indent=1, default=str))
 
@@ -200,9 +224,10 @@ class Workspace:
                 self.ckpt.restore_state(states[-1], self.agent)
                 self.step = int(states[-1].name.split(".")[0])
                 self.logger.note(f"resumed full state @ {self.step}")
+        self.agent = meshlib.replicate(self.agent, self.mesh)
         n_params = sum(v.numel() for v in _tensors(self.agent.get_params()))
         self.logger.note(f"agent created: {n_params:.3e} params on "
-                         f"{self.device}")
+                         f"{self.device}, mesh {self.mesh.shape}")
 
     # ------------------------------------------------------------------
     def run(self) -> None:
@@ -212,8 +237,10 @@ class Workspace:
                       if self.mixed_data is not None else None)
         if self.agent is None:
             self.init_agent()
-        batch = next(train_iter)
-        mixed_batch = next(mixed_iter) if mixed_iter is not None else None
+        # every rank draws the global batch and keeps its rows of it
+        local = lambda it: (None if it is None
+                            else meshlib.shard_batch(next(it), self.mesh))
+        batch, mixed_batch = local(train_iter), local(mixed_iter)
         log_every = Every(cfg.get("log_every", 100))
         eval_every = Every(cfg.get("eval_every", 10_000))
         save_every = Every(cfg.get("save_every", 50_000))
@@ -222,7 +249,8 @@ class Workspace:
         t_start = t_last = time.perf_counter()
         steps_last = self.step
         while self.step < n_steps:
-            with self.timer.section("update"):
+            with self.timer.section("update"), \
+                    meshlib.sharded_draws(self.mesh):
                 if mixed_iter is not None:
                     metrics = self.agent.update_mixed(
                         batch, mixed_batch, self.step, self.generator)
@@ -230,9 +258,7 @@ class Workspace:
                     metrics = self.agent.update(batch, self.step,
                                                 self.generator)
             with self.timer.section("data"):
-                batch = next(train_iter)
-                if mixed_iter is not None:
-                    mixed_batch = next(mixed_iter)
+                batch, mixed_batch = local(train_iter), local(mixed_iter)
             # kept on the device: reading them would wait for the step
             self.loss_history.append(torch.stack(
                 [metrics[k] for k in self.agent.LOSS_KEYS]))
@@ -285,12 +311,15 @@ class Workspace:
             out.update({f"{split}_{k}": float(v) for k, v in metrics.items()})
         if cfg.get("n_eval_episodes", 0) > 0 and self._make_env() is not None:
             keys = self._policy_obs_keys()
+            n = cfg["n_eval_episodes"]
+            video_envs = min(2, n) if self.env_mesh is None else 0
             t0 = time.perf_counter()
             res = rollout_engine.run_batched_eval(
-                self._env, self.agent, cfg["n_eval_episodes"], self.step,
+                self._env, self.agent, n, self.step,
                 obs_horizon=cfg["obs_horizon"],
                 action_horizon=cfg["action_horizon"], policy_obs_keys=keys,
-                add_optimal="optimal" in keys, device=self.device)
+                add_optimal="optimal" in keys, video_envs=video_envs,
+                env_mesh=self.env_mesh, device=self.device)
             wall = time.perf_counter() - t0
             m = dict(res["metrics"])
             # the JAX log's rate counts each episode's steps to its end;
@@ -300,6 +329,10 @@ class Workspace:
                      computed_env_steps_per_sec=(
                          self._env.episode_len * m["n_episodes"] / wall))
             out.update(m)
+            if self.is_main:
+                for i, frames in enumerate(res.get("videos", ())):
+                    media.save_video(self.work_dir / "video"
+                                     / f"{self.step}_{i}.png", frames)
         self.logger.log_metrics(out, self.step, "eval")
         self.logger.dump(self.step, "eval")
         self.last_eval = out
@@ -319,6 +352,8 @@ class Workspace:
 
     # ------------------------------------------------------------------
     def save_snapshot(self) -> None:
+        if not self.is_main:
+            return
         with self.timer.section("save"):
             self.ckpt.save_params(self.step, self.agent.get_params())
             if self.cfg.get("save_full_state", True):

@@ -17,6 +17,13 @@ Counterpart of ``latent_diffusion_planning_tpu/train/state.py``
   function);
 - EMA after the update: ``e·d + p·(1-d)``.
 
+Under data parallelism (``parallel/mesh.replicate`` sets ``dp_group``) the
+gradients are averaged over the group's ranks first, in one flat
+all-reduce, and only then clipped: the global norm is that of the averaged
+gradient, which is what JAX's ``jit`` computes over a sharded global
+batch. Clipping each rank's gradient before the average would give another
+update.
+
 The step is a Python int, so the learning rate and the bias corrections are
 host numbers and an update never waits for the device. The moment and EMA
 updates are multi-tensor (``torch._foreach_*``) ops: a few launches per net,
@@ -30,6 +37,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..parallel import mesh as meshlib
 
 B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults, the ones in use
 
@@ -82,6 +91,7 @@ class TrainState:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.ema = None
+        self.dp_group = None        # set by parallel/mesh.replicate
         if self.ema_decay > 0:
             self.ema = copy.deepcopy(module).requires_grad_(False)
 
@@ -96,10 +106,12 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> None:
-        """One optimizer step from the parameters' ``.grad``; the grads are
-        cleared after."""
+        """One optimizer step from the parameters' ``.grad`` (averaged over
+        ``dp_group`` when one is set); the grads are cleared after."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        if self.dp_group is not None:
+            meshlib.all_reduce_mean_(grads, self.dp_group)
         if self.grad_clip is not None:
             norm = global_norm(grads)
             keep = norm < self.grad_clip

@@ -7,7 +7,10 @@ dataset. ``eval`` logs the losses averaged over ``n_eval_batches`` eval
 batches and writes an HTML page (``html/recon_<step>.html`` in the run
 directory) with 8 eval frames, their reconstructions and 8 decoded prior
 samples. Snapshots are ``{vae_params, vae_ema_params}`` (``<step>.ckpt``),
-the form an agent workspace's ``vae_pretrain_path`` reads.
+the form an agent workspace's ``vae_pretrain_path`` reads. Under
+``torchrun`` it trains data-parallel as the ``Workspace`` does (the VAE's
+posterior noise drawn for the global batch, each rank its rows), and rank
+0 alone evaluates.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ class VAEWorkspace(Workspace):
 
     @torch.no_grad()
     def eval(self) -> dict:
+        if not self.is_main:        # the eval is offline: rank 0 alone
+            return {}
         model = self.agent
         eval_iter = self.data.eval_dataloader()
         for _ in range(self.cfg.get("n_eval_batches", 10)):

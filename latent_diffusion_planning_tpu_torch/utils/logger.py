@@ -23,9 +23,13 @@ class Logger:
     """``log_metrics(metrics, step, prefix)`` accumulates; ``dump(step,
     prefix)`` writes the averages and prints a line."""
 
-    def __init__(self, log_dir: str | Path):
+    def __init__(self, log_dir: str | Path, write: bool = True):
+        """``write`` False (a rank other than 0 of a data-parallel run)
+        keeps the averages and writes and prints nothing."""
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
         self._meters: dict[str, dict] = {
             "train": defaultdict(lambda: [0.0, 0]),
             "eval": defaultdict(lambda: [0.0, 0])}
@@ -49,7 +53,7 @@ class Logger:
         group = self._meters[prefix]
         data = {k: total / n for k, (total, n) in group.items()}
         group.clear()
-        if data:
+        if data and self.write:
             with open(self.log_dir / f"{prefix}.jsonl", "a") as f:
                 f.write(json.dumps({"step": step, **data}) + "\n")
             self._write_csv(self.log_dir / f"{prefix}.csv",
@@ -73,5 +77,7 @@ class Logger:
             writer.writerows(rows + [row])
 
     def note(self, text: str) -> None:
+        if not self.write:
+            return
         stamp = datetime.datetime.now().strftime("%H:%M:%S")
         print(f"[{stamp}] {text}", flush=True)

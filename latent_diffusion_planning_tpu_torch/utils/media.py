@@ -1,10 +1,11 @@
-"""Images and HTML reports.
+"""Images, videos and HTML reports.
 
 Counterpart of ``latent_diffusion_planning_tpu/utils/media.py``'s
-``to_uint8_hwc``, ``save_image`` and ``HTMLReport``. The machine with the
-card has no PIL, so PNGs are written here with the standard library
-(``encode_png``: 8-bit gray, RGB or RGBA, unfiltered rows, zlib). Not ported
-yet: ``save_video`` (it needs imageio).
+``to_uint8_hwc``, ``save_image``, ``save_video`` and ``HTMLReport``. The
+machine with the card has no PIL, imageio or ffmpeg, so PNGs are written
+here with the standard library (``encode_png``: 8-bit gray, RGB or RGBA,
+unfiltered rows, zlib) and a video is an animated PNG (APNG) of such frames
+(``save_video``; ``read_video`` reads one back).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Sequence
 import numpy as np
 
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}     # channels → PNG colour type
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def to_uint8_hwc(img) -> np.ndarray:
@@ -47,16 +49,20 @@ def encode_png(img) -> bytes:
     """The PNG file of an image (anything ``to_uint8_hwc`` takes; 2-D is
     gray)."""
     a = to_uint8_hwc(img)
-    if a.ndim == 2:
-        a = a[:, :, None]
+    header, data = _png_rows(a[:, :, None] if a.ndim == 2 else a)
+    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", data)
+            + _chunk(b"IEND", b""))
+
+
+def _png_rows(a: np.ndarray) -> tuple[bytes, bytes]:
+    """(IHDR payload, zlib stream of the unfiltered rows) of a uint8 HWC
+    image."""
     h, w, c = a.shape
     if c not in _COLOR_TYPE:
         raise ValueError(f"a PNG holds 1, 3 or 4 channels, not {c}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * c)], 1)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _chunk(b"IEND", b""))
+    return header, zlib.compress(rows.tobytes(), 6)
 
 
 def save_image(path: str | Path, img) -> Path:
@@ -64,6 +70,70 @@ def save_image(path: str | Path, img) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(encode_png(img))
     return path
+
+
+def save_video(path: str | Path, frames, fps: int = 10) -> Path:
+    """Write ``frames`` (T, H, W, C), anything ``to_uint8_hwc`` takes per
+    frame, as an animated PNG shown at ``fps`` frames a second, looping;
+    returns the path written.
+
+    The JAX package writes MP4 through imageio and falls back to GIF where
+    ffmpeg is missing. Neither exists where the port runs, so the file is an
+    APNG written with zlib alone, under ``path`` with its suffix swapped to
+    ``.png``. The format is the only difference: APNG is lossless, so every
+    pixel of every frame is kept (GIF's palette and MP4's codec are not).
+    """
+    path = Path(path).with_suffix(".png")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arr = [to_uint8_hwc(f) for f in frames]
+    arr = [a[:, :, None] if a.ndim == 2 else a for a in arr]
+    if not arr:
+        raise ValueError("a video needs at least one frame")
+    h, w = arr[0].shape[:2]
+    out = [_SIGNATURE, None, _chunk(b"acTL", struct.pack(">II", len(arr), 0))]
+    seq = 0
+    for i, a in enumerate(arr):
+        if a.shape != arr[0].shape:
+            raise ValueError(f"frame {i} is {a.shape}, frame 0 {arr[0].shape}")
+        header, data = _png_rows(a)
+        out[1] = _chunk(b"IHDR", header)
+        # fcTL: the frame covers the canvas, shown for 1/fps s, replacing
+        # what was there
+        out.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0,
+                                               1, int(fps), 0, 0)))
+        seq += 1
+        if i == 0:
+            out.append(_chunk(b"IDAT", data))
+        else:
+            out.append(_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_chunk(b"IEND", b""))
+    path.write_bytes(b"".join(out))
+    return path
+
+
+def read_video(path: str | Path) -> np.ndarray:
+    """The frames (T, H, W, C) uint8 of an APNG that ``save_video`` wrote
+    (unfiltered rows)."""
+    raw = Path(path).read_bytes()
+    if raw[:8] != _SIGNATURE:
+        raise ValueError(f"{path} is not a PNG")
+    pos, frames = 8, []
+    while pos < len(raw):
+        n, kind = struct.unpack_from(">I4s", raw, pos)
+        body = raw[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, _, color = struct.unpack_from(">IIBB", body)
+            c = {v: k for k, v in _COLOR_TYPE.items()}[color]
+        elif kind in (b"IDAT", b"fdAT"):
+            rows = np.frombuffer(zlib.decompress(
+                body if kind == b"IDAT" else body[4:]), np.uint8)
+            rows = rows.reshape(h, 1 + w * c)
+            if rows[:, 0].any():
+                raise ValueError(f"{path}: filtered rows are not read here")
+            frames.append(rows[:, 1:].reshape(h, w, c))
+    return np.stack(frames)
 
 
 class HTMLReport:

@@ -98,3 +98,20 @@ def test_aloha_modules_are_covered():
                    "envs/aloha_base.py", "envs/aloha_cube.py",
                    "envs/aloha_insertion.py"):
         assert port / module in FILES, module
+
+
+def test_runtime_and_offline_modules_are_covered():
+    """The video, rank, transfer, prefetch, synthetic, MJCF modules and
+    their tools are checked above; the prefetcher's C++ source is the JAX
+    package's, byte for byte below its header comment."""
+    port = REPO / "latent_diffusion_planning_tpu_torch"
+    for module in ("parallel/mesh.py", "train/transfer.py",
+                   "data/host_prefetch.py", "data/synthetic.py",
+                   "envs/mjcf.py", "utils/media.py", "rollout/engine.py"):
+        assert port / module in FILES, module
+    for tool in ("export_reference_ckpt_torch.py",
+                 "import_reference_ckpt_torch.py", "roundtrip_eval_torch.py"):
+        assert REPO / "tools" / tool in FILES, tool
+    body = lambda p: p.read_text().split("#include <atomic>", 1)[1]
+    assert body(port / "csrc" / "window_prefetch.cpp") == body(
+        REPO / "native" / "window_prefetch.cpp")
