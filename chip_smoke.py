@@ -592,7 +592,7 @@ def phase_unet(smoke: Smoke):
         row_tiles = -(-shape["samples_per_block"] * 8 // 16)
         entry = next(n for n in (2, 4, 8) if row_tiles <= n)
         info = smoke.shape_line(
-            f"B {name}", f"unet1d_sampler_kernelILi{entry}E", shape, mm,
+            f"B {name}", f"unet1d_sampler_kernelILi{entry}ELb0E", shape, mm,
             PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
         out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
@@ -1800,7 +1800,8 @@ def _time_unet(smoke, what, net, B, table, clip, g, T=8) -> dict:
     shape = KB.kernel_info(net, B, T, int(ts.shape[0]))
     row_tiles = -(-shape["samples_per_block"] * T // 16)
     entry = next(n for n in (2, 4, 8) if row_tiles <= n)
-    info = smoke.shape_line(what, f"unet1d_sampler_kernelILi{entry}E", shape,
+    info = smoke.shape_line(what, f"unet1d_sampler_kernelILi{entry}ELb"
+                            f"{int(shape['wide'])}E", shape,
                             mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
     print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
           f"the kernel's time; weights "
@@ -2731,28 +2732,35 @@ def _expert_against_jax(name: str, wins: int, n: int,
 
 def _time_idm(smoke: Smoke, what: str, agent, n_rows: int, g) -> dict:
     """Kernel A alone on ``agent``'s IDM at ``n_rows`` latent pairs over the
-    agent's DDIM table: within 1e-4 of the fp32 twin, timed beside it, with
-    its bound (phase A's count)."""
+    agent's table: within phase A's bar of the fp32 twin (1e-4 for DDIM,
+    1e-3 for DDPM with the same per-step noise), timed beside it, with its
+    bound (phase A's count)."""
     import torch
+    from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_mlp as KA)
     net = agent.idm
     S, A = 2 * agent.config.obs_dim, agent.config.action_dim
-    ts, coefs = agent._table(agent.idm_sched, agent.config.idm_inference_steps)
+    steps = agent.config.idm_inference_steps
+    ts, coefs = agent._table(agent.idm_sched, steps)
     clip = agent._clip(agent.idm_sched)
     s = torch.randn(n_rows, S, generator=g, device="cuda")
     x0 = torch.randn(n_rows, A, generator=g, device="cuda")
+    noise = common.step_noise(steps, agent.idm_sched, None, (n_rows, A), g,
+                              torch.device("cuda"))
+    tol = 1e-4 if noise is None else 1e-3
     packed = agent._packed("idm")
     run_k = lambda: KA.fused_mlp_diffusion_sample(
-        net, s, x0, ts, coefs, None, clip_range=clip, packed=packed)
+        net, s, x0, ts, coefs, noise, clip_range=clip, packed=packed)
     run_p = lambda: KA.mlp_diffusion_sample_plain(net, s, x0, ts, coefs,
-                                                  None, clip)
+                                                  noise, clip)
     err = float((run_k() - run_p()).abs().max())
-    smoke.check(f"{what} max_abs_err vs the fp32 twin", err, 1e-4)
+    smoke.check(f"{what} max_abs_err vs the fp32 twin", err, tol)
     ms, plain_ms = time_ms(run_k), time_ms(run_p)
     smoke.timing(what, ms, plain_ms)
     products, rest, nbytes = idm_flops_bytes(net, n_rows, S, A,
-                                             int(ts.shape[0]), False)
+                                             int(ts.shape[0]),
+                                             noise is not None)
     b_ms, b_by = bound(rest, nbytes, fp32_products=products)
     print(f"   {what}: bound {b_ms:.4f} ms ({b_by}) [{smoke.card}]",
           flush=True)
@@ -3722,6 +3730,551 @@ def phase_prefetch(smoke: Smoke):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's default agent configurations (DDPM-100)
+# ---------------------------------------------------------------------------
+DEF_AGENTS = ("ldp_agent", "ldp_hier_agent", "dp_agent", "dp_repr_agent")
+DEF_DATA = {"ldp_agent": "lift/latent_img", "ldp_hier_agent": "lift/latent_img",
+            "dp_agent": "lift/img", "dp_repr_agent": "lift/latent_img"}
+DEF_DEMO_SPLITS = (("train", 128, 0), ("eval", 32, 77))
+DEF_VAE_STEPS = 25           # of train_vae's 300000, at its batch 128
+DEF_TRAIN_STEPS = 60         # of train_bc's 500000, at its batch 256
+DEF_EVAL_ENVS = 256          # the closed loop: 256 envs x 40 steps, five
+DEF_EVAL_LEN = 40            # decisions at train_bc's action horizon 8 (cut
+                             # from 80, with the two counts above, to keep
+                             # the whole smoke near 600 s on one H100)
+DEF_KERNEL_PHASE = ("defaults: kernel B at the default agents' shapes, "
+                    "DDPM-100, and its wide mode")
+DEF_PHASE = ("defaults: the four default agent configurations from the "
+             "command line, trained and closed-loop")
+
+
+def default_command_line(name: str) -> list[str]:
+    """``train_bc agent=<name> data=...`` with the JAX command line's
+    defaults. LDP and LDP-hier plan the window after ``obs_horizon``: at
+    the yaml's horizon 16 their 15 targets fail the U-Net's stride (in the
+    JAX package too), so they take ``horizon=17 pred_horizon=16``."""
+    horizon = (["horizon=17", "pred_horizon=16"]
+               if name.startswith("ldp") else [])
+    return [f"agent={name}", f"data={DEF_DATA[name]}", *horizon]
+
+
+def default_agents(device) -> dict:
+    """The four default agents built on ``device`` from ``conf/`` through
+    ``load_config`` (seeded weights; building one on the card runs its
+    kernel check)."""
+    from latent_diffusion_planning_tpu_torch.train.loop import build_agent
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+    out = {}
+    for name in DEF_AGENTS:
+        cfg = load_config("train_bc", default_command_line(name))
+        agent_cfg = {k: v for k, v in dict(cfg.agent).items()
+                     if k != "vae_pretrain_path"}
+        out[name] = build_agent(agent_cfg, cfg.data["meta"]["shape_meta"], 3,
+                                device)
+    return out
+
+
+def default_unets(agents: dict) -> dict:
+    """Kernel B's calls in the default agents: record name -> (agent name,
+    net, its schedule, plan length, samples). LDP-hier plans P = 4 latents
+    a decision and the window's 16 in ``sample_plan_stats`` (the wide
+    mode); its chunk IDM decodes 4 chunks of 4 actions an env."""
+    ldp, hier = agents["ldp_agent"], agents["ldp_hier_agent"]
+    dp, dpr = agents["dp_agent"], agents["dp_repr_agent"]
+    E = DEF_EVAL_ENVS
+    return {
+        "B ldp planner": ("ldp_agent", ldp.planner, ldp.planner_sched, 16, E),
+        "B ldp_hier planner": ("ldp_hier_agent", hier.planner,
+                               hier.planner_sched, hier.plan_length, E),
+        "B ldp_hier window (wide)": ("ldp_hier_agent", hier.planner,
+                                     hier.planner_sched, 16, E),
+        "B ldp_hier chunk IDM": ("ldp_hier_agent", hier.idm, hier.idm_sched,
+                                 hier.config.idm_horizon,
+                                 E * hier.plan_length),
+        "B dp": ("dp_agent", dp.planner, dp.sched, 16, E),
+        "B dp_repr": ("dp_repr_agent", dpr.planner, dpr.sched, 16, E),
+    }
+
+
+def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
+                       packed) -> dict:
+    """Kernel B's DDPM on ``net`` against its rounding twin with the same
+    per-step noise, by phase B's statistics, which bf16 rounding flips
+    cannot move: after the first step, the share of elements beyond 5e-3
+    of the fp64-sum twin at most the fp32 twin's or 1%; after all the
+    steps, the mean within 5e-3 of the fp32 twin and closer to it than the
+    unrounded fp32 net lands. The largest error is one element's worst
+    flip carried through the steps and noise (over 1024 samples × 25 DDIM
+    steps it passed 0.1 once): a reading, as at the DDIM timing shapes."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    ts, coefs = table
+    twin = KB.rounding_twin(net)
+    twin64 = KB.rounding_twin(net).double()
+    kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
+        net, cond, x_init, ts[:n], coefs[:n], noise[:n], clip_range=1.0,
+        packed=packed)
+    plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
+        m, cond, x_init, ts[:n], coefs[:n], 1.0, noise[:n])
+    with torch.no_grad():
+        ref64 = dlib.sample_with_coefs(
+            lambda x, t: twin64(x, t, cond.double()), x_init.double(),
+            ts[:1], coefs[:1].double(), noise[:1].double(), 1.0)
+    one64 = {"kernel": err_stats(kernel(1), ref64),
+             "twin fp32": err_stats(plain(twin, 1), ref64),
+             "unrounded fp32 net": err_stats(plain(net, 1), ref64)}
+    ref = plain(twin)
+    got = kernel()
+    if not (bool(torch.isfinite(got).all()) and got.shape == x_init.shape):
+        raise AssertionError(f"{what}: output not finite or misshapen")
+    full, fp32 = err_stats(got, ref), err_stats(plain(net), ref)
+    n = int(ts.shape[0])
+    for k, v in one64.items():
+        print(f"   {what}: after 1 step, {k} against the fp64-sum twin: {v}",
+              flush=True)
+    print(f"   {what}: after {n} steps {full} (the fp32 net {fp32})",
+          flush=True)
+    beyond = {k: 1 - v["frac_within_5e3"] for k, v in one64.items()}
+    smoke.check(f"{what} share of elements beyond 5e-3 after 1 step "
+                "(kernel against the fp64-sum twin)", beyond["kernel"],
+                max(1e-2, beyond["twin fp32"]))
+    smoke.check(f"{what} mean_abs_err after {n} steps", full["mean"], 5e-3)
+    if not full["mean"] < fp32["mean"]:
+        raise AssertionError(f"{what}: the kernel is no closer to the "
+                             "rounding twin than the fp32 net is")
+    return dict(max_abs_err=full["max"], mean_abs_err=full["mean"],
+                one_step_vs_fp64_twin=one64, all_steps=full,
+                fp32_net_vs_twin=fp32, tol=5e-3)
+
+
+def phase_defaults_kernels(smoke: Smoke):
+    """Kernel B at every call the four default agents make (DDPM-100,
+    their YAML widths, seeded weights from the port's init, 256 envs):
+    held against its rounding twin with the same noise after 1 and 100
+    steps, timed beside the twin and its bound (products by operations,
+    from ``unet_flops_bytes`` with 100 steps; the noise read once), with
+    its launch geometry. LDP-hier's planner at the window's 16 latents runs
+    in the wide mode. Kernel A at LDP's default IDM over 4096 pairs
+    (DDPM-100) and kernel C at 256 physics Lift scenes, the closed loops'
+    shapes, are timed for the kernels line. Every agent is built on the
+    card, so none of the four configurations raises there."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+
+    dev = torch.device("cuda")
+    agents = default_agents(dev)
+    out: dict = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    for key, (name, net, sched, T, B) in default_unets(agents).items():
+        ts, coefs = dlib.ddpm_coef_table(sched.to("cpu"))
+        table = (ts.to(dev, torch.int32), coefs.to(dev))
+        S = int(ts.shape[0])
+        if S != 100:
+            raise AssertionError(f"{key}: {S} steps, not DDPM-100")
+        cond = torch.randn(B, net.global_cond_dim, generator=g, device=dev)
+        x0 = torch.randn(B, T, net.input_dim, generator=g, device=dev)
+        noise = torch.randn(S, B, T, net.input_dim, generator=g, device=dev)
+        packed = KB.pack_params(net).to(dev)
+        what = (f"{key} {list(net.down_dims)} B={B} T={T}"
+                f"{'' if net.downsample else ' no-downsample'}")
+        rec = _ddpm_against_twin(smoke, what, net, cond, x0, noise, table,
+                                 packed)
+        twin = KB.rounding_twin(net)
+        run_k = lambda: KB.fused_unet1d_ddim_sample(
+            net, cond, x0, *table, noise, packed=packed)
+        run_p = lambda: KB.unet1d_ddim_sample_plain(twin, cond, x0, *table,
+                                                    1.0, noise)
+        ms = time_ms(run_k, iters=2)
+        plain_ms = time_ms(run_p, iters=1, warmup=0)
+        smoke.timing(what, ms, plain_ms)
+        elem, mm, nbytes = unet_flops_bytes(net, B, T, S)
+        nbytes += noise.numel() * 4
+        b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
+        shape = KB.kernel_info(net, B, T, S)
+        row_tiles = -(-shape["samples_per_block"] * T // 16)
+        entry = next(n for n in (2, 4, 8) if row_tiles <= n)
+        info = smoke.shape_line(
+            what, f"unet1d_sampler_kernelILi{entry}ELb{int(shape['wide'])}E",
+            shape, mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
+        print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
+              f"the kernel's time; weights "
+              f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
+              f"and block, {shape['weight_bytes_streamed'] / 1e9:.1f} GB "
+              f"streamed in all{'; wide mode' if shape['wide'] else ''} "
+              f"[{smoke.card}]", flush=True)
+        if (key == "B ldp_hier window (wide)") != shape["wide"]:
+            raise AssertionError(f"{what}: wide mode {shape['wide']}")
+        out[key] = dict(rec, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
+                        bytes=nbytes, shape=info)
+    out["wide mode cost"] = _wide_mode_cost(smoke, agents["ldp_hier_agent"],
+                                            g)
+    ldp = agents["ldp_agent"]
+    out["A ldp"] = _time_idm(smoke, "A ldp default IDM DDPM-100 4096 rows",
+                             ldp, DEF_EVAL_ENVS * 16, g)
+    penv = configs.make_bench_env(render_images=False)
+    out["C 256"] = raycast_case(smoke, "physics 256",
+                                penv.scene(physics_states(penv, DEF_EVAL_ENVS,
+                                                          dev)),
+                                penv.camera, 0)
+    return out
+
+
+def _wide_mode_cost(smoke: Smoke, agent, g) -> dict:
+    """What the wide mode's global scratch costs: LDP-hier's planner at P =
+    4 latents, 256 samples, DDPM-100, one sample a block, in the ordinary
+    program and in the wide one, timed in turns (ordinary, wide, wide,
+    ordinary). Both run the same records over the same shared-memory
+    operands, so their results must be equal bit for bit."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    net, T, B = agent.planner, agent.plan_length, DEF_EVAL_ENVS
+    ts, coefs = dlib.ddpm_coef_table(agent.planner_sched.to("cpu"))
+    ts, coefs = ts.to("cuda", torch.int32), coefs.to("cuda")
+    cond = torch.randn(B, net.global_cond_dim, generator=g, device="cuda")
+    x0 = torch.randn(B, T, net.input_dim, generator=g, device="cuda")
+    noise = torch.randn(len(ts), B, T, net.input_dim, generator=g,
+                        device="cuda")
+    packed = KB.pack_params(net).to("cuda")
+    run = lambda wide: KB.fused_unet1d_ddim_sample(
+        net, cond, x0, ts, coefs, noise, packed=packed, nb=1, wide=wide)
+    same = bool(torch.equal(run(False), run(True)))
+    ms = {False: [], True: []}
+    for wide in (False, True, True, False):
+        ms[wide].append(time_ms(lambda: run(wide), iters=2))
+    ordinary, wide = sum(ms[False]) / 2, sum(ms[True]) / 2
+    print(f"   wide mode at LDP-hier's planner, {B} samples x T {T}, one a "
+          f"block: ordinary {ms[False]} ms, wide {ms[True]} ms, "
+          f"{wide / ordinary - 1:+.1%}; outputs equal bit for bit: {same} "
+          f"[{smoke.card}]", flush=True)
+    if not same:
+        raise AssertionError("the wide program's output differs from the "
+                             "ordinary one's")
+    return dict(ordinary_ms=ms[False], wide_ms=ms[True],
+                overhead=wide / ordinary - 1)
+
+
+def phase_defaults(smoke: Smoke, device: str = "cuda"):
+    """The JAX package's four default agent configurations from the command
+    line, in a scratch folder under the checkout's git-ignored ``build/``
+    (removed after): demos (128 + 32 physics envs × 80 steps), the default
+    VAE (``stable_vae``: 6 stages [128,256,256,256,256,256], patch 1, a
+    16-dim latent) for ``DEF_VAE_STEPS`` steps, the demos' latents, then
+    for each agent ``train_bc agent=<name>`` at its YAML widths with
+    DDPM-100 and ``train_bc``'s batch 256 for ``DEF_TRAIN_STEPS`` steps (the
+    warm-up cut to a quarter of them; losses must fall; the run's final
+    eval without episodes: offline action MSE and plan statistics, launches
+    counted), and ``eval_bc`` over ``DEF_EVAL_ENVS`` episodes of
+    ``DEF_EVAL_LEN`` steps, its launches stated before the run (one a
+    decision: LDP B, A and C; LDP-hier B twice and C; DP and DPVAE B and
+    C); then kernel B (and A) on each
+    trained agent's nets against their twins, LDP-hier's planner at the
+    window's 16 latents in the wide mode once more, and one LDP decision
+    at 256 envs stage by stage."""
+    import os
+    import shutil
+    import tempfile
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_defaults_", dir=build))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        return _drive_defaults(smoke, work, device)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
+    import torch
+    from latent_diffusion_planning_tpu_torch.drivers import (
+        agent_from_snapshot, run_data)
+    from latent_diffusion_planning_tpu_torch.ops import kernels
+    from latent_diffusion_planning_tpu_torch.rollout import engine
+    from latent_diffusion_planning_tpu_torch.train import loop
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+
+    args = [] if device == "cuda" else [f"device={device}"]
+    V, N = DEF_VAE_STEPS, DEF_TRAIN_STEPS
+    out: dict = {"stage_s": {}, "agents": {}}
+    kernel_rec = smoke.record["phases"].get(DEF_KERNEL_PHASE, {})
+    out.update({k: v for k, v in kernel_rec.items()
+                if k.startswith(("A ", "B ", "C "))})
+    workspaces: list = []
+    real_run = loop.Workspace.run
+
+    def run(ws):
+        workspaces.append(ws)
+        return real_run(ws)
+
+    def stage(name, driver, argv):
+        module = importlib.import_module(
+            f"latent_diffusion_planning_tpu_torch.drivers.{driver}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        module.main(argv + args)
+        _sync(device)
+        out["stage_s"][name] = time.perf_counter() - t0
+        print(f"   {name}: {out['stage_s'][name]:.1f} s [{smoke.card}]",
+              flush=True)
+        return kernels.launch_counts()
+
+    for split, n, seed in DEF_DEMO_SPLITS:
+        suffix = "" if split == "train" else "_eval"
+        stage(f"collect_demos {split}", "collect_demos", [
+            f"n_episodes={n}", f"episode_len={DEMO_LEN}",
+            f"out_path=datasets/demos{suffix}.npz", f"seed={seed}"])
+    paths = ["data.train_path=datasets/demos.npz",
+             "data.eval_path=datasets/demos_eval.npz"]
+    latent_paths = ["data.train_latent_path=datasets/demos_latent.npz",
+                    "data.eval_latent_path=datasets/demos_eval_latent.npz"]
+    loop.Workspace.run = run
+    try:
+        stage("train_vae (stable_vae)", "train_vae", [
+            "data=lift/img", *paths, f"n_grad_steps={V}",
+            f"warmup_steps={V // 4}", f"eval_every={V}", f"save_every={V}",
+            "experiment_folder=defaults", "experiment_name=vae"])
+    finally:
+        loop.Workspace.run = real_run
+    vae_ws = workspaces.pop()
+    curve = vae_ws.loss_curve()
+    first, last = _loss_means(curve)
+    print(f"   stable_vae {V} steps at batch {vae_ws.cfg['batch_size']}: "
+          f"{V / vae_ws.train_seconds:.2f} steps/s; loss {first} -> {last} "
+          f"[{smoke.card}]", flush=True)
+    _falls(curve, ("loss",), first, last)
+    vae = f"experiments/defaults/vae/ckpt/{V}.ckpt"
+    if not (work / vae).exists():
+        raise AssertionError(f"{vae} was not written")
+    stage("process_latents (stable_vae)", "process_latents", [
+        f"vae_snapshot_path={vae}",
+        "src_paths=[datasets/demos.npz,datasets/demos_eval.npz]",
+        "dst_paths=[datasets/demos_latent.npz,datasets/demos_eval_latent.npz]"])
+    out.update(vae_loss_first20=first, vae_loss_last20=last,
+               vae_steps_per_s=V / vae_ws.train_seconds)
+
+    n_dec = math.ceil(DEF_EVAL_LEN / 8)
+    for name in DEF_AGENTS:
+        rec: dict = {}
+        line = default_command_line(name) + paths + [
+            f"data.env_params.env.episode_len={DEF_EVAL_LEN}",
+            f"n_grad_steps={N}", f"warmup_steps={N // 4}", f"eval_every={N}",
+            f"save_every={N}", "n_eval_episodes=0",
+            "experiment_folder=defaults", f"experiment_name={name}"]
+        if DEF_DATA[name] == "lift/latent_img":
+            line += latent_paths + [f"agent.vae_pretrain_path={vae}"]
+        cfg = load_config("train_bc", line)
+        steps = {k: cfg.agent.get(k) for k in (
+            "n_diffusion_steps", "inference_steps", "planner_n_diffusion_steps",
+            "planner_inference_steps", "idm_n_diffusion_steps",
+            "idm_inference_steps") if k in cfg.agent}
+        print(f"   {name}: {' '.join(default_command_line(name))}; batch "
+              f"{cfg.batch_size}, widths {cfg.agent['planner']['down_dims']}, "
+              f"{steps}", flush=True)
+        if (cfg.batch_size != 256 or cfg.action_horizon != 8
+                or any(v not in (None, 100) for v in steps.values())):
+            raise AssertionError(f"{name}: not the defaults: {steps}")
+        loop.Workspace.run = run
+        try:
+            train_counts = stage(f"train_bc {name}", "train_bc", line)
+        finally:
+            loop.Workspace.run = real_run
+        ws = workspaces.pop()
+        curve = ws.loss_curve()
+        first, last = _loss_means(curve)
+        print(f"   {name}: {N} steps at batch {cfg.batch_size} in "
+              f"{ws.train_seconds:.3f} s "
+              f"= {N / ws.train_seconds:.2f} steps/s; losses first 20 "
+              f"{first}, last 20 {last} [{smoke.card}]", flush=True)
+        _falls(curve, ws.agent.LOSS_KEYS, first, last)
+        # the run's final eval: one offline batch of each split through
+        # sample_action and, for LDP and LDP-hier, sample_plan_stats
+        want = {"diffusion_mlp": 2 if name == "ldp_agent" else 0,
+                "diffusion_unet1d": {"ldp_agent": 2,
+                                     "ldp_hier_agent": 4}.get(name, 2),
+                "raycast": 0}
+        print(f"   {name} train_bc (its final eval): launches {train_counts} "
+              f"(stated: {want})", flush=True)
+        if device == "cuda" and train_counts != want:
+            raise AssertionError(f"{name}: train_bc launches {train_counts}")
+        rec.update(steps_per_s=N / ws.train_seconds, loss_first20=first,
+                   loss_last20=last, train_launches=train_counts,
+                   final_eval=dict(ws.last_eval))
+
+        # the closed loop through eval_bc, its launches counted around it
+        counted: dict = {}
+        real = engine.run_batched_eval_multi
+
+        def counting(*a, **kw):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = real(*a, **kw)
+            _sync(device)
+            counted.update(counts=kernels.launch_counts(),
+                           wall_s=time.perf_counter() - t0, results=res)
+            return res
+        engine.run_batched_eval_multi = counting
+        try:
+            stage(f"eval_bc {name}", "eval_bc", [
+                f"run_dir=experiments/defaults/{name}",
+                f"n_eval_episodes={DEF_EVAL_ENVS}"])
+        finally:
+            engine.run_batched_eval_multi = real
+        want = {"raycast": n_dec,
+                "diffusion_unet1d": n_dec * (2 if name == "ldp_hier_agent"
+                                             else 1),
+                "diffusion_mlp": n_dec if name == "ldp_agent" else 0}
+        m = counted["results"][0]["metrics"]
+        print(f"   {name} closed loop {DEF_EVAL_ENVS} x {DEF_EVAL_LEN}: "
+              f"launches {counted['counts']} (stated: {want}), "
+              f"{counted['wall_s']:.3f} s = "
+              f"{DEF_EVAL_ENVS * DEF_EVAL_LEN / counted['wall_s']:.1f} "
+              f"computed env-steps/s, success {m['success']:.4f} "
+              f"[{smoke.card}]", flush=True)
+        if device == "cuda" and counted["counts"] != want:
+            raise AssertionError(f"{name} closed-loop launches "
+                                 f"{counted['counts']} != {want}")
+        rec.update(loop_launches=counted["counts"],
+                   loop_wall_s=counted["wall_s"],
+                   loop_success=float(m["success"]))
+
+        # kernel B (A for LDP's IDM) on the trained nets against the twins
+        run_dir = work / "experiments" / "defaults" / name
+        run_cfg = load_config(str(run_dir / "config.json"))
+        data, agent_cfg = run_data(run_cfg, torch.device(device))
+        agent = agent_from_snapshot(agent_cfg, data,
+                                    run_dir / "ckpt" / f"{N}.ckpt",
+                                    torch.device(device))
+        rec["trained"] = _trained_default_checks(smoke, name, agent, device)
+        if name == "ldp_hier_agent":
+            kernels.reset_launch_counts()
+            stats = agent.sample_plan_stats(next(data.eval_dataloader()))
+            _sync(device)
+            counts = kernels.launch_counts()
+            print(f"   {name} sample_plan_stats at the window's 16 latents "
+                  f"(wide mode): {({k: float(v) for k, v in stats.items()})},"
+                  f" launches {counts}", flush=True)
+            if device == "cuda" and counts["diffusion_unet1d"] != 1:
+                raise AssertionError(f"plan stats launches {counts}")
+            out["hier_window"] = {"launches": counts}
+        if name == "ldp_agent":
+            out["ldp_decision_ms"] = _default_decision(smoke, agent, device)
+        out["agents"][name] = rec
+        out[f"{name} loop"] = {"launches": counted["counts"]}
+    return out
+
+
+def _trained_default_checks(smoke, name: str, agent, device: str) -> dict:
+    """Kernel B's DDPM on a trained default agent's U-Nets (kernel A's on
+    LDP's IDM) against the twins, at the closed loop's shapes, the same
+    noise handed to both."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.agents import common
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA)
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(31)
+    E = DEF_EVAL_ENVS
+    if name.startswith("ldp"):
+        calls = [("planner", agent.config.planner_inference_steps,
+                  agent.plan_length if name == "ldp_hier_agent" else 16, E)]
+        if name == "ldp_hier_agent":
+            calls.append(("idm", agent.config.idm_inference_steps,
+                          agent.config.idm_horizon, E * agent.plan_length))
+    else:
+        calls = [("sampler", agent.config.inference_steps, 16, E)]
+    out = {}
+    for net_name, steps, T, B in calls:
+        if net_name == "sampler":
+            net, sched = agent._sampling_net(), agent.sched
+            table = agent.sampler.table()
+        else:
+            net = agent._inference_net(net_name)
+            sched = getattr(agent, f"{net_name}_sched")
+            table = agent._table(sched, steps)
+        packed = KB.pack_params(net).to(dev)
+        cond = torch.randn(B, net.global_cond_dim, generator=g, device=dev)
+        x0 = torch.randn(B, T, net.input_dim, generator=g, device=dev)
+        noise = common.step_noise(steps, sched, None, tuple(x0.shape), g, dev)
+        out[net_name] = _ddpm_against_twin(
+            smoke, f"trained {name} B {net_name} ({B} samples, T {T}, "
+            f"DDPM-{int(table[0].shape[0])})", net, cond, x0, noise, table,
+            packed)
+    if name == "ldp_agent":
+        c = agent.config
+        steps = c.idm_inference_steps
+        ts, coefs = agent._table(agent.idm_sched, steps)
+        rows = E * 16
+        s = torch.randn(rows, 2 * c.obs_dim, generator=g, device=dev)
+        x0 = torch.randn(rows, c.action_dim, generator=g, device=dev)
+        noise = common.step_noise(steps, agent.idm_sched, None,
+                                  (rows, c.action_dim), g, dev)
+        net = agent._inference_net("idm")
+        got = KA.fused_mlp_diffusion_sample(net, s, x0, ts, coefs, noise,
+                                            packed=agent._packed("idm"))
+        ref = KA.mlp_diffusion_sample_plain(net, s, x0, ts, coefs, noise)
+        err = float((got - ref).abs().max())
+        smoke.check(f"trained {name} A ({rows} rows, DDPM-{len(ts)}) "
+                    "max_abs_err vs the fp32 twin", err, 1e-3)
+        out["idm"] = dict(max_abs_err=err)
+    return out
+
+
+def _default_decision(smoke: Smoke, agent, device: str) -> dict:
+    """One decision of the trained default LDP agent at 256 envs, stage by
+    stage (CUDA events over repeated calls): the stable VAE's encode, the
+    plan (B, DDPM-100), the IDM decode (A, DDPM-100), eight physics
+    transitions from the CUDA graph, the render and observation."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.agents import common
+
+    n, c = DEF_EVAL_ENVS, agent.config
+    env = configs.make_bench_env(DEF_EVAL_LEN)
+    g = torch.Generator(device=device).manual_seed(8)
+    state = physics_states(env, n, device, seed=8)
+    obs = env.obs(state)
+    window = {k: obs[k][:, None] for k in configs.BENCH_POLICY_KEYS}
+    emb = agent._obs_cond(agent._prepare_eval_batch({"obs": window})["obs"])
+    cond = emb[:, 0]
+    x_plan = torch.randn(n, c.pred_horizon, c.obs_dim, device=device)
+    pairs = common.consecutive_pairs(torch.cat(
+        [emb, agent._plan(cond, x_plan, g)], 1))
+    x_idm = torch.randn(pairs.shape[0], c.action_dim, device=device)
+    acts = torch.rand(n, 7, device=device) * 2 - 1
+    stages = {
+        "render + obs (kernel C)": lambda: env.obs(state),
+        f"{c.action_horizon} transitions, CUDA graph":
+            lambda: [env.transition(state, acts)
+                     for _ in range(c.action_horizon)],
+        "normalize + stable VAE encode": lambda: agent._prepare_eval_batch(
+            {"obs": window}),
+        "plan (kernel B, DDPM-100)": lambda: agent._plan(cond, x_plan, g),
+        "IDM decode (kernel A, DDPM-100)":
+            lambda: agent._idm_decode(pairs, x_idm, g),
+        "sample_fast (VAE + B + A + glue)": lambda: agent.sample_fast(
+            {"obs": window}, generator=g),
+    }
+    out = {}
+    for name, fn in stages.items():
+        out[name] = time_ms(fn, iters=2)
+        print(f"   default LDP decision at {n} envs, {name}: "
+              f"{out[name]:.3f} ms [{smoke.card}]", flush=True)
+    return out
+
+
 REPLACES = {   # the pl.pallas_call of each TPU kernel
     "diffusion_mlp": ("latent_diffusion_planning_tpu/ops/pallas/"
                       "diffusion_mlp.py:145"),
@@ -3753,6 +4306,19 @@ PATHS = (
     (AL_PHASE, "ALOHA insertion closed loop", "insertion_loop",
      {"raycast": "C aloha insertion", "diffusion_unet1d": "B aloha",
       "diffusion_mlp": "A aloha"}),
+    (DEF_PHASE, "default LDP closed loop (DDPM-100)", "ldp_agent loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B ldp planner",
+      "diffusion_mlp": "A ldp"}),
+    (DEF_PHASE, "default LDP-hier closed loop (DDPM-100; B is the planner "
+     "and the chunk IDM, timed here at the planner's shape)",
+     "ldp_hier_agent loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B ldp_hier planner"}),
+    (DEF_PHASE, "default LDP-hier sample_plan_stats at 16 latents (B's wide "
+     "mode)", "hier_window", {"diffusion_unet1d": "B ldp_hier window (wide)"}),
+    (DEF_PHASE, "default DP closed loop (DDPM-100)", "dp_agent loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B dp"}),
+    (DEF_PHASE, "default DPVAE closed loop (DDPM-100)", "dp_repr_agent loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B dp_repr"}),
 )
 
 
@@ -3845,6 +4411,8 @@ def main() -> int:
             smoke.phase("prefetch: host windows streamed to the card",
                         lambda: phase_prefetch(smoke))
             _training_phases(smoke)
+            smoke.phase(DEF_KERNEL_PHASE, lambda: phase_defaults_kernels(smoke))
+            smoke.phase(DEF_PHASE, lambda: phase_defaults(smoke))
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

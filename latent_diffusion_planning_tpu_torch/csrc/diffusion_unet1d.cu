@@ -1,6 +1,7 @@
-// Fused DDIM (eta = 0) reverse process of ConditionalUnet1D on the tensor
-// cores: bf16 weights and bf16 activation operands, fp32 accumulation, fp32
-// GroupNorm / Mish / FiLM / DDIM update.
+// Fused reverse process of ConditionalUnet1D on the tensor cores, strided
+// DDIM (eta = 0) or ancestral DDPM with per-step noise: bf16 weights and
+// bf16 activation operands, fp32 accumulation, fp32 GroupNorm / Mish / FiLM
+// / step update.
 //
 // Replaces the TPU kernel latent_diffusion_planning_tpu/ops/pallas/
 // diffusion_unet1d.py (fused_unet1d_ddim_sample -> _kernel), both its
@@ -11,7 +12,10 @@
 //   Mish -> FiLM -> conv -> GN -> Mish, + 1x1 projection when Cin != Cout),
 //   stride-2 k3 downsample (Flax SAME pads (0, 1)), ConvTranspose k4 s2
 //   upsample (x[t] w[j] -> y[2t+2-j]), skip concat, final conv block, 1x1
-//   conv to y (eps, x0 or v); x0 = clip(c0 (cx x - c1 y)), x = c2 x0 + c3 x.
+//   conv to y (eps, x0 or v); x0 = clip(c0 (cx x - c1 y)),
+//   x = c2 x0 + c3 x + c4 noise[step] (noise null for DDIM, whose c4 is 0).
+//   The JAX kernel is DDIM only; DDPM-100 is what the JAX package's default
+//   agent configurations sample with (through its XLA scan).
 //
 // What bounds it on H100: by its operations the bf16 tensor-core rate, by
 // its shape the weight stream. A block holds few GEMM rows (nb x T, at most
@@ -55,6 +59,24 @@
 // The net arrives as a program of 12-int records (build_program) over the
 // packed buffer, so any down_dims / n_groups / embedding width runs through
 // the same kernel.
+//
+// Wide mode (d.wide): a net that does not downsample keeps every level at
+// the full length, so at 16 rows LDP-hier's default planner [256,512,1024]
+// needs 16 x 1032 floats for each of the two fp32 buffers, 2 x 16 x 2056
+// bf16 for the operand buffers of its 2048-wide concat and 16 x 1552 bf16
+// of skips: 362 KB, more than a block's 227 KB. The operand buffers must
+// stay in shared memory (ldmatrix reads nothing else), so wide mode keeps
+// the fp32 buffers and the skips in a per-block slice of a global scratch
+// instead (d.scratch_bytes a block, 182 KB there) and the rest of the
+// program is unchanged: the GEMM epilogue, GroupNorm / Mish, the residual,
+// SAVE and CONCAT read and write them through generic pointers, and
+// __syncthreads orders global writes within the block as it does shared
+// ones. The slice is written and read back by one block between two
+// barriers, so it stays in L2 (a resident block's slice is 182 KB; 132 of
+// them 24 MB); beside the 84 MB of weights the block streams a step it is
+// small. The wrapper takes wide mode only where no tile fits shared memory
+// whole, so every other net keeps its tiles, and for up to 32 rows a block
+// (one kernel instance).
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -337,9 +359,10 @@ struct Dims {
   int B, T, D, Dc, dsed, K, G, nb, max32, maxb, skip_total, n_ops, n_steps,
       film_total, film_ld, main_stages, time_tile_base, time_stages,
       cond_tile_base, cond_stages, vec_base, v_time0, v_time1, v_film_t,
-      smem_main, smem_pro, stages_main, stages_pro, tile_n, cond_rows;
+      smem_main, smem_pro, stages_main, stages_pro, tile_n, cond_rows,
+      wide, scratch_bytes;
 };
-constexpr int kNDims = 30;
+constexpr int kNDims = 32;
 
 __device__ __forceinline__ Gemm dense(const bf16* A, int K, int rows, int N,
                                       const bf16* bias) {
@@ -422,11 +445,16 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
   tiles.ring.drain();
 }
 
-template <int kMt>
+// kWide: the fp32 buffers and the skips in this block's slice of the
+// global scratch (a template parameter, so the ordinary instances keep
+// their registers; one instance, for up to 32 rows a block, keeps the
+// build short)
+template <int kMt, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     const float* __restrict__ x_init, const float* __restrict__ coefs,
-    const bf16* __restrict__ W, const int* __restrict__ prog,
-    const float* __restrict__ film_t, const float* __restrict__ film_g,
+    const float* __restrict__ noise, const bf16* __restrict__ W,
+    const int* __restrict__ prog, const float* __restrict__ film_t,
+    const float* __restrict__ film_g, char* scratch,
     float* __restrict__ out, Dims d, float clip) {
   extern __shared__ uint4 smem_raw[];
   char* sm = reinterpret_cast<char*>(smem_raw);
@@ -435,15 +463,36 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
   const int b0 = blockIdx.x * nb;
   const int n_valid = min(nb, d.B - b0);
 
-  float* X32 = reinterpret_cast<float*>(sm + d.stages_main * kStageBytes);
-  float* Y32 = X32 + d.max32;
-  float* xcur = Y32 + d.max32;                  // nb*T x D
+  // shared: [ring | X32 Y32 | xcur | stats | Xb Yb | skips | zero]; in wide
+  // mode X32, Y32 and the skips sit in this block's slice of the scratch
+  float* X32;
+  float* Y32;
+  float* xcur;
+  bf16* Xb;
+  bf16* Yb;
+  bf16* skipb;
+  bf16* zero;
+  if constexpr (kWide) {
+    X32 = reinterpret_cast<float*>(
+        scratch + static_cast<size_t>(blockIdx.x) * d.scratch_bytes);
+    Y32 = X32 + d.max32;
+    skipb = reinterpret_cast<bf16*>(Y32 + d.max32);
+    xcur = reinterpret_cast<float*>(sm + d.stages_main * kStageBytes);
+    const int n_floats = (nb * T * D + 2 * nb * G + 3) & ~3;
+    Xb = reinterpret_cast<bf16*>(xcur + n_floats);
+    Yb = Xb + d.maxb;
+    zero = Yb + d.maxb;
+  } else {
+    X32 = reinterpret_cast<float*>(sm + d.stages_main * kStageBytes);
+    Y32 = X32 + d.max32;
+    xcur = Y32 + d.max32;                       // nb*T x D
+    const int n_floats = (2 * d.max32 + nb * T * D + 2 * nb * G + 3) & ~3;
+    Xb = reinterpret_cast<bf16*>(X32 + n_floats);
+    Yb = Xb + d.maxb;
+    skipb = Yb + d.maxb;
+    zero = skipb + d.skip_total;
+  }
   float* stats = xcur + nb * T * D;             // nb x G x 2
-  const int n_floats = (2 * d.max32 + nb * T * D + 2 * nb * G + 3) & ~3;
-  bf16* Xb = reinterpret_cast<bf16*>(X32 + n_floats);
-  bf16* Yb = Xb + d.maxb;
-  bf16* skipb = Yb + d.maxb;
-  bf16* zero = skipb + d.skip_total;
   if (tid < 16) zero[tid] = __float2bfloat16(0.f);
   const uint32_t zero_addr = ldp::smem_u32(zero);
   const bf16* V = W + d.vec_base;
@@ -563,8 +612,12 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
 
     const float k0 = coefs[step * 6 + 0], k1 = coefs[step * 6 + 1];
     const float k2 = coefs[step * 6 + 2], k3 = coefs[step * 6 + 3];
-    const float kx = coefs[step * 6 + 5];
+    const float k4 = coefs[step * 6 + 4], kx = coefs[step * 6 + 5];
     const int lf = ld32(D);
+    // this step's noise for the block's samples: (n_steps, B, T, D), the
+    // rows of sample b0 on; the padding samples past n_valid read none
+    const float* nz = noise == nullptr ? nullptr
+        : noise + (static_cast<size_t>(step) * d.B + b0) * T * D;
     for (int i = tid; i < nb * T * D; i += NT) {
       const int r = i / D, c = i - r * D;
       const float x = xcur[i];
@@ -573,7 +626,9 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
       const float x0 = fminf(
           fmaxf(k0 * fmaf(-k1, Y32[r * lf + c], __fmul_rn(kx, x)), -clip),
           clip);
-      xcur[i] = k2 * x0 + k3 * x;
+      float xn = k2 * x0 + k3 * x;
+      if (nz != nullptr && i < n_valid * T * D) xn += k4 * __ldg(nz + i);
+      xcur[i] = xn;
     }
     __syncthreads();
   }
@@ -583,29 +638,33 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     out[static_cast<size_t>(b0) * T * D + i] = xcur[i];
 }
 
-template <int kMt>
-int launch_main(const float* x_init, const float* coefs, const bf16* W,
-                const int* prog, const float* film_t, const float* film_g,
-                float* out, const Dims& d, float clip, cudaStream_t st) {
-  auto kernel = unet1d_sampler_kernel<kMt>;
+template <int kMt, bool kWide>
+int launch_main(const float* x_init, const float* coefs, const float* noise,
+                const bf16* W, const int* prog, const float* film_t,
+                const float* film_g, char* scratch, float* out, const Dims& d,
+                float clip, cudaStream_t st) {
+  auto kernel = unet1d_sampler_kernel<kMt, kWide>;
   cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (d.B + d.nb - 1) / d.nb;
-  kernel<<<grid, kThreads, d.smem_main, st>>>(x_init, coefs, W, prog, film_t,
-                                              film_g, out, d, clip);
+  kernel<<<grid, kThreads, d.smem_main, st>>>(x_init, coefs, noise, W, prog,
+                                              film_t, film_g, scratch, out, d,
+                                              clip);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns a cudaError_t. `dims` is kNDims host ints in the order of Dims
-// (the Python wrapper computes them from the same layout). film_t
-// (n_steps x film_ld) and film_g (B rounded up to cond_rows rows x
-// film_ld) are scratch.
+// (the Python wrapper computes them from the same layout). noise is
+// (n_steps x B x T x D) fp32, or null for DDIM. film_t (n_steps x
+// film_ld), film_g (B rounded up to cond_rows rows x film_ld) and, in wide
+// mode, `scratch` (grid x scratch_bytes; null otherwise) are scratch.
 extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
                                   const int* ts, const float* coefs,
-                                  const void* w, const int* prog,
-                                  float* film_t, float* film_g, float* out,
+                                  const float* noise, const void* w,
+                                  const int* prog, float* film_t,
+                                  float* film_g, void* scratch, float* out,
                                   const int* dims, int n_dims, float clip,
                                   void* stream) {
   if (n_dims != kNDims) return static_cast<int>(cudaErrorInvalidValue);
@@ -615,8 +674,10 @@ extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
   if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
       d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
       d.stages_pro > 8 || d.cond_rows < 16 || d.cond_rows > kCondRowsMax ||
-      d.cond_rows % 16)
+      d.cond_rows % 16 ||
+      (d.wide && (scratch == nullptr || d.scratch_bytes % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto sc = static_cast<char*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
   auto W = static_cast<const bf16*>(w);
   cudaError_t err = ldp::allow_smem(unet1d_prologue_kernel, d.smem_pro);
@@ -628,12 +689,16 @@ extern "C" int ldp_unet1d_sampler(const float* gcond, const float* x_init,
   if (err != cudaSuccess) return static_cast<int>(err);
   // accumulators sized to the rows the tile holds: 2, 4 or 8 m16 tiles
   const int mt = (d.nb * d.T + 15) / 16;
+  if (d.wide)
+    return mt <= 2 ? launch_main<2, true>(x_init, coefs, noise, W, prog,
+                                          film_t, film_g, sc, out, d, clip, st)
+                   : static_cast<int>(cudaErrorInvalidValue);
   if (mt <= 2)
-    return launch_main<2>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
-                          st);
+    return launch_main<2, false>(x_init, coefs, noise, W, prog, film_t,
+                                 film_g, sc, out, d, clip, st);
   if (mt <= 4)
-    return launch_main<4>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
-                          st);
-  return launch_main<8>(x_init, coefs, W, prog, film_t, film_g, out, d, clip,
-                        st);
+    return launch_main<4, false>(x_init, coefs, noise, W, prog, film_t,
+                                 film_g, sc, out, d, clip, st);
+  return launch_main<8, false>(x_init, coefs, noise, W, prog, film_t, film_g,
+                               sc, out, d, clip, st);
 }

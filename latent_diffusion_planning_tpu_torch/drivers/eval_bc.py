@@ -4,7 +4,10 @@ Counterpart of ``tools/eval_bc.py``: the run's ``config.json`` merged with
 this command line's keys, then for every checkpoint of ``ckpt/`` (or those
 ``ckpt_steps`` names) the action MSE and L1 of ``sample_action`` on one
 train and one eval batch, and closed-loop episodes in the env its training
-evaluated in (``train/loop.eval_env``). ``sweep_batch=K`` evaluates K
+evaluated in (``train/loop.eval_env``); the MSE and L1 compare the first n
+actions of each, n the shorter, as the ``Workspace``'s eval does (the JAX
+tool slices the window's actions to the prediction's length, which fails on
+LDP-hier, whose prediction is longer). ``sweep_batch=K`` evaluates K
 checkpoints at once through ``engine.run_batched_eval_multi`` (one env
 batch of K·N; the default, 0 or 1, one at a time); checkpoint s's episodes
 reset and draw from ``rollout_seed(seed, s)`` either way, so its result
@@ -77,7 +80,11 @@ def main(argv: list[str] | None = None) -> None:
             for split, it in (("train", train_iter), ("eval", eval_iter)):
                 batch = next(it)
                 pred = agent.sample_action(batch, gen)
-                gt = batch["actions"][:, :pred.shape[1]].to(pred.device)
+                # as the Workspace's eval: the first n of each (LDP-hier
+                # decodes (H-1)·k actions from an H-step window)
+                n = min(pred.shape[1], batch["actions"].shape[1])
+                pred = pred[:, :n]
+                gt = batch["actions"][:, :n].to(pred.device)
                 logged[step].update({
                     f"{split}_action_mse": torch.mean((pred - gt) ** 2),
                     f"{split}_action_l1": torch.mean((pred - gt).abs())})

@@ -140,21 +140,53 @@ def weight_action_channels(sq_err: torch.Tensor, weights) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel B over an action U-Net (DP, DPVAE)
+# the reverse processes the kernels run
 # ---------------------------------------------------------------------------
 
 def strided_ddim(steps: int | None, sched: dlib.DiffusionSchedule) -> bool:
-    """Whether ``steps`` asks for strided DDIM (fewer steps than trained)."""
+    """Whether ``steps`` asks for strided DDIM (fewer steps than trained);
+    otherwise the full ancestral DDPM process runs, as the JAX package's
+    default configurations (``inference_steps: null``) sample."""
     return bool(steps and steps < sched.num_steps)
 
 
+def coef_table(sched: dlib.DiffusionSchedule, steps: int | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(timesteps, coefs) on the host: strided η=0 DDIM when ``steps`` asks
+    for it, else the full DDPM process (fixed_small variance)."""
+    host = sched.to("cpu")
+    if strided_ddim(steps, sched):
+        return dlib.ddim_coef_table(host, steps)
+    return dlib.ddpm_coef_table(host)
+
+
+def step_noise(steps: int | None, sched: dlib.DiffusionSchedule,
+               given: torch.Tensor | None, shape: tuple,
+               generator: torch.Generator | None,
+               device: torch.device) -> torch.Tensor | None:
+    """The per-step noise of a reverse process on samples of ``shape``:
+    None for DDIM; for DDPM ``given`` (handed in through ``draws=``) or one
+    standard normal draw per step from ``generator``,
+    (num_steps, *shape)."""
+    if strided_ddim(steps, sched):
+        return None
+    if given is not None:
+        return given
+    return torch.randn((sched.num_steps,) + tuple(shape), generator=generator,
+                       device=device)
+
+
+# ---------------------------------------------------------------------------
+# kernel B over an action U-Net (DP, DPVAE)
+# ---------------------------------------------------------------------------
+
 class ActionSampler:
-    """The reverse process of an action U-Net: strided η=0 DDIM through
-    kernel B (``fused_unet1d_ddim_sample``) on the card, its plain twin on
-    the CPU, and on the CPU also the full DDPM process when no strided steps
-    are set. The coefficient table is made once on the device; the kernel's
-    packed weights are made at the first sample on the card and dropped by
-    ``weights_changed``."""
+    """The reverse process of an action U-Net through kernel B
+    (``fused_unet1d_ddim_sample``) on the card and its plain twin on the
+    CPU: strided η=0 DDIM when ``inference_steps`` is below the train
+    steps, else the full DDPM process with per-step noise. The coefficient
+    table is made once on the device; the kernel's packed weights are made
+    at the first sample on the card and dropped by ``weights_changed``."""
 
     def __init__(self, sched: dlib.DiffusionSchedule,
                  inference_steps: int | None, device: torch.device):
@@ -167,41 +199,35 @@ class ActionSampler:
     def check(self, net: ConditionalUnet1D, pred_horizon: int,
               fused_dtype: str) -> None:
         """Raise, with the reason, for what kernel B cannot run."""
-        if not strided_ddim(self.inference_steps, self.sched):
-            raise ValueError("the fused action sampler is DDIM only: set "
-                             "inference_steps < n_diffusion_steps")
         if getattr(torch, fused_dtype) != kunet.WEIGHT_DTYPE:
             raise ValueError("the fused action kernel reads bf16 weights")
         kunet.check_supported(net, pred_horizon)
+        kunet.choose_tile(net, pred_horizon)
 
     def weights_changed(self) -> None:
         self._pack = None
 
     def table(self) -> tuple[torch.Tensor, torch.Tensor]:
         if self._table is None:
-            ts, coefs = dlib.ddim_coef_table(self.sched.to("cpu"),
-                                             self.inference_steps)
+            ts, coefs = coef_table(self.sched, self.inference_steps)
             self._table = (ts.to(self.device, torch.int32),
                            coefs.to(self.device))
         return self._table
 
     def __call__(self, net: ConditionalUnet1D, cond: torch.Tensor,
                  x_init: torch.Tensor,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """cond (B, Dc), x_init (B, T, A) → (B, T, A) normalized actions."""
+                 generator: torch.Generator | None = None,
+                 noise: torch.Tensor | None = None) -> torch.Tensor:
+        """cond (B, Dc), x_init (B, T, A) → (B, T, A) normalized actions;
+        ``noise`` (num_steps, B, T, A) is DDPM's per-step noise, drawn from
+        ``generator`` when not given."""
         sched = self.sched
         clip = sched.clip_range if sched.clip_sample else 1e9
-        if not strided_ddim(self.inference_steps, sched):
-            if x_init.device.type != "cpu":
-                raise ValueError("DDPM sampling runs on the CPU only")
-            noise = torch.randn((sched.num_steps,) + tuple(x_init.shape),
-                                generator=generator, device=x_init.device)
-            with torch.no_grad():
-                return dlib.sample_ddpm(sched, lambda x, t: net(x, t, cond),
-                                        x_init, noise)
+        noise = step_noise(self.inference_steps, sched, noise,
+                           tuple(x_init.shape), generator, x_init.device)
         if x_init.device.type == "cuda" and self._pack is None:
             self._pack = kunet.pack_params(net).to(x_init.device)
         ts, coefs = self.table()
         return kunet.fused_unet1d_ddim_sample(
-            net, cond, x_init, ts, coefs, clip_range=clip,
+            net, cond, x_init, ts, coefs, noise, clip_range=clip,
             packed=self._pack if x_init.device.type == "cuda" else None)

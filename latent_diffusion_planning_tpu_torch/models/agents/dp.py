@@ -8,8 +8,11 @@ first ``obs_horizon`` frames, followed by the lowdim keys, condition a
 Training is the ε-loss, one backward pass through both nets, then Adam with
 the warmup-cosine schedule on each net's own train state and an EMA copy of
 each (``planner_ema_decay``, ``encoder_ema_decay``); no clip. Sampling runs
-the strided DDIM reverse process through kernel B on the card
-(``common.ActionSampler``) and keeps the first ``action_horizon`` actions;
+the reverse process through kernel B on the card (``common.ActionSampler``):
+strided DDIM when ``inference_steps`` is below ``n_diffusion_steps``, else
+the full DDPM process with per-step noise (``dp_agent.yaml``'s
+``inference_steps: null``, 100 steps); it keeps the first
+``action_horizon`` actions;
 ``use_ema`` samples the EMA encoders and planner. The encoders and the
 planner compute in fp32 with TF32 off (``fp32_math``), in training and in
 sampling.
@@ -20,13 +23,13 @@ encoder the cameras' frames joined on the time axis before they are
 encoded.
 
 On the card a configuration kernel B does not take raises, with the reason,
-when the agent is built (``dp_agent.yaml``'s ``inference_steps: null``
-among them: DDPM sampling). On the CPU DDIM and DDPM run through the plain
-versions.
+when the agent is built. On the CPU DDIM and DDPM run through the kernel's
+plain twin.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: ``t`` (B,) and ``noise`` (B, T, A) for
-the loss, ``x_init`` (B, pred_horizon, A) for sampling.
+the loss, ``x_init`` (B, pred_horizon, A) and, under DDPM, ``step_noise``
+(n_diffusion_steps, B, pred_horizon, A) for sampling.
 """
 
 from __future__ import annotations
@@ -303,7 +306,8 @@ class DPAgent:
         x_init = self._draw(draws, "x_init", lambda: torch.randn(
             (B, c.pred_horizon, c.action_dim), generator=generator,
             device=self.device))
-        acts = self.sampler(self._sampling_net(), obs_emb, x_init, generator)
+        acts = self.sampler(self._sampling_net(), obs_emb, x_init, generator,
+                            self._draw(draws, "step_noise", lambda: None))
         acts = nz.unnormalize_actions(acts[:, :c.action_horizon],
                                       self.obs_normalization)
         metrics = dict(obs_min=obs_emb.min(), obs_max=obs_emb.max(),

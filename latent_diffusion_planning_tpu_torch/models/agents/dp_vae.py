@@ -7,21 +7,24 @@ camera frame, then the lowdim keys), no learned vision encoder. Training is
 the ε-loss on the window's normalized actions, one backward pass through
 autograd, then Adam with the warmup-cosine schedule and an EMA copy
 (``train/state.py``); with ``random_shift`` > 0 the raw image keys of a
-batch are shifted DrQ-style first. Sampling runs the strided DDIM reverse
-process through kernel B on the card (``common.ActionSampler``) and keeps
-the first ``action_horizon`` actions; ``use_ema`` samples the EMA weights.
+batch are shifted DrQ-style first. Sampling runs the reverse process
+through kernel B on the card (``common.ActionSampler``): strided DDIM when
+``inference_steps`` is below ``n_diffusion_steps``, else the full DDPM
+process with per-step noise (``dp_repr_agent.yaml``'s ``inference_steps:
+null``, 100 steps); it keeps the first ``action_horizon`` actions;
+``use_ema`` samples the EMA weights.
 
 On the card a configuration kernel B does not take raises, with the reason,
-when the agent is built: DDPM sampling (``inference_steps`` unset or not
-below ``n_diffusion_steps``), a ``fused_dtype`` other than bfloat16, a
+when the agent is built: a ``fused_dtype`` other than bfloat16, a
 prediction horizon not divisible by the U-Net's stride, or widths the
-kernel refuses. On the CPU DDIM and DDPM run through the plain
-versions.
+kernel refuses. On the CPU DDIM and DDPM run through the kernel's plain
+twin.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: ``t`` (B,) and ``noise`` (B, T, A) for
 the loss, ``shift`` {image key: (B·T, 2)} for the random shift, ``x_init``
-(B, pred_horizon, A) for sampling.
+(B, pred_horizon, A) and, under DDPM, ``step_noise`` (n_diffusion_steps,
+B, pred_horizon, A) for sampling.
 """
 
 from __future__ import annotations
@@ -267,7 +270,8 @@ class DPVAEAgent:
         x_init = self._draw(draws, "x_init", lambda: torch.randn(
             (B, c.pred_horizon, c.action_dim), generator=generator,
             device=self.device))
-        acts = self.sampler(self._sampling_net(), obs_emb, x_init, generator)
+        acts = self.sampler(self._sampling_net(), obs_emb, x_init, generator,
+                            self._draw(draws, "step_noise", lambda: None))
         acts = nz.unnormalize_actions(acts[:, :c.action_horizon],
                                       self.obs_normalization)
         metrics = dict(obs_min=obs_emb.min(), obs_max=obs_emb.max(),

@@ -18,21 +18,28 @@ batch: the planner trains on the first (expert) one, the IDM on the second
 kernels read the nets from packed copies of their weights; an update marks
 those stale and they are rebuilt at the next sample on the card.
 
-Where the JAX agent drops to its XLA scan when a kernel cannot take a
-configuration, this agent raises on CUDA with the reason: DDPM planning
-(the U-Net kernel is DDIM only), a plan length not divisible by the U-Net
-stride, or an IDM the MLP kernel does not take (non-swish cond MLP, no
-LayerNorm, fixed time features); on the CPU those run through the plain
-versions. Every prediction type (ε, sample, v) runs through the kernels:
-their coefficient tables hold x0 = clip(c1 (cx x - c2 y)) for the net's
-output y (``ops/diffusion.py``); the ALOHA recipe's planner predicts x0.
+Both nets sample with strided DDIM when their ``*_inference_steps`` are
+below the train steps, else with the full ancestral DDPM process (the JAX
+package's default configurations: ``null``, 100 steps), and both ways run
+through the kernels on the card: the planner through B, the IDM through A,
+DDPM with one noise draw per step. Where the JAX agent drops to its XLA
+scan when a kernel cannot take a configuration, this agent raises on CUDA
+with the reason: a plan length not divisible by the U-Net stride, or an IDM
+the MLP kernel does not take (non-swish cond MLP, no LayerNorm, fixed time
+features); on the CPU those run through the plain versions. Every
+prediction type (ε, sample, v) runs through the kernels: their coefficient
+tables hold x0 = clip(c1 (cx x - c2 y)) for the net's output y
+(``ops/diffusion.py``); the ALOHA recipe's planner predicts x0.
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: for sampling the planner's initial sample
-(B, pred_horizon, obs_dim) and the IDM's (one row per decoded pair); for
-the losses ``plan_t`` (B,), ``plan_noise`` (B, H-obs_horizon, obs_dim),
-``idm_t`` (N,) and ``idm_noise`` (N, action_dim) with N the transition
-pairs of the IDM's batch (the mixed one in ``update_mixed``).
+``planner`` (B, pred_horizon, obs_dim) and the IDM's ``idm`` (one row per
+decoded pair), and under DDPM their per-step noise ``planner_step_noise``
+(num_steps, B, pred_horizon, obs_dim) and ``idm_step_noise`` (num_steps,
+N, action_dim); for the losses ``plan_t`` (B,), ``plan_noise`` (B,
+H-obs_horizon, obs_dim), ``idm_t`` (N,) and ``idm_noise`` (N, action_dim)
+with N the transition pairs of the IDM's batch (the mixed one in
+``update_mixed``).
 """
 
 from __future__ import annotations
@@ -156,10 +163,6 @@ class LDPAgent:
         """Raise, with the reason, for a configuration the kernels cannot
         run (called when the agent is built on the card)."""
         c = self.config
-        if not common.strided_ddim(c.planner_inference_steps,
-                                   self.planner_sched):
-            raise ValueError("the fused planner sampler is DDIM only: set "
-                             "planner_inference_steps < the train steps")
         if getattr(torch, c.fused_dtype) != kunet.WEIGHT_DTYPE:
             raise ValueError("the fused planner kernel reads bf16 weights")
         kunet.check_supported(self.planner, c.pred_horizon)
@@ -237,10 +240,7 @@ class LDPAgent:
         for one, else of the full DDPM process, on the agent's device."""
         key = (id(sched), steps)
         if key not in self._tables:
-            host = sched.to("cpu")
-            ts, coefs = (dlib.ddim_coef_table(host, steps)
-                         if common.strided_ddim(steps, sched)
-                         else dlib.ddpm_coef_table(host))
+            ts, coefs = common.coef_table(sched, steps)
             self._tables[key] = (ts.to(self.device, torch.int32),
                                  coefs.to(self.device))
         return self._tables[key]
@@ -258,42 +258,44 @@ class LDPAgent:
         return t.float() if t.is_floating_point() else t.long()
 
     def _idm_decode(self, pairs: torch.Tensor, x_init: torch.Tensor,
-                    generator: torch.Generator | None) -> torch.Tensor:
-        """Reverse-diffuse actions for (s, s') pairs → (N, A), normalized."""
+                    generator: torch.Generator | None,
+                    draws: Mapping | None = None) -> torch.Tensor:
+        """Reverse-diffuse actions for (s, s') pairs → (N, A), normalized,
+        through kernel A (DDPM's per-step noise ``draws["idm_step_noise"]``
+        when handed in)."""
         c, sched = self.config, self.idm_sched
-        shape = (pairs.shape[0], c.action_dim)
         ts, coefs = self._table(sched, c.idm_inference_steps)
-        noise = None
-        if not common.strided_ddim(c.idm_inference_steps, sched):
-            noise = self._randn((ts.shape[0],) + shape, generator)
+        noise = common.step_noise(
+            c.idm_inference_steps, sched,
+            self._draw(draws, "idm_step_noise", lambda: None),
+            (pairs.shape[0], c.action_dim), generator, self.device)
         return kmlp.fused_mlp_diffusion_sample(
             self._inference_net("idm"), pairs, x_init, ts, coefs, noise,
             clip_range=self._clip(sched), packed=self._packed("idm"))
 
     def _unet_sample(self, name: str, steps: int | None, cond: torch.Tensor,
-                     x_init: torch.Tensor,
-                     generator: torch.Generator | None) -> torch.Tensor:
+                     x_init: torch.Tensor, generator: torch.Generator | None,
+                     draws: Mapping | None = None) -> torch.Tensor:
         """Reverse-diffuse x_init (B, T, C) with the U-Net ``name`` on
-        condition ``cond``: strided DDIM through kernel B, or DDPM through
-        the plain loop (CPU only; refused on the card)."""
+        condition ``cond`` through kernel B: strided DDIM, or DDPM with
+        per-step noise (``draws[f"{name}_step_noise"]`` when handed in)."""
         sched = getattr(self, f"{name}_sched")
-        net = self._inference_net(name)
-        if not common.strided_ddim(steps, sched):
-            noise = self._randn((sched.num_steps,) + tuple(x_init.shape),
-                                generator)
-            return dlib.sample_ddpm(
-                sched, lambda x, t: net(x, t, cond), x_init, noise)
         ts, coefs = self._table(sched, steps)
+        noise = common.step_noise(
+            steps, sched, self._draw(draws, f"{name}_step_noise",
+                                     lambda: None),
+            tuple(x_init.shape), generator, self.device)
         return kunet.fused_unet1d_ddim_sample(
-            net, cond, x_init, ts, coefs, clip_range=self._clip(sched),
-            packed=self._packed(name))
+            self._inference_net(name), cond, x_init, ts, coefs, noise,
+            clip_range=self._clip(sched), packed=self._packed(name))
 
     def _plan(self, cond: torch.Tensor, x_init: torch.Tensor,
-              generator: torch.Generator | None) -> torch.Tensor:
+              generator: torch.Generator | None,
+              draws: Mapping | None = None) -> torch.Tensor:
         """Reverse-diffuse a latent plan as long as x_init (B, T,
         obs_dim)."""
         return self._unet_sample("planner", self.config.planner_inference_steps,
-                                 cond, x_init, generator)
+                                 cond, x_init, generator, draws)
 
     def _prepare_eval_batch(self, batch: Mapping) -> dict:
         batch = {k: {kk: vv.to(self.device) for kk, vv in v.items()}
@@ -323,13 +325,13 @@ class LDPAgent:
         cond = obs_emb[:, :c.obs_horizon].reshape(B, -1)
         x_plan = self._draw(draws, "planner", lambda: self._randn(
             (B, c.pred_horizon, c.obs_dim), generator))
-        pred_plan = self._plan(cond, x_plan, generator)
+        pred_plan = self._plan(cond, x_plan, generator, draws)
         plan = torch.cat([obs_emb[:, c.obs_horizon - 1:c.obs_horizon],
                           pred_plan], 1)
         pairs = common.consecutive_pairs(plan)
         x_idm = self._draw(draws, "idm", lambda: self._randn(
             (pairs.shape[0], c.action_dim), generator))
-        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+        acts = self._idm_decode(pairs, x_idm, generator, draws).reshape(
             B, -1, c.action_dim)
         return nz.unnormalize_actions(acts, self.obs_normalization)
 
@@ -343,7 +345,7 @@ class LDPAgent:
         pairs = common.consecutive_pairs(obs_emb)
         x_idm = self._draw(draws, "idm", lambda: self._randn(
             (pairs.shape[0], self.config.action_dim), generator))
-        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+        acts = self._idm_decode(pairs, x_idm, generator, draws).reshape(
             B, -1, self.config.action_dim)
         return nz.unnormalize_actions(acts, self.obs_normalization)
 
@@ -362,7 +364,7 @@ class LDPAgent:
         target = obs_emb[:, c.obs_horizon:]
         x_plan = self._draw(draws, "planner",
                             lambda: self._randn(target.shape, generator))
-        plan = self._plan(cond, x_plan, generator)
+        plan = self._plan(cond, x_plan, generator, draws)
         return {
             "plan_mse": torch.mean(torch.square(plan - target)),
             "plan_mse_persist": torch.mean(torch.square(
@@ -386,7 +388,7 @@ class LDPAgent:
         cond = obs_emb[:, :c.obs_horizon].reshape(B, -1)
         x_plan = self._draw(draws, "planner", lambda: self._randn(
             (B, c.pred_horizon, c.obs_dim), generator))
-        pred_plan = self._plan(cond, x_plan, generator)
+        pred_plan = self._plan(cond, x_plan, generator, draws)
         plan = torch.cat([obs_emb[:, c.obs_horizon - 1:c.obs_horizon],
                           pred_plan[:, :c.action_horizon]], 1)
         metrics = {"plan_viz": self.codec.decode_features(
@@ -394,7 +396,7 @@ class LDPAgent:
         pairs = common.consecutive_pairs(plan)
         x_idm = self._draw(draws, "idm", lambda: self._randn(
             (pairs.shape[0], c.action_dim), generator))
-        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+        acts = self._idm_decode(pairs, x_idm, generator, draws).reshape(
             B, -1, c.action_dim)
         if obs_emb.shape[1] > c.obs_horizon:
             metrics["plan_mse"] = torch.mean(torch.square(
@@ -413,7 +415,7 @@ class LDPAgent:
         pairs = pair.reshape(-1, pair.shape[-1])
         x_idm = self._draw(draws, "idm", lambda: self._randn(
             (pairs.shape[0], self.config.action_dim), generator))
-        acts = self._idm_decode(pairs, x_idm, generator).reshape(
+        acts = self._idm_decode(pairs, x_idm, generator, draws).reshape(
             B, -1, self.config.action_dim)
         return nz.unnormalize_actions(acts, self.obs_normalization)
 

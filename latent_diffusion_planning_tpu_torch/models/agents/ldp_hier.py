@@ -11,12 +11,17 @@ latents of [current latent, plan[:action_horizon]], and the chunks are
 flattened (B·K, k, A) → (B, K·k, A). The rest (VAE, normalization,
 training step, gates, mixed batches, persistence) is ``LDPAgent``'s.
 
-Both nets of the recipe set ``downsample: false``. On the card both run
-through kernel B, which takes U-Nets that do not downsample; on the CPU
-through its plain twin. Where the JAX agent samples a net with its XLA
-scan, this agent raises on CUDA, with the reason, when it is built: DDPM
-(inference steps unset or not below the train steps), a ``fused_dtype``
-other than bfloat16, or widths kernel B refuses.
+Both nets of the recipe and of ``ldp_hier_agent.yaml`` set ``downsample:
+false``. On the card both run through kernel B, which takes U-Nets that do
+not downsample, with strided DDIM or, when the inference steps are unset
+or not below the train steps (the yaml's default), the full DDPM process
+with per-step noise; on the CPU through its plain twin. The yaml's planner
+[256,512,1024] at the window's 16 latents (``sample_plan_stats``)
+outgrows a block's shared memory; kernel B runs it in its wide mode
+(fp32 buffers and skips in global memory). Where the JAX agent samples a
+net with its XLA scan, this agent raises on CUDA, with the reason, when it
+is built: a ``fused_dtype`` other than bfloat16, or widths kernel B
+refuses even in wide mode.
 
 Behaviours of the JAX agent reproduced as they are:
 - ``pred_plan[:, :action_horizon]`` keeps all P latents when P is shorter
@@ -34,7 +39,9 @@ Behaviours of the JAX agent reproduced as they are:
 
 Random draws come from a ``torch.Generator``; ``draws=`` hands them in
 instead, so tests can pass JAX's: for sampling ``planner`` (B, P, obs_dim)
-and ``idm`` (B·K, k, A); for the losses ``plan_t`` (B,), ``plan_noise`` (B,
+and ``idm`` (B·K, k, A), and under DDPM ``planner_step_noise`` (num_steps,
+B, P, obs_dim) and ``idm_step_noise`` (num_steps, B·K, k, A); for the
+losses ``plan_t`` (B,), ``plan_noise`` (B,
 P', obs_dim) with P' the strided targets, ``idm_t`` (B·K,) and
 ``idm_noise`` (B·K, k, A) with K the chunks of the IDM's batch.
 """
@@ -99,17 +106,14 @@ class LDPHierAgent(LDPAgent):
         on the card): the planner plans P latents a decision and the
         window's ``pred_horizon`` in ``sample_plan_stats``; a net that does
         not downsample keeps full-length skips, so its shared memory grows
-        with the length."""
+        with the length (where no tile fits, kernel B's wide mode moves the
+        fp32 buffers and skips to global memory; only a net whose operand
+        buffers alone outgrow a block is refused)."""
         c = self.config
         if getattr(torch, c.fused_dtype) != kunet.WEIGHT_DTYPE:
             raise ValueError("the fused U-Net kernel reads bf16 weights")
-        for name, steps, lengths in (
-                ("planner", c.planner_inference_steps,
-                 (self.plan_length, c.pred_horizon)),
-                ("idm", c.idm_inference_steps, (c.idm_horizon,))):
-            if not common.strided_ddim(steps, getattr(self, f"{name}_sched")):
-                raise ValueError(f"the fused {name} sampler is DDIM only: set "
-                                 f"{name}_inference_steps < the train steps")
+        for name, lengths in (("planner", (self.plan_length, c.pred_horizon)),
+                              ("idm", (c.idm_horizon,))):
             for T in lengths:
                 kunet.check_supported(getattr(self, name), T)
                 kunet.choose_tile(getattr(self, name), T)
@@ -148,7 +152,7 @@ class LDPHierAgent(LDPAgent):
     # ------------------------------------------------------------------
     # inference (chunked IDM)
     # ------------------------------------------------------------------
-    def _idm_decode(self, pairs, x_init, generator):
+    def _idm_decode(self, pairs, x_init, generator, draws=None):
         raise NotImplementedError("LDP-hier decodes action chunks with a "
                                   "U-Net IDM (_decode_chunks)")
 
@@ -162,7 +166,7 @@ class LDPHierAgent(LDPAgent):
         x_init = self._draw(draws, "idm", lambda: self._randn(
             (pairs.shape[0], c.idm_horizon, c.action_dim), generator))
         chunks = self._unet_sample("idm", c.idm_inference_steps, pairs,
-                                   x_init, generator)
+                                   x_init, generator, draws)
         return nz.unnormalize_actions(
             chunks.reshape(latents.shape[0], -1, c.action_dim),
             self.obs_normalization)
@@ -176,7 +180,7 @@ class LDPHierAgent(LDPAgent):
         cond = obs_emb[:, :c.obs_horizon].reshape(B, -1)
         x_plan = self._draw(draws, "planner", lambda: self._randn(
             (B, self.plan_length, c.obs_dim), generator))
-        pred_plan = self._plan(cond, x_plan, generator)
+        pred_plan = self._plan(cond, x_plan, generator, draws)
         plan = torch.cat([obs_emb[:, c.obs_horizon - 1:c.obs_horizon],
                           pred_plan[:, :c.action_horizon]], 1)
         return pred_plan, plan

@@ -88,5 +88,8 @@ def init_(module: nn.Module, kind: str = "lecun",
 
 def layer(cls: type[nn.Module], *args, init: str = "lecun",
           generator: torch.Generator | None = None, **kwargs) -> nn.Module:
-    """``cls(*args, **kwargs)`` initialised as Flax's ``init`` would."""
+    """``cls(*args, **kwargs)`` initialised as Flax's ``init`` would, on the
+    default device (under ``torch.device("meta")`` a net of shapes only,
+    with nothing drawn)."""
+    kwargs.setdefault("device", torch.get_default_device())
     return init_(skip_init(cls, *args, **kwargs), init, generator)

@@ -1,12 +1,12 @@
 """Diffusion schedules, coefficient tables and plain reverse-process loops.
 
 Counterpart of ``latent_diffusion_planning_tpu/ops/diffusion.py``: the same
-squaredcos_cap_v2 betas, ε/sample/v prediction, clip_sample, fixed_small DDPM
-variance, η=0 strided DDIM and the forward process the train step noises
-its targets with (``add_noise``, ``training_target``). The reverse
-processes are Python loops. They
-take their initial sample and per-step noise as tensors, so a test can hand
-in the JAX package's draws (torch cannot reproduce JAX's threefry stream).
+squaredcos_cap_v2, linear and scaled_linear betas, ε/sample/v prediction,
+clip_sample, fixed_small DDPM variance, η=0 strided DDIM and the forward
+process the train step noises its targets with (``add_noise``,
+``training_target``). The reverse processes are Python loops. They take
+their initial sample and per-step noise as tensors, so a test can hand in
+the JAX package's draws (torch cannot reproduce JAX's threefry stream).
 """
 
 from __future__ import annotations
@@ -19,20 +19,30 @@ from typing import Callable
 import torch
 
 
-def make_betas(num_steps: int,
-               schedule: str = "squaredcos_cap_v2") -> torch.Tensor:
-    """Beta table (float32): squaredcos_cap_v2, Nichol & Dhariwal's cosine
-    schedule, computed in Python floats like the reference. The reference's
-    linear schedules are not ported (no config of the port uses them)."""
-    if schedule != "squaredcos_cap_v2":
-        raise ValueError(f"unsupported beta schedule {schedule!r}")
-
-    def alpha_bar(x: float) -> float:
-        return math.cos((x + 0.008) / 1.008 * math.pi / 2.0) ** 2
-    betas = [min(1.0 - alpha_bar((i + 1) / num_steps)
-                 / alpha_bar(i / num_steps), 0.999)
-             for i in range(num_steps)]
-    return torch.tensor(betas, dtype=torch.float32)
+def make_betas(num_steps: int, schedule: str = "squaredcos_cap_v2",
+               beta_start: float = 0.0001,
+               beta_end: float = 0.02) -> torch.Tensor:
+    """Beta table (float32): ``squaredcos_cap_v2``, Nichol & Dhariwal's
+    cosine schedule, computed in Python floats like the reference;
+    ``linear``, evenly spaced from ``beta_start`` to ``beta_end``;
+    ``scaled_linear``, the squares of evenly spaced square roots (DDPM's
+    and Stable Diffusion's). The two linear ones are computed in float64
+    and rounded once; the JAX package rounds its float32 ``linspace`` at
+    each operation, so an entry may differ from its by an ulp or two."""
+    if schedule == "squaredcos_cap_v2":
+        def alpha_bar(x: float) -> float:
+            return math.cos((x + 0.008) / 1.008 * math.pi / 2.0) ** 2
+        betas = [min(1.0 - alpha_bar((i + 1) / num_steps)
+                     / alpha_bar(i / num_steps), 0.999)
+                 for i in range(num_steps)]
+        return torch.tensor(betas, dtype=torch.float32)
+    if schedule == "linear":
+        return torch.linspace(beta_start, beta_end, num_steps,
+                              dtype=torch.float64).float()
+    if schedule == "scaled_linear":
+        return (torch.linspace(beta_start ** 0.5, beta_end ** 0.5, num_steps,
+                               dtype=torch.float64) ** 2).float()
+    raise ValueError(f"unknown beta schedule {schedule!r}")
 
 
 def _bcast(vals: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -54,8 +64,9 @@ class DiffusionSchedule:
     @classmethod
     def create(cls, num_steps: int, schedule: str = "squaredcos_cap_v2",
                prediction_type: str = "epsilon", clip_sample: bool = True,
-               clip_range: float = 1.0) -> "DiffusionSchedule":
-        betas = make_betas(num_steps, schedule)
+               clip_range: float = 1.0, beta_start: float = 0.0001,
+               beta_end: float = 0.02) -> "DiffusionSchedule":
+        betas = make_betas(num_steps, schedule, beta_start, beta_end)
         alphas = 1.0 - betas
         return cls(betas=betas, alphas=alphas,
                    alphas_cumprod=torch.cumprod(alphas, 0),

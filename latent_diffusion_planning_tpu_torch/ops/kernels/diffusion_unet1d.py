@@ -1,20 +1,23 @@
-"""Fused DDIM sampler for ConditionalUnet1D: CUDA kernel + plain twin.
+"""Fused U-Net sampler for ConditionalUnet1D: CUDA kernel + plain twin.
 
 Replaces the TPU kernel ``latent_diffusion_planning_tpu/ops/pallas/
 diffusion_unet1d.py`` (``fused_unet1d_ddim_sample`` → ``_kernel``, both its
 VMEM-resident and its streamed-weights mode). The kernel
-(``csrc/diffusion_unet1d.cu``) runs every η=0 DDIM step of the planner U-Net
-for a tile of samples in one launch. Every conv is an implicit GEMM on the
-tensor cores (bf16 × bf16 ``mma.sync``, fp32 accumulators); GroupNorm, Mish,
-FiLM and the DDIM update are fp32. On the card it is bound by the weight
-stream: every block reads every conv weight once per step from L2 (or HBM,
-when the net is larger than L2). The design is built around that stream —
-weights are packed once, in exactly the order and fragment layout the kernel
-consumes them, and flow through a shared-memory ring of asynchronous copies
-that runs ahead across op and step boundaries — and it shrinks the stream:
-the time MLP and the FiLM projections, which do not depend on the sample or
-do not depend on the step, are computed once by a small prologue kernel of
-the same launch (see the source's note).
+(``csrc/diffusion_unet1d.cu``) runs every step of the planner U-Net's
+reverse process for a tile of samples in one launch: η=0 DDIM as the JAX
+kernel does, or ancestral DDPM with per-step noise handed in (the JAX
+package samples its default configurations, DDPM-100, with its XLA scan).
+Every conv is an implicit GEMM on the tensor cores (bf16 × bf16
+``mma.sync``, fp32 accumulators); GroupNorm, Mish, FiLM and the step update
+are fp32. On the card it is bound by the weight stream: every block reads
+every conv weight once per step from L2 (or HBM, when the net is larger than
+L2). The design is built around that stream — weights are packed once, in
+exactly the order and fragment layout the kernel consumes them, and flow
+through a shared-memory ring of asynchronous copies that runs ahead across
+op and step boundaries — and it shrinks the stream: the time MLP and the
+FiLM projections, which do not depend on the sample or do not depend on the
+step, are computed once by a small prologue kernel of the same launch (see
+the source's note).
 
 Packed layout (``pack_params``), one bf16 buffer:
 
@@ -34,6 +37,11 @@ records (``build_program``), so any ``down_dims``, ``n_groups`` and embedding
 width runs through the same kernel, and so does a net that does not
 downsample (``downsample=False``, LDP-hier's planner and chunk IDM): its
 program has no DOWN or UP record, and every level runs at the full length.
+Where no tile of such a net fits the shared memory whole (LDP-hier's
+default planner [256,512,1024] at 16 rows), the program runs in *wide*
+mode: the fp32 activation buffers and the skips move to a per-block slice
+of a global scratch (``wide_scratch_bytes``), the same records, the same
+weight stream.
 The twin computes the same update with the module's own weights in fp32; to
 hold the kernel against it on the card, give the twin ``rounding_twin(net)``:
 bf16-rounded weights and every conv and dense input rounded through bf16,
@@ -55,6 +63,7 @@ SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
 NB_CHOICES = (16, 8, 4, 2, 1)   # samples per block
 MIN_BLOCKS = 64         # prefer a tile that leaves at least this many blocks
 MAX_ROWS = 128          # GEMM rows (samples × time steps) a block can hold
+WIDE_MAX_ROWS = 32      # ... in the wide mode (its one kernel instance)
 WEIGHT_DTYPE = torch.bfloat16   # what the kernel reads its weights as
 
 WARPS = 16                      # warps of a block; each owns 8 columns
@@ -296,16 +305,23 @@ def pack_params(net: ConditionalUnet1D) -> torch.Tensor:
 # the program
 # ---------------------------------------------------------------------------
 
-def build_program(net: ConditionalUnet1D, T: int, nb: int) -> dict:
+def build_program(net: ConditionalUnet1D, T: int, nb: int,
+                  wide: bool = False) -> dict:
     """The kernel's program for this net, a tile of ``nb`` samples and plan
-    length ``T`` (cached by the net's shapes; do not edit what it returns)."""
-    return _build_program(_signature(net), T, nb)
+    length ``T``, in wide mode or not (cached by the net's shapes; do not
+    edit what it returns)."""
+    return _build_program(_signature(net), T, nb, wide)
 
 
 @functools.lru_cache(maxsize=64)
-def _build_program(signature: tuple, T: int, nb: int) -> dict:
-    """The kernel's op records and its shared-memory layout for a tile of
-    ``nb`` samples of length ``T``.
+def _build_program(signature: tuple, T: int, nb: int,
+                   wide: bool = False) -> dict:
+    """The kernel's op records and its memory layout for a tile of ``nb``
+    samples of length ``T``: in shared memory the weight ring, the fp32
+    buffers X32/Y32, the current sample, the GroupNorm statistics, the bf16
+    operand buffers Xb/Yb and the skips; in wide mode X32, Y32 and the
+    skips in ``scratch_bytes`` of global memory a block instead. The
+    records do not depend on the mode.
 
     Records (12 ints, unused fields 0):
       FILM         cin ch Tl tile(conv1) tile(conv2) film_off tile(proj)|-1
@@ -370,15 +386,21 @@ def _build_program(signature: tuple, T: int, nb: int) -> dict:
             g = gm["final_conv"]
             rec(FINAL_CONV, dd[0], D, Tl, g["tile_off"], g["vec_off"])
 
-    floats = 2 * nb * max32 + nb * T * D + 2 * nb * n_groups
-    floats = _up(floats, 4)
-    halves = 2 * nb * maxb + skip_total + 16
+    small = nb * T * D + 2 * nb * n_groups     # the sample, the statistics
+    if wide:
+        floats, halves = _up(small, 4), 2 * nb * maxb + 16
+        scratch = _up(4 * 2 * nb * max32 + 2 * skip_total, 256)
+    else:
+        floats = _up(2 * nb * max32 + small, 4)
+        halves = 2 * nb * maxb + skip_total + 16
+        scratch = 0
     rest = 4 * floats + 2 * halves
     stages = min(MAX_STAGES, max(MIN_STAGES,
                                  (SMEM_LIMIT - rest) // STAGE_BYTES))
     return dict(records=recs, max32=nb * max32, maxb=nb * maxb,
                 skip_total=skip_total, stages=stages,
-                smem_bytes=stages * STAGE_BYTES + rest)
+                smem_bytes=stages * STAGE_BYTES + rest, wide=wide,
+                scratch_bytes=scratch)
 
 
 def prologue_smem_bytes(net: ConditionalUnet1D, rows: int) -> int:
@@ -405,17 +427,23 @@ def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
     shared memory and the GEMM's row limit, but no more than leaves
     ``MIN_BLOCKS`` blocks for a batch of ``B`` (the weight stream a block
     reads is the same whatever it holds, so larger tiles divide the L2
-    traffic; too few blocks leave the card empty)."""
+    traffic; too few blocks leave the card empty). Wide mode only where no
+    tile fits whole, so a net that fits keeps its tiles."""
     fits = []
-    for nb in NB_CHOICES:
-        if nb * T > MAX_ROWS:
-            continue
-        prog = build_program(net, T, nb)
-        if prog["smem_bytes"] <= SMEM_LIMIT:
-            fits.append((nb, prog))
+    for wide in (False, True):
+        for nb in NB_CHOICES:
+            if nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS):
+                continue
+            prog = build_program(net, T, nb, wide)
+            if prog["smem_bytes"] <= SMEM_LIMIT:
+                fits.append((nb, prog))
+        if fits:
+            break
     if not fits:
         raise ValueError("net too wide for the kernel's shared memory at "
-                         f"length {T}")
+                         f"length {T}, even with its fp32 buffers and skips "
+                         f"in global memory (up to {WIDE_MAX_ROWS} rows a "
+                         "block)")
     if B is None:
         return fits[0]
     return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))
@@ -452,23 +480,26 @@ def rounding_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
 
 def unet1d_ddim_sample_plain(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              x_init: torch.Tensor, timesteps: torch.Tensor,
-                             coefs: torch.Tensor,
-                             clip_range: float = 1.0) -> torch.Tensor:
-    """The kernel's plain twin: the same update, one net call per step."""
+                             coefs: torch.Tensor, clip_range: float = 1.0,
+                             noise: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """The kernel's plain twin: the same update, one net call per step
+    (``noise`` (S, B, T, D) for DDPM, None for DDIM)."""
     with torch.no_grad():
         return dlib.sample_with_coefs(
             lambda x, t: net(x, t, global_cond), x_init.float(), timesteps,
-            coefs, None, clip_range)
+            coefs, None if noise is None else noise.float(), clip_range)
 
 
 def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
                 nb: int | None = None) -> dict:
-    """What a launch at this shape looks like: tile, grid, shared memory and
+    """What a launch at this shape looks like (``n_steps`` 100 for DDPM-100):
+    tile, mode, grid, shared memory, the global scratch of wide mode and
     the bytes of weights its blocks stream in all."""
     if nb is None:
         nb, prog = choose_tile(net, T, B)
     else:
-        prog = build_program(net, T, nb)
+        prog = build_program(net, T, nb, choose_tile(net, T)[1]["wide"])
     lay = layout(net)
     grid = -(-B // nb)
     stage = STAGE_BYTES
@@ -477,6 +508,8 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
     pro = (n_steps * lay["stream"]["time"]["stages"]
            + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
     return dict(samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
+                wide=prog["wide"], scratch_bytes=grid * prog["scratch_bytes"],
+                film_t_bytes=4 * n_steps * lay["film_ld"],
                 ring_stages=prog["stages"], prologue_cond_rows=rows,
                 prologue_grid=n_steps + -(-B // rows),
                 prologue_smem_bytes=prologue_smem_bytes(net, rows),
@@ -486,20 +519,25 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
 
 def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              x_init: torch.Tensor, timesteps: torch.Tensor,
-                             coefs: torch.Tensor, *, clip_range: float = 1.0,
+                             coefs: torch.Tensor,
+                             noise: torch.Tensor | None = None, *,
+                             clip_range: float = 1.0,
                              packed: torch.Tensor | None = None,
-                             nb: int | None = None) -> torch.Tensor:
-    """DDIM reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
+                             nb: int | None = None,
+                             wide: bool | None = None) -> torch.Tensor:
+    """Reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
 
-    coefs (S, 6) from ``ops.diffusion.ddim_coef_table``, for any prediction
-    type (the s_var column is ignored: η = 0). CPU tensors run the plain twin (with the net's own
-    weights); CUDA tensors launch the kernel with bf16 weights.
+    coefs (S, 6) from ``ops.diffusion``, for any prediction type:
+    ``ddim_coef_table`` with ``noise`` None, or ``ddpm_coef_table`` with
+    ``noise`` (S, B, T, D), one draw per step (its s_var column scales it).
+    CPU tensors run the plain twin (with the net's own weights); CUDA
+    tensors launch the kernel with bf16 weights.
     ``packed`` is ``pack_params(net)`` on the device; ``nb`` overrides the
-    samples per block (for measurements).
+    samples per block and, with it, ``wide`` the mode (for measurements).
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
-                                        coefs, clip_range)
+                                        coefs, clip_range, noise)
     if x_init.device.type != "cuda":
         raise ValueError(f"unsupported device {x_init.device}")
     B, T, D = x_init.shape
@@ -509,8 +547,11 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     if nb is None:
         nb, prog = choose_tile(net, T, B)
     else:
-        prog = build_program(net, T, nb)
-        if nb * T > MAX_ROWS or prog["smem_bytes"] > SMEM_LIMIT:
+        if wide is None:
+            wide = choose_tile(net, T)[1]["wide"]
+        prog = build_program(net, T, nb, wide)
+        if (nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS)
+                or prog["smem_bytes"] > SMEM_LIMIT):
             raise ValueError(f"a tile of {nb} samples does not fit a block")
     lay = layout(net)
     dev = x_init.device
@@ -522,18 +563,29 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     if tuple(coefs.shape) != (S, 6):
         raise ValueError(f"coefs must be the (S, 6) table of "
                          f"ops.diffusion, got {tuple(coefs.shape)}")
+    if noise is not None:
+        if tuple(noise.shape) != (S, B, T, D):
+            raise ValueError(f"noise must be {(S, B, T, D)}, got "
+                             f"{tuple(noise.shape)}")
+        if noise.device != x_init.device:
+            raise ValueError("noise is not on the sample's device")
+        noise = noise.float().contiguous()
     recs = _records_on(_signature(net), T, nb, dev)
     gcond = global_cond.float().contiguous()
     x_init = x_init.float().contiguous()
     ts = timesteps.to(dev, torch.int32).contiguous()
     coefs = coefs.to(dev, torch.float32).contiguous()
     out = torch.empty((B, T, D), device=dev, dtype=torch.float32)
-    # scratch the prologue fills: FiLM's time half per step, and its
-    # global-condition half per sample
+    # scratch the prologue fills: FiLM's time half per step (S of them: 100
+    # for DDPM-100), and its global-condition half per sample
     film_t = torch.empty((S, lay["film_ld"]), device=dev, dtype=torch.float32)
     rows = cond_rows(net)
     film_g = torch.empty((_up(B, rows), lay["film_ld"]), device=dev,
                          dtype=torch.float32)
+    grid = -(-B // nb)
+    # wide mode: each block's fp32 buffers and skips
+    scratch = (torch.empty(grid * prog["scratch_bytes"], device=dev,
+                           dtype=torch.uint8) if prog["wide"] else None)
     st = lay["stream"]
     dims = torch.tensor(
         [B, T, D, net.global_cond_dim, net.dsed, net.kernel_size,
@@ -544,15 +596,15 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
          lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
          lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
          prologue_smem_bytes(net, rows), prog["stages"], PROLOGUE_STAGES,
-         TILE_N, rows],
+         TILE_N, rows, int(prog["wide"]), prog["scratch_bytes"]],
         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("ldp_unet1d_sampler", [P] * 9 + [P, I, F, P])
+    fn = _build.function("ldp_unet1d_sampler", [P] * 12 + [I, F, P])
     err = fn(gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
-             coefs.data_ptr(), packed.data_ptr(), recs.data_ptr(),
-             film_t.data_ptr(), film_g.data_ptr(), out.data_ptr(),
-             dims.data_ptr(), dims.numel(), float(clip_range),
-             _build.stream_ptr(x_init))
+             coefs.data_ptr(), _build.ptr(noise), packed.data_ptr(),
+             recs.data_ptr(), film_t.data_ptr(), film_g.data_ptr(),
+             _build.ptr(scratch), out.data_ptr(), dims.data_ptr(),
+             dims.numel(), float(clip_range), _build.stream_ptr(x_init))
     _build.check("ldp_unet1d_sampler", err)
     fused_unet1d_ddim_sample.launches += 1
     return out

@@ -337,16 +337,20 @@ def test_bench_planner_program_and_pack_are_pinned():
     assert digest.hexdigest() == BENCH_PLANNER_PACK_SHA256
 
 
-def _run_unet_program(net, gcond, x, ts, coefs, clip):
+def _run_unet_program(net, gcond, x, ts, coefs, clip, noise=None,
+                      wide=False):
     """A NumPy transcription of csrc/diffusion_unet1d.cu's data path (one
     tile holding every sample): the packed tiles are consumed strictly in
     order through a cursor, as the kernel's ring delivers them; every GEMM
     operand is rounded to bf16 where the kernel rounds it; the time MLP and
     FiLM are hoisted into a prologue as in the kernel. So the records,
-    offsets, tiling and conv index maps the card runs are checked here."""
+    offsets, tiling and conv index maps the card runs are checked here.
+    ``noise`` (S, B, T, D) adds DDPM's per-step term as the kernel does
+    (row r of the tile, channel c reads ``noise[step][r // T][r % T][c]``);
+    ``wide`` runs the program of the kernel's wide mode."""
     B, T, D = x.shape
     nb = B
-    prog = kunet.build_program(net, T, nb)
+    prog = kunet.build_program(net, T, nb, wide)
     lay = kunet.layout(net)
     flat = kunet.pack_params(net).float()
     V = flat[lay["vec_base"]:].double().numpy()
@@ -473,6 +477,9 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip):
         c = coefs[step].tolist()
         x0 = np.clip(c[0] * (c[5] * xcur - c[1] * h), -clip, clip)
         xcur = c[2] * x0 + c[3] * xcur
+        if noise is not None:
+            xcur = xcur + c[4] * np.asarray(noise[step], np.float64).reshape(
+                nb * T, D)
     return xcur.reshape(B, T, D)
 
 

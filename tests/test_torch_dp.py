@@ -451,8 +451,6 @@ def test_shared_encoder_condition_matches_jax(pair):
 
 
 @pytest.mark.parametrize("change,reason", [
-    (dict(inference_steps=None), "DDIM only"),
-    (dict(inference_steps=12), "DDIM only"),
     (dict(pred_horizon=7), "not divisible"),
     (dict(fused_dtype="float32"), "bf16"),
     (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
@@ -460,12 +458,25 @@ def test_shared_encoder_condition_matches_jax(pair):
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the
-    card with the reason (the same check runs here on a CPU agent);
-    ``dp_agent.yaml``'s ``inference_steps: null`` is the first."""
+    card with the reason (the same check runs here on a CPU agent)."""
     agent = DPAgent.create(_small_config(**change), configs.SHAPE_META,
                            device="cpu")
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
+
+
+@pytest.mark.parametrize("change", [dict(inference_steps=None),
+                                    dict(inference_steps=12)])
+def test_kernel_check_accepts_ddpm(change):
+    """``dp_agent.yaml``'s ``inference_steps: null``, and steps not below
+    the 12 trained, mean the full DDPM process; once refused as "DDIM
+    only", it runs through kernel B with per-step noise: the check accepts
+    it and the sampler's table is the 12-step ancestral one."""
+    agent = DPAgent.create(_small_config(**change), configs.SHAPE_META,
+                           device="cpu")
+    agent._check_kernels()
+    ts, coefs = agent.sampler.table()
+    assert len(ts) == 12 and bool(coefs[:-1, 4].gt(0).all())
 
 
 def test_the_recipe_passes_the_kernel_check():

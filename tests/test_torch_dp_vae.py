@@ -354,8 +354,6 @@ def test_sample_action_matches_jax(pair, use_ema):
 
 
 @pytest.mark.parametrize("change,reason", [
-    (dict(inference_steps=None), "DDIM only"),
-    (dict(inference_steps=12), "DDIM only"),
     (dict(pred_horizon=7), "not divisible"),
     (dict(fused_dtype="float32"), "bf16"),
     (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
@@ -368,6 +366,20 @@ def test_kernel_refusals(change, reason):
                               device="cpu")
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
+
+
+@pytest.mark.parametrize("change", [dict(inference_steps=None),
+                                    dict(inference_steps=12)])
+def test_kernel_check_accepts_ddpm(change):
+    """``dp_repr_agent.yaml``'s ``inference_steps: null``, and steps not
+    below the 12 trained, mean the full DDPM process; once refused as
+    "DDIM only", it runs through kernel B with per-step noise: the check
+    accepts it and the sampler's table is the 12-step ancestral one."""
+    agent = DPVAEAgent.create(_small_config(**change), configs.SHAPE_META,
+                              device="cpu")
+    agent._check_kernels()
+    ts, coefs = agent.sampler.table()
+    assert len(ts) == 12 and bool(coefs[:-1, 4].gt(0).all())
 
 
 def test_ddpm_samples_on_the_cpu():

@@ -214,7 +214,6 @@ def test_run_batched_eval_matches_jax(plan_blend):
 
 
 @pytest.mark.parametrize("change,reason", [
-    (dict(planner_inference_steps=None), "DDIM only"),
     (dict(pred_horizon=7), "not divisible"),
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 32, "time_dim": 16,
                    "cond_hidden_dims": [32, 32], "cond_activation": "mish"}),
@@ -231,6 +230,29 @@ def test_kernel_refusals(change, reason):
     agent = LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
+
+
+@pytest.mark.parametrize("change", [
+    dict(planner_inference_steps=None),
+    dict(idm_inference_steps=None),
+    dict(planner_inference_steps=None, idm_inference_steps=None)])
+def test_kernel_check_accepts_ddpm(change):
+    """DDPM planning (``ldp_agent.yaml``'s ``planner_inference_steps:
+    null``), once refused as "DDIM only", runs through kernel B with
+    per-step noise, and the IDM's through kernel A: the check accepts it
+    and each net's table is the full ancestral process."""
+    cfg = _small_config()
+    # an IDM kernel A takes (64 wide), so only the sampler is in question
+    cfg.update(change, idm_net=dict(cfg["idm_net"], hidden_dim=64))
+    agent = LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+    agent._check_kernels()
+    for name in ("planner", "idm"):
+        steps = cfg[f"{name}_inference_steps"]
+        sched = getattr(agent, f"{name}_sched")
+        ts, coefs = agent._table(sched, steps)
+        ddpm = steps is None
+        assert len(ts) == (sched.num_steps if ddpm else steps)
+        assert bool(coefs[:-1, 4].gt(0).all()) == ddpm
 
 
 def test_non_epsilon_prediction_refused():

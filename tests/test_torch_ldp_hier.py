@@ -561,8 +561,6 @@ def test_sample_viz_matches_jax(pair, H):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change,reason", [
-    (dict(planner_inference_steps=None), "planner sampler is DDIM only"),
-    (dict(idm_inference_steps=50), "idm sampler is DDIM only"),
     (dict(fused_dtype="float32"), "bf16"),
     (dict(planner={**configs.LIFT_LDP_HIER_AGENT["planner"],
                    "downsample": True}), "not divisible"),
@@ -576,20 +574,43 @@ def test_kernel_refusals(change, reason):
         agent._check_kernels()
 
 
+@pytest.mark.parametrize("change", [dict(planner_inference_steps=None),
+                                    dict(idm_inference_steps=50)])
+def test_kernel_check_accepts_ddpm(change):
+    """DDPM for either net (``ldp_hier_agent.yaml``'s nulls, or steps not
+    below the 50 trained), once refused as "DDIM only", runs through
+    kernel B with per-step noise: the check accepts it and the net's table
+    is the 50-step ancestral one."""
+    agent = LDPHierAgent.create(_config(**change), configs.SHAPE_META,
+                                device="cpu")
+    agent._check_kernels()
+    (name, steps), = change.items()
+    net = name.removesuffix("_inference_steps")
+    ts, coefs = agent._table(getattr(agent, f"{net}_sched"), steps)
+    assert len(ts) == 50 and bool(coefs[:-1, 4].gt(0).all())
+
+
 def test_kernel_check_covers_the_planner_at_the_windows_length():
     """The planner plans P = 2 latents a decision but the window's 8 in
-    ``sample_plan_stats``. A planner [512,1024,2048] that does not
-    downsample fits kernel B's shared memory at T 2 and not at T 8 (its
-    skips are full-length), so the check refuses it when the agent is
-    built, not at the first eval after training. Its shapes are enough:
-    the net is built on the meta device."""
+    ``sample_plan_stats``. A planner that does not downsample keeps every
+    level at the full length, so its shared memory grows with it. Where no
+    tile fits whole, kernel B's wide mode moves the fp32 buffers and the
+    skips to global memory: [512,1024,2048] fits that way at T 8. A planner
+    [1024,2048,4096] fits at T 2 and not at T 8 even so (its widest
+    concat's bf16 operands alone outgrow a block), so the check refuses it
+    when the agent is built, not at the first eval after training. Its
+    shapes are enough: the nets are built on the meta device."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as kunet)
     agent = LDPHierAgent.create(_config(), configs.SHAPE_META, device="cpu")
     with torch.device("meta"):
-        agent.planner = unet_from_config(
+        wide = unet_from_config(
             {**configs.LIFT_LDP_HIER_AGENT["planner"],
              "down_dims": [512, 1024, 2048]}, D, D)
+        agent.planner = unet_from_config(
+            {**configs.LIFT_LDP_HIER_AGENT["planner"],
+             "down_dims": [1024, 2048, 4096]}, D, D)
+    assert kunet.choose_tile(wide, 8)[1]["wide"]
     kunet.choose_tile(agent.planner, P)
     with pytest.raises(ValueError, match="shared memory at length 8"):
         agent._check_kernels()

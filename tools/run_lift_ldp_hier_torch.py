@@ -54,15 +54,18 @@ EVAL_SEEDS = 4
 def fp32_sampling(agent):
     """Within the block, ``agent`` samples both U-Nets with the plain fp32
     reverse process on its device in place of kernel B."""
+    from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as K)
 
-    def sample(name, steps, cond, x_init, generator):
+    def sample(name, steps, cond, x_init, generator, draws=None):
         sched = getattr(agent, f"{name}_sched")
         ts, coefs = agent._table(sched, steps)
+        noise = common.step_noise(steps, sched, None, tuple(x_init.shape),
+                                  generator, x_init.device)
         return K.unet1d_ddim_sample_plain(agent._inference_net(name), cond,
                                           x_init, ts, coefs,
-                                          agent._clip(sched))
+                                          agent._clip(sched), noise)
     agent._unet_sample = sample
     try:
         yield
