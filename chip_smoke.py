@@ -149,6 +149,17 @@
    the trained agent at DDIM-25 with their bounds; one Can decision stage
    by stage; a Square closed loop of ``PP_EVAL_EPISODES`` × 400 steps on
    seeded weights, its launches checked likewise.
+8. The JAX package's four default agent configurations (``phase_defaults``,
+   ``--only defaults``) and then the options their configs take
+   (``phase_options_kernels``, ``phase_options``, ``--only options``):
+   kernel B with fp32 weights at every default call and the bench planner
+   against the fp32 twin (1e-3 after DDPM-100, 2e-4 after DDIM-10), B at
+   the default DP's 3099-wide condition in both weight types, kernel A on
+   five IDM variants (mish, no LayerNorm, fixed time features, hidden 48
+   and 512) within 1e-3 of the twin, each timed with its bound; then LDP
+   with ``OPT_LDP`` and DP with ``OPT_DP`` through ``train_bc`` and
+   ``eval_bc`` on a stable VAE trained in bf16 (``OPT_VAE``), launches
+   stated before the closed loops and checked.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -354,9 +365,19 @@ def idm_net(device):
                         "swish", cfg["n_blocks"], cfg["hidden_dim"]).to(device)
 
 
+def mlp_entry(net, rows: int) -> str:
+    """The mangled-name part of kernel A's instance for ``net`` at ``rows``
+    rows a block."""
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA)
+    Hp = KA.padded(KA.hidden(net))
+    return (f"mlp_sampler_kernelILi{Hp // 64}ELi{rows}ELb"
+            f"{int(net.use_layer_norm)}ELi{KA.passes(Hp)}E")
+
+
 def idm_flops_bytes(net, N, S, A, T, with_noise):
     H = net.trunk.dense0.out_features
-    C1 = net.cond.dense[1].out_features
+    C1 = net.cond.dense[-1].out_features
     nb = len(net.trunk.blocks)
     per_step_once = 2 * sum(l.in_features * l.out_features
                             for l in net.cond.dense) + 2 * C1 * H
@@ -411,7 +432,7 @@ def phase_mlp(smoke: Smoke):
               f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s); on the fp32 CUDA cores "
               f"alone it would be {fp32_ms:.3f} ms", flush=True)
         info = smoke.shape_line(
-            f"A {mode}", "mlp_sampler_kernelILi4ELi64E",
+            f"A {mode}", mlp_entry(net, 64),
             K.kernel_info(net, N, A, S, int(ts.shape[0])), 3 * products,
             PEAK_TF32_FLOPS, "TF32 tensor-core", ms)
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
@@ -433,7 +454,16 @@ def taps_inside(n_out, k, stride, offset, n_in) -> int:
                for o in range(n_out) for j in range(k))
 
 
-def unet_flops_bytes(net, B, T, steps):
+def unet_entry(row_tiles: int, wide: bool, fp32: bool = False) -> str:
+    """The mangled-name part of kernel B's main instance for a tile of
+    ``row_tiles`` m16 row tiles (instances of 2, 4 and 8), in wide mode or
+    not, with bf16 or fp32 weights."""
+    entry = next(n for n in (2, 4, 8) if row_tiles <= n)
+    w = "f" if fp32 else "13__nv_bfloat16"
+    return f"unet1d_sampler_kernelI{w}Li{entry}ELb{int(wide)}E"
+
+
+def unet_flops_bytes(net, B, T, steps, weight_bytes: int = 2):
     """(fp32 elementwise FLOPs, bf16-weight product FLOPs, bytes). The TPU
     kernel multiplies bf16 by bf16 with fp32 accumulation, so its products
     are counted at the bf16 tensor-core peak. A conv counts only the taps
@@ -472,7 +502,7 @@ def unet_flops_bytes(net, B, T, steps):
     once = 2 * (d * 4 * d + 4 * d * d) + film_t
     mm = steps * (once + B * per) + B * film_g
     elem = steps * B * (elem + 10 * T * net.input_dim)
-    weights = sum(p.numel() for p in net.parameters()) * 2       # bf16
+    weights = sum(p.numel() for p in net.parameters()) * weight_bytes
     nbytes = weights + 4 * (B * net.global_cond_dim + 2 * B * T * net.input_dim)
     return elem, mm, nbytes
 
@@ -590,9 +620,8 @@ def phase_unet(smoke: Smoke):
         shape = K.kernel_info(net, B, 8, int(ts.shape[0]))
         # the kernel is instantiated for 2, 4 or 8 row tiles of 16
         row_tiles = -(-shape["samples_per_block"] * 8 // 16)
-        entry = next(n for n in (2, 4, 8) if row_tiles <= n)
         info = smoke.shape_line(
-            f"B {name}", f"unet1d_sampler_kernelILi{entry}ELb0E", shape, mm,
+            f"B {name}", unet_entry(row_tiles, False), shape, mm,
             PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
         out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, bf16_flops=mm, fp32_flops=elem,
@@ -1799,9 +1828,7 @@ def _time_unet(smoke, what, net, B, table, clip, g, T=8) -> dict:
     b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
     shape = KB.kernel_info(net, B, T, int(ts.shape[0]))
     row_tiles = -(-shape["samples_per_block"] * T // 16)
-    entry = next(n for n in (2, 4, 8) if row_tiles <= n)
-    info = smoke.shape_line(what, f"unet1d_sampler_kernelILi{entry}ELb"
-                            f"{int(shape['wide'])}E", shape,
+    info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"]), shape,
                             mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
     print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
           f"the kernel's time; weights "
@@ -2176,7 +2203,7 @@ def phase_dp(smoke: Smoke, run: TrainRun):
     if not isinstance(agent, DPAgent):
         raise AssertionError(f"the workspace built a {type(agent).__name__}")
     print(f"   DP: condition {agent.config.cond_dim} wide, kernel B's "
-          f"prologue takes {KB.cond_rows(agent.planner)} samples a block",
+          f"prologue takes {KB.COND_ROWS} samples a block",
           flush=True)
     # prime kernel B's pack with the seeded weights (see the LDP phase)
     agent.sample_action(next(data.eval_dataloader()))
@@ -3242,8 +3269,7 @@ def _drive_aloha(smoke: Smoke, work: Path, device: str) -> dict:
             agent.config.idm_inference_steps, False)
         info = KA.kernel_info(agent.idm, rows, agent.config.action_dim, S,
                               agent.config.idm_inference_steps)
-        n_tiles = agent.idm.trunk.dense0.out_features // 64
-        entry = f"mlp_sampler_kernelILi{n_tiles}ELi{info['rows_per_block']}E"
+        entry = mlp_entry(agent.idm, info["rows_per_block"])
         out["A aloha"]["shape"] = smoke.shape_line(
             what, entry, info, 3 * products, PEAK_TF32_FLOPS,
             "TF32 tensor-core", out["A aloha"]["ms"])
@@ -3898,9 +3924,8 @@ def phase_defaults_kernels(smoke: Smoke):
         b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
         shape = KB.kernel_info(net, B, T, S)
         row_tiles = -(-shape["samples_per_block"] * T // 16)
-        entry = next(n for n in (2, 4, 8) if row_tiles <= n)
         info = smoke.shape_line(
-            what, f"unet1d_sampler_kernelILi{entry}ELb{int(shape['wide'])}E",
+            what, unet_entry(row_tiles, shape["wide"]),
             shape, mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
         print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
               f"the kernel's time; weights "
@@ -3994,7 +4019,12 @@ def phase_defaults(smoke: Smoke, device: str = "cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
+# (run name, agent, its command line beyond default_command_line)
+DEF_RUNS = tuple((name, name, ()) for name in DEF_AGENTS)
+
+
+def _drive_defaults(smoke: Smoke, work: Path, device: str,
+                    runs: tuple = DEF_RUNS, vae_args: tuple = ()) -> dict:
     import torch
     from latent_diffusion_planning_tpu_torch.drivers import (
         agent_from_snapshot, run_data)
@@ -4040,7 +4070,7 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
     loop.Workspace.run = run
     try:
         stage("train_vae (stable_vae)", "train_vae", [
-            "data=lift/img", *paths, f"n_grad_steps={V}",
+            "data=lift/img", *paths, *vae_args, f"n_grad_steps={V}",
             f"warmup_steps={V // 4}", f"eval_every={V}", f"save_every={V}",
             "experiment_folder=defaults", "experiment_name=vae"])
     finally:
@@ -4048,9 +4078,9 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
     vae_ws = workspaces.pop()
     curve = vae_ws.loss_curve()
     first, last = _loss_means(curve)
-    print(f"   stable_vae {V} steps at batch {vae_ws.cfg['batch_size']}: "
-          f"{V / vae_ws.train_seconds:.2f} steps/s; loss {first} -> {last} "
-          f"[{smoke.card}]", flush=True)
+    print(f"   stable_vae {' '.join(vae_args)} {V} steps at batch "
+          f"{vae_ws.cfg['batch_size']}: {V / vae_ws.train_seconds:.2f} "
+          f"steps/s; loss {first} -> {last} [{smoke.card}]", flush=True)
     _falls(curve, ("loss",), first, last)
     vae = f"experiments/defaults/vae/ckpt/{V}.ckpt"
     if not (work / vae).exists():
@@ -4063,13 +4093,13 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
                vae_steps_per_s=V / vae_ws.train_seconds)
 
     n_dec = math.ceil(DEF_EVAL_LEN / 8)
-    for name in DEF_AGENTS:
+    for run_name, name, extra in runs:
         rec: dict = {}
-        line = default_command_line(name) + paths + [
+        line = default_command_line(name) + list(extra) + paths + [
             f"data.env_params.env.episode_len={DEF_EVAL_LEN}",
             f"n_grad_steps={N}", f"warmup_steps={N // 4}", f"eval_every={N}",
             f"save_every={N}", "n_eval_episodes=0",
-            "experiment_folder=defaults", f"experiment_name={name}"]
+            "experiment_folder=defaults", f"experiment_name={run_name}"]
         if DEF_DATA[name] == "lift/latent_img":
             line += latent_paths + [f"agent.vae_pretrain_path={vae}"]
         cfg = load_config("train_bc", line)
@@ -4077,21 +4107,21 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
             "n_diffusion_steps", "inference_steps", "planner_n_diffusion_steps",
             "planner_inference_steps", "idm_n_diffusion_steps",
             "idm_inference_steps") if k in cfg.agent}
-        print(f"   {name}: {' '.join(default_command_line(name))}; batch "
-              f"{cfg.batch_size}, widths {cfg.agent['planner']['down_dims']}, "
-              f"{steps}", flush=True)
+        print(f"   {run_name}: {' '.join(default_command_line(name))} "
+              f"{' '.join(extra)}; batch {cfg.batch_size}, widths "
+              f"{cfg.agent['planner']['down_dims']}, {steps}", flush=True)
         if (cfg.batch_size != 256 or cfg.action_horizon != 8
                 or any(v not in (None, 100) for v in steps.values())):
             raise AssertionError(f"{name}: not the defaults: {steps}")
         loop.Workspace.run = run
         try:
-            train_counts = stage(f"train_bc {name}", "train_bc", line)
+            train_counts = stage(f"train_bc {run_name}", "train_bc", line)
         finally:
             loop.Workspace.run = real_run
         ws = workspaces.pop()
         curve = ws.loss_curve()
         first, last = _loss_means(curve)
-        print(f"   {name}: {N} steps at batch {cfg.batch_size} in "
+        print(f"   {run_name}: {N} steps at batch {cfg.batch_size} in "
               f"{ws.train_seconds:.3f} s "
               f"= {N / ws.train_seconds:.2f} steps/s; losses first 20 "
               f"{first}, last 20 {last} [{smoke.card}]", flush=True)
@@ -4102,10 +4132,11 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
                 "diffusion_unet1d": {"ldp_agent": 2,
                                      "ldp_hier_agent": 4}.get(name, 2),
                 "raycast": 0}
-        print(f"   {name} train_bc (its final eval): launches {train_counts} "
-              f"(stated: {want})", flush=True)
+        print(f"   {run_name} train_bc (its final eval): launches "
+              f"{train_counts} (stated: {want})", flush=True)
         if device == "cuda" and train_counts != want:
-            raise AssertionError(f"{name}: train_bc launches {train_counts}")
+            raise AssertionError(f"{run_name}: train_bc launches "
+                                 f"{train_counts}")
         rec.update(steps_per_s=N / ws.train_seconds, loss_first20=first,
                    loss_last20=last, train_launches=train_counts,
                    final_eval=dict(ws.last_eval))
@@ -4124,37 +4155,39 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
             return res
         engine.run_batched_eval_multi = counting
         try:
-            stage(f"eval_bc {name}", "eval_bc", [
-                f"run_dir=experiments/defaults/{name}",
+            stage(f"eval_bc {run_name}", "eval_bc", [
+                f"run_dir=experiments/defaults/{run_name}",
                 f"n_eval_episodes={DEF_EVAL_ENVS}"])
         finally:
             engine.run_batched_eval_multi = real
-        want = {"raycast": n_dec,
+        # the engine renders the window's obs_horizon states a decision
+        want = {"raycast": n_dec * cfg.obs_horizon,
                 "diffusion_unet1d": n_dec * (2 if name == "ldp_hier_agent"
                                              else 1),
                 "diffusion_mlp": n_dec if name == "ldp_agent" else 0}
         m = counted["results"][0]["metrics"]
-        print(f"   {name} closed loop {DEF_EVAL_ENVS} x {DEF_EVAL_LEN}: "
+        print(f"   {run_name} closed loop {DEF_EVAL_ENVS} x {DEF_EVAL_LEN}: "
               f"launches {counted['counts']} (stated: {want}), "
               f"{counted['wall_s']:.3f} s = "
               f"{DEF_EVAL_ENVS * DEF_EVAL_LEN / counted['wall_s']:.1f} "
               f"computed env-steps/s, success {m['success']:.4f} "
               f"[{smoke.card}]", flush=True)
         if device == "cuda" and counted["counts"] != want:
-            raise AssertionError(f"{name} closed-loop launches "
+            raise AssertionError(f"{run_name} closed-loop launches "
                                  f"{counted['counts']} != {want}")
         rec.update(loop_launches=counted["counts"],
                    loop_wall_s=counted["wall_s"],
                    loop_success=float(m["success"]))
 
         # kernel B (A for LDP's IDM) on the trained nets against the twins
-        run_dir = work / "experiments" / "defaults" / name
+        run_dir = work / "experiments" / "defaults" / run_name
         run_cfg = load_config(str(run_dir / "config.json"))
         data, agent_cfg = run_data(run_cfg, torch.device(device))
         agent = agent_from_snapshot(agent_cfg, data,
                                     run_dir / "ckpt" / f"{N}.ckpt",
                                     torch.device(device))
-        rec["trained"] = _trained_default_checks(smoke, name, agent, device)
+        rec["trained"] = _trained_default_checks(smoke, name, agent, device,
+                                                 run_name)
         if name == "ldp_hier_agent":
             kernels.reset_launch_counts()
             stats = agent.sample_plan_stats(next(data.eval_dataloader()))
@@ -4166,17 +4199,19 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str) -> dict:
             if device == "cuda" and counts["diffusion_unet1d"] != 1:
                 raise AssertionError(f"plan stats launches {counts}")
             out["hier_window"] = {"launches": counts}
-        if name == "ldp_agent":
+        if run_name == "ldp_agent":
             out["ldp_decision_ms"] = _default_decision(smoke, agent, device)
-        out["agents"][name] = rec
-        out[f"{name} loop"] = {"launches": counted["counts"]}
+        out["agents"][run_name] = rec
+        out[f"{run_name} loop"] = {"launches": counted["counts"]}
     return out
 
 
-def _trained_default_checks(smoke, name: str, agent, device: str) -> dict:
+def _trained_default_checks(smoke, name: str, agent, device: str,
+                            run_name: str | None = None) -> dict:
     """Kernel B's DDPM on a trained default agent's U-Nets (kernel A's on
     LDP's IDM) against the twins, at the closed loop's shapes, the same
-    noise handed to both."""
+    noise handed to both: with ``fused_dtype: float32`` B in fp32 against
+    the fp32 twin (1e-3)."""
     import torch
     from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
@@ -4204,14 +4239,17 @@ def _trained_default_checks(smoke, name: str, agent, device: str) -> dict:
             net = agent._inference_net(net_name)
             sched = getattr(agent, f"{net_name}_sched")
             table = agent._table(sched, steps)
-        packed = KB.pack_params(net).to(dev)
+        dtype = common.fused_weight_dtype(agent.config.fused_dtype)
+        packed = KB.pack_params(net, dtype).to(dev)
         cond = torch.randn(B, net.global_cond_dim, generator=g, device=dev)
         x0 = torch.randn(B, T, net.input_dim, generator=g, device=dev)
         noise = common.step_noise(steps, sched, None, tuple(x0.shape), g, dev)
-        out[net_name] = _ddpm_against_twin(
-            smoke, f"trained {name} B {net_name} ({B} samples, T {T}, "
-            f"DDPM-{int(table[0].shape[0])})", net, cond, x0, noise, table,
-            packed)
+        what = (f"trained {run_name or name} B {net_name} ({B} samples, T "
+                f"{T}, DDPM-{int(table[0].shape[0])})")
+        check = (_ddpm_against_twin if dtype == torch.bfloat16
+                 else _fp32_against_twin)
+        out[net_name] = check(smoke, what, net, cond, x0, noise, table,
+                              packed)
     if name == "ldp_agent":
         c = agent.config
         steps = c.idm_inference_steps
@@ -4226,8 +4264,8 @@ def _trained_default_checks(smoke, name: str, agent, device: str) -> dict:
                                             packed=agent._packed("idm"))
         ref = KA.mlp_diffusion_sample_plain(net, s, x0, ts, coefs, noise)
         err = float((got - ref).abs().max())
-        smoke.check(f"trained {name} A ({rows} rows, DDPM-{len(ts)}) "
-                    "max_abs_err vs the fp32 twin", err, 1e-3)
+        smoke.check(f"trained {run_name or name} A ({rows} rows, "
+                    f"DDPM-{len(ts)}) max_abs_err vs the fp32 twin", err, 1e-3)
         out["idm"] = dict(max_abs_err=err)
     return out
 
@@ -4275,6 +4313,304 @@ def _default_decision(smoke: Smoke, agent, device: str) -> dict:
     return out
 
 
+OPT_KERNEL_PHASE = ("options: kernel B with fp32 weights at the default "
+                    "agents' calls and the bench planner, B at a 3099-wide "
+                    "condition, kernel A's IDM variants")
+OPT_PHASE = ("options: LDP with fp32 B, a mish IDM with dropout and a bf16 "
+             "planner, and DP at obs_horizon 3 with a bf16 encoder, from the "
+             "command line on a stable VAE trained in bf16")
+OPT_LDP = ("agent.fused_dtype=float32", "agent.idm_net.cond_activation=mish",
+           "agent.idm_net.dropout_rate=0.1",
+           "agent.planner.compute_dtype=bfloat16")
+OPT_DP = ("obs_horizon=3", "agent.encoder.compute_dtype=bfloat16")
+OPT_RUNS = (("ldp_options", "ldp_agent", OPT_LDP),
+            ("dp_options", "dp_agent", OPT_DP))
+OPT_VAE = ("model.vae.compute_dtype=bfloat16",)
+OPT_IDM_ROWS = 4096          # kernel A's variants: 256 envs x 16 pairs
+# kernel A's variants of the default LDP IDM (hidden 256, swish, LayerNorm,
+# learnable time features): the upstream recipe's mish, and one option each
+OPT_IDM_VARIANTS = {
+    "A mish": dict(cond_activation="mish"),
+    "A no LayerNorm": dict(use_layer_norm=False),
+    "A fixed time features": dict(learnable_time=False),
+    "A hidden 48": dict(hidden_dim=48),
+    "A hidden 512": dict(hidden_dim=512),
+}
+
+
+def _fp32_against_twin(smoke, what, net, cond, x_init, noise, table, packed,
+                       tol: float = 1e-3) -> dict:
+    """Kernel B with fp32 weights on ``net`` against its fp32 twin (the net
+    computing in fp32 with TF32 off) with the same per-step noise (None for
+    DDIM): the largest error within ``tol`` (1e-3 after DDPM-100, whose
+    first steps scale the net's output by up to 1e3; 2e-4 after DDIM-10,
+    the JAX package's kernel-against-scan bar)."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.utils.precision import fp32_math
+    ts, coefs = table
+    got = KB.fused_unet1d_ddim_sample(net, cond, x_init, ts, coefs, noise,
+                                      clip_range=1.0, packed=packed,
+                                      dtype=torch.float32)
+    with fp32_math():
+        ref = KB.unet1d_ddim_sample_plain(KB.fp32_twin(net), cond, x_init, ts,
+                                          coefs, 1.0, noise)
+    if not (bool(torch.isfinite(got).all()) and got.shape == x_init.shape):
+        raise AssertionError(f"{what}: output not finite or misshapen")
+    e = err_stats(got, ref)
+    print(f"   {what}: after {len(ts)} steps against the fp32 twin {e}",
+          flush=True)
+    smoke.check(f"{what} max_abs_err vs the fp32 twin", e["max"], tol)
+    return dict(max_abs_err=e["max"], mean_abs_err=e["mean"], tol=tol)
+
+
+def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed
+                    ) -> dict:
+    """Kernel B with fp32 weights timed beside its fp32 twin, with its
+    launch geometry and its bound: the products at three TF32 passes
+    (``unet_flops_bytes``, fp32 weights read once)."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.utils.precision import fp32_math
+    ts, coefs = table
+    B, T = x0.shape[:2]
+    S = int(ts.shape[0])
+    twin = KB.fp32_twin(net)
+    run_k = lambda: KB.fused_unet1d_ddim_sample(
+        net, cond, x0, ts, coefs, noise, packed=packed, dtype=torch.float32)
+
+    def run_p():
+        with fp32_math():
+            KB.unet1d_ddim_sample_plain(twin, cond, x0, ts, coefs, 1.0, noise)
+    ms = time_ms(run_k, iters=1)
+    plain_ms = time_ms(run_p, iters=1, warmup=0)
+    smoke.timing(what, ms, plain_ms)
+    elem, mm, nbytes = unet_flops_bytes(net, B, T, S, weight_bytes=4)
+    if noise is not None:
+        nbytes += noise.numel() * 4
+    b_ms, b_by = bound(elem, nbytes, fp32_products=mm)
+    shape = KB.kernel_info(net, B, T, S, dtype=torch.float32)
+    row_tiles = -(-shape["samples_per_block"] * T // 16)
+    info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"], True),
+                            shape, 3 * mm, PEAK_TF32_FLOPS,
+                            "TF32 tensor-core (3 passes)", ms)
+    print(f"   {what}: bound {b_ms:.3f} ms ({b_by}: three TF32 passes) = "
+          f"{b_ms / ms:.2%} of the kernel's time; weights "
+          f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
+          f"and block{'; wide mode' if shape['wide'] else ''} [{smoke.card}]",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                tf32_products=mm, fp32_flops=elem, bytes=nbytes, shape=info,
+                source="latent_diffusion_planning_tpu_torch/csrc/"
+                "diffusion_unet1d_f32.cu")
+
+
+def options_dp_agent(device):
+    """The default DP agent at ``obs_horizon=3`` (a (1024 + 9) × 3 = 3099-wide
+    condition), built on ``device`` from the command line."""
+    from latent_diffusion_planning_tpu_torch.train.loop import build_agent
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+    cfg = load_config("train_bc", default_command_line("dp_agent")
+                      + ["obs_horizon=3"])
+    agent_cfg = {k: v for k, v in dict(cfg.agent).items()
+                 if k != "vae_pretrain_path"}
+    return build_agent(agent_cfg, cfg.data["meta"]["shape_meta"], 3, device)
+
+
+def options_idm(variant: dict, device, S: int = 50, A: int = 7):
+    """The default LDP IDM (``conf/agent/ldp_agent.json``'s ``idm_net``) with
+    one option changed, the port's init from seed 5."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.nets.mlp import (
+        MLPDiffusion)
+    from latent_diffusion_planning_tpu_torch.utils.config import load_config
+    i = {**dict(load_config("train_bc", default_command_line("ldp_agent"))
+                .agent["idm_net"]), **variant}
+    return MLPDiffusion(S, A, i.get("time_dim", 64),
+                        tuple(i.get("cond_hidden_dims", (128, 128))),
+                        i.get("cond_activation", "swish"),
+                        i.get("n_blocks", 3), i.get("hidden_dim", 256),
+                        i.get("use_layer_norm", True), i.get("dropout_rate"),
+                        i.get("learnable_time", True),
+                        torch.Generator().manual_seed(5)).to(device)
+
+
+def phase_options_kernels(smoke: Smoke):
+    """Kernel B with fp32 weights (``fused_dtype: float32``) at every call
+    the four default agents make (DDPM-100, YAML widths, 256 samples; LDP-
+    hier's planner at the window's 16 latents in the wide mode) and at the
+    bench planner, DDIM-10 over 1024 samples: each against its fp32 twin
+    (1e-3 after DDPM-100, 2e-4 after DDIM-10), timed beside it, with its
+    bound (three TF32 passes) and launch geometry. Kernel B at the default
+    DP's condition at ``obs_horizon=3`` (3099 wide, the prologue walking it
+    in chunks) in bf16 against the rounding twin by phase B's statistics,
+    and in fp32 against the fp32 twin. Kernel A on the default LDP IDM with
+    the upstream recipe's mish, with no LayerNorm, with fixed time features
+    and at hidden 48 and 512, 4096 rows DDPM-100, each within 1e-3 of its
+    fp32 twin."""
+    import torch
+    from latent_diffusion_planning_tpu_torch import configs
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConditionalUnet1D)
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA)
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.utils.precision import fp32_math
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    agents = default_agents(dev)
+    out: dict = {}
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def inputs(net, B, T, S):
+        cond = torch.randn(B, net.global_cond_dim, generator=g, device=dev)
+        x0 = torch.randn(B, T, net.input_dim, generator=g, device=dev)
+        noise = torch.randn(S, B, T, net.input_dim, generator=g, device=dev)
+        return cond, x0, noise
+
+    for key, (name, net, sched, T, B) in default_unets(agents).items():
+        ts, coefs = dlib.ddpm_coef_table(sched.to("cpu"))
+        table = (ts.to(dev, torch.int32), coefs.to(dev))
+        cond, x0, noise = inputs(net, B, T, len(ts))
+        packed = KB.pack_params(net, f32).to(dev)
+        what = (f"{key} fp32 {list(net.down_dims)} B={B} T={T}"
+                f"{'' if net.downsample else ' no-downsample'}, DDPM-100")
+        rec = _fp32_against_twin(smoke, what, net, cond, x0, noise, table,
+                                 packed)
+        rec.update(_time_unet_fp32(smoke, what, net, cond, x0, noise, table,
+                                   packed))
+        out[f"{key} fp32"] = rec
+
+    # the bench planner, DDIM-10 over 1024 samples (phase B's net)
+    p = configs.BENCH_AGENT["planner"]
+    net = ConditionalUnet1D(25, 25, p["diffusion_step_embed_dim"],
+                            tuple(p["down_dims"]), p["kernel_size"],
+                            p["n_groups"],
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+    ts, coefs = dlib.ddim_coef_table(dlib.DiffusionSchedule.create(50), 10)
+    table = (ts.to(dev, torch.int32), coefs.to(dev))
+    cond, x0, _ = inputs(net, 1024, 8, 1)
+    packed = KB.pack_params(net, f32).to(dev)
+    what = f"B bench planner fp32 {list(net.down_dims)} B=1024 T=8, DDIM-10"
+    rec = _fp32_against_twin(smoke, what, net, cond, x0, None, table, packed,
+                             tol=2e-4)
+    rec.update(_time_unet_fp32(smoke, what, net, cond, x0, None, table,
+                               packed))
+    out["B bench planner fp32"] = rec
+
+    # the default DP at obs_horizon=3: a 3099-wide condition, both types
+    dp3 = options_dp_agent(dev)
+    net = dp3.planner
+    if net.global_cond_dim != 3099:
+        raise AssertionError(f"DP at obs_horizon 3: {net.global_cond_dim}")
+    ts, coefs = dlib.ddpm_coef_table(dp3.sched.to("cpu"))
+    table = (ts.to(dev, torch.int32), coefs.to(dev))
+    cond, x0, noise = inputs(net, DEF_EVAL_ENVS, 16, len(ts))
+    what = f"B dp 3099 bf16 [256,512,1024] B={DEF_EVAL_ENVS} T=16, DDPM-100"
+    packed = KB.pack_params(net).to(dev)
+    rec = _ddpm_against_twin(smoke, what, net, cond, x0, noise, table, packed)
+    twin = KB.rounding_twin(net)
+    run_k = lambda: KB.fused_unet1d_ddim_sample(net, cond, x0, *table, noise,
+                                                packed=packed)
+    run_p = lambda: KB.unet1d_ddim_sample_plain(twin, cond, x0, *table, 1.0,
+                                                noise)
+    ms, plain_ms = time_ms(run_k, iters=1), time_ms(run_p, iters=1, warmup=0)
+    smoke.timing(what, ms, plain_ms)
+    elem, mm, nbytes = unet_flops_bytes(net, DEF_EVAL_ENVS, 16, len(ts))
+    b_ms, b_by = bound(elem, nbytes + noise.numel() * 4, bf16_flops=mm)
+    shape = KB.kernel_info(net, DEF_EVAL_ENVS, 16, len(ts))
+    info = smoke.shape_line(
+        what, unet_entry(-(-shape["samples_per_block"] * 16 // 16), False),
+        shape, mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
+    out["B dp 3099 bf16"] = dict(rec, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, shape=info)
+    what = f"B dp 3099 fp32 [256,512,1024] B={DEF_EVAL_ENVS} T=16, DDPM-100"
+    packed = KB.pack_params(net, f32).to(dev)
+    rec = _fp32_against_twin(smoke, what, net, cond, x0, noise, table, packed)
+    rec.update(_time_unet_fp32(smoke, what, net, cond, x0, noise, table,
+                               packed))
+    out["B dp 3099 fp32"] = rec
+
+    # kernel A's variants of the default LDP IDM
+    ldp = agents["ldp_agent"]
+    ts, coefs = dlib.ddpm_coef_table(ldp.idm_sched.to("cpu"))
+    ts, coefs = ts.to(dev, torch.int32), coefs.to(dev)
+    N, S, A = OPT_IDM_ROWS, 2 * ldp.config.obs_dim, ldp.config.action_dim
+    for key, variant in OPT_IDM_VARIANTS.items():
+        net = options_idm(variant, dev, S, A)
+        s = torch.randn(N, S, generator=g, device=dev)
+        x0 = torch.randn(N, A, generator=g, device=dev)
+        noise = torch.randn(len(ts), N, A, generator=g, device=dev)
+        packed = KA.pack_params(net).to(dev)
+        run_k = lambda: KA.fused_mlp_diffusion_sample(
+            net, s, x0, ts, coefs, noise, packed=packed)
+
+        def run_p():
+            with fp32_math():
+                return KA.mlp_diffusion_sample_plain(net, s, x0, ts, coefs,
+                                                     noise)
+        got, ref = run_k(), run_p()
+        if not (bool(torch.isfinite(got).all()) and got.shape == (N, A)):
+            raise AssertionError(f"{key}: output not finite or misshapen")
+        what = (f"{key} ({variant}) {N} rows, DDPM-{len(ts)}")
+        err = float((got - ref).abs().max())
+        smoke.check(f"{what} max_abs_err vs the fp32 twin", err, 1e-3)
+        ms, plain_ms = time_ms(run_k, iters=2), time_ms(run_p, iters=1)
+        smoke.timing(what, ms, plain_ms)
+        products, rest, nbytes = idm_flops_bytes(net, N, S, A, len(ts), True)
+        b_ms, b_by = bound(rest, nbytes, fp32_products=products)
+        info = KA.kernel_info(net, N, A, S, len(ts))
+        shape = smoke.shape_line(what, mlp_entry(net, info["rows_per_block"]),
+                                 info, 3 * products, PEAK_TF32_FLOPS,
+                                 "TF32 tensor-core", ms)
+        print(f"   {what}: bound {b_ms:.4f} ms ({b_by}) [{smoke.card}]",
+              flush=True)
+        out[key] = dict(max_abs_err=err, tol=1e-3, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    return out
+
+
+def phase_options(smoke: Smoke, device: str = "cuda"):
+    """The options' agents from the command line, in a scratch folder under
+    the checkout's git-ignored ``build/`` (removed after): demos (128 + 32
+    physics envs × 80 steps), the stable VAE with ``OPT_VAE`` (bf16
+    compute) for ``DEF_VAE_STEPS`` steps, its loss falling, the demos'
+    latents from it; then ``train_bc`` of the default LDP with ``OPT_LDP``
+    (kernel B in fp32, kernel A on a mish IDM with dropout, the planner
+    training in bf16; ``horizon=17 pred_horizon=16``) and of the default DP
+    with ``OPT_DP`` (a 3099-wide condition, the ResNet in bf16), each
+    ``DEF_TRAIN_STEPS`` steps at batch 256, losses falling, then
+    ``eval_bc`` over ``DEF_EVAL_ENVS`` × ``DEF_EVAL_LEN`` with its launches
+    stated before the run (LDP: B, A and C once a decision; DP: B and C),
+    and B (A) on the trained nets against their twins (B in fp32 against
+    the fp32 twin)."""
+    import os
+    import shutil
+    import tempfile
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_options_", dir=build))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        out = _drive_defaults(smoke, work, device, OPT_RUNS, OPT_VAE)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    kernel_rec = smoke.record["phases"].get(OPT_KERNEL_PHASE, {})
+    out.update({k: v for k, v in kernel_rec.items()
+                if k.startswith(("A ", "B "))})
+    c_rec = smoke.record["phases"].get(DEF_KERNEL_PHASE, {}).get("C 256")
+    if c_rec is not None:
+        out["C 256"] = c_rec
+    return out
+
+
 REPLACES = {   # the pl.pallas_call of each TPU kernel
     "diffusion_mlp": ("latent_diffusion_planning_tpu/ops/pallas/"
                       "diffusion_mlp.py:145"),
@@ -4319,6 +4655,13 @@ PATHS = (
      {"raycast": "C 256", "diffusion_unet1d": "B dp"}),
     (DEF_PHASE, "default DPVAE closed loop (DDPM-100)", "dp_repr_agent loop",
      {"raycast": "C 256", "diffusion_unet1d": "B dp_repr"}),
+    (OPT_PHASE, "LDP with fused_dtype float32 and a mish IDM, closed loop "
+     "(DDPM-100; B in fp32)", "ldp_options loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B ldp planner fp32",
+      "diffusion_mlp": "A mish"}),
+    (OPT_PHASE, "DP at obs_horizon 3 (a 3099-wide condition), closed loop "
+     "(DDPM-100)", "dp_options loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B dp 3099 bf16"}),
 )
 
 
@@ -4329,7 +4672,8 @@ def kernel_entries(smoke: Smoke) -> list:
     def entry(name, k, launches, path):
         err = k["max_abs_err"] if "max_abs_err" in k else k["kernel"]["max"]
         return {"name": name, "path": path, "route": "cuda",
-                "source": f"latent_diffusion_planning_tpu_torch/csrc/{name}.cu",
+                "source": k.get("source", "latent_diffusion_planning_tpu_"
+                                f"torch/csrc/{name}.cu"),
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -4413,6 +4757,8 @@ def main() -> int:
             _training_phases(smoke)
             smoke.phase(DEF_KERNEL_PHASE, lambda: phase_defaults_kernels(smoke))
             smoke.phase(DEF_PHASE, lambda: phase_defaults(smoke))
+            smoke.phase(OPT_KERNEL_PHASE, lambda: phase_options_kernels(smoke))
+            smoke.phase(OPT_PHASE, lambda: phase_options(smoke))
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

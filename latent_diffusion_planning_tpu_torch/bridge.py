@@ -36,7 +36,7 @@ from .models.agents.dp import build_nets as build_dp_nets
 from .models.agents.dp_vae import DPVAEAgent
 from .models.agents.ldp import LDPAgent
 from .models.agents.ldp_hier import LDPHierAgent
-from .models.nets.mlp import MLPDiffusion
+from .models.nets.mlp import MLP, MLPDiffusion, MLPResNetBlock
 from .models.nets.resnet import ResNetEncoder
 from .models.nets.unet1d import ConditionalUnet1D, unet_from_config
 from .models.vae import KLVAE
@@ -156,23 +156,43 @@ def unet1d_from_flax(params: Mapping, *, input_dim: int, global_cond_dim: int,
     return load_unet1d(net, params)
 
 
+def load_mlp(mlp: MLP, params: Mapping) -> MLP:
+    """A Flax ``MLP``'s tree: ``Dense_<i>`` and, with LayerNorm,
+    ``LayerNorm_<i>`` after each activated layer."""
+    for i, lin in enumerate(mlp.dense):
+        _dense(lin, params[f"Dense_{i}"])
+    for i, norm in enumerate(mlp.norms or ()):
+        _norm(norm, params[f"LayerNorm_{i}"])
+    return mlp
+
+
+def load_mlp_resnet_block(blk: MLPResNetBlock,
+                          params: Mapping) -> MLPResNetBlock:
+    """A Flax ``MLPResNetBlock``'s tree: ``LayerNorm_0`` (when it has one),
+    ``Dense_0``, ``Dense_1`` and, where its input is not ``features`` wide,
+    the residual's projection ``Dense_2``."""
+    if blk.proj is None and "Dense_2" in params:
+        raise ValueError("the Flax block projects its residual, this one "
+                         "takes an input as wide as its features")
+    if isinstance(blk.norm, nn.LayerNorm):
+        _norm(blk.norm, params["LayerNorm_0"])
+    _dense(blk.dense0, params["Dense_0"])
+    _dense(blk.dense1, params["Dense_1"])
+    if blk.proj is not None:
+        _dense(blk.proj, params["Dense_2"])
+    return blk
+
+
 def load_mlp_diffusion(net: MLPDiffusion, params: Mapping) -> MLPDiffusion:
     if net.learnable_time:
         p = params["FourierFeatures_0"]
         if not _put(p, "kernel", net.time.kernel):
             _copy(net.time.kernel, _t(p["kernel"]))
-    for i, lin in enumerate(net.cond.dense):
-        _dense(lin, params["MLP_0"][f"Dense_{i}"])
+    load_mlp(net.cond, params["MLP_0"])
     trunk = params["MLPResNet_0"]
     _dense(net.trunk.dense0, trunk["Dense_0"])
     for i, blk in enumerate(net.trunk.blocks):
-        p = trunk[f"MLPResNetBlock_{i}"]
-        if "Dense_2" in p:
-            raise ValueError("projection blocks are not ported")
-        if net.use_layer_norm:
-            _norm(blk.norm, p["LayerNorm_0"])
-        _dense(blk.dense0, p["Dense_0"])
-        _dense(blk.dense1, p["Dense_1"])
+        load_mlp_resnet_block(blk, trunk[f"MLPResNetBlock_{i}"])
     _dense(net.trunk.dense1, trunk["Dense_1"])
     return net
 
@@ -273,7 +293,8 @@ def load_resnet(net: ResNetEncoder, params: Mapping) -> ResNetEncoder:
     norms (``GroupNorm_*`` or ``LayerNorm_*``) in call order and, where the
     shape changes, ``conv_proj`` and ``norm_proj``; the heads'
     ``SpatialSoftmax_0`` (a learned temperature), ``SpatialLearnedEmbeddings_0``
-    and ``MLP_0``."""
+    and ``MLP_0``; with conditioning, ``FilmConditioning_<n>`` (its
+    ``Dense_0`` adds, ``Dense_1`` scales) and the gates ``Dense_<n>``."""
     _conv2d(net.conv_init, params["conv_init"])
     _norm(net.norm_init, params["norm_init"])
     for n, blk in enumerate(net.blocks):
@@ -289,6 +310,12 @@ def load_resnet(net: ResNetEncoder, params: Mapping) -> ResNetEncoder:
         if blk.proj is not None:
             _conv2d(blk.proj, p["conv_proj"])
             _norm(blk.norm_proj, p["norm_proj"])
+    for i, film in enumerate(net.films or ()):
+        p = params[f"FilmConditioning_{i}"]
+        _dense(film.add, p["Dense_0"])
+        _dense(film.mult, p["Dense_1"])
+    for i, gate in enumerate(net.gates or ()):
+        _dense(gate, params[f"Dense_{i}"])
     if "SpatialSoftmax_0" in params:
         _copy(net.pool.softmax_temperature,
               _t(params["SpatialSoftmax_0"]["softmax_temperature"]))
@@ -353,7 +380,9 @@ def ldp_agent_from_flax(snapshot: Mapping, config: Mapping,
         cond_hidden_dims=i.get("cond_hidden_dims", (128, 128)),
         cond_activation=i.get("cond_activation", "swish"),
         n_blocks=i.get("n_blocks", 3), hidden_dim=i.get("hidden_dim", 256),
-        use_layer_norm=i.get("use_layer_norm", True))
+        use_layer_norm=i.get("use_layer_norm", True),
+        dropout_rate=i.get("dropout_rate"),
+        compute_dtype=i.get("compute_dtype", "float32"))
     vae = load_klvae(KLVAE(**config.get("vae", {})), snapshot["vae_params"])
     return LDPAgent.assemble(planner, idm, vae, config, obs_dim, action_dim,
                              dev)

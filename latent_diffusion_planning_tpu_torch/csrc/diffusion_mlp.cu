@@ -5,10 +5,15 @@
 // Replaces the TPU kernel latent_diffusion_planning_tpu/ops/pallas/
 // diffusion_mlp.py (fused_mlp_diffusion_sample -> _sampler_kernel): the
 // whole DDPM/DDIM reverse process in one call. Per step and row:
-//   Fourier features [cos, sin](2*pi*t*W) -> cond MLP (Dense, swish, Dense)
-//   -> Dense([x, s, cond]) -> n_blocks x [LayerNorm(1e-6) -> Dense(4h) ->
-//   ReLU -> Dense(h) + skip] -> ReLU -> Dense(A) = y (eps, x0 or v), then
-//   x0 = clip(c0 (cx x - c1 y)), x = c2 x0 + c3 x + c4 noise[step].
+//   Fourier features [cos, sin](2*pi*t*W) (learnable) or [cos, sin](t*f)
+//   (fixed sinusoidal frequencies) -> cond MLP (any depth and widths;
+//   relu, swish, mish or gelu (tanh form) between its layers) ->
+//   Dense([x, s, cond]) -> n_blocks x [LayerNorm(1e-6) (or none) ->
+//   Dense(4h) -> ReLU -> Dense(h) + skip] -> ReLU -> Dense(A) = y (eps, x0
+//   or v), then x0 = clip(c0 (cx x - c1 y)), x = c2 x0 + c3 x + c4
+//   noise[step]. Every MLPDiffusion the JAX package builds runs here: the
+//   JAX kernel took only the swish, LayerNorm, learnable-time recipe and
+//   left the rest to its XLA scan.
 //
 // The function is fp32 in the JAX package, so the products cannot simply
 // drop to TF32 (three decimal digits). Each operand is split a = hi + lo,
@@ -48,12 +53,20 @@
 //    kernel of the same call computes, per step, the cond MLP and its share
 //    of the trunk's input layer (+ bias) on the CUDA cores into scratch; the
 //    7-wide output layer, LayerNorm and the update stay on the CUDA cores.
+//  * Any hidden width h that is a multiple of 8 up to 512: the kernel runs
+//    Hp = h padded to whole 64-column tiles (to 128 past 256), the padding
+//    zero in every weight and vector, so the padded columns of the residual
+//    stay 0; LayerNorm's mean and variance are taken over the h real
+//    columns. Past 256 a block holds 32 rows (the residual in registers
+//    doubles) and the 4h layer runs in eight passes of Hp / 2 columns
+//    instead of four of Hp, so one pass's accumulator stays 32 registers.
+//    LayerNorm or none is a template parameter.
 //
 // Packed buffer (fp32): [ stream | vectors ]. Stream, per step: the trunk
-// input layer's [x|s] rows (K padded to 16), then per block and per chunk c
-// of H columns of the 4H layer: w0[:, c], w1[c, :]. Vectors:
-//   ff(half) cw0(2half x C0) cb0 cw1(C0 x C1) cb1 twc(C1 x H) tb0(H)
-//   n_blocks x [ln_s(H) ln_b(H) b0(4H) b1(H)]  ow(H x A) ob(A)
+// input layer's [x|s] rows (K padded to 16), then per block and per pass c
+// of the 4H layer: w0[:, c], w1[c, :]. Vectors:
+//   ff(half)  cond layers [w(in x out) b(out)]...  twc(C x Hp) tb0(Hp)
+//   n_blocks x [ln_s(Hp) ln_b(Hp) b0(passes x Hc) b1(Hp)]  ow(Hp x A) ob(A)
 #include <cstdint>
 
 #include "common.cuh"
@@ -64,70 +77,70 @@ namespace {
 constexpr float kLnEps = 1e-6f;
 constexpr int kThreads = 256;
 constexpr int kWarps = 8;
-constexpr int kStageK = 16;     // K-rows per ring stage
+constexpr int kStageK = 16;     // K-rows per ring stage (of Hp columns)
+constexpr int kMaxCond = 16;    // most layers of the cond MLP
+
+enum Act : int { kRelu = 0, kSwish = 1, kMish = 2, kGelu = 3 };
 
 struct Dims {
-  int N, S, A, T, half, C0, C1, H, n_blocks, kxs, stages, stream_stages,
-      vec_base, smem_main, smem_pro, rows;
+  int N, S, A, T, half, H, Hp, n_blocks, kxs, stages, stream_stages,
+      vec_base, smem_main, smem_pro, rows, ln, n_cond, act, learnable, maxw,
+      blk_base, ow_off, cond_w[kMaxCond];
 };
-constexpr int kNDims = 16;
+constexpr int kNDims = 22 + kMaxCond;
 
-struct Vecs {
-  const float *ff, *cw0, *cb0, *cw1, *cb1, *twc, *tb0, *blocks, *ow, *ob;
-  int blk_size;
-};
-
-__device__ __forceinline__ Vecs vecs(const float* v, const Dims& d) {
-  Vecs o;
-  o.ff = v;
-  o.cw0 = o.ff + d.half;
-  o.cb0 = o.cw0 + 2 * d.half * d.C0;
-  o.cw1 = o.cb0 + d.C0;
-  o.cb1 = o.cw1 + d.C0 * d.C1;
-  o.twc = o.cb1 + d.C1;
-  o.tb0 = o.twc + d.C1 * d.H;
-  o.blocks = o.tb0 + d.H;
-  o.blk_size = 2 * d.H + 4 * d.H + d.H;
-  o.ow = o.blocks + d.n_blocks * o.blk_size;
-  o.ob = o.ow + d.H * d.A;
-  return o;
+__device__ __forceinline__ float act_fn(int act, float x) {
+  switch (act) {
+    case kRelu: return fmaxf(x, 0.f);
+    case kSwish: return ldp::swishf(x);
+    case kMish: return ldp::mishf(x);
+    default: {  // flax.linen.gelu: the tanh approximation
+      const float k = 0.7978845608028654f;   // sqrt(2 / pi)
+      return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+    }
+  }
 }
 
 // Per step: what the time contributes to the trunk's input layer,
-// cbias[step][n] = tb0[n] + sum_k cond(t)[k] twc[k][n].
+// cbias[step][n] = tb0[n] + sum_k cond(t)[k] twc[k][n] (Hp columns), the
+// cond MLP's layers walked from the vectors.
 __global__ void __launch_bounds__(kThreads) mlp_time_kernel(
     const int* __restrict__ ts, const float* __restrict__ w,
     float* __restrict__ cbias, Dims d) {
   extern __shared__ float4 smem4[];
-  float* tff = reinterpret_cast<float*>(smem4);  // 2 half
-  float* cv0 = tff + 2 * d.half;                 // C0
-  float* cv1 = cv0 + d.C0;                       // C1
-  const Vecs v = vecs(w + d.vec_base, d);
+  float* buf = reinterpret_cast<float*>(smem4);   // two rows of maxw
+  float* nxt = buf + d.maxw;
+  const float* v = w + d.vec_base;
   const int tid = threadIdx.x, NT = blockDim.x, step = blockIdx.x;
   const float t = static_cast<float>(ts[step]);
   for (int i = tid; i < d.half; i += NT) {
-    const float f = (2.f * ldp::kPi * t) * v.ff[i];
-    tff[i] = cosf(f);
-    tff[d.half + i] = sinf(f);
+    const float f = d.learnable ? (2.f * ldp::kPi * t) * v[i] : t * v[i];
+    buf[i] = cosf(f);
+    buf[d.half + i] = sinf(f);
   }
   __syncthreads();
-  for (int n = tid; n < d.C0; n += NT) {
-    float a = v.cb0[n];
-    for (int k = 0; k < 2 * d.half; ++k)
-      a = fmaf(tff[k], v.cw0[k * d.C0 + n], a);
-    cv0[n] = ldp::swishf(a);
+  const float* p = v + d.half;
+  int in = 2 * d.half;
+  for (int l = 0; l < d.n_cond; ++l) {
+    const int out = d.cond_w[l];
+    const float* cw = p;
+    const float* cb = p + in * out;
+    for (int n = tid; n < out; n += NT) {
+      float a = cb[n];
+      for (int k = 0; k < in; ++k) a = fmaf(buf[k], cw[k * out + n], a);
+      nxt[n] = l + 1 < d.n_cond ? act_fn(d.act, a) : a;
+    }
+    __syncthreads();
+    float* tmp = buf; buf = nxt; nxt = tmp;
+    p = cb + out;
+    in = out;
   }
-  __syncthreads();
-  for (int n = tid; n < d.C1; n += NT) {
-    float a = v.cb1[n];
-    for (int k = 0; k < d.C0; ++k) a = fmaf(cv0[k], v.cw1[k * d.C1 + n], a);
-    cv1[n] = a;
-  }
-  __syncthreads();
-  for (int n = tid; n < d.H; n += NT) {
-    float a = v.tb0[n];
-    for (int k = 0; k < d.C1; ++k) a = fmaf(cv1[k], v.twc[k * d.H + n], a);
-    cbias[step * d.H + n] = a;
+  const float* twc = p;
+  const float* tb0 = twc + in * d.Hp;
+  for (int n = tid; n < d.Hp; n += NT) {
+    float a = tb0[n];
+    for (int k = 0; k < in; ++k) a = fmaf(buf[k], twc[k * d.Hp + n], a);
+    cbias[static_cast<size_t>(step) * d.Hp + n] = a;
   }
 }
 
@@ -137,66 +150,77 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = ldp::to_tf32(x - __uint_as_float(hi));
 }
 
-// acc[mt][nt] += A (16 kMt rows x K, shared, stride lda) * W (K x H, the
-// next K / 16 stages of the stream), as hi*hi + hi*lo + lo*hi in TF32. Warp
-// w computes columns [8 NT w, 8 NT (w + 1)).
-template <int NT, int kMt, typename Ring>
+// acc[mt][nt] += A (16 kMt rows x K, shared, stride lda) * W (K x 64 NT,
+// the next K / (16 kSub) stages of the stream; a stage holds kSub tiles of
+// 16 K-rows), as hi*hi + hi*lo + lo*hi in TF32. Warp w computes columns
+// [8 NT w, 8 NT (w + 1)).
+template <int NT, int kMt, int kSub, typename Ring>
 __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
                                       int lda, int K, Ring& ring, int warp,
                                       int lane) {
   const int g = lane >> 2, tq = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += kStageK) {
-    const float* st = reinterpret_cast<const float*>(ring.enter());
-    uint32_t bh[2][NT][2], bl[2][NT][2];
+  for (int k0 = 0; k0 < K; k0 += kStageK * kSub) {
+    const float* stage = reinterpret_cast<const float*>(ring.enter());
 #pragma unroll
-    for (int k8 = 0; k8 < 2; ++k8)
+    for (int sub = 0; sub < kSub; ++sub) {
+      const float* st = stage + sub * kStageK * 64 * NT;
+      const int kb = k0 + sub * kStageK;
+      uint32_t bh[2][NT][2], bl[2][NT][2];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 wv = *reinterpret_cast<const float2*>(
-            st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
-        split_tf32(wv.x, bh[k8][nt][0], bl[k8][nt][0]);
-        split_tf32(wv.y, bh[k8][nt][1], bl[k8][nt][1]);
-      }
-#pragma unroll
-    for (int mt = 0; mt < kMt; ++mt) {
-      // the tensor core truncates when it adds into its accumulator: sum
-      // a stage's products from zero there and add the
-      // partial sum on the CUDA cores, which round to nearest
-      float part[NT][4];
-#pragma unroll
-      for (int k8 = 0; k8 < 2; ++k8) {
-        const float* ap = A + (mt * 16 + g) * lda + k0 + k8 * 8 + tq;
-        uint32_t ah[4], al[4];
-        split_tf32(ap[0], ah[0], al[0]);
-        split_tf32(ap[8 * lda], ah[1], al[1]);
-        split_tf32(ap[4], ah[2], al[2]);
-        split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+      for (int k8 = 0; k8 < 2; ++k8)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          if (k8 == 0)
-            ldp::mma_tf32_zero(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
-          else
-            ldp::mma_tf32(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
-          ldp::mma_tf32(part[nt], ah, bl[k8][nt][0], bl[k8][nt][1]);
-          ldp::mma_tf32(part[nt], ah, bh[k8][nt][0], bh[k8][nt][1]);
+          const float2 wv = *reinterpret_cast<const float2*>(
+              st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
+          split_tf32(wv.x, bh[k8][nt][0], bl[k8][nt][0]);
+          split_tf32(wv.y, bh[k8][nt][1], bl[k8][nt][1]);
         }
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        // the tensor core truncates when it adds into its accumulator: sum
+        // a stage's products from zero there and add the
+        // partial sum on the CUDA cores, which round to nearest
+        float part[NT][4];
+#pragma unroll
+        for (int k8 = 0; k8 < 2; ++k8) {
+          const float* ap = A + (mt * 16 + g) * lda + kb + k8 * 8 + tq;
+          uint32_t ah[4], al[4];
+          split_tf32(ap[0], ah[0], al[0]);
+          split_tf32(ap[8 * lda], ah[1], al[1]);
+          split_tf32(ap[4], ah[2], al[2]);
+          split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (k8 == 0)
+              ldp::mma_tf32_zero(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+            else
+              ldp::mma_tf32(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+            ldp::mma_tf32(part[nt], ah, bl[k8][nt][0], bl[k8][nt][1]);
+            ldp::mma_tf32(part[nt], ah, bh[k8][nt][0], bh[k8][nt][1]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
       }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
     }
   }
 }
 
-template <int NT, int kRows>
+// NT: 64-column tiles of Hp (Hp = 64 NT); kLn: LayerNorm in the blocks;
+// kNC: passes over the 4H layer (4 of Hp columns, or 8 of Hp / 2).
+template <int NT, int kRows, bool kLn, int kNC>
 __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
     const float* __restrict__ s, const float* __restrict__ x_init,
     const float* __restrict__ coefs, const float* __restrict__ noise,
     const float* __restrict__ w, const float* __restrict__ cbias,
     float* __restrict__ out, Dims d, float clip) {
   constexpr int kMt = kRows / 16;   // m16 row tiles
-  constexpr int H = 64 * NT;
+  constexpr int H = 64 * NT;        // Hp: the padded width
+  constexpr int NTc = NT * 4 / kNC; // column tiles of one 4H pass
+  constexpr int Hc = 64 * NTc;
+  constexpr int kSub = H / Hc;      // 16-row tiles of w0[:, c] a stage
   constexpr int kStageBytes = kStageK * H * 4;
   constexpr int lda = H + 4;
   extern __shared__ float4 smem4[];
@@ -204,15 +228,21 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int row0 = blockIdx.x * kRows;
-  const int N = d.N, S = d.S, A = d.A, kxs = d.kxs;
+  const int N = d.N, S = d.S, A = d.A, kxs = d.kxs, Hr = d.H;
+  const float inv_h = 1.f / Hr;
+  const bool padded = Hr < H;        // LayerNorm masks the padding
 
   float* xs = reinterpret_cast<float*>(smc + d.stages * kStageBytes);
   float* ln = xs + kRows * kxs;      // rows x lda: LayerNorm out, relu(h)
-  float* act = ln + kRows * lda;     // rows x lda: a chunk of the 4H layer
+  float* act = ln + kRows * lda;     // rows x lda: one pass of the 4H layer
   float* part = act + kRows * lda;   // rows x 8 partial row sums
   float* eps = part + kRows * kWarps;  // rows x A: the net's output y
 
-  const Vecs v = vecs(w + d.vec_base, d);
+  const float* v = w + d.vec_base;
+  const float* blocks = v + d.blk_base;
+  const int blk_size = 7 * H;        // ln_s ln_b b0 (4 Hp) b1
+  const float* ow = v + d.ow_off;    // Hp x A, zero rows past Hr
+  const float* ob = ow + H * A;
   ldp::WeightRing<kStageBytes> ring;
   ring.start(w, smc, d.stages, d.stream_stages, d.stream_stages * d.T);
 
@@ -228,6 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   __syncthreads();
 
   const int col0 = warp * 8 * NT + 2 * tq;   // + 8 nt + e
+  const int colc = warp * 8 * NTc + 2 * tq;  // a 4H pass's columns
   const int Kin = kxs - 4;                   // A + S padded to 16
   float h[kMt][NT][4];
 
@@ -243,74 +274,85 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
         h[mt][nt][2] = c0; h[mt][nt][3] = c1;
       }
     }
-    gemm3<NT, kMt>(h, xs, kxs, Kin, ring, warp, lane);
+    gemm3<NT, kMt, 1>(h, xs, kxs, Kin, ring, warp, lane);
 
     // ---- residual blocks ----
     for (int b = 0; b < d.n_blocks; ++b) {
-      const float* ln_s = v.blocks + b * v.blk_size;
+      const float* ln_s = blocks + b * blk_size;
       const float* ln_b = ln_s + H;
       const float* b0 = ln_b + H;
       const float* b1 = b0 + 4 * H;
 
-      // LayerNorm over the row, two passes, rows spread over the warps
       float mu[kMt][2], rstd[kMt][2];
+      if constexpr (kLn) {
+        // LayerNorm over the row's Hr real columns (the padding holds 0),
+        // two passes, rows spread over the warps
 #pragma unroll
-      for (int mt = 0; mt < kMt; ++mt)
+        for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float sum = 0.f;
+          for (int hf = 0; hf < 2; ++hf) {
+            float sum = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            sum += h[mt][nt][2 * hf] + h[mt][nt][2 * hf + 1];
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sum;
-        }
-      __syncthreads();
-#pragma unroll
-      for (int mt = 0; mt < kMt; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
-          float sum = 0.f;
-#pragma unroll
-          for (int q = 0; q < kWarps; ++q) sum += p[q];
-          mu[mt][hf] = sum / H;
-        }
-      __syncthreads();
-#pragma unroll
-      for (int mt = 0; mt < kMt; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float sq = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const float d0 = h[mt][nt][2 * hf] - mu[mt][hf];
-            const float d1 = h[mt][nt][2 * hf + 1] - mu[mt][hf];
-            sq = fmaf(d0, d0, sq);
-            sq = fmaf(d1, d1, sq);
+            for (int nt = 0; nt < NT; ++nt)
+              sum += h[mt][nt][2 * hf] + h[mt][nt][2 * hf + 1];
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sum;
           }
-          sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-          sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-          if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sq;
-        }
-      __syncthreads();
+        __syncthreads();
 #pragma unroll
-      for (int mt = 0; mt < kMt; ++mt)
+        for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
-          float sq = 0.f;
+          for (int hf = 0; hf < 2; ++hf) {
+            const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
+            float sum = 0.f;
 #pragma unroll
-          for (int q = 0; q < kWarps; ++q) sq += p[q];
-          rstd[mt][hf] = rsqrtf(sq / H + kLnEps);
-        }
+            for (int q = 0; q < kWarps; ++q) sum += p[q];
+            mu[mt][hf] = sum * inv_h;
+          }
+        __syncthreads();
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float sq = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const int c = col0 + 8 * nt;
+              float d0 = h[mt][nt][2 * hf] - mu[mt][hf];
+              float d1 = h[mt][nt][2 * hf + 1] - mu[mt][hf];
+              if (padded) {
+                d0 = c < Hr ? d0 : 0.f;
+                d1 = c + 1 < Hr ? d1 : 0.f;
+              }
+              sq = fmaf(d0, d0, sq);
+              sq = fmaf(d1, d1, sq);
+            }
+            sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+            sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+            if (tq == 0) part[(mt * 16 + g + 8 * hf) * kWarps + warp] = sq;
+          }
+        __syncthreads();
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float* p = part + (mt * 16 + g + 8 * hf) * kWarps;
+            float sq = 0.f;
+#pragma unroll
+            for (int q = 0; q < kWarps; ++q) sq += p[q];
+            rstd[mt][hf] = rsqrtf(sq * inv_h + kLnEps);
+          }
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int c = col0 + 8 * nt;
-        const float s0 = ln_s[c], s1 = ln_s[c + 1];
-        const float o0 = ln_b[c], o1 = ln_b[c + 1];
         const float r0 = b1[c], r1 = b1[c + 1];
+        float s0 = 0.f, s1 = 0.f, o0 = 0.f, o1 = 0.f;
+        if constexpr (kLn) {
+          s0 = ln_s[c]; s1 = ln_s[c + 1];
+          o0 = ln_b[c]; o1 = ln_b[c + 1];
+        }
 #pragma unroll
         for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
@@ -318,8 +360,13 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
             float& h0 = h[mt][nt][2 * hf];
             float& h1 = h[mt][nt][2 * hf + 1];
             float2 y;
-            y.x = (h0 - mu[mt][hf]) * rstd[mt][hf] * s0 + o0;
-            y.y = (h1 - mu[mt][hf]) * rstd[mt][hf] * s1 + o1;
+            if constexpr (kLn) {
+              y.x = (h0 - mu[mt][hf]) * rstd[mt][hf] * s0 + o0;
+              y.y = (h1 - mu[mt][hf]) * rstd[mt][hf] * s1 + o1;
+            } else {
+              y.x = h0;
+              y.y = h1;
+            }
             *reinterpret_cast<float2*>(ln + (mt * 16 + g + 8 * hf) * lda + c)
                 = y;
             h0 += r0;   // the second layer's bias joins the residual now
@@ -328,35 +375,35 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
       }
       __syncthreads();
 
-      for (int c4 = 0; c4 < 4; ++c4) {
-        float a1[kMt][NT][4];
+      for (int c4 = 0; c4 < kNC; ++c4) {
+        float a1[kMt][NTc][4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float c0 = b0[c4 * H + col0 + 8 * nt];
-          const float c1 = b0[c4 * H + col0 + 8 * nt + 1];
+        for (int nt = 0; nt < NTc; ++nt) {
+          const float c0 = b0[c4 * Hc + colc + 8 * nt];
+          const float c1 = b0[c4 * Hc + colc + 8 * nt + 1];
 #pragma unroll
           for (int mt = 0; mt < kMt; ++mt) {
             a1[mt][nt][0] = c0; a1[mt][nt][1] = c1;
             a1[mt][nt][2] = c0; a1[mt][nt][3] = c1;
           }
         }
-        gemm3<NT, kMt>(a1, ln, lda, H, ring, warp, lane);
-        // every warp is past its reads of `act` from the chunk before: the
+        gemm3<NTc, kMt, kSub>(a1, ln, lda, H, ring, warp, lane);
+        // every warp is past its reads of `act` from the pass before: the
         // ring's barriers inside the product above saw to that
 #pragma unroll
         for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
+          for (int nt = 0; nt < NTc; ++nt)
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf) {
               float2 y;
               y.x = fmaxf(a1[mt][nt][2 * hf], 0.f);
               y.y = fmaxf(a1[mt][nt][2 * hf + 1], 0.f);
               *reinterpret_cast<float2*>(
-                  act + (mt * 16 + g + 8 * hf) * lda + col0 + 8 * nt) = y;
+                  act + (mt * 16 + g + 8 * hf) * lda + colc + 8 * nt) = y;
             }
         __syncthreads();
-        gemm3<NT, kMt>(h, act, lda, H, ring, warp, lane);
+        gemm3<NT, kMt, 1>(h, act, lda, Hc, ring, warp, lane);
       }
     }
 
@@ -378,8 +425,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
     for (int i = tid; i < kRows * A; i += kThreads) {
       const int r = i / A, a = i - r * A;
       const float* hr = ln + r * lda;
-      float e = v.ob[a];
-      for (int k = 0; k < H; ++k) e = fmaf(hr[k], v.ow[k * A + a], e);
+      float e = ob[a];
+#pragma unroll 8
+      for (int k = 0; k < H; ++k) e = fmaf(hr[k], ow[k * A + a], e);
       eps[i] = e;
     }
     __syncthreads();
@@ -408,11 +456,11 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   }
 }
 
-template <int NT, int kRows>
+template <int NT, int kRows, bool kLn, int kNC>
 int launch_rows(const float* s, const float* x_init, const float* coefs,
                 const float* noise, const float* w, const float* cbias,
                 float* out, const Dims& d, float clip, cudaStream_t stream) {
-  auto kernel = mlp_sampler_kernel<NT, kRows>;
+  auto kernel = mlp_sampler_kernel<NT, kRows, kLn, kNC>;
   cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (d.N + kRows - 1) / kRows;
@@ -421,23 +469,35 @@ int launch_rows(const float* s, const float* x_init, const float* coefs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
+// kWide: Hp past 256, 32 rows a block and eight passes over the 4H layer
+template <int NT, bool kWide>
 int launch(const float* s, const float* x_init, const float* coefs,
            const float* noise, const float* w, const float* cbias, float* out,
            const Dims& d, float clip, cudaStream_t stream) {
-  if (d.rows == 64)
-    return launch_rows<NT, 64>(s, x_init, coefs, noise, w, cbias, out, d,
-                               clip, stream);
-  return launch_rows<NT, 32>(s, x_init, coefs, noise, w, cbias, out, d, clip,
-                             stream);
+  constexpr int kNC = kWide ? 8 : 4;
+  if (d.rows == 64) {
+    if constexpr (kWide) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return d.ln ? launch_rows<NT, 64, true, kNC>(s, x_init, coefs, noise, w,
+                                                   cbias, out, d, clip, stream)
+                  : launch_rows<NT, 64, false, kNC>(s, x_init, coefs, noise,
+                                                    w, cbias, out, d, clip,
+                                                    stream);
+    }
+  }
+  return d.ln ? launch_rows<NT, 32, true, kNC>(s, x_init, coefs, noise, w,
+                                               cbias, out, d, clip, stream)
+              : launch_rows<NT, 32, false, kNC>(s, x_init, coefs, noise, w,
+                                                cbias, out, d, clip, stream);
 }
 
 }  // namespace
 
-// `dims` is kNDims host ints in the order of Dims; H must be 64, 128, 192 or
-// 256 and rows 64 or 32; coefs is the (T, 6) table of ops/diffusion.py;
-// noise may be null (DDIM); cbias (T x H) is scratch. Returns a
-// cudaError_t.
+// `dims` is kNDims host ints in the order of Dims; Hp (the padded hidden
+// width) must be 64, 128, 192, 256, 384 or 512, rows 64 or 32 (32 past
+// 256); coefs is the (T, 6) table of ops/diffusion.py; noise may be null
+// (DDIM); cbias (T x Hp) is scratch. Returns a cudaError_t.
 extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
                                const int* ts, const float* coefs,
                                const float* noise, const float* w,
@@ -447,17 +507,29 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
   Dims d;
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
-  if (d.H % 64 || d.H < 64 || d.H > 256 || d.stages < 2 || d.stages > 8 ||
-      (d.rows != 64 && d.rows != 32))
+  if (d.Hp % 64 || d.Hp < 64 || d.Hp > 512 || d.H > d.Hp || d.H < 1 ||
+      d.stages < 2 || d.stages > 8 || (d.rows != 64 && d.rows != 32) ||
+      d.n_cond < 1 || d.n_cond > kMaxCond)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  mlp_time_kernel<<<d.T, kThreads, d.smem_pro, st>>>(ts, w, cbias, d);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = ldp::allow_smem(mlp_time_kernel, d.smem_pro);
   if (err != cudaSuccess) return static_cast<int>(err);
-  switch (d.H / 64) {
-    case 1: return launch<1>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
-    case 2: return launch<2>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
-    case 3: return launch<3>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
-    default: return launch<4>(s, x_init, coefs, noise, w, cbias, out, d, clip, st);
+  mlp_time_kernel<<<d.T, kThreads, d.smem_pro, st>>>(ts, w, cbias, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (d.Hp / 64) {
+    case 1: return launch<1, false>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 2: return launch<2, false>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 3: return launch<3, false>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 4: return launch<4, false>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 6: return launch<6, true>(s, x_init, coefs, noise, w, cbias, out, d,
+                                   clip, st);
+    case 8: return launch<8, true>(s, x_init, coefs, noise, w, cbias, out, d,
+                                   clip, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

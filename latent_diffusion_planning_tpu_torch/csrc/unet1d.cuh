@@ -1,0 +1,801 @@
+// Kernel B's implementation (see diffusion_unet1d.cu for the design),
+// templated on the type W of the weights and of the GEMM operand buffers:
+//   bf16  (diffusion_unet1d.cu): mma.sync m16n8k16 bf16 x bf16, operands
+//         read with ldmatrix; a ring stage is 3 tiles of 8 KB;
+//   float (diffusion_unet1d_f32.cu): the JAX kernel's dtype=float32. Every
+//         product runs as error-compensated TF32 on the tensor cores, as in
+//         kernel A: each operand split a = hi + lo, hi*hi + hi*lo + lo*hi on
+//         mma.sync m16n8k8 summed in fp32, a tile's products from zero and
+//         added to the fp32 sum on the CUDA cores (fp32-accurate results).
+//         Tiles are 16 KB and a ring stage is one tile; operands are read
+//         with plain loads at a row stride of 4 mod 32 floats (conflict-free
+//         fragment loads), so in wide mode the operand buffers can sit in the
+//         per-block global scratch beside the fp32 buffers and the skips.
+// One translation unit instantiates one W, so the two build in parallel and
+// neither instance set costs the other registers.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "common.cuh"
+#include "stream.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+enum Op : int {
+  kFilm = 0,        // cin ch Tl t1 t2 film_off tproj v1 v2 vproj
+  kSave = 1,        // skip_off C Tl
+  kConcat = 2,      // skip_off C_h C_skip Tl
+  kDown = 3,        // ch Tl_in tile vec
+  kUp = 4,          // ch Tl_in tile vec
+  kFinalBlock = 5,  // cin ch Tl tile vec
+  kFinalConv = 6,   // cin D Tl tile vec
+};
+constexpr int kRec = 12;
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroupN = 8 * kWarps;             // columns of a tile: 8 a warp
+constexpr int kTileElems = 32 * kGroupN;        // 32 K-rows x kGroupN columns
+constexpr int kChunk = 3;          // bf16 tiles a warp takes at a time
+constexpr int kMtCap = 8;          // most m16 row tiles a warp accumulates
+constexpr int kCondRows = 64;      // samples per prologue cond block
+constexpr float kGnEps = 1e-6f;
+
+template <typename W>
+struct Fmt;
+template <>
+struct Fmt<bf16> {
+  static constexpr int kStageTiles = 3;
+  static constexpr int kPad = 8;    // ldmatrix rows miss each other's banks
+};
+template <>
+struct Fmt<float> {
+  static constexpr int kStageTiles = 1;
+  static constexpr int kPad = 4;    // fragment rows 4 floats apart in banks
+};
+template <typename W>
+struct Sizes {
+  static constexpr int kTileBytes = kTileElems * static_cast<int>(sizeof(W));
+  static constexpr int kStageBytes = Fmt<W>::kStageTiles * kTileBytes;
+};
+
+enum ConvMode { kSame = 0, kStride2 = 1, kTranspose = 2 };
+
+__device__ __forceinline__ float tof(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float tof(float v) { return v; }
+template <typename W>
+__device__ __forceinline__ W fromf(float v);
+template <>
+__device__ __forceinline__ bf16 fromf<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float fromf<float>(float v) { return v; }
+
+__device__ __forceinline__ int pad32(int c) { return (c + 31) & ~31; }
+__device__ __forceinline__ int padn(int c) {
+  return (c + kGroupN - 1) / kGroupN * kGroupN;
+}
+template <typename W>
+__device__ __forceinline__ int ldb(int c) { return pad32(c) + Fmt<W>::kPad; }
+__device__ __forceinline__ int ld32(int c) { return c + 8; }
+
+// The packed stream, tile by tile, through the ring.
+template <typename W>
+struct Tiles {
+  static constexpr int kStageTiles = Fmt<W>::kStageTiles;
+  ldp::WeightRing<Sizes<W>::kStageBytes> ring;
+  const char* stage;
+  int pos;
+
+  __device__ void start(const W* stream, void* smem, int stages, int cycle,
+                        int total) {
+    ring.start(stream, smem, stages, cycle, total);
+    pos = kStageTiles;
+  }
+  // Tiles left in the current stage (entering the next one when it is
+  // used up), and a pointer to the next n of them.
+  __device__ int avail() {
+    if (pos == kStageTiles) {
+      stage = ring.enter();
+      pos = 0;
+    }
+    return kStageTiles - pos;
+  }
+  __device__ const char* take(int n) {
+    const char* p = stage + pos * Sizes<W>::kTileBytes;
+    pos += n;
+    return p;
+  }
+  // Skip the zero tiles that pad the stream to whole stages.
+  __device__ void align() { pos = kStageTiles; }
+};
+
+// Source row of output row r for one tap, or -1 (reads zeros).
+__device__ __forceinline__ int src_row(int mode, int r, int rows, int Tin,
+                                       int Tout, int tap, int pad) {
+  if (r >= rows) return -1;
+  const int b = r / Tout, t = r - b * Tout;
+  int s;
+  if (mode == kSame) {
+    s = t + tap - pad;
+    if (s < 0 || s >= Tin) return -1;
+  } else if (mode == kStride2) {
+    s = 2 * t + tap;
+    if (s >= Tin) return -1;
+  } else {
+    s = t + tap - 2;
+    if (s < 0 || (s & 1) || (s >> 1) >= Tin) return -1;
+    s >>= 1;
+  }
+  return b * Tin + s;
+}
+
+template <typename W>
+struct Gemm {
+  const W* A;       // operand rows (shared memory; fp32: or global)
+  int lda;          // its row stride, elements
+  int cin_pad;      // channels per tap, padded to 32
+  int taps, mode, Tin, Tout;
+  int rows;         // nb * Tout
+  int N;            // output columns
+  const W* bias;    // padn(N) values, or null
+  float* out32;     // fp32 result (shared or global), or null
+  int ld32;
+  bool accum;       // add to what out32 holds
+  bool mish;
+  W* outb;          // operand copy of the result (of the next GEMM)
+  int ldob;
+  int nb_cols;      // columns of outb to write (zeros from N on)
+};
+
+// The epilogue of one 128-column group: bias + sum (+ out32), Mish, out32,
+// and the operand copy.
+template <typename W, int kMtMax>
+__device__ __forceinline__ void gemm_store(const Gemm<W>& g, int MT, int col,
+                                           int gq, float (&acc)[kMtMax][4]) {
+#pragma unroll
+  for (int mt = 0; mt < kMtMax; ++mt) {
+    if (mt < MT) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + gq + 8 * h;
+        if (r < g.rows) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = col + e;
+            float v = acc[mt][2 * h + e];
+            if (c < g.N) {
+              if (g.accum) v += g.out32[static_cast<size_t>(r) * g.ld32 + c];
+              if (g.mish) v = ldp::mishf(v);
+              if (g.out32 != nullptr)
+                g.out32[static_cast<size_t>(r) * g.ld32 + c] = v;
+            } else {
+              v = 0.f;
+            }
+            if (g.outb != nullptr && c < g.nb_cols)
+              g.outb[r * g.ldob + c] = fromf<W>(v);
+          }
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = ldp::to_tf32(x);
+  lo = ldp::to_tf32(x - __uint_as_float(hi));
+}
+
+// out[r][n] = bias[n] + sum_tap sum_c A[src(r, tap)][c] W[tap][c][n], the
+// weights taken tile by tile from the stream. Every thread of the block
+// takes part in every tile.
+template <int kMtMax>
+__device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
+                     uint32_t zero_addr) {
+  constexpr int kTileBytes = Sizes<bf16>::kTileBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int MT = (g.rows + 15) >> 4;
+  const int n_groups = (g.N + kGroupN - 1) / kGroupN;
+  const int kt_per_tap = g.cin_pad >> 5;
+  const uint32_t a_base = ldp::smem_u32(g.A) + (lane >> 4) * 16;
+  const int pad = g.taps >> 1;
+  for (int ng = 0; ng < n_groups; ++ng) {
+    const int col = ng * kGroupN + warp * 8 + 2 * tq;
+    float acc[kMtMax][4];
+    const float b0 = g.bias != nullptr ? tof(g.bias[col]) : 0.f;
+    const float b1 = g.bias != nullptr ? tof(g.bias[col + 1]) : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMtMax; ++mt) {
+      acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
+    }
+    for (int tap = 0; tap < g.taps; ++tap) {
+      uint32_t raddr[kMtMax];
+      uint32_t live = 0;
+#pragma unroll
+      for (int mt = 0; mt < kMtMax; ++mt) {
+        raddr[mt] = zero_addr;
+        if (mt < MT) {
+          const int sr = src_row(g.mode, mt * 16 + (lane & 15), g.rows, g.Tin,
+                                 g.Tout, tap, pad);
+          if (sr >= 0) {
+            raddr[mt] = a_base + static_cast<uint32_t>(sr * g.lda) * 2;
+            live |= 1u << mt;
+          }
+        }
+      }
+      // up to kChunk tiles at a time: all their loads are
+      // started before the products that need them, and the products run in
+      // two independent chains, so a warp with one row tile (the deep
+      // levels) is not a single chain of dependent instructions
+      for (int kt = 0; kt < kt_per_tap;) {
+        const int n = min(min(tiles.avail(), kChunk), kt_per_tap - kt);
+        const char* tile = tiles.take(n) + warp * 512 + lane * 16;
+        uint4 bq[kChunk];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j)
+          if (j < n)
+            bq[j] = *reinterpret_cast<const uint4*>(tile + j * kTileBytes);
+        const uint32_t k0 = kt * 64;
+#pragma unroll
+        for (int mt = 0; mt < kMtMax; ++mt) {
+          if (mt < MT) {
+            const bool on = (live >> mt) & 1;
+            const uint32_t ad = raddr[mt] + (on ? k0 : 0u);
+            uint32_t a[kChunk][2][4];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (j < n) {
+                ldp::ldmatrix_x4(a[j][0], ad + (on ? 64u * j : 0u));
+                ldp::ldmatrix_x4(a[j][1], ad + (on ? 64u * j + 32u : 0u));
+              }
+            // the tensor core truncates when it adds into its accumulator;
+            // sum these tiles' products from zero there and add the partial
+            // sums on the CUDA cores, which round to nearest
+            float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j)
+              if (j < n) {
+                ldp::mma_bf16(p0, a[j][0], bq[j].x, bq[j].y);
+                ldp::mma_bf16(p1, a[j][1], bq[j].z, bq[j].w);
+              }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][e] += p0[e] + p1[e];
+          }
+        }
+        kt += n;
+      }
+    }
+    gemm_store<bf16, kMtMax>(g, MT, col, gq, acc);
+  }
+}
+
+// The fp32 GEMM: one 16 KB tile (32 K-rows) at a time. Lane l of warp w
+// holds the tile's m16n8k8 B fragments of columns [8w, 8w + 8) as two
+// float4: (k8 0, b0 b1; k8 1, b0 b1) and (k8 2 ...; k8 3 ...), each read of
+// the warp one contiguous 512 bytes. A-fragment rows are read directly
+// (rows g and g + 8 of each row tile, columns tq and tq + 4), a row outside
+// its sample as zeros.
+template <int kMtMax>
+__device__ void gemm(const Gemm<float>& g, Tiles<float>& tiles, uint32_t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int MT = (g.rows + 15) >> 4;
+  const int n_groups = (g.N + kGroupN - 1) / kGroupN;
+  const int kt_per_tap = g.cin_pad >> 5;
+  const int pad = g.taps >> 1;
+  for (int ng = 0; ng < n_groups; ++ng) {
+    const int col = ng * kGroupN + warp * 8 + 2 * tq;
+    float acc[kMtMax][4];
+    const float b0 = g.bias != nullptr ? g.bias[col] : 0.f;
+    const float b1 = g.bias != nullptr ? g.bias[col + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMtMax; ++mt) {
+      acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
+    }
+    for (int tap = 0; tap < g.taps; ++tap) {
+      int off[kMtMax][2];
+      uint32_t live = 0;
+#pragma unroll
+      for (int mt = 0; mt < kMtMax; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          off[mt][h] = 0;
+          if (mt < MT) {
+            const int sr = src_row(g.mode, mt * 16 + gq + 8 * h, g.rows,
+                                   g.Tin, g.Tout, tap, pad);
+            if (sr >= 0) {
+              off[mt][h] = sr * g.lda + tq;
+              live |= 1u << (2 * mt + h);
+            }
+          }
+        }
+      for (int kt = 0; kt < kt_per_tap; ++kt) {
+        tiles.avail();
+        const float* tile = reinterpret_cast<const float*>(tiles.take(1))
+            + warp * 256 + lane * 4;
+        const float4 q0 = *reinterpret_cast<const float4*>(tile);
+        const float4 q1 = *reinterpret_cast<const float4*>(tile + 128);
+        const float bv[4][2] = {{q0.x, q0.y}, {q0.z, q0.w},
+                                {q1.x, q1.y}, {q1.z, q1.w}};
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) {
+          split_tf32(bv[k8][0], bh[k8][0], bl[k8][0]);
+          split_tf32(bv[k8][1], bh[k8][1], bl[k8][1]);
+        }
+        const int k0 = kt * 32;
+#pragma unroll
+        for (int mt = 0; mt < kMtMax; ++mt) {
+          if (mt < MT) {
+            const bool l0 = (live >> (2 * mt)) & 1;
+            const bool l1 = (live >> (2 * mt + 1)) & 1;
+            const float* r0 = g.A + off[mt][0] + k0;
+            const float* r1 = g.A + off[mt][1] + k0;
+            // two independent chains (even and odd k8), each summed from
+            // zero on the tensor core and added on the CUDA cores, which
+            // round to nearest
+            float p[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+            for (int k8 = 0; k8 < 4; ++k8) {
+              const float a0 = l0 ? r0[8 * k8] : 0.f;
+              const float a2 = l0 ? r0[8 * k8 + 4] : 0.f;
+              const float a1 = l1 ? r1[8 * k8] : 0.f;
+              const float a3 = l1 ? r1[8 * k8 + 4] : 0.f;
+              uint32_t ah[4], al[4];
+              split_tf32(a0, ah[0], al[0]);
+              split_tf32(a1, ah[1], al[1]);
+              split_tf32(a2, ah[2], al[2]);
+              split_tf32(a3, ah[3], al[3]);
+              ldp::mma_tf32(p[k8 & 1], al, bh[k8][0], bh[k8][1]);
+              ldp::mma_tf32(p[k8 & 1], ah, bl[k8][0], bl[k8][1]);
+              ldp::mma_tf32(p[k8 & 1], ah, bh[k8][0], bh[k8][1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][e] += p[0][e] + p[1][e];
+          }
+        }
+      }
+    }
+    gemm_store<float, kMtMax>(g, MT, col, gq, acc);
+  }
+}
+
+struct Film {
+  const float* __restrict__ t;  // this step's time half (scale [c], bias [C+c])
+  const float* __restrict__ g;  // per-sample condition half, row stride ld
+  int ld, b0, B;
+};
+
+// GroupNorm(G, eps 1e-6) -> Mish over y (nb*Tl rows x C, stride ldy), then
+// FiLM when given, then + res when given. Writes the fp32 result to out32
+// (stride ldy; may be y itself) and its operand copy, channels zero-padded
+// to 32, to outb, each where given.
+template <typename W>
+__device__ void group_norm_mish(const float* y, int ldy, int C, int Tl, int nb,
+                                int G, const W* gs, const W* gb,
+                                float* stats, const Film* film,
+                                const float* res, int ldr, float* out32,
+                                W* outb, int ldob) {
+  const int Cg = C / G, n = Tl * Cg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  for (int p = warp; p < nb * G; p += n_warps) {
+    const int b = p / G, g = p - b * G;
+    const float* yb = y + b * Tl * ldy + g * Cg;
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32) s += yb[(i / Cg) * ldy + i % Cg];
+    const float mu = ldp::warp_sum(s) / n;
+    float sq = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float d = yb[(i / Cg) * ldy + i % Cg] - mu;
+      sq = fmaf(d, d, sq);
+    }
+    const float var = ldp::warp_sum(sq) / n;
+    if (lane == 0) {
+      stats[2 * p] = mu;
+      stats[2 * p + 1] = rsqrtf(var + kGnEps);
+    }
+  }
+  __syncthreads();
+  const int Cp = pad32(C);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nb * Tl * Cp; i += blockDim.x) {
+    const int r = i / Cp, c = i - r * Cp;
+    float v = 0.f;
+    if (c < C) {
+      const int b = r / Tl, p = b * G + c / Cg;
+      v = (y[r * ldy + c] - stats[2 * p]) * stats[2 * p + 1] * tof(gs[c])
+          + tof(gb[c]);
+      v = ldp::mishf(v);
+      if (film != nullptr) {
+        const float* fg = film->g
+            + static_cast<size_t>(min(film->b0 + b, film->B - 1)) * film->ld;
+        v = (__ldg(film->t + c) + __ldg(fg + c)) * v
+            + (__ldg(film->t + C + c) + __ldg(fg + C + c));
+      }
+      if (res != nullptr) v += res[r * ldr + c];
+      if (out32 != nullptr) out32[r * ldy + c] = v;
+    }
+    if (outb != nullptr) outb[r * ldob + c] = fromf<W>(v);
+  }
+  __syncthreads();
+}
+
+struct Dims {
+  int B, T, D, Dc, dsed, K, G, nb, max32, maxb, skip_total, n_ops, n_steps,
+      film_total, film_ld, main_stages, time_tile_base, time_stages,
+      cond_tile_base, cond_stages, vec_base, v_time0, v_time1, v_film_t,
+      smem_main, smem_pro, stages_main, stages_pro, tile_n, cond_rows,
+      wide, scratch_bytes, cond_chunk;
+};
+constexpr int kNDims = 33;
+
+template <typename W>
+__device__ __forceinline__ Gemm<W> dense(const W* A, int K, int rows, int N,
+                                         const W* bias) {
+  Gemm<W> g{};
+  g.A = A; g.lda = ldb<W>(K); g.cin_pad = pad32(K); g.taps = 1; g.mode = kSame;
+  g.Tin = 1; g.Tout = 1; g.rows = rows; g.N = N; g.bias = bias;
+  return g;
+}
+
+// What does not depend on the sample, or not on the step. Blocks [0, S):
+// step s's time embedding -> time MLP -> Mish -> the time half of every
+// FiLM projection (+ bias) into film_t[s]. Blocks from S on: the condition
+// half for kCondRows samples each into film_g. The condition is walked in
+// chunks of cond_chunk channels (the stream holds the half's weights chunk
+// by chunk), mish(condition) of one chunk in the operand buffer at a time
+// and its product added to film_g, so a condition of any width fits.
+template <typename W>
+__global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
+    const float* __restrict__ gcond, const int* __restrict__ ts,
+    const W* __restrict__ Wp, float* __restrict__ film_t,
+    float* __restrict__ film_g, Dims d) {
+  constexpr int kMt = kCondRows / 16;
+  extern __shared__ uint4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int hb = max(16 * ldb<W>(4 * d.dsed), d.cond_rows * ldb<W>(d.cond_chunk));
+  W* Pb = reinterpret_cast<W*>(sm + d.stages_pro * Sizes<W>::kStageBytes);
+  W* Qb = Pb + hb;
+  W* zero = Qb + hb;
+  if (tid < 16) zero[tid] = fromf<W>(0.f);
+  const uint32_t zero_addr = ldp::smem_u32(zero);
+  const W* V = Wp + d.vec_base;
+  Tiles<W> tiles;
+
+  if (static_cast<int>(blockIdx.x) < d.n_steps) {
+    const int step = blockIdx.x;
+    tiles.start(Wp + static_cast<size_t>(d.time_tile_base) * kTileElems, sm,
+                d.stages_pro, d.time_stages, d.time_stages);
+    const float t = static_cast<float>(ts[step]);
+    const int half = d.dsed / 2;
+    for (int i = tid; i < pad32(d.dsed); i += NT) {
+      float v = 0.f;
+      if (i < d.dsed) {
+        const int k = i < half ? i : i - half;
+        const float ang = t * expf(-logf(10000.f) * k / (half - 1));
+        v = i < half ? sinf(ang) : cosf(ang);
+      }
+      Pb[i] = fromf<W>(v);
+    }
+    __syncthreads();
+    Gemm<W> g = dense<W>(Pb, d.dsed, 1, 4 * d.dsed, V + d.v_time0);
+    g.mish = true; g.outb = Qb; g.ldob = ldb<W>(4 * d.dsed);
+    g.nb_cols = pad32(4 * d.dsed);
+    gemm<kMt>(g, tiles, zero_addr);
+    __syncthreads();
+    g = dense<W>(Qb, 4 * d.dsed, 1, d.dsed, V + d.v_time1);
+    g.mish = true; g.outb = Pb; g.ldob = ldb<W>(d.dsed);
+    g.nb_cols = pad32(d.dsed);
+    gemm<kMt>(g, tiles, zero_addr);
+    __syncthreads();
+    g = dense<W>(Pb, d.dsed, 1, d.film_total, V + d.v_film_t);
+    g.out32 = film_t + static_cast<size_t>(step) * d.film_ld;
+    g.ld32 = d.film_ld;
+    gemm<kMt>(g, tiles, zero_addr);
+  } else {
+    const int s0 = (blockIdx.x - d.n_steps) * d.cond_rows;
+    const int rows = min(d.cond_rows, d.B - s0);
+    tiles.start(Wp + static_cast<size_t>(d.cond_tile_base) * kTileElems, sm,
+                d.stages_pro, d.cond_stages, d.cond_stages);
+    for (int c0 = 0; c0 < d.Dc; c0 += d.cond_chunk) {
+      const int cw = min(d.cond_chunk, d.Dc - c0);
+      const int ld = ldb<W>(cw), Cp = pad32(cw);
+      __syncthreads();   // the chunk before is no longer read
+      for (int i = tid; i < d.cond_rows * Cp; i += NT) {
+        const int r = i / Cp, c = i - r * Cp;
+        float v = 0.f;
+        if (r < rows && c < cw)
+          v = ldp::mishf(gcond[static_cast<size_t>(s0 + r) * d.Dc + c0 + c]);
+        Pb[r * ld + c] = fromf<W>(v);
+      }
+      __syncthreads();
+      Gemm<W> g = dense<W>(Pb, cw, rows, d.film_total, nullptr);
+      g.out32 = film_g + static_cast<size_t>(s0) * d.film_ld;
+      g.ld32 = d.film_ld;
+      g.accum = c0 > 0;
+      gemm<kMt>(g, tiles, zero_addr);
+    }
+  }
+  tiles.ring.drain();
+}
+
+// kWide: the fp32 buffers and the skips (fp32 weights: also the operand
+// buffers) in this block's slice of the global scratch (a template
+// parameter, so the ordinary instances keep their registers; one instance,
+// for up to 32 rows a block, keeps the build short)
+template <typename W, int kMt, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
+    const float* __restrict__ x_init, const float* __restrict__ coefs,
+    const float* __restrict__ noise, const W* __restrict__ Wp,
+    const int* __restrict__ prog, const float* __restrict__ film_t,
+    const float* __restrict__ film_g, char* scratch,
+    float* __restrict__ out, Dims d, float clip) {
+  constexpr bool kF32 = std::is_same<W, float>::value;
+  extern __shared__ uint4 smem_raw[];
+  char* sm = reinterpret_cast<char*>(smem_raw);
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int nb = d.nb, T = d.T, D = d.D, K = d.K, G = d.G;
+  const int b0 = blockIdx.x * nb;
+  const int n_valid = min(nb, d.B - b0);
+  const int ring_bytes = d.stages_main * Sizes<W>::kStageBytes;
+
+  // shared: [ring | X32 Y32 | xcur | stats | Xb Yb | skips | zero]; in wide
+  // mode X32, Y32 and the skips sit in this block's slice of the scratch,
+  // and with fp32 weights Xb and Yb too
+  float* X32;
+  float* Y32;
+  float* xcur;
+  W* Xb;
+  W* Yb;
+  W* skipb;
+  W* zero;
+  if constexpr (kWide) {
+    X32 = reinterpret_cast<float*>(
+        scratch + static_cast<size_t>(blockIdx.x) * d.scratch_bytes);
+    Y32 = X32 + d.max32;
+    xcur = reinterpret_cast<float*>(sm + ring_bytes);
+    const int n_floats = (nb * T * D + 2 * nb * G + 3) & ~3;
+    if constexpr (kF32) {
+      Xb = Y32 + d.max32;
+      Yb = Xb + d.maxb;
+      skipb = Yb + d.maxb;
+      zero = xcur + n_floats;
+    } else {
+      skipb = reinterpret_cast<W*>(Y32 + d.max32);
+      Xb = reinterpret_cast<W*>(xcur + n_floats);
+      Yb = Xb + d.maxb;
+      zero = Yb + d.maxb;
+    }
+  } else {
+    X32 = reinterpret_cast<float*>(sm + ring_bytes);
+    Y32 = X32 + d.max32;
+    xcur = Y32 + d.max32;                       // nb*T x D
+    const int n_floats = (2 * d.max32 + nb * T * D + 2 * nb * G + 3) & ~3;
+    Xb = reinterpret_cast<W*>(X32 + n_floats);
+    Yb = Xb + d.maxb;
+    skipb = Yb + d.maxb;
+    zero = skipb + d.skip_total;
+  }
+  float* stats = xcur + nb * T * D;             // nb x G x 2
+  if (tid < 16) zero[tid] = fromf<W>(0.f);
+  const uint32_t zero_addr = ldp::smem_u32(zero);
+  const W* V = Wp + d.vec_base;
+
+  Tiles<W> tiles;
+  tiles.start(Wp, sm, d.stages_main, d.main_stages, d.main_stages * d.n_steps);
+
+  for (int i = tid; i < nb * T * D; i += NT) {
+    const int b = i / (T * D);
+    xcur[i] = b < n_valid ? x_init[static_cast<size_t>(b0) * T * D + i] : 0.f;
+  }
+  __syncthreads();
+
+  for (int step = 0; step < d.n_steps; ++step) {
+    {
+      const int Cp = pad32(D), lb = ldb<W>(D), lf = ld32(D);
+      for (int i = tid; i < nb * T * Cp; i += NT) {
+        const int r = i / Cp, c = i - r * Cp;
+        const float v = c < D ? xcur[r * D + c] : 0.f;
+        if (c < D) X32[r * lf + c] = v;
+        Xb[r * lb + c] = fromf<W>(v);
+      }
+    }
+    __syncthreads();
+
+    for (int op = 0; op < d.n_ops; ++op) {
+      const int* rec = prog + op * kRec;
+      const int kind = rec[0];
+      if (kind == kFilm) {
+        const int cin = rec[1], ch = rec[2], Tl = rec[3];
+        const W* v1 = V + rec[8];
+        const W* v2 = V + rec[9];
+        const int rows = nb * Tl, np = padn(ch);
+        Gemm<W> g{};
+        g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = rows; g.N = ch;
+        g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
+        __syncthreads();
+        Film film{film_t + static_cast<size_t>(step) * d.film_ld + rec[6],
+                  film_g + rec[6], d.film_ld, b0, d.B};
+        group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v1 + np,
+                           v1 + np + ch, stats, &film, nullptr, 0, nullptr,
+                           Yb, ldb<W>(ch));
+        g.A = Yb; g.lda = ldb<W>(ch); g.cin_pad = pad32(ch); g.bias = v2;
+        gemm<kMt>(g, tiles, zero_addr);
+        __syncthreads();
+        if (rec[7] >= 0) {
+          group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v2 + np,
+                             v2 + np + ch, stats, nullptr, nullptr, 0, Y32,
+                             nullptr, 0);
+          Gemm<W> p{};
+          p.A = Xb; p.lda = ldb<W>(cin); p.cin_pad = pad32(cin); p.taps = 1;
+          p.mode = kSame; p.Tin = Tl; p.Tout = Tl; p.rows = rows; p.N = ch;
+          p.bias = V + rec[10]; p.out32 = Y32; p.ld32 = ld32(ch);
+          p.accum = true; p.outb = Yb; p.ldob = ldb<W>(ch);
+          p.nb_cols = pad32(ch);
+          gemm<kMt>(p, tiles, zero_addr);
+          __syncthreads();
+        } else {
+          group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v2 + np,
+                             v2 + np + ch, stats, nullptr, X32, ld32(cin),
+                             Y32, Yb, ldb<W>(ch));
+        }
+        float* t32 = X32; X32 = Y32; Y32 = t32;
+        W* tb = Xb; Xb = Yb; Yb = tb;
+      } else if (kind == kSave) {
+        const int n = nb * rec[3] * ldb<W>(rec[2]);
+        for (int i = tid; i < n; i += NT) skipb[rec[1] + i] = Xb[i];
+        __syncthreads();
+      } else if (kind == kConcat) {
+        const int C1 = rec[2], C2 = rec[3], Cp = pad32(C1 + C2);
+        const int l1 = ldb<W>(C1), l2 = ldb<W>(C2), lo = ldb<W>(C1 + C2);
+        const W* sk = skipb + rec[1];
+        for (int i = tid; i < nb * rec[4] * Cp; i += NT) {
+          const int r = i / Cp, c = i - r * Cp;
+          Yb[r * lo + c] = c < C1 ? Xb[r * l1 + c]
+                           : c < C1 + C2 ? sk[r * l2 + c - C1]
+                                         : fromf<W>(0.f);
+        }
+        __syncthreads();
+        W* tb = Xb; Xb = Yb; Yb = tb;
+      } else if (kind == kDown || kind == kUp) {
+        const int ch = rec[1], Tin = rec[2];
+        const int Tout = kind == kDown ? Tin / 2 : 2 * Tin;
+        Gemm<W> g{};
+        g.A = Xb; g.lda = ldb<W>(ch); g.cin_pad = pad32(ch);
+        g.taps = kind == kDown ? 3 : 4;
+        g.mode = kind == kDown ? kStride2 : kTranspose;
+        g.Tin = Tin; g.Tout = Tout; g.rows = nb * Tout; g.N = ch;
+        g.bias = V + rec[4]; g.out32 = Y32; g.ld32 = ld32(ch);
+        g.outb = Yb; g.ldob = ldb<W>(ch); g.nb_cols = pad32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
+        __syncthreads();
+        float* t32 = X32; X32 = Y32; Y32 = t32;
+        W* tb = Xb; Xb = Yb; Yb = tb;
+      } else if (kind == kFinalBlock) {
+        const int cin = rec[1], ch = rec[2], Tl = rec[3];
+        const W* v1 = V + rec[5];
+        const int np = padn(ch);
+        Gemm<W> g{};
+        g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = ch;
+        g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        gemm<kMt>(g, tiles, zero_addr);
+        __syncthreads();
+        group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v1 + np,
+                           v1 + np + ch, stats, nullptr, nullptr, 0, nullptr,
+                           Yb, ldb<W>(ch));
+        W* tb = Xb; Xb = Yb; Yb = tb;
+      } else {  // kFinalConv: eps into Y32
+        const int cin = rec[1], Dout = rec[2], Tl = rec[3];
+        Gemm<W> g{};
+        g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = 1;
+        g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = Dout;
+        g.bias = V + rec[5]; g.out32 = Y32; g.ld32 = ld32(Dout);
+        gemm<kMt>(g, tiles, zero_addr);
+        __syncthreads();
+      }
+    }
+    tiles.align();
+
+    const float k0 = coefs[step * 6 + 0], k1 = coefs[step * 6 + 1];
+    const float k2 = coefs[step * 6 + 2], k3 = coefs[step * 6 + 3];
+    const float k4 = coefs[step * 6 + 4], kx = coefs[step * 6 + 5];
+    const int lf = ld32(D);
+    // this step's noise for the block's samples: (n_steps, B, T, D), the
+    // rows of sample b0 on; the padding samples past n_valid read none
+    const float* nz = noise == nullptr ? nullptr
+        : noise + (static_cast<size_t>(step) * d.B + b0) * T * D;
+    for (int i = tid; i < nb * T * D; i += NT) {
+      const int r = i / D, c = i - r * D;
+      const float x = xcur[i];
+      // x0 = clip(k0 (kx x - k1 y)): kx = 1 for eps, 0 for sample (x0
+      // prediction), sqrt(abar) for v; 1 * x is x, so eps runs as before
+      const float x0 = fminf(
+          fmaxf(k0 * fmaf(-k1, Y32[r * lf + c], __fmul_rn(kx, x)), -clip),
+          clip);
+      float xn = k2 * x0 + k3 * x;
+      if (nz != nullptr && i < n_valid * T * D) xn += k4 * __ldg(nz + i);
+      xcur[i] = xn;
+    }
+    __syncthreads();
+  }
+  tiles.ring.drain();
+
+  for (int i = tid; i < n_valid * T * D; i += NT)
+    out[static_cast<size_t>(b0) * T * D + i] = xcur[i];
+}
+
+template <typename W, int kMt, bool kWide>
+int launch_main(const float* x_init, const float* coefs, const float* noise,
+                const W* Wp, const int* prog, const float* film_t,
+                const float* film_g, char* scratch, float* out, const Dims& d,
+                float clip, cudaStream_t st) {
+  auto kernel = unet1d_sampler_kernel<W, kMt, kWide>;
+  cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (d.B + d.nb - 1) / d.nb;
+  kernel<<<grid, kThreads, d.smem_main, st>>>(x_init, coefs, noise, Wp, prog,
+                                              film_t, film_g, scratch, out, d,
+                                              clip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The host side of one call: checks `dims`, launches the prologue and then
+// the main kernel with the instance the tile's rows need. Returns a
+// cudaError_t.
+template <typename W>
+int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
+                  const float* coefs, const float* noise, const void* w,
+                  const int* prog, float* film_t, float* film_g, void* scratch,
+                  float* out, const int* dims, int n_dims, float clip,
+                  void* stream) {
+  if (n_dims != kNDims) return static_cast<int>(cudaErrorInvalidValue);
+  Dims d;
+  int* fields = reinterpret_cast<int*>(&d);
+  for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
+  if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
+      d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
+      d.stages_pro > 8 || d.cond_rows != kCondRows || d.cond_chunk < 32 ||
+      d.cond_chunk % 32 ||
+      (d.wide && (scratch == nullptr || d.scratch_bytes % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto sc = static_cast<char*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto Wp = static_cast<const W*>(w);
+  cudaError_t err = ldp::allow_smem(unet1d_prologue_kernel<W>, d.smem_pro);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pro_grid = d.n_steps + (d.B + d.cond_rows - 1) / d.cond_rows;
+  unet1d_prologue_kernel<W><<<pro_grid, kThreads, d.smem_pro, st>>>(
+      gcond, ts, Wp, film_t, film_g, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // accumulators sized to the rows the tile holds: 2, 4 or 8 m16 tiles
+  const int mt = (d.nb * d.T + 15) / 16;
+  if (d.wide)
+    return mt <= 2 ? launch_main<W, 2, true>(x_init, coefs, noise, Wp, prog,
+                                             film_t, film_g, sc, out, d, clip,
+                                             st)
+                   : static_cast<int>(cudaErrorInvalidValue);
+  if (mt <= 2)
+    return launch_main<W, 2, false>(x_init, coefs, noise, Wp, prog, film_t,
+                                    film_g, sc, out, d, clip, st);
+  if (mt <= 4)
+    return launch_main<W, 4, false>(x_init, coefs, noise, Wp, prog, film_t,
+                                    film_g, sc, out, d, clip, st);
+  return launch_main<W, 8, false>(x_init, coefs, noise, Wp, prog, film_t,
+                                  film_g, sc, out, d, clip, st);
+}
+
+}  // namespace

@@ -180,29 +180,42 @@ def step_noise(steps: int | None, sched: dlib.DiffusionSchedule,
 # kernel B over an action U-Net (DP, DPVAE)
 # ---------------------------------------------------------------------------
 
+def fused_weight_dtype(name: str) -> torch.dtype:
+    """The weight type kernel B runs for an agent's ``fused_dtype``
+    (``"bfloat16"`` or ``"float32"``, the JAX kernel's two); anything else
+    raises with the reason."""
+    dtype = getattr(torch, str(name), None)
+    if dtype not in kunet.WEIGHT_DTYPES:
+        raise ValueError(f"fused_dtype must be float32 or bfloat16 (kernel "
+                         f"B's weight types), not {name!r}")
+    return dtype
+
+
 class ActionSampler:
     """The reverse process of an action U-Net through kernel B
-    (``fused_unet1d_ddim_sample``) on the card and its plain twin on the
-    CPU: strided η=0 DDIM when ``inference_steps`` is below the train
-    steps, else the full DDPM process with per-step noise. The coefficient
-    table is made once on the device; the kernel's packed weights are made
-    at the first sample on the card and dropped by ``weights_changed``."""
+    (``fused_unet1d_ddim_sample``, with weights of ``fused_dtype``) on the
+    card and its plain twin on the CPU: strided η=0 DDIM when
+    ``inference_steps`` is below the train steps, else the full DDPM
+    process with per-step noise. The coefficient table is made once on the
+    device; the kernel's packed weights are made at the first sample on the
+    card and dropped by ``weights_changed``."""
 
     def __init__(self, sched: dlib.DiffusionSchedule,
-                 inference_steps: int | None, device: torch.device):
+                 inference_steps: int | None, device: torch.device,
+                 fused_dtype: str = "bfloat16"):
         self.sched = sched
         self.inference_steps = inference_steps
         self.device = device
+        self.fused_dtype = fused_dtype
         self._table = None
         self._pack = None
 
     def check(self, net: ConditionalUnet1D, pred_horizon: int,
               fused_dtype: str) -> None:
         """Raise, with the reason, for what kernel B cannot run."""
-        if getattr(torch, fused_dtype) != kunet.WEIGHT_DTYPE:
-            raise ValueError("the fused action kernel reads bf16 weights")
+        dtype = fused_weight_dtype(fused_dtype)
         kunet.check_supported(net, pred_horizon)
-        kunet.choose_tile(net, pred_horizon)
+        kunet.choose_tile(net, pred_horizon, dtype=dtype)
 
     def weights_changed(self) -> None:
         self._pack = None
@@ -225,9 +238,13 @@ class ActionSampler:
         clip = sched.clip_range if sched.clip_sample else 1e9
         noise = step_noise(self.inference_steps, sched, noise,
                            tuple(x_init.shape), generator, x_init.device)
-        if x_init.device.type == "cuda" and self._pack is None:
-            self._pack = kunet.pack_params(net).to(x_init.device)
+        on_card = x_init.device.type == "cuda"
+        # the weight type matters on the card only (the CPU runs the twin)
+        dtype = (fused_weight_dtype(self.fused_dtype) if on_card
+                 else kunet.WEIGHT_DTYPE)
+        if on_card and self._pack is None:
+            self._pack = kunet.pack_params(net, dtype).to(x_init.device)
         ts, coefs = self.table()
         return kunet.fused_unet1d_ddim_sample(
             net, cond, x_init, ts, coefs, noise, clip_range=clip,
-            packed=self._pack if x_init.device.type == "cuda" else None)
+            packed=self._pack if on_card else None, dtype=dtype)

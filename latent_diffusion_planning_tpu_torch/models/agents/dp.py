@@ -124,7 +124,8 @@ class DPAgent:
             k: TrainState(e, **sched_kw, ema_decay=o["encoder_ema_decay"])
             for k, e in self.encoders.items()}
         self.sampler = common.ActionSampler(self.sched,
-                                            config.inference_steps, device)
+                                            config.inference_steps, device,
+                                            config.fused_dtype)
         if device.type == "cuda":
             self._check_kernels()
 

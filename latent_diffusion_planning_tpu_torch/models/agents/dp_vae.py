@@ -15,8 +15,8 @@ null``, 100 steps); it keeps the first ``action_horizon`` actions;
 ``use_ema`` samples the EMA weights.
 
 On the card a configuration kernel B does not take raises, with the reason,
-when the agent is built: a ``fused_dtype`` other than bfloat16, a
-prediction horizon not divisible by the U-Net's stride, or widths the
+when the agent is built: a ``fused_dtype`` other than bfloat16 or float32
+(kernel B's two weight types), a prediction horizon not divisible by the U-Net's stride, or widths the
 kernel refuses. On the CPU DDIM and DDPM run through the kernel's plain
 twin.
 
@@ -90,7 +90,8 @@ class DPVAEAgent:
             warmup_steps=o["warmup_steps"], decay_steps=o["decay_steps"],
             ema_decay=o["ema_decay"])
         self.sampler = common.ActionSampler(self.sched,
-                                            config.inference_steps, device)
+                                            config.inference_steps, device,
+                                            config.fused_dtype)
         if device.type == "cuda":
             self._check_kernels()
 

@@ -22,11 +22,15 @@ Both nets sample with strided DDIM when their ``*_inference_steps`` are
 below the train steps, else with the full ancestral DDPM process (the JAX
 package's default configurations: ``null``, 100 steps), and both ways run
 through the kernels on the card: the planner through B, the IDM through A,
-DDPM with one noise draw per step. Where the JAX agent drops to its XLA
-scan when a kernel cannot take a configuration, this agent raises on CUDA
-with the reason: a plan length not divisible by the U-Net stride, or an IDM
-the MLP kernel does not take (non-swish cond MLP, no LayerNorm, fixed time
-features); on the CPU those run through the plain versions. Every
+DDPM with one noise draw per step. Kernel B runs the planner with the
+weight type ``fused_dtype`` names (bfloat16 or float32, the JAX kernel's
+two), kernel A every MLP IDM the JAX package builds (any cond MLP and
+activation, fixed or learnable time features, LayerNorm or none, a hidden
+width that is a multiple of 8 up to 512). Where the JAX agent drops to its
+XLA scan when a kernel cannot take a configuration, this agent raises on
+CUDA with the reason (a plan length not divisible by the U-Net stride, a
+``fused_dtype`` of neither type); on the CPU those run through the plain
+versions. Every
 prediction type (ε, sample, v) runs through the kernels: their coefficient
 tables hold x0 = clip(c1 (cx x - c2 y)) for the net's output y
 (``ops/diffusion.py``); the ALOHA recipe's planner predicts x0.
@@ -155,18 +159,28 @@ class LDPAgent:
             return None
         if name not in self._packs:
             net = self._inference_net(name)
-            kernel = kunet if isinstance(net, ConditionalUnet1D) else kmlp
-            self._packs[name] = kernel.pack_params(net).to(self.device)
+            if isinstance(net, ConditionalUnet1D):
+                pack = kunet.pack_params(net, self._fused_dtype())
+            else:
+                pack = kmlp.pack_params(net)
+            self._packs[name] = pack.to(self.device)
         return self._packs[name]
 
     def _check_kernels(self) -> None:
         """Raise, with the reason, for a configuration the kernels cannot
         run (called when the agent is built on the card)."""
         c = self.config
-        if getattr(torch, c.fused_dtype) != kunet.WEIGHT_DTYPE:
-            raise ValueError("the fused planner kernel reads bf16 weights")
+        dtype = common.fused_weight_dtype(c.fused_dtype)
         kunet.check_supported(self.planner, c.pred_horizon)
+        kunet.choose_tile(self.planner, c.pred_horizon, dtype=dtype)
         kmlp.check_supported(self.idm)
+
+    def _fused_dtype(self) -> torch.dtype:
+        """Kernel B's weight type (``fused_dtype``) on the card; bf16 names
+        the default where the plain twin runs."""
+        if self.device.type != "cuda":
+            return kunet.WEIGHT_DTYPE
+        return common.fused_weight_dtype(self.config.fused_dtype)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -194,7 +208,7 @@ class LDPAgent:
                            i.get("n_blocks", 3), i.get("hidden_dim", 256),
                            i.get("use_layer_norm", True),
                            i.get("dropout_rate"), i.get("learnable_time", True),
-                           generator)
+                           generator, i.get("compute_dtype", "float32"))
         vae = KLVAE(**config.get("vae", {}), generator=generator)
         return cls.assemble(planner, idm, vae, config, obs_dim, action_dim,
                             dev)
@@ -287,7 +301,8 @@ class LDPAgent:
             tuple(x_init.shape), generator, self.device)
         return kunet.fused_unet1d_ddim_sample(
             self._inference_net(name), cond, x_init, ts, coefs, noise,
-            clip_range=self._clip(sched), packed=self._packed(name))
+            clip_range=self._clip(sched), packed=self._packed(name),
+            dtype=self._fused_dtype())
 
     def _plan(self, cond: torch.Tensor, x_init: torch.Tensor,
               generator: torch.Generator | None,

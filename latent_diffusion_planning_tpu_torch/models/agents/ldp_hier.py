@@ -20,8 +20,8 @@ with per-step noise; on the CPU through its plain twin. The yaml's planner
 outgrows a block's shared memory; kernel B runs it in its wide mode
 (fp32 buffers and skips in global memory). Where the JAX agent samples a
 net with its XLA scan, this agent raises on CUDA, with the reason, when it
-is built: a ``fused_dtype`` other than bfloat16, or widths kernel B
-refuses even in wide mode.
+is built: a ``fused_dtype`` other than bfloat16 or float32, or widths
+kernel B refuses even in wide mode.
 
 Behaviours of the JAX agent reproduced as they are:
 - ``pred_plan[:, :action_horizon]`` keeps all P latents when P is shorter
@@ -110,13 +110,12 @@ class LDPHierAgent(LDPAgent):
         fp32 buffers and skips to global memory; only a net whose operand
         buffers alone outgrow a block is refused)."""
         c = self.config
-        if getattr(torch, c.fused_dtype) != kunet.WEIGHT_DTYPE:
-            raise ValueError("the fused U-Net kernel reads bf16 weights")
+        dtype = common.fused_weight_dtype(c.fused_dtype)
         for name, lengths in (("planner", (self.plan_length, c.pred_horizon)),
                               ("idm", (c.idm_horizon,))):
             for T in lengths:
                 kunet.check_supported(getattr(self, name), T)
-                kunet.choose_tile(getattr(self, name), T)
+                kunet.choose_tile(getattr(self, name), T, dtype=dtype)
 
     # ------------------------------------------------------------------
     # losses (strided)

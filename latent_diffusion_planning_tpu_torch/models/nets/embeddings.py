@@ -15,6 +15,12 @@ from torch.nn import functional as F
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x·tanh(softplus(x))``; on a bf16 tensor op by op, each rounded to
+    bf16, with softplus as ``jnp.logaddexp(x, 0)`` spells it (max(x, 0) +
+    log1p(exp(-|x|))): what XLA computes for the JAX package's bf16 nets."""
+    if x.dtype == torch.bfloat16:
+        sp = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+        return x * torch.tanh(sp)
     return x * torch.tanh(F.softplus(x))
 
 

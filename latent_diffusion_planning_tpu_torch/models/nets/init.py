@@ -67,6 +67,20 @@ def xavier_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     return nn.init.uniform_(w, -bound, bound, generator=generator)
 
 
+def kaiming_uniform_(w: torch.Tensor, fan_in: int,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """``variance_scaling(2, "fan_in", "uniform")``: U(±√(6/fan_in))."""
+    bound = math.sqrt(6.0 / fan_in)
+    return nn.init.uniform_(w, -bound, bound, generator=generator)
+
+
+def xavier_normal_(w: torch.Tensor, fan_in: int, fan_out: int,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """``variance_scaling(1, "fan_avg", "truncated_normal")``."""
+    return trunc_normal_(w, math.sqrt(2.0 / (fan_in + fan_out)) / TRUNC_STD,
+                         generator)
+
+
 def init_(module: nn.Module, kind: str = "lecun",
           generator: torch.Generator | None = None) -> nn.Module:
     """Draw ``module``'s weight as Flax's ``kind`` initializer would and
@@ -79,6 +93,12 @@ def init_(module: nn.Module, kind: str = "lecun",
             xavier_uniform_(module.weight, fan_in, fan_out, generator)
         elif kind == "kaiming_normal":
             kaiming_normal_(module.weight, fan_in, generator)
+        elif kind == "kaiming_uniform":
+            kaiming_uniform_(module.weight, fan_in, generator)
+        elif kind == "xavier_normal":
+            xavier_normal_(module.weight, fan_in, fan_out, generator)
+        elif kind == "zeros":
+            module.weight.zero_()
         else:
             raise ValueError(f"unknown init {kind!r}")
         if module.bias is not None:

@@ -14,9 +14,14 @@ stride-2 window over an even size by (0, 1), not (1, 1), so every conv and
 the pool take their pads from ``same_pads``; torch's symmetric
 ``padding=1`` gives the same shapes with windows one pixel off.
 
-Not ported (no caller passes a condition, and DP keeps fp32): FiLM and
-multiplicative conditioning (``use_film``, ``use_multiplicative_cond``) and
-a bf16 ``compute_dtype``; they raise.
+FiLM and multiplicative conditioning on a ``cond_var`` (B, cond_dim) after
+every block, as the Flax encoder: ``x·(1 + mult) + add`` from two Denses
+that start at zero (``FilmConditioning``), and ``x·gate`` from a Dense drawn
+xavier-normal; torch needs ``cond_dim`` when the encoder is built.
+``compute_dtype="bfloat16"`` computes as the Flax encoder does with it: fp32
+parameters, every conv in bf16 (input and kernel cast), the norms in fp32
+and their outputs fp32 (the stem's activation cast back to bf16 before the
+max-pool), the conditioning, the pooling and the heads in fp32.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from . import init
-from .mlp import MLP, activation
+from .mlp import MLP, activation, compute_dtype_of
 
 NORM_EPS = 1e-5
 GROUPS = 4
@@ -56,7 +61,10 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
 
 
 class SameConv2d(nn.Conv2d):
-    """Bias-free conv with Flax's ``"SAME"`` padding."""
+    """Bias-free conv with Flax's ``"SAME"`` padding, in ``compute_dtype``
+    (None: the weight's own type)."""
+
+    compute_dtype = None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  device=None):
@@ -64,15 +72,21 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, pad = _pad_same(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.weight, None, self.stride, pad)
+        w = self.weight
+        if self.compute_dtype is not None:
+            x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
+        return F.conv2d(x, w, None, self.stride, pad)
 
 
 def same_conv(cin: int, cout: int, kernel: int, stride: int = 1,
-              generator: torch.Generator | None = None) -> SameConv2d:
+              generator: torch.Generator | None = None,
+              compute_dtype=None) -> SameConv2d:
     """A ``SameConv2d`` drawn as Flax's ``kaiming_normal`` (a normal
     truncated at ±2σ, variance 2 / fan_in)."""
-    return init.layer(SameConv2d, cin, cout, kernel, stride,
+    conv = init.layer(SameConv2d, cin, cout, kernel, stride,
                       init="kaiming_normal", generator=generator)
+    conv.compute_dtype = compute_dtype_of(compute_dtype)
+    return conv
 
 
 class ChannelLayerNorm(nn.Module):
@@ -89,29 +103,67 @@ class ChannelLayerNorm(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def make_norm(kind: str, channels: int) -> nn.Module:
+class Fp32GroupNorm(nn.GroupNorm):
+    """GroupNorm of a bf16 input in fp32 (Flax's ``dtype=float32``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class Fp32ChannelLayerNorm(ChannelLayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+def make_norm(kind: str, channels: int, fp32_input: bool = False
+              ) -> nn.Module:
+    """The block norm; ``fp32_input`` (bf16 compute) casts its input to
+    fp32 first."""
     if kind == "group":
-        return nn.GroupNorm(GROUPS, channels, eps=NORM_EPS)
+        cls = Fp32GroupNorm if fp32_input else nn.GroupNorm
+        return cls(GROUPS, channels, eps=NORM_EPS)
     if kind == "layer":
-        return ChannelLayerNorm(channels)
+        return (Fp32ChannelLayerNorm if fp32_input
+                else ChannelLayerNorm)(channels)
     raise ValueError(f"unsupported norm {kind!r}")
+
+
+class FilmConditioning(nn.Module):
+    """FiLM: ``x·(1 + mult) + add`` per channel, from two Denses of the
+    condition that start at zero (the Flax module's ``Dense_0`` is add,
+    ``Dense_1`` mult)."""
+
+    def __init__(self, channels: int, cond_dim: int):
+        super().__init__()
+        self.add = init.layer(nn.Linear, cond_dim, channels, init="zeros")
+        self.mult = init.layer(nn.Linear, cond_dim, channels, init="zeros")
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """x: NCHW."""
+        cond = cond.float()
+        return (x * (1.0 + self.mult(cond)[:, :, None, None])
+                + self.add(cond)[:, :, None, None])
 
 
 class ResNetBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, norm: str,
-                 act: str, generator: torch.Generator | None = None):
+                 act: str, generator: torch.Generator | None = None,
+                 compute_dtype=None):
         super().__init__()
-        self.conv0 = same_conv(cin, filters, 3, stride, generator)
-        self.norm0 = make_norm(norm, filters)
-        self.conv1 = same_conv(filters, filters, 3, generator=generator)
-        self.norm1 = make_norm(norm, filters)
+        dt = compute_dtype_of(compute_dtype)
+        conv = lambda *a, **k: same_conv(*a, **k, compute_dtype=dt)
+        nrm = lambda c: make_norm(norm, c, dt is not None)
+        self.conv0 = conv(cin, filters, 3, stride, generator)
+        self.norm0 = nrm(filters)
+        self.conv1 = conv(filters, filters, 3, generator=generator)
+        self.norm1 = nrm(filters)
         self.act = activation(act)
         self.proj = self.norm_proj = None
         if stride != 1 or cin != filters:
-            self.proj = same_conv(cin, filters, 1, stride, generator)
-            self.norm_proj = make_norm(norm, filters)
+            self.proj = conv(cin, filters, 1, stride, generator)
+            self.norm_proj = nrm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.act(self.norm0(self.conv0(x)))
@@ -125,20 +177,24 @@ class BottleneckResNetBlock(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, norm: str,
-                 act: str, generator: torch.Generator | None = None):
+                 act: str, generator: torch.Generator | None = None,
+                 compute_dtype=None):
         super().__init__()
-        self.conv0 = same_conv(cin, filters, 1, generator=generator)
-        self.norm0 = make_norm(norm, filters)
-        self.conv1 = same_conv(filters, filters, 3, stride, generator)
-        self.norm1 = make_norm(norm, filters)
-        self.conv2 = same_conv(filters, 4 * filters, 1, generator=generator)
-        self.norm2 = make_norm(norm, 4 * filters)
+        dt = compute_dtype_of(compute_dtype)
+        conv = lambda *a, **k: same_conv(*a, **k, compute_dtype=dt)
+        nrm = lambda c: make_norm(norm, c, dt is not None)
+        self.conv0 = conv(cin, filters, 1, generator=generator)
+        self.norm0 = nrm(filters)
+        self.conv1 = conv(filters, filters, 3, stride, generator)
+        self.norm1 = nrm(filters)
+        self.conv2 = conv(filters, 4 * filters, 1, generator=generator)
+        self.norm2 = nrm(4 * filters)
         nn.init.zeros_(self.norm2.weight)
         self.act = activation(act)
         self.proj = self.norm_proj = None
         if stride != 1 or cin != 4 * filters:
-            self.proj = same_conv(cin, 4 * filters, 1, stride, generator)
-            self.norm_proj = make_norm(norm, 4 * filters)
+            self.proj = conv(cin, 4 * filters, 1, stride, generator)
+            self.norm_proj = nrm(4 * filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.act(self.norm0(self.conv0(x)))
@@ -224,13 +280,16 @@ class ResNetEncoder(nn.Module):
                  use_sigmoid: bool = False, use_tanh: bool = False,
                  use_simnorm: bool = False, use_simnorm_rescale: bool = False,
                  simnorm_dim: int = 8, compute_dtype: str = "float32",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 cond_dim: int | None = None):
         super().__init__()
-        if use_film or use_multiplicative_cond:
-            raise ValueError("FiLM and multiplicative conditioning of the "
-                             "encoder are not ported")
-        if str(compute_dtype) not in ("float32", "fp32"):
-            raise ValueError("the encoder computes in float32 only")
+        if (use_film or use_multiplicative_cond) and not cond_dim:
+            raise ValueError("FiLM and multiplicative conditioning need the "
+                             "condition's width (cond_dim) to build their "
+                             "Denses")
+        self.compute_dtype = dt = compute_dtype_of(compute_dtype)
+        self.use_film = use_film
+        self.use_multiplicative_cond = use_multiplicative_cond
         if sum([use_sigmoid, use_tanh, use_simnorm, use_simnorm_rescale]) > 1:
             raise ValueError("at most one output head")
         if pooling_method not in ("spatial_softmax",
@@ -248,22 +307,29 @@ class ResNetEncoder(nn.Module):
         self.conv_init = init.layer(nn.Conv2d, cin, n_filters, 7, 2,
                                     padding=3, bias=False,
                                     init="kaiming_normal", generator=generator)
-        self.norm_init = make_norm(norm, n_filters)
+        self.norm_init = make_norm(norm, n_filters, dt is not None)
         self.act = activation(act)
         H, W = (H + 6 - 7) // 2 + 1, (W + 6 - 7) // 2 + 1     # the stem
         H, W = -(-H // 2), -(-W // 2)                         # the pool
         block = BLOCKS[block_cls]
-        blocks = []
+        blocks, widths = [], []
         cin = n_filters
         for i, n_blocks in enumerate(stage_sizes):
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 filters = n_filters * 2 ** i
                 blocks.append(block(cin, filters, stride, norm, act,
-                                    generator))
+                                    generator, compute_dtype))
                 cin = filters * block.expansion
+                widths.append(cin)
                 H, W = -(-H // stride), -(-W // stride)
         self.blocks = nn.ModuleList(blocks)
+        self.films = (nn.ModuleList(FilmConditioning(c, cond_dim)
+                                    for c in widths) if use_film else None)
+        self.gates = (nn.ModuleList(
+            init.layer(nn.Linear, cond_dim, c, init="xavier_normal",
+                       generator=generator) for c in widths)
+            if use_multiplicative_cond else None)
         self.pool = None
         if pooling_method == "spatial_softmax":
             self.pool = SpatialSoftmax(softmax_temperature)
@@ -280,9 +346,16 @@ class ResNetEncoder(nn.Module):
         self.n_features = ((feature_layers[-1] if feature_layers else feat)
                            * (H * W if pooling_method == "none" else 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                cond_var: torch.Tensor | None = None) -> torch.Tensor:
         """x: (B, H, W, C) → (B, n_features), or (B, h, w, channels) with
-        ``pooling_method="none"``."""
+        ``pooling_method="none"``; ``cond_var`` (B, cond_dim) feeds FiLM
+        and the multiplicative gates."""
+        if (self.films is not None or self.gates is not None) and (
+                cond_var is None):
+            raise ValueError("FiLM and multiplicative conditioning need "
+                             "cond_var")
+        dt = self.compute_dtype
         x = x.float()
         if self.add_spatial_coordinates:
             x = spatial_coordinates(x)
@@ -290,11 +363,23 @@ class ResNetEncoder(nn.Module):
         # strides into the convs, and the CPU backward of the stride-2
         # blocks then crashes with several threads (torch 2.13 CPU build)
         x = x.permute(0, 3, 1, 2).contiguous()
-        x = self.act(self.norm_init(self.conv_init(x)))
+        if dt is None:
+            x = self.act(self.norm_init(self.conv_init(x)))
+        else:
+            x = F.conv2d(x.to(dt), self.conv_init.weight.to(dt), None,
+                         self.conv_init.stride, self.conv_init.padding)
+            x = self.act(self.norm_init(x)).to(dt)
         x, pad = _pad_same(x, 3, 2, value=-math.inf)
         x = F.max_pool2d(x, 3, 2, pad)
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
             x = blk(x)
+            if self.films is not None:
+                x = self.films[i](x.float(), cond_var)
+            if self.gates is not None:
+                x = x.float() * self.gates[i](cond_var.float())[:, :, None,
+                                                                None]
+        if dt is not None:
+            x = x.float()
         if self.pool is not None:
             x = self.pool(x)
         elif self.pooling_method == "avg":

@@ -15,6 +15,13 @@ downsampling net are reproduced exactly:
 
 GroupNorm eps is 1e-6 (Flax), and FiLM is ``scale·h + bias`` with
 ``[scale, bias] = Dense(mish(cond))``.
+
+``compute_dtype="bfloat16"`` computes as the Flax module does with it: fp32
+parameters; every conv and Dense in bf16 (input, kernel and bias cast,
+result bf16), GroupNorm and the Mish after it in fp32 and cast back, FiLM,
+the residual and the skips in bf16, the final 1×1 conv in fp32. Kernel B
+does not read it: it samples with its own weight type (``fused_dtype``), as
+the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -27,47 +34,70 @@ from torch.nn import functional as F
 
 from . import init
 from .embeddings import SinusoidalPosEmb, mish
+from .mlp import compute_dtype_of, dense
 
 GN_EPS = 1e-6
+
+
+def conv(mod: nn.Module, x: torch.Tensor, dt: torch.dtype | None,
+         **kw) -> torch.Tensor:
+    """``mod(x)`` (a Conv1d or ConvTranspose1d), or with ``dt`` in that
+    type: input and kernel cast, the product rounded to ``dt`` and the bias
+    added in ``dt``, as XLA computes Flax's ``dtype=``; parameters staying
+    fp32."""
+    if dt is None:
+        return mod(x)
+    fn = (F.conv_transpose1d if isinstance(mod, nn.ConvTranspose1d)
+          else F.conv1d)
+    y = fn(x.to(dt), mod.weight.to(dt), None, mod.stride, mod.padding, **kw)
+    return y if mod.bias is None else y + mod.bias.to(dt)[:, None]
 
 
 class ConvBlock1D(nn.Module):
     """Conv1d(k, SAME) → GroupNorm → Mish."""
 
     def __init__(self, cin: int, channels: int, kernel_size: int = 5,
-                 n_groups: int = 8, generator: torch.Generator | None = None):
+                 n_groups: int = 8, generator: torch.Generator | None = None,
+                 compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.conv = init.layer(nn.Conv1d, cin, channels, kernel_size,
                                padding=kernel_size // 2, generator=generator)
         self.norm = nn.GroupNorm(n_groups, channels, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mish(self.norm(self.conv(x)))
+        dt = self.compute_dtype
+        if dt is None:
+            return mish(self.norm(self.conv(x)))
+        return mish(self.norm(conv(self.conv, x, dt).float())).to(dt)
 
 
 class FiLMResBlock1D(nn.Module):
     def __init__(self, cin: int, channels: int, cond_dim: int,
                  kernel_size: int = 5, n_groups: int = 8,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype=None):
         super().__init__()
         self.channels = channels
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.block0 = ConvBlock1D(cin, channels, kernel_size, n_groups,
-                                  generator)
+                                  generator, compute_dtype)
         self.film = init.layer(nn.Linear, cond_dim, 2 * channels,
                                init="xavier", generator=generator)
         self.block1 = ConvBlock1D(channels, channels, kernel_size, n_groups,
-                                  generator)
+                                  generator, compute_dtype)
         self.proj = (init.layer(nn.Conv1d, cin, channels, 1,
                                 generator=generator)
                      if cin != channels else None)
 
     def forward(self, x: torch.Tensor, mcond: torch.Tensor) -> torch.Tensor:
         """x: (B, Cin, T); mcond: mish(cond), (B, cond_dim)."""
+        dt = self.compute_dtype
         h = self.block0(x)
-        film = self.film(mcond)[:, :, None]
+        film = dense(self.film, mcond, dt)[:, :, None]
         h = film[:, :self.channels] * h + film[:, self.channels:]
         h = self.block1(h)
-        return h + (self.proj(x) if self.proj is not None else x)
+        return h + (conv(self.proj, x, dt) if self.proj is not None else x)
 
 
 class ConditionalUnet1D(nn.Module):
@@ -78,11 +108,14 @@ class ConditionalUnet1D(nn.Module):
                  down_dims: Sequence[int] = (256, 512, 1024),
                  kernel_size: int = 5, n_groups: int = 8,
                  downsample: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype=None):
         """Weights as the Flax module initialises them (convs lecun-normal,
-        Denses xavier-uniform, biases 0), drawn from ``generator``."""
+        Denses xavier-uniform, biases 0), drawn from ``generator``;
+        ``compute_dtype`` as in the module note."""
         super().__init__()
         d = diffusion_step_embed_dim
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.input_dim = input_dim
         self.global_cond_dim = global_cond_dim
         self.dsed = d
@@ -99,7 +132,7 @@ class ConditionalUnet1D(nn.Module):
 
         def block(cin: int, ch: int) -> FiLMResBlock1D:
             return FiLMResBlock1D(cin, ch, cond_dim, kernel_size, n_groups,
-                                  generator)
+                                  generator, compute_dtype)
 
         blocks = []
         cin = input_dim
@@ -123,7 +156,8 @@ class ConditionalUnet1D(nn.Module):
                        generator=generator)
             for ch in reversed(resampled))
         self.final_block = ConvBlock1D(self.down_dims[0], self.down_dims[0],
-                                       kernel_size, n_groups, generator)
+                                       kernel_size, n_groups, generator,
+                                       compute_dtype)
         self.final_conv = init.layer(nn.Conv1d, self.down_dims[0], input_dim,
                                      1, generator=generator)
 
@@ -134,10 +168,15 @@ class ConditionalUnet1D(nn.Module):
         if T % factor:
             raise ValueError(f"sequence length {T} must be divisible by "
                              f"{factor} (downsample levels)")
-        dtype = self.final_conv.weight.dtype   # fp32; fp64 in checks
+        dt = self.compute_dtype
+        # the activations' type: fp32 (fp64 in checks), or bf16
+        dtype = dt or self.final_conv.weight.dtype
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
-        temb = self.time_emb(t.expand(B)).to(dtype)
-        temb = self.time_dense1(mish(self.time_dense0(temb)))
+        temb = self.time_emb(t.expand(B))
+        if dt is None:
+            temb = temb.to(dtype)
+        temb = dense(self.time_dense1, mish(dense(self.time_dense0, temb, dt)),
+                     dt)
         mcond = mish(torch.cat([temb, global_cond.to(dtype)], -1))
 
         x = sample.to(dtype).transpose(1, 2)
@@ -149,7 +188,7 @@ class ConditionalUnet1D(nn.Module):
             x = next(blocks)(x, mcond)
             skips.append(x)
             if self.downsample and i < L - 1:
-                x = self.downs[i](F.pad(x, (0, 1)))
+                x = conv(self.downs[i], F.pad(x, (0, 1)), dt)
         x = next(blocks)(x, mcond)
         x = next(blocks)(x, mcond)
         for j in range(L - 1):
@@ -157,9 +196,11 @@ class ConditionalUnet1D(nn.Module):
             x = next(blocks)(x, mcond)
             x = next(blocks)(x, mcond)
             if self.downsample:
-                x = self.ups[j](x)
-        x = self.final_conv(self.final_block(x))
-        return x.transpose(1, 2)
+                x = conv(self.ups[j], x, dt)
+        x = self.final_block(x)
+        if dt is not None:
+            x = x.float()                  # the final 1x1 conv in fp32
+        return self.final_conv(x).transpose(1, 2)
 
 
 def unet_from_config(cfg, input_dim: int, global_cond_dim: int,
@@ -171,4 +212,5 @@ def unet_from_config(cfg, input_dim: int, global_cond_dim: int,
         input_dim, global_cond_dim, cfg.get("diffusion_step_embed_dim", 256),
         tuple(cfg.get("down_dims", (256, 512, 1024))),
         cfg.get("kernel_size", 5), cfg.get("n_groups", 8),
-        cfg.get("downsample", True), generator)
+        cfg.get("downsample", True), generator,
+        cfg.get("compute_dtype", "float32"))

@@ -15,6 +15,14 @@ and trains, because its latents pass through a min/max normalization into
 the planner's condition and TF32's 10-bit mantissa would move them by about
 1e-3; the latents a trained VAE gives are those of the function it was
 trained as.
+
+``compute_dtype="bfloat16"`` (``model.vae.compute_dtype``) computes as the
+Flax module does with it: fp32 parameters; the convs of the stem, the
+``ResBlock2D``s, the downsamples and upsamples in bf16 (input, kernel and
+bias cast, result bf16); the ``ResBlock2D`` GroupNorms with fp32 statistics
+and a bf16 result, as Flax's ``dtype=compute_dtype`` there; the mid
+attention, the output GroupNorms and the last convs (``conv_out``,
+``quant_conv``, ``post_quant_conv``) in fp32.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch.nn import functional as F
 from .. import resolve_device
 from ..ops import normalize as nz
 from .nets import init
+from .nets.mlp import compute_dtype_of
 from ..parallel import mesh as meshlib
 from ..train.state import TrainState
 from ..utils.precision import fp32_math
@@ -35,7 +44,26 @@ from ..utils.precision import fp32_math
 GN_EPS = 1e-6
 
 
+def conv2d(mod: nn.Conv2d, x: torch.Tensor, dt: torch.dtype | None
+           ) -> torch.Tensor:
+    """``mod(x)``, or with ``dt`` in that type: input and kernel cast, the
+    product rounded to ``dt`` and the bias added in ``dt``, as XLA computes
+    Flax's ``dtype=``."""
+    if dt is None:
+        return mod(x)
+    y = F.conv2d(x.to(dt), mod.weight.to(dt), None, mod.stride, mod.padding)
+    return y if mod.bias is None else y + mod.bias.to(dt)[:, None, None]
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x / (1 + exp(-x))`` op by op, each rounded to the input's type, as
+    XLA computes ``nn.silu`` on bf16."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 class ResBlock2D(nn.Module):
+    compute_dtype = None   # set by the encoder and decoder
+
     def __init__(self, cin: int, channels: int, norm_groups: int = 32,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -51,9 +79,15 @@ class ResBlock2D(nn.Module):
                          if cin != channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv0(F.silu(self.norm0(x)))
-        h = self.conv1(F.silu(self.norm1(h)))
-        return (self.shortcut(x) if self.shortcut is not None else x) + h
+        dt = self.compute_dtype
+        if dt is None:
+            h = self.conv0(F.silu(self.norm0(x)))
+            h = self.conv1(F.silu(self.norm1(h)))
+            return (self.shortcut(x) if self.shortcut is not None else x) + h
+        h = conv2d(self.conv0, silu(self.norm0(x.float()).to(dt)), dt)
+        h = conv2d(self.conv1, silu(self.norm1(h.float()).to(dt)), dt)
+        x = conv2d(self.shortcut, x, dt) if self.shortcut is not None else x
+        return x.to(dt) + h
 
 
 class MidAttention(nn.Module):
@@ -118,20 +152,26 @@ class Encoder(nn.Module):
                                      2 * latent_channels, 1,
                                      generator=generator)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, dt: torch.dtype | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = conv2d(self.stem, x, dt)
         for i, blocks in enumerate(self.levels):
             for blk in blocks:
                 x = blk(x)
             if i < len(self.downs):
                 # "same" pads 1 on every side; "diffusers" pads (0, 1)
                 pad = (1, 1, 1, 1) if self.downsample_pad == "same" else (0, 1, 0, 1)
-                x = self.downs[i](F.pad(x, pad))
+                x = conv2d(self.downs[i], F.pad(x, pad), dt)
         x = self.mid0(x)
         if self.attn is not None:
-            x = self.attn(x)
+            x = self.attn(x.float())
+            if dt is not None:
+                x = x.to(dt)
         x = self.mid1(x)
-        x = self.conv_out(F.silu(self.norm_out(x)))
+        x = F.silu(self.norm_out(x.float()))
+        if dt is not None:
+            x = x.to(dt).float()
+        x = self.conv_out(x)
         x = self.quant_conv(x)
         mean, logvar = torch.chunk(x, 2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
@@ -177,20 +217,26 @@ class Decoder(nn.Module):
                                    out_channels * patch_size ** 2, 3,
                                    padding=1, generator=generator)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(self.post_quant_conv(z))
+    def forward(self, z: torch.Tensor, dt: torch.dtype | None = None
+                ) -> torch.Tensor:
+        x = conv2d(self.conv_in, self.post_quant_conv(z), dt)
         x = self.mid0(x)
         if self.attn is not None:
-            x = self.attn(x)
+            x = self.attn(x.float())
+            if dt is not None:
+                x = x.to(dt)
         x = self.mid1(x)
         for i, blocks in enumerate(self.levels):
             for blk in blocks:
                 x = blk(x)
             if i < len(self.ups):
                 # exactly 2×: jax.image.resize's "nearest" repeats each cell
-                x = self.ups[i](F.interpolate(x, scale_factor=2.0,
-                                              mode="nearest"))
-        x = self.conv_out(F.silu(self.norm_out(x)))
+                x = conv2d(self.ups[i], F.interpolate(x, scale_factor=2.0,
+                                                      mode="nearest"), dt)
+        x = F.silu(self.norm_out(x.float()))
+        if dt is not None:
+            x = x.to(dt).float()
+        x = self.conv_out(x)
         p = self.patch_size
         if p > 1:
             # the JAX head's channel index is (py·p + px)·C + c (its reshape
@@ -214,8 +260,10 @@ class KLVAE(nn.Module):
                  latent_channels: int = 4, layers_per_block: int = 2,
                  norm_groups: int = 32, use_mid_attention: bool = True,
                  patch_size: int = 1, downsample_pad: str = "same",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype="float32"):
         super().__init__()
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.latent_channels = latent_channels
         self.in_channels = in_channels
         self.n_downsample = (patch_size.bit_length() - 1
@@ -226,17 +274,22 @@ class KLVAE(nn.Module):
         self.decoder = Decoder(block_out_channels, latent_channels,
                                out_channels, layers_per_block, norm_groups,
                                use_mid_attention, patch_size, generator)
+        for m in self.modules():
+            if isinstance(m, ResBlock2D):
+                m.compute_dtype = self.compute_dtype
 
     def encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, C) → (mean, logvar), each (B, h, w, latent_channels)."""
         with fp32_math():
-            mean, logvar = self.encoder(x.float().permute(0, 3, 1, 2))
+            mean, logvar = self.encoder(x.float().permute(0, 3, 1, 2),
+                                        self.compute_dtype)
         return mean.permute(0, 2, 3, 1), logvar.permute(0, 2, 3, 1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: (B, h, w, latent_channels) → images (B, H, W, C)."""
         with fp32_math():
-            x = self.decoder(z.float().permute(0, 3, 1, 2))
+            x = self.decoder(z.float().permute(0, 3, 1, 2),
+                             self.compute_dtype)
         return x.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, eps: torch.Tensor | None = None

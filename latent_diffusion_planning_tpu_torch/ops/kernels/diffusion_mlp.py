@@ -12,7 +12,12 @@ weight stream: every 64-row block reads all the weights (6.4 MB at the bench
 widths) from L2 once per step. A block holds 64 rows, or 32 where a wide
 condition's 64-row ``[x|s]`` tile would leave the weight ring fewer than two
 stages of shared memory (``_smem``): the ALOHA recipe's IDM conditions on
-two 270-wide observations (S = 540) and runs 32 rows a block. The design keeps the residual in registers as
+two 270-wide observations (S = 540) and runs 32 rows a block. Every
+``MLPDiffusion`` variant runs: any cond MLP (depth, widths, relu, swish,
+mish or gelu), fixed or learnable time features, LayerNorm or none, and any
+hidden width that is a multiple of 8 up to 512, padded to whole 64-column
+tiles (128 past 256, where a block holds 32 rows and the 4h layer runs in
+eight passes). The design keeps the residual in registers as
 the products' accumulator for all steps, keeps only the products' left
 operands in shared memory, and streams the weights, pre-tiled here in the
 order and fragment layout the kernel consumes, through a shared-memory ring
@@ -20,10 +25,13 @@ of asynchronous copies (see the source's note).
 
 Packed layout (``pack_params``), one fp32 buffer: ``[ stream | vectors ]``.
 The stream holds, per step, the trunk input layer's ``[x|s]`` rows (K padded
-to 16) and then, per block and per chunk ``c`` of H columns of the 4H layer,
-``w0[:, c]`` and ``w1[c, :]``; each (K, H) matrix as stages of 16 K-rows in
-``mma`` B-fragment order (``tile_matrix``). ``vectors`` holds everything the
-CUDA cores read: the time path, biases, LayerNorm and the output layer.
+to 16) and then, per block and per pass ``c`` of the 4H layer (``passes``
+of ``4 Hp / passes`` columns), ``w0[:, c]`` and ``w1[c, :]``; each (K, N)
+matrix as tiles of 16 K-rows in ``mma`` B-fragment order (``tile_matrix``),
+Hp wide or narrower (a ring stage holds 16 × Hp floats). ``vectors`` holds
+everything the CUDA cores read: the time path (the Fourier frequencies and
+every cond layer), biases, LayerNorm and the output layer. Every padded row,
+column and vector entry is zero.
 
 The caller supplies the initial sample, every step's noise (None for DDIM)
 and the (T, 6) coefficient table from ``ops.diffusion`` (any prediction
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ...models.nets.embeddings import sinusoidal_freqs
 from ...models.nets.mlp import MLPDiffusion
 from .. import diffusion as dlib
 from . import _build
@@ -42,35 +51,59 @@ ROW_CHOICES = (64, 32)  # the kernel's instances, widest first
 STAGE_K = 16            # K-rows per ring stage
 MAX_STAGES = 8
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
+MAX_HIDDEN = 512
+MAX_COND_LAYERS = 16
+ACTIVATIONS = ("relu", "swish", "mish", "gelu")   # the time kernel's codes
 
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def hidden(net: MLPDiffusion) -> int:
+    return net.trunk.dense0.out_features
+
+
+def padded(H: int) -> int:
+    """The width the kernel runs a hidden width at: whole 64-column tiles
+    (eight warps of 8-column ``mma`` tiles), and past 256 whole 128-column
+    ones, so each of the eight passes over the 4H layer is whole tiles."""
+    return _up(H, 64) if H <= 256 else _up(H, 128)
+
+
+def passes(Hp: int) -> int:
+    """Passes over the 4H layer: 4 of Hp columns, or 8 of Hp / 2 past 256
+    (one pass's accumulator stays 32 registers a thread)."""
+    return 4 if Hp <= 256 else 8
+
+
 def check_supported(net: MLPDiffusion) -> None:
     """Raise ValueError, with the reason, for a net the kernel cannot run."""
-    if not net.learnable_time or net.time.kernel.shape[1] != 1:
-        raise ValueError("kernel needs learnable scalar Fourier time features")
-    if net.cond_activation != "swish":
-        raise ValueError("kernel hardcodes cond_activation='swish', net has "
-                         f"{net.cond_activation!r}")
-    if len(net.cond.dense) != 2:
-        raise ValueError("kernel needs a two-layer cond MLP")
-    if not net.use_layer_norm:
-        raise ValueError("kernel requires use_layer_norm=True")
-    H = net.trunk.dense0.out_features
-    if H % 64 or not 64 <= H <= 256:
-        raise ValueError(f"kernel needs hidden_dim 64, 128, 192 or 256 (eight "
-                         f"warps of whole 8-column mma tiles), net has {H}")
+    if net.time.learnable and net.time.kernel.shape[1] != 1:
+        raise ValueError("kernel needs a scalar time input to its Fourier "
+                         "features")
+    if net.cond_activation not in ACTIVATIONS:
+        raise ValueError(f"kernel takes a cond MLP activation of "
+                         f"{ACTIVATIONS}, net has {net.cond_activation!r}")
+    if len(net.cond.dense) > MAX_COND_LAYERS:
+        raise ValueError(f"kernel takes a cond MLP of up to "
+                         f"{MAX_COND_LAYERS} layers")
+    if not net.cond.plain:
+        raise ValueError("kernel takes the cond MLP the JAX MLPDiffusion "
+                         "builds (no LayerNorm, final activation or tanh)")
+    H = hidden(net)
+    if H % 8 or H > MAX_HIDDEN:
+        raise ValueError(f"kernel needs a hidden_dim that is a multiple of 8 "
+                         f"up to {MAX_HIDDEN}, net has {H}")
 
 
 def tile_matrix(w: torch.Tensor) -> torch.Tensor:
-    """(K, H) → flat stages of 16 K-rows (K padded with zero rows). Inside a
-    stage element (k, n) sits at ``[k // 8][n // (H/8)][n % (H/8) // 8]
-    [(n % 8) * 4 + k % 4][k % 8 // 4]`` of a (2, 8 warps, H/64 tiles, 32
-    lanes, 2) block: lane ``l`` of warp ``w`` reads the ``m16n8k8`` B
-    fragment of each of its column tiles as one 8-byte word."""
+    """(K, H) → flat tiles of 16 K-rows (K padded with zero rows; H a
+    multiple of 64). Inside a tile element (k, n) sits at ``[k // 8]
+    [n // (H/8)][n % (H/8) // 8][(n % 8) * 4 + k % 4][k % 8 // 4]`` of a
+    (2, 8 warps, H/64 tiles, 32 lanes, 2) block: lane ``l`` of warp ``w``
+    reads the ``m16n8k8`` B fragment of each of its column tiles as one
+    8-byte word."""
     K, H = w.shape
     nt = H // 64
     Kp = _up(K, STAGE_K)
@@ -90,42 +123,83 @@ def untile_matrix(flat: torch.Tensor, K: int, H: int) -> torch.Tensor:
     return v.permute(0, 1, 6, 5, 2, 3, 4).reshape(Kp, H)
 
 
-def _stream(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
-    """The (K, H) matrices of one step in the order the kernel consumes
-    them."""
-    H = net.trunk.dense0.out_features
-    n_in = net.out_dim + net.s_dim
-    out = [("trunk_in", net.trunk.dense0.weight.t()[:n_in])]
-    for b, blk in enumerate(net.trunk.blocks):
-        w0, w1 = blk.dense0.weight.t(), blk.dense1.weight.t()  # (H,4H) (4H,H)
-        for c in range(4):
-            out += [(f"w0.{b}.{c}", w0[:, c * H:(c + 1) * H]),
-                    (f"w1.{b}.{c}", w1[c * H:(c + 1) * H])]
+def _pad(w: torch.Tensor, rows: int | None, cols: int | None = None
+         ) -> torch.Tensor:
+    """``w`` (a matrix, or a vector with ``cols`` None) zero-padded."""
+    if w.ndim == 1:
+        out = w.new_zeros(rows)
+        out[:w.shape[0]] = w
+        return out
+    out = w.new_zeros((rows or w.shape[0], cols))
+    out[:w.shape[0], :w.shape[1]] = w
     return out
 
 
-def _vectors(net: MLPDiffusion) -> list[torch.Tensor]:
-    io = lambda lin: [lin.weight.t(), lin.bias]
+def _stream(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
+    """The padded (K, N) matrices of one step in the order the kernel
+    consumes them."""
+    H = hidden(net)
+    Hp = padded(H)
+    nc = passes(Hp)
+    hr, hc = 4 * H // nc, 4 * Hp // nc      # a pass's real and padded width
     n_in = net.out_dim + net.s_dim
-    parts = [net.time.kernel[:, 0], *io(net.cond.dense[0]),
-             *io(net.cond.dense[1]), net.trunk.dense0.weight.t()[n_in:],
-             net.trunk.dense0.bias]
-    for blk in net.trunk.blocks:
-        parts += [blk.norm.weight, blk.norm.bias, blk.dense0.bias,
-                  blk.dense1.bias]
-    return parts + io(net.trunk.dense1)
+    out = [("trunk_in", _pad(net.trunk.dense0.weight.t()[:n_in], None, Hp))]
+    for b, blk in enumerate(net.trunk.blocks):
+        w0, w1 = blk.dense0.weight.t(), blk.dense1.weight.t()  # (H,4H) (4H,H)
+        for c in range(nc):
+            out += [(f"w0.{b}.{c}", _pad(w0[:, c * hr:(c + 1) * hr], Hp, hc)),
+                    (f"w1.{b}.{c}", _pad(w1[c * hr:(c + 1) * hr], hc, Hp))]
+    return out
+
+
+def time_freqs(net: MLPDiffusion) -> torch.Tensor:
+    """The Fourier features' frequencies: the learnable kernel's, or the
+    fixed sinusoidal ones (which scale t without 2π)."""
+    if net.time.learnable:
+        return net.time.kernel[:, 0]
+    return sinusoidal_freqs(net.time.output_size,
+                            net.trunk.dense0.weight.device)
+
+
+def _vectors(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
+    H = hidden(net)
+    Hp = padded(H)
+    nc = passes(Hp)
+    hr, hc = 4 * H // nc, 4 * Hp // nc
+    n_in = net.out_dim + net.s_dim
+    parts = [("ff", time_freqs(net))]
+    for i, lin in enumerate(net.cond.dense):
+        parts += [(f"cw.{i}", lin.weight.t()), (f"cb.{i}", lin.bias)]
+    parts += [("twc", _pad(net.trunk.dense0.weight.t()[n_in:], None, Hp)),
+              ("tb0", _pad(net.trunk.dense0.bias, Hp))]
+    for b, blk in enumerate(net.trunk.blocks):
+        if net.use_layer_norm:
+            ln_s, ln_b = blk.norm.weight, blk.norm.bias
+        else:
+            ln_s = ln_b = blk.dense1.bias.new_zeros(H)
+        b0 = _pad(blk.dense0.bias.reshape(nc, hr), nc, hc).reshape(-1)
+        parts += [(f"blk.{b}", torch.cat([_pad(ln_s, Hp), _pad(ln_b, Hp), b0,
+                                          _pad(blk.dense1.bias, Hp)]))]
+    return parts + [("ow", _pad(net.trunk.dense1.weight.t(), Hp,
+                                net.out_dim)),
+                    ("ob", net.trunk.dense1.bias)]
 
 
 def layout(net: MLPDiffusion) -> dict:
     """Offsets (floats) of every streamed matrix, the stages a step streams,
-    and where the vectors start."""
-    H = net.trunk.dense0.out_features
+    where the vectors start and, from there, the blocks and the output
+    layer."""
+    Hp = padded(hidden(net))
     off, o = {}, 0
     for name, w in _stream(net):
         off[name] = o
-        o += _up(w.shape[0], STAGE_K) * H
-    return dict(offsets=off, stream_stages=o // (STAGE_K * H), vec_base=o,
-                numel=o + sum(p.numel() for p in _vectors(net)))
+        o += _up(w.shape[0], STAGE_K) * w.shape[1]
+    voff, v = {}, 0
+    for name, p in _vectors(net):
+        voff[name] = v
+        v += p.numel()
+    return dict(offsets=off, stream_stages=o // (STAGE_K * Hp), vec_base=o,
+                vec_offsets=voff, numel=o + v, Hp=Hp, passes=passes(Hp))
 
 
 def pack_params(net: MLPDiffusion) -> torch.Tensor:
@@ -134,18 +208,18 @@ def pack_params(net: MLPDiffusion) -> torch.Tensor:
     check_supported(net)
     with torch.no_grad():
         parts = [tile_matrix(w.detach().float()) for _, w in _stream(net)]
-        parts += [p.detach().float().reshape(-1) for p in _vectors(net)]
+        parts += [p.detach().float().reshape(-1) for _, p in _vectors(net)]
         return torch.cat(parts)
 
 
 def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
     """Rows a block, its shared memory and the ring's stages: 64 rows where
-    the ring keeps at least two stages beside them, else 32; a net that does
-    not fit at 32 raises."""
-    H = net.trunk.dense0.out_features
+    the ring keeps at least two stages beside them, else 32 (always 32 past
+    a padded width of 256); a net that does not fit at 32 raises."""
+    H = padded(hidden(net))
     kxs = _up(A + S, STAGE_K) + 4
     stage = STAGE_K * H * 4
-    for rows in ROW_CHOICES:
+    for rows in ROW_CHOICES if H <= 256 else ROW_CHOICES[-1:]:
         rest = 4 * (rows * kxs + 2 * rows * (H + 4) + rows * 8 + rows * A)
         stages = min(MAX_STAGES, (SMEM_LIMIT - rest) // stage)
         if stages >= 2:
@@ -160,11 +234,12 @@ def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
 def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
     """What a launch at this shape looks like: tile, grid, shared memory and
     the bytes of weights its blocks stream in all."""
-    H = net.trunk.dense0.out_features
+    H = padded(hidden(net))
     sm = _smem(net, A, S)
     grid = -(-N // sm["rows"])
     per_step = layout(net)["stream_stages"] * STAGE_K * H * 4
-    return dict(rows_per_block=sm["rows"], grid=grid,
+    return dict(rows_per_block=sm["rows"], grid=grid, hidden_padded=H,
+                layer_norm=net.use_layer_norm,
                 smem_bytes=sm["smem_bytes"],
                 ring_stages=sm["stages"],
                 weight_bytes_per_step_and_block=per_step,
@@ -204,11 +279,10 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
     N, S = s.shape
     A = x_init.shape[1]
     T = int(timesteps.shape[0])
-    half = net.time.kernel.shape[0]
-    C0 = net.cond.dense[0].out_features
-    C1 = net.cond.dense[1].out_features
-    H = net.trunk.dense0.out_features
-    if net.trunk.dense0.in_features != A + S + C1:
+    half = net.time_dim // 2
+    widths = [lin.out_features for lin in net.cond.dense]
+    H = hidden(net)
+    if net.trunk.dense0.in_features != A + S + widths[-1]:
         raise ValueError("condition width does not match the net")
     if noise is not None and tuple(noise.shape) != (T, N, A):
         raise ValueError(f"noise must be {(T, N, A)}, got {tuple(noise.shape)}")
@@ -230,11 +304,17 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
         noise = noise.float().contiguous()
     out = torch.empty((N, A), device=dev, dtype=torch.float32)
     # scratch the prologue fills: the time's share of the trunk input layer
-    cbias = torch.empty((T, H), device=dev, dtype=torch.float32)
+    Hp = lay["Hp"]
+    cbias = torch.empty((T, Hp), device=dev, dtype=torch.float32)
+    maxw = max(2 * half, *widths)
+    vo = lay["vec_offsets"]
     dims = torch.tensor(
-        [N, S, A, T, half, C0, C1, H, len(net.trunk.blocks), sm["kxs"],
+        [N, S, A, T, half, H, Hp, len(net.trunk.blocks), sm["kxs"],
          sm["stages"], lay["stream_stages"], lay["vec_base"],
-         sm["smem_bytes"], 4 * (2 * half + C0 + C1), sm["rows"]],
+         sm["smem_bytes"], 8 * maxw, sm["rows"], int(net.use_layer_norm),
+         len(widths), ACTIVATIONS.index(net.cond_activation),
+         int(net.time.learnable), maxw, vo.get("blk.0", vo["ow"]), vo["ow"],
+         *widths, *[0] * (MAX_COND_LAYERS - len(widths))],
         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
     fn = _build.function("ldp_mlp_sampler", [P] * 9 + [I, F, P])

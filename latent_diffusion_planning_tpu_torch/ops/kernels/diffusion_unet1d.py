@@ -42,10 +42,24 @@ default planner [256,512,1024] at 16 rows), the program runs in *wide*
 mode: the fp32 activation buffers and the skips move to a per-block slice
 of a global scratch (``wide_scratch_bytes``), the same records, the same
 weight stream.
+
+Two weight types, one template each (``csrc/unet1d.cuh``): bf16 (the
+default, ``diffusion_unet1d.cu``) and fp32 (``dtype=torch.float32``, the JAX
+kernel's ``dtype=float32`` that ``fused_dtype: float32`` selects;
+``diffusion_unet1d_f32.cu``): fp32 tiles of 16 KB, one a ring stage, fp32
+operand buffers, products as 3×TF32 on the tensor cores. The layout, the
+program and the tile choice take the dtype; the records are the same.
+
+The condition half of FiLM's projection is streamed in chunks of
+``COND_CHUNK`` condition channels (GEMMs ``film_g.0``, ``film_g.1``, …), so
+the prologue holds one chunk's operands at a time and takes a condition of
+any width at 64 samples a block.
+
 The twin computes the same update with the module's own weights in fp32; to
-hold the kernel against it on the card, give the twin ``rounding_twin(net)``:
-bf16-rounded weights and every conv and dense input rounded through bf16,
-which is where the kernel rounds.
+hold the bf16 kernel against it on the card, give the twin
+``rounding_twin(net)``: bf16-rounded weights and every conv and dense input
+rounded through bf16, which is where the kernel rounds. The fp32 kernel's
+twin is the net itself (under ``fp32_math``).
 """
 
 from __future__ import annotations
@@ -64,17 +78,18 @@ NB_CHOICES = (16, 8, 4, 2, 1)   # samples per block
 MIN_BLOCKS = 64         # prefer a tile that leaves at least this many blocks
 MAX_ROWS = 128          # GEMM rows (samples × time steps) a block can hold
 WIDE_MAX_ROWS = 32      # ... in the wide mode (its one kernel instance)
-WEIGHT_DTYPE = torch.bfloat16   # what the kernel reads its weights as
+WEIGHT_DTYPE = torch.bfloat16   # the default weight type
+WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
 
 WARPS = 16                      # warps of a block; each owns 8 columns
 TILE_K, TILE_N = 32, 8 * WARPS
 TILE = TILE_K * TILE_N          # bf16 elements in a tile (8 KB)
-STAGE_TILES = 3                 # tiles per ring stage (24 KB)
+STAGE_TILES = 3                 # bf16 tiles per ring stage (24 KB)
 STAGE_BYTES = STAGE_TILES * TILE * 2
 MIN_STAGES, MAX_STAGES = 2, 8   # ring depth: as deep as shared memory allows
 PROLOGUE_STAGES = 3
-COND_ROWS = (64, 32, 16)        # samples per prologue block (cond half):
-                                # the most whose operand tile fits
+COND_ROWS = 64                  # samples per prologue block (cond half)
+COND_CHUNK = 256                # condition channels it holds at a time
 REC = 12                        # ints per program record
 
 FILM, SAVE, CONCAT, DOWN, UP, FINAL_BLOCK, FINAL_CONV = range(7)
@@ -84,11 +99,32 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def ldb(C: int) -> int:
-    """Row stride (bf16 elements) of a C-channel operand buffer: channels
-    padded to the tile depth, plus 8 so ``ldmatrix`` rows miss each other's
-    banks."""
-    return _up(C, TILE_K) + 8
+def _check_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in WEIGHT_DTYPES:
+        raise ValueError(f"kernel B takes bfloat16 or float32 weights, not "
+                         f"{dtype}")
+    return dtype
+
+
+def esize(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    """Bytes of a weight and of an operand element."""
+    return 2 if _check_dtype(dtype) == torch.bfloat16 else 4
+
+
+def stage_tiles(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    """Tiles per ring stage: 3 of 8 KB in bf16, 1 of 16 KB in fp32."""
+    return STAGE_TILES if esize(dtype) == 2 else 1
+
+
+def stage_bytes(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    return stage_tiles(dtype) * TILE * esize(dtype)
+
+
+def ldb(C: int, dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    """Row stride (elements) of a C-channel operand buffer: channels padded
+    to the tile depth, plus 8 bf16 so ``ldmatrix`` rows miss each other's
+    banks, or plus 4 floats so fp32 fragment rows do."""
+    return _up(C, TILE_K) + (8 if esize(dtype) == 2 else 4)
 
 
 def ld32(C: int) -> int:
@@ -110,7 +146,6 @@ def check_supported(net: ConditionalUnet1D, T: int) -> None:
     if T > MAX_ROWS:
         raise ValueError(f"plan length {T} exceeds the {MAX_ROWS} GEMM rows a "
                          "block holds")
-    cond_rows(net)
     # skips live as bf16 conv operands only, so a block that reads a concat
     # must project its residual (always so unless the widths conspire)
     cin = dd[-1]
@@ -192,7 +227,9 @@ def _gemms(net: ConditionalUnet1D) -> dict:
     time = [("time0", *dense(net.time_dense0)),
             ("time1", *dense(net.time_dense1)),
             ("film_t", film_w[:, :d].t()[None], [film_b])]
-    cond = [("film_g", film_w[:, d:].t()[None], [])]
+    gw = film_w[:, d:].t()                                        # (cond, FT)
+    cond = [(f"film_g.{i}", gw[c0:c0 + COND_CHUNK][None], [])
+            for i, c0 in enumerate(range(0, gw.shape[0], COND_CHUNK))]
     return {"main": main, "time": time, "cond": cond}
 
 
@@ -219,6 +256,31 @@ def untile_matrix(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
     return v.permute(1, 5, 6, 4, 7, 0, 2, 3).reshape(Kp, Np)
 
 
+def tile_matrix_f32(w: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's tiles of a (K, N) matrix: the same tiles (32 K-rows
+    × 128 columns, N-group major, then along K), each in ``m16n8k8`` TF32
+    B-fragment order: element (k, n) sits at ``[n // 8][k // 16][(n % 8) *
+    4 + k % 4][k % 16 // 8][k % 8 // 4]`` of a (16 warps, 2, 32 lanes, 2, 2)
+    block, so lane ``l`` of warp ``w`` reads the fragments of its four 8-row
+    steps as two 16-byte words, each read of the warp 512 contiguous
+    bytes."""
+    K, N = w.shape
+    Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
+    full = w.new_zeros((Kp, Np))
+    full[:K, :N] = w
+    # k = kt*32 + kh*16 + k8*8 + b*4 + tq ; n = ng*128 + warp*8 + g
+    v = full.reshape(Kp // 32, 2, 2, 2, 4, Np // TILE_N, WARPS, 8)
+    #      dims:     kt     kh k8 b  tq  ng            warp  g
+    return v.permute(5, 0, 6, 1, 7, 4, 2, 3).reshape(-1)
+
+
+def untile_matrix_f32(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of ``tile_matrix_f32``."""
+    Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
+    v = flat.reshape(Np // TILE_N, Kp // 32, WARPS, 2, 8, 4, 2, 2)
+    return v.permute(1, 3, 6, 7, 5, 0, 2, 4).reshape(Kp, Np)
+
+
 def _pad_taps(w: torch.Tensor) -> torch.Tensor:
     """(taps, Cin, Cout) → (taps × pad32(Cin), Cout), zero rows in the pad."""
     taps, cin, cout = w.shape
@@ -233,15 +295,18 @@ def _signature(net: ConditionalUnet1D) -> tuple:
             net.kernel_size, net.n_groups, net.downsample)
 
 
-def layout(net: ConditionalUnet1D) -> dict:
+def layout(net: ConditionalUnet1D,
+           dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
     """Where everything sits in the packed buffer. Offsets of tiles are in
     tiles from the start of their stream; offsets of vectors in elements from
-    the start of the vector region. Depends on the net's shapes only."""
-    return _layout(_signature(net))
+    the start of the vector region. Depends on the net's shapes and the
+    weight type (streams are padded to whole ring stages) only."""
+    return _layout(_signature(net), _check_dtype(dtype))
 
 
 @functools.lru_cache(maxsize=16)
-def _layout(signature: tuple) -> dict:
+def _layout(signature: tuple, dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
+    per_stage = stage_tiles(dtype)
     with torch.device("meta"):
         gemms = _gemms(ConditionalUnet1D(*signature))
     out = {"gemm": {}, "stream": {}}
@@ -259,9 +324,9 @@ def _layout(signature: tuple) -> dict:
             if vecs:
                 voff += _up(cout, TILE_N) + sum(v.numel() for v in vecs[1:])
             t += n_tiles
-        stages = -(-t // STAGE_TILES)
+        stages = -(-t // per_stage)
         out["stream"][stream] = dict(tile_base=base, n_tiles=t, stages=stages)
-        base += stages * STAGE_TILES
+        base += stages * per_stage
     out["vec_base"] = base * TILE
     out["n_vec"] = voff
     out["numel"] = base * TILE + voff
@@ -276,17 +341,19 @@ def _layout(signature: tuple) -> dict:
     return out
 
 
-def pack_params(net: ConditionalUnet1D) -> torch.Tensor:
-    """Every weight of the net, bf16, tiled and ordered as the kernel
-    consumes it (see the module docstring)."""
+def pack_params(net: ConditionalUnet1D,
+                dtype: torch.dtype = WEIGHT_DTYPE) -> torch.Tensor:
+    """Every weight of the net in ``dtype`` (bf16 or fp32), tiled and
+    ordered as that kernel consumes it (see the module docstring)."""
     gemms = _gemms(net)
-    lay = layout(net)
+    lay = layout(net, dtype)
+    tile = tile_matrix if esize(dtype) == 2 else tile_matrix_f32
     tiles, vecs_out = [], []
     with torch.no_grad():
         for stream in ("main", "time", "cond"):
             n = 0
             for name, w, vecs in gemms[stream]:
-                t = tile_matrix(_pad_taps(w.detach().float()))
+                t = tile(_pad_taps(w.detach().float()))
                 tiles.append(t)
                 n += t.numel() // TILE
                 if vecs:
@@ -294,11 +361,11 @@ def pack_params(net: ConditionalUnet1D) -> torch.Tensor:
                     bias[:w.shape[2]] = vecs[0].detach().float().cpu()
                     vecs_out += [bias] + [v.detach().float().cpu()
                                           for v in vecs[1:]]
-            pad = lay["stream"][stream]["stages"] * STAGE_TILES - n
+            pad = lay["stream"][stream]["stages"] * stage_tiles(dtype) - n
             tiles.append(torch.zeros(pad * TILE))
         flat = torch.cat([t.cpu() for t in tiles] + vecs_out)
     assert flat.numel() == lay["numel"]
-    return flat.to(WEIGHT_DTYPE)
+    return flat.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -306,22 +373,25 @@ def pack_params(net: ConditionalUnet1D) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def build_program(net: ConditionalUnet1D, T: int, nb: int,
-                  wide: bool = False) -> dict:
+                  wide: bool = False,
+                  dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
     """The kernel's program for this net, a tile of ``nb`` samples and plan
-    length ``T``, in wide mode or not (cached by the net's shapes; do not
-    edit what it returns)."""
-    return _build_program(_signature(net), T, nb, wide)
+    length ``T``, in wide mode or not, for weights of ``dtype`` (cached by
+    the net's shapes; do not edit what it returns)."""
+    return _build_program(_signature(net), T, nb, wide, _check_dtype(dtype))
 
 
 @functools.lru_cache(maxsize=64)
 def _build_program(signature: tuple, T: int, nb: int,
-                   wide: bool = False) -> dict:
+                   wide: bool = False,
+                   dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
     """The kernel's op records and its memory layout for a tile of ``nb``
     samples of length ``T``: in shared memory the weight ring, the fp32
-    buffers X32/Y32, the current sample, the GroupNorm statistics, the bf16
-    operand buffers Xb/Yb and the skips; in wide mode X32, Y32 and the
-    skips in ``scratch_bytes`` of global memory a block instead. The
-    records do not depend on the mode.
+    buffers X32/Y32, the current sample, the GroupNorm statistics, the
+    operand buffers Xb/Yb (of the weight type) and the skips; in wide mode
+    X32, Y32 and the skips in ``scratch_bytes`` of global memory a block
+    instead, and with fp32 weights Xb and Yb too. The records do not depend
+    on the mode; their skip offsets (in operand elements) on the dtype.
 
     Records (12 ints, unused fields 0):
       FILM         cin ch Tl tile(conv1) tile(conv2) film_off tile(proj)|-1
@@ -335,13 +405,14 @@ def _build_program(signature: tuple, T: int, nb: int,
     consumes the stream in order and never seeks, so they must be contiguous
     in program order (the tests check that).
     """
-    lay = _layout(signature)
+    lay = _layout(signature, dtype)
     gm = lay["gemm"]
     D, _, _, dd, _, n_groups, downsample = signature
     dd = list(dd)
+    ldb_ = functools.partial(ldb, dtype=dtype)
     recs = []
     max32 = T * ld32(D)          # floats per sample, fp32 buffers
-    maxb = T * ldb(D)            # bf16 elements per sample, operand buffers
+    maxb = T * ldb_(D)           # elements per sample, operand buffers
 
     def rec(*v):
         recs.append(list(v) + [0] * (REC - len(v)))
@@ -350,7 +421,7 @@ def _build_program(signature: tuple, T: int, nb: int,
     slot, skip_total = {}, 0
     for i in range(1, len(dd)):
         slot[i] = skip_total
-        skip_total += nb * (T >> i if downsample else T) * ldb(dd[i])
+        skip_total += nb * (T >> i if downsample else T) * ldb_(dd[i])
 
     Tl, cin = T, D
     for op in _walk(len(dd), downsample):
@@ -364,21 +435,21 @@ def _build_program(signature: tuple, T: int, nb: int,
                 proj["tile_off"] if proj else -1, gm[f"conv1.{i}"]["vec_off"],
                 gm[f"conv2.{i}"]["vec_off"], proj["vec_off"] if proj else 0)
             max32 = max(max32, Tl * ld32(ch))
-            maxb = max(maxb, Tl * ldb(cin), Tl * ldb(ch))
+            maxb = max(maxb, Tl * ldb_(cin), Tl * ldb_(ch))
             cin = ch
         elif kind == "save":
             rec(SAVE, slot[op[1]], cin, Tl)
         elif kind == "concat":
             rec(CONCAT, slot[op[1]], cin, dd[op[1]], Tl)
             cin += dd[op[1]]
-            maxb = max(maxb, Tl * ldb(cin))
+            maxb = max(maxb, Tl * ldb_(cin))
         elif kind in ("down", "up"):
             g = gm[f"{kind}.{op[1]}"]
             rec(DOWN if kind == "down" else UP, cin, Tl, g["tile_off"],
                 g["vec_off"])
             Tl = Tl // 2 if kind == "down" else Tl * 2
             max32 = max(max32, Tl * ld32(cin))
-            maxb = max(maxb, Tl * ldb(cin))
+            maxb = max(maxb, Tl * ldb_(cin))
         elif kind == "final_block":
             g = gm["final_block"]
             rec(FINAL_BLOCK, cin, dd[0], Tl, g["tile_off"], g["vec_off"])
@@ -387,42 +458,42 @@ def _build_program(signature: tuple, T: int, nb: int,
             rec(FINAL_CONV, dd[0], D, Tl, g["tile_off"], g["vec_off"])
 
     small = nb * T * D + 2 * nb * n_groups     # the sample, the statistics
-    if wide:
-        floats, halves = _up(small, 4), 2 * nb * maxb + 16
+    es = esize(dtype)
+    if wide and es == 4:
+        # fp32: the operand buffers in the scratch too (plain loads)
+        floats, elems = _up(small, 4), 16
+        scratch = _up(4 * 2 * nb * max32 + 4 * (2 * nb * maxb + skip_total),
+                      256)
+    elif wide:
+        floats, elems = _up(small, 4), 2 * nb * maxb + 16
         scratch = _up(4 * 2 * nb * max32 + 2 * skip_total, 256)
     else:
         floats = _up(2 * nb * max32 + small, 4)
-        halves = 2 * nb * maxb + skip_total + 16
+        elems = 2 * nb * maxb + skip_total + 16
         scratch = 0
-    rest = 4 * floats + 2 * halves
-    stages = min(MAX_STAGES, max(MIN_STAGES,
-                                 (SMEM_LIMIT - rest) // STAGE_BYTES))
+    rest = 4 * floats + es * elems
+    sb = stage_bytes(dtype)
+    stages = min(MAX_STAGES, max(MIN_STAGES, (SMEM_LIMIT - rest) // sb))
     return dict(records=recs, max32=nb * max32, maxb=nb * maxb,
                 skip_total=skip_total, stages=stages,
-                smem_bytes=stages * STAGE_BYTES + rest, wide=wide,
-                scratch_bytes=scratch)
+                smem_bytes=stages * sb + rest, wide=wide,
+                scratch_bytes=scratch, dtype=dtype)
 
 
-def prologue_smem_bytes(net: ConditionalUnet1D, rows: int) -> int:
+def prologue_smem_bytes(net: ConditionalUnet1D,
+                        dtype: torch.dtype = WEIGHT_DTYPE) -> int:
     """Shared memory of the prologue kernel: the ring, two operand buffers
-    wide enough for the time MLP's hidden layer or ``rows`` conditions."""
-    halves = max(16 * ldb(4 * net.dsed), rows * ldb(net.global_cond_dim))
-    return PROLOGUE_STAGES * STAGE_BYTES + 2 * 2 * halves + 32
+    wide enough for the time MLP's hidden layer or ``COND_ROWS`` samples of
+    one ``COND_CHUNK``-channel chunk of the condition (so at any condition
+    width), and a zero row."""
+    elems = max(16 * ldb(4 * net.dsed, dtype),
+                COND_ROWS * ldb(COND_CHUNK, dtype))
+    return (PROLOGUE_STAGES * stage_bytes(dtype)
+            + esize(dtype) * (2 * elems + 16))
 
 
-def cond_rows(net: ConditionalUnet1D) -> int:
-    """Samples per prologue block of the condition half: 64, or fewer where
-    a wide condition's operand buffers would not fit the shared memory (DP's
-    1033-wide condition takes 32)."""
-    for rows in COND_ROWS:
-        if prologue_smem_bytes(net, rows) <= SMEM_LIMIT:
-            return rows
-    raise ValueError(f"a {net.global_cond_dim}-wide condition does not fit "
-                     "the prologue's shared memory")
-
-
-def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
-                ) -> tuple[int, dict]:
+def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None,
+                dtype: torch.dtype = WEIGHT_DTYPE) -> tuple[int, dict]:
     """Samples per block and the program for them: the most that fit the
     shared memory and the GEMM's row limit, but no more than leaves
     ``MIN_BLOCKS`` blocks for a batch of ``B`` (the weight stream a block
@@ -434,25 +505,26 @@ def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None
         for nb in NB_CHOICES:
             if nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS):
                 continue
-            prog = build_program(net, T, nb, wide)
+            prog = build_program(net, T, nb, wide, dtype)
             if prog["smem_bytes"] <= SMEM_LIMIT:
                 fits.append((nb, prog))
         if fits:
             break
     if not fits:
+        where = ("buffers and skips" if esize(dtype) == 2
+                 else "and operand buffers and skips")
         raise ValueError("net too wide for the kernel's shared memory at "
-                         f"length {T}, even with its fp32 buffers and skips "
-                         f"in global memory (up to {WIDE_MAX_ROWS} rows a "
-                         "block)")
+                         f"length {T}, even with its fp32 {where} in global "
+                         f"memory (up to {WIDE_MAX_ROWS} rows a block)")
     if B is None:
         return fits[0]
     return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))
 
 
 @functools.lru_cache(maxsize=64)
-def _records_on(signature: tuple, T: int, nb: int,
-                device: torch.device) -> torch.Tensor:
-    prog = _build_program(signature, T, nb)
+def _records_on(signature: tuple, T: int, nb: int, wide: bool,
+                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    prog = _build_program(signature, T, nb, wide, dtype)
     return torch.tensor(prog["records"], dtype=torch.int32).to(device)
 
 
@@ -461,13 +533,27 @@ def _round_input(module, args):
                  else a for a in args)
 
 
+def fp32_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
+    """The net computing in fp32, the function the fp32 kernel computes:
+    the net itself, or a copy of one built with a bf16 ``compute_dtype``
+    (whose own forward rounds where the Flax module does, which the kernel
+    does not)."""
+    if all(getattr(m, "compute_dtype", None) is None for m in net.modules()):
+        return net
+    out = copy.deepcopy(net)
+    for m in out.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = None
+    return out
+
+
 def rounding_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
-    """A copy of the net that rounds where the kernel rounds: weights
+    """A copy of the net that rounds where the bf16 kernel rounds: weights
     through bf16, and the input of every Conv1d, ConvTranspose1d and Linear
     through bf16 (products of bf16 operands, fp32 sums, everything else
     fp32) — the function the kernel computes, for holding it against the
     twin."""
-    out = copy.deepcopy(net)
+    out = copy.deepcopy(fp32_twin(net))
     with torch.no_grad():
         for p in out.parameters():
             p.copy_(p.to(WEIGHT_DTYPE).float())
@@ -492,27 +578,31 @@ def unet1d_ddim_sample_plain(net: ConditionalUnet1D, global_cond: torch.Tensor,
 
 
 def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
-                nb: int | None = None) -> dict:
+                nb: int | None = None,
+                dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
     """What a launch at this shape looks like (``n_steps`` 100 for DDPM-100):
     tile, mode, grid, shared memory, the global scratch of wide mode and
     the bytes of weights its blocks stream in all."""
     if nb is None:
-        nb, prog = choose_tile(net, T, B)
+        nb, prog = choose_tile(net, T, B, dtype)
     else:
-        prog = build_program(net, T, nb, choose_tile(net, T)[1]["wide"])
-    lay = layout(net)
+        prog = build_program(net, T, nb,
+                             choose_tile(net, T, dtype=dtype)[1]["wide"],
+                             dtype)
+    lay = layout(net, dtype)
     grid = -(-B // nb)
-    stage = STAGE_BYTES
+    stage = stage_bytes(dtype)
     main = lay["stream"]["main"]["stages"] * stage
-    rows = cond_rows(net)
+    rows = COND_ROWS
     pro = (n_steps * lay["stream"]["time"]["stages"]
            + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
-    return dict(samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
+    return dict(dtype=str(dtype).removeprefix("torch."),
+                samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
                 wide=prog["wide"], scratch_bytes=grid * prog["scratch_bytes"],
                 film_t_bytes=4 * n_steps * lay["film_ld"],
                 ring_stages=prog["stages"], prologue_cond_rows=rows,
                 prologue_grid=n_steps + -(-B // rows),
-                prologue_smem_bytes=prologue_smem_bytes(net, rows),
+                prologue_smem_bytes=prologue_smem_bytes(net, dtype),
                 weight_bytes_per_step_and_block=main,
                 weight_bytes_streamed=grid * n_steps * main + pro)
 
@@ -524,16 +614,19 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              clip_range: float = 1.0,
                              packed: torch.Tensor | None = None,
                              nb: int | None = None,
-                             wide: bool | None = None) -> torch.Tensor:
+                             wide: bool | None = None,
+                             dtype: torch.dtype = WEIGHT_DTYPE
+                             ) -> torch.Tensor:
     """Reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
 
     coefs (S, 6) from ``ops.diffusion``, for any prediction type:
     ``ddim_coef_table`` with ``noise`` None, or ``ddpm_coef_table`` with
     ``noise`` (S, B, T, D), one draw per step (its s_var column scales it).
     CPU tensors run the plain twin (with the net's own weights); CUDA
-    tensors launch the kernel with bf16 weights.
-    ``packed`` is ``pack_params(net)`` on the device; ``nb`` overrides the
-    samples per block and, with it, ``wide`` the mode (for measurements).
+    tensors launch the kernel with weights of ``dtype`` (bf16 or fp32).
+    ``packed`` is ``pack_params(net, dtype)`` on the device; ``nb``
+    overrides the samples per block and, with it, ``wide`` the mode (for
+    measurements).
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
@@ -542,23 +635,24 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
         raise ValueError(f"unsupported device {x_init.device}")
     B, T, D = x_init.shape
     check_supported(net, T)
+    _check_dtype(dtype)
     if D != net.input_dim or global_cond.shape != (B, net.global_cond_dim):
         raise ValueError("sample or condition width does not match the net")
     if nb is None:
-        nb, prog = choose_tile(net, T, B)
+        nb, prog = choose_tile(net, T, B, dtype)
     else:
         if wide is None:
-            wide = choose_tile(net, T)[1]["wide"]
-        prog = build_program(net, T, nb, wide)
+            wide = choose_tile(net, T, dtype=dtype)[1]["wide"]
+        prog = build_program(net, T, nb, wide, dtype)
         if (nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS)
                 or prog["smem_bytes"] > SMEM_LIMIT):
             raise ValueError(f"a tile of {nb} samples does not fit a block")
-    lay = layout(net)
+    lay = layout(net, dtype)
     dev = x_init.device
     if packed is None:
-        packed = pack_params(net).to(dev)
-    if packed.dtype != WEIGHT_DTYPE or packed.numel() != lay["numel"]:
-        raise ValueError("packed weights are not pack_params(net) in bf16")
+        packed = pack_params(net, dtype).to(dev)
+    if packed.dtype != dtype or packed.numel() != lay["numel"]:
+        raise ValueError(f"packed weights are not pack_params(net, {dtype})")
     S = int(timesteps.shape[0])
     if tuple(coefs.shape) != (S, 6):
         raise ValueError(f"coefs must be the (S, 6) table of "
@@ -570,7 +664,7 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
         if noise.device != x_init.device:
             raise ValueError("noise is not on the sample's device")
         noise = noise.float().contiguous()
-    recs = _records_on(_signature(net), T, nb, dev)
+    recs = _records_on(_signature(net), T, nb, prog["wide"], dtype, dev)
     gcond = global_cond.float().contiguous()
     x_init = x_init.float().contiguous()
     ts = timesteps.to(dev, torch.int32).contiguous()
@@ -579,7 +673,7 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     # scratch the prologue fills: FiLM's time half per step (S of them: 100
     # for DDPM-100), and its global-condition half per sample
     film_t = torch.empty((S, lay["film_ld"]), device=dev, dtype=torch.float32)
-    rows = cond_rows(net)
+    rows = COND_ROWS
     film_g = torch.empty((_up(B, rows), lay["film_ld"]), device=dev,
                          dtype=torch.float32)
     grid = -(-B // nb)
@@ -595,17 +689,20 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
          st["cond"]["tile_base"], st["cond"]["stages"], lay["vec_base"],
          lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
          lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
-         prologue_smem_bytes(net, rows), prog["stages"], PROLOGUE_STAGES,
-         TILE_N, rows, int(prog["wide"]), prog["scratch_bytes"]],
+         prologue_smem_bytes(net, dtype), prog["stages"],
+         PROLOGUE_STAGES, TILE_N, rows, int(prog["wide"]),
+         prog["scratch_bytes"], COND_CHUNK],
         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("ldp_unet1d_sampler", [P] * 12 + [I, F, P])
+    entry = ("ldp_unet1d_sampler" if dtype == torch.bfloat16
+             else "ldp_unet1d_sampler_f32")
+    fn = _build.function(entry, [P] * 12 + [I, F, P])
     err = fn(gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
              coefs.data_ptr(), _build.ptr(noise), packed.data_ptr(),
              recs.data_ptr(), film_t.data_ptr(), film_g.data_ptr(),
              _build.ptr(scratch), out.data_ptr(), dims.data_ptr(),
              dims.numel(), float(clip_range), _build.stream_ptr(x_init))
-    _build.check("ldp_unet1d_sampler", err)
+    _build.check(entry, err)
     fused_unet1d_ddim_sample.launches += 1
     return out
 

@@ -230,12 +230,12 @@ def test_what_wide_mode_cannot_hold_is_refused():
 
 def test_kernel_info_reports_a_ddpm_call():
     """DDPM-100: the prologue runs a block per step and one per
-    ``cond_rows`` samples, and FiLM's time half is a (100, film_ld) table;
+    ``COND_ROWS`` samples, and FiLM's time half is a (100, film_ld) table;
     the main blocks stream the weights 100 times."""
     net = _meta_unet(25, 25, (256, 512, 1024), 5, True)
     info = kunet.kernel_info(net, 256, 16, 100)
     lay = kunet.layout(net)
-    rows = kunet.cond_rows(net)
+    rows = kunet.COND_ROWS
     assert info["prologue_grid"] == 100 + -(-256 // rows)
     assert info["film_t_bytes"] == 4 * 100 * lay["film_ld"]
     assert info["weight_bytes_streamed"] >= (

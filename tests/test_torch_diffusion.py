@@ -426,9 +426,14 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip, noise=None,
         film_t.append(conv(cur, temb, d, 1, FT, 1, gm["film_t"]["vec_off"], 1,
                            "same", rows=1)[0])
         assert cur.pos == lay["stream"]["time"]["n_tiles"]
+    # the condition half, in chunks of COND_CHUNK channels as the stream
+    # holds it
     cur = Cursor("cond")
-    film_g = conv(cur, _bf16(mish(gcond)), gcond.shape[1], 1, FT, 1, None, 1,
-                  "same", rows=nb)
+    film_g = 0.0
+    for c0 in range(0, gcond.shape[1], kunet.COND_CHUNK):
+        part = gcond[:, c0:c0 + kunet.COND_CHUNK]
+        film_g = film_g + conv(cur, _bf16(mish(part)), part.shape[1], 1, FT,
+                               1, None, 1, "same", rows=nb)
     assert cur.pos == lay["stream"]["cond"]["n_tiles"]
 
     # ---- the steps ----
@@ -641,13 +646,17 @@ def test_idm_packing_round_trips(H):
     assert o == lay["vec_base"] == lay["stream_stages"] * kmlp.STAGE_K * H
     # 57 input rows pad to 64; 3 blocks x 4 chunks x (w0 chunk + w1 chunk)
     assert lay["stream_stages"] == (64 + 3 * 4 * 2 * H) // kmlp.STAGE_K
-    vec = torch.cat([p.detach().reshape(-1) for p in kmlp._vectors(net)])
+    vec = torch.cat([p.detach().reshape(-1) for _, p in kmlp._vectors(net)])
     assert torch.equal(packed[o:], vec)
     n_params = sum(p.numel() for p in net.parameters())
     assert packed.numel() == n_params + (64 - 57) * H
-    with pytest.raises(ValueError, match="hidden_dim"):
-        kmlp.check_supported(kmlp.MLPDiffusion(50, 7, 64, (128, 128), "swish",
-                                               3, 96))
+    # any multiple of 8 up to 512 runs (padded to whole tiles); nothing else
+    kmlp.check_supported(kmlp.MLPDiffusion(50, 7, 64, (128, 128), "swish",
+                                           3, 96))
+    for bad in (100, 520):
+        with pytest.raises(ValueError, match="hidden_dim"):
+            kmlp.check_supported(kmlp.MLPDiffusion(
+                50, 7, 64, (128, 128), "swish", 3, bad))
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -355,15 +355,21 @@ def test_sample_action_matches_jax(pair, use_ema):
 
 @pytest.mark.parametrize("change,reason", [
     (dict(pred_horizon=7), "not divisible"),
-    (dict(fused_dtype="float32"), "bf16"),
+    # fp32 weights, once refused, run through kernel B's fp32 instances
+    (dict(fused_dtype="float32"), None),
+    (dict(fused_dtype="float16"), "float32 or bfloat16"),
     (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
                    "diffusion_step_embed_dim": 32}), "odd kernel_size"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the
-    card with the reason (the same check runs here on a CPU agent)."""
+    card with the reason, and what kernel B now takes it accepts (the same
+    check runs here on a CPU agent)."""
     agent = DPVAEAgent.create(_small_config(**change), configs.SHAPE_META,
                               device="cpu")
+    if reason is None:
+        agent._check_kernels()
+        return
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
 

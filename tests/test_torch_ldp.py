@@ -215,19 +215,28 @@ def test_run_batched_eval_matches_jax(plan_blend):
 
 @pytest.mark.parametrize("change,reason", [
     (dict(pred_horizon=7), "not divisible"),
+    # a mish cond MLP, hidden 48 and fp32 weights, once refused, now run
+    # through kernels A and B: the check accepts them
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 32, "time_dim": 16,
                    "cond_hidden_dims": [32, 32], "cond_activation": "mish"}),
-     "swish"),
+     None),
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 48, "time_dim": 16,
-                   "cond_hidden_dims": [32, 32]}), "64, 128, 192 or 256"),
-    (dict(fused_dtype="float32"), "bf16"),
+                   "cond_hidden_dims": [32, 32]}), None),
+    (dict(fused_dtype="float32"), None),
+    (dict(idm_net={"n_blocks": 2, "hidden_dim": 52, "time_dim": 16,
+                   "cond_hidden_dims": [32, 32]}), "multiple of 8"),
+    (dict(fused_dtype="float16"), "float32 or bfloat16"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the
-    card with the reason; the same check runs here on a CPU agent."""
+    card with the reason, and what the kernels now take it accepts; the
+    same check runs here on a CPU agent."""
     cfg = _small_config()
     cfg.update(change)
     agent = LDPAgent.create(cfg, configs.SHAPE_META, device="cpu")
+    if reason is None:
+        agent._check_kernels()
+        return
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
 

@@ -561,15 +561,21 @@ def test_sample_viz_matches_jax(pair, H):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change,reason", [
-    (dict(fused_dtype="float32"), "bf16"),
+    # fp32 weights, once refused, run through kernel B's fp32 instances
+    (dict(fused_dtype="float32"), None),
+    (dict(fused_dtype="float64"), "float32 or bfloat16"),
     (dict(planner={**configs.LIFT_LDP_HIER_AGENT["planner"],
                    "downsample": True}), "not divisible"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the
-    card with the reason (the same check runs here on a CPU agent)."""
+    card with the reason, and what kernel B now takes it accepts (the same
+    check runs here on a CPU agent)."""
     agent = LDPHierAgent.create(_config(**change), configs.SHAPE_META,
                                 device="cpu")
+    if reason is None:
+        agent._check_kernels()
+        return
     with pytest.raises(ValueError, match=reason):
         agent._check_kernels()
 
