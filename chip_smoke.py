@@ -4338,6 +4338,18 @@ OPT_IDM_VARIANTS = {
 }
 
 
+# kernel B's fp32 instance in its first design (one block a sample at the
+# default widths, a block-wide barrier a 16 KB tile): its times (ms) on one
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6)
+FIRST_FP32_MS = {
+    "B ldp planner fp32": 3172.793, "B ldp_hier planner fp32": 3025.593,
+    "B ldp_hier window (wide) fp32": 3587.166,
+    "B ldp_hier chunk IDM fp32": 927.848, "B dp fp32": 3161.044,
+    "B dp_repr fp32": 3119.260, "B dp 3099 fp32": 3184.466,
+    "B bench planner fp32": 16.915,
+}
+
+
 def _fp32_against_twin(smoke, what, net, cond, x_init, noise, table, packed,
                        tol: float = 1e-3) -> dict:
     """Kernel B with fp32 weights on ``net`` against its fp32 twin (the net
@@ -4365,11 +4377,13 @@ def _fp32_against_twin(smoke, what, net, cond, x_init, noise, table, packed,
     return dict(max_abs_err=e["max"], mean_abs_err=e["mean"], tol=tol)
 
 
-def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed
-                    ) -> dict:
+def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed,
+                    key: str) -> dict:
     """Kernel B with fp32 weights timed beside its fp32 twin, with its
-    launch geometry and its bound: the products at three TF32 passes
-    (``unet_flops_bytes``, fp32 weights read once)."""
+    launch geometry (samples a block, mode, grid and its waves on the card,
+    ring stages, the bytes it streams to the SMs) and its bound: the
+    products at three TF32 passes (``unet_flops_bytes``, fp32 weights read
+    once); the first design's time (``FIRST_FP32_MS[key]``) beside it."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
@@ -4391,7 +4405,18 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed
     if noise is not None:
         nbytes += noise.numel() * 4
     b_ms, b_by = bound(elem, nbytes, fp32_products=mm)
-    shape = KB.kernel_info(net, B, T, S, dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
+    shape = KB.kernel_info(net, B, T, S, dtype=torch.float32, sms=sms)
+    print(f"   {what}: plan: {shape['samples_per_block']} samples a block"
+          f"{' (wide mode)' if shape['wide'] else ''}, grid {shape['grid']} "
+          f"({shape['waves']} wave(s) on {sms} SMs), ring "
+          f"{shape['ring_stages']} tiles, "
+          f"{shape['weight_bytes_streamed'] / 1e12:.4f} TB of weights to the "
+          f"SMs a call", flush=True)
+    old = FIRST_FP32_MS[key]
+    print(f"   {what}: {ms:.3f} ms against the first design's {old:.3f} ms "
+          f"({old / ms:.2f}x), twin {plain_ms:.3f} ms [{smoke.card}]",
+          flush=True)
     row_tiles = -(-shape["samples_per_block"] * T // 16)
     info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"], True),
                             shape, 3 * mm, PEAK_TF32_FLOPS,
@@ -4402,7 +4427,8 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed
           f"and block{'; wide mode' if shape['wide'] else ''} [{smoke.card}]",
           flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                tf32_products=mm, fp32_flops=elem, bytes=nbytes, shape=info,
+                first_ms=old, tf32_products=mm, fp32_flops=elem, bytes=nbytes,
+                shape=info,
                 source="latent_diffusion_planning_tpu_torch/csrc/"
                 "diffusion_unet1d_f32.cu")
 
@@ -4442,11 +4468,12 @@ def phase_options_kernels(smoke: Smoke):
     the four default agents make (DDPM-100, YAML widths, 256 samples; LDP-
     hier's planner at the window's 16 latents in the wide mode) and at the
     bench planner, DDIM-10 over 1024 samples: each against its fp32 twin
-    (1e-3 after DDPM-100, 2e-4 after DDIM-10), timed beside it, with its
-    bound (three TF32 passes) and launch geometry. Kernel B at the default
-    DP's condition at ``obs_horizon=3`` (3099 wide, the prologue walking it
-    in chunks) in bf16 against the rounding twin by phase B's statistics,
-    and in fp32 against the fp32 twin. Kernel A on the default LDP IDM with
+    (1e-3 after DDPM-100, 2e-4 after DDIM-10), timed beside it and beside
+    its first design's time, with its bound (three TF32 passes) and launch
+    geometry; at the default LDP planner it must be faster than its twin.
+    Kernel B at the default DP's condition at ``obs_horizon=3`` (3099 wide,
+    the prologue walking it in chunks) in bf16 against the rounding twin by
+    phase B's statistics, and in fp32 against the fp32 twin. Kernel A on the default LDP IDM with
     the upstream recipe's mish, with no LayerNorm, with fixed time features
     and at hidden 48 and 512, 4096 rows DDPM-100, each within 1e-3 of its
     fp32 twin."""
@@ -4483,8 +4510,12 @@ def phase_options_kernels(smoke: Smoke):
         rec = _fp32_against_twin(smoke, what, net, cond, x0, noise, table,
                                  packed)
         rec.update(_time_unet_fp32(smoke, what, net, cond, x0, noise, table,
-                                   packed))
+                                   packed, f"{key} fp32"))
         out[f"{key} fp32"] = rec
+        if key == "B ldp planner" and rec["ms"] >= rec["plain_ms"]:
+            raise AssertionError(
+                f"{what}: the fp32 kernel ({rec['ms']:.1f} ms) is not faster "
+                f"than its fp32 twin ({rec['plain_ms']:.1f} ms)")
 
     # the bench planner, DDIM-10 over 1024 samples (phase B's net)
     p = configs.BENCH_AGENT["planner"]
@@ -4500,7 +4531,7 @@ def phase_options_kernels(smoke: Smoke):
     rec = _fp32_against_twin(smoke, what, net, cond, x0, None, table, packed,
                              tol=2e-4)
     rec.update(_time_unet_fp32(smoke, what, net, cond, x0, None, table,
-                               packed))
+                               packed, "B bench planner fp32"))
     out["B bench planner fp32"] = rec
 
     # the default DP at obs_horizon=3: a 3099-wide condition, both types
@@ -4533,7 +4564,7 @@ def phase_options_kernels(smoke: Smoke):
     packed = KB.pack_params(net, f32).to(dev)
     rec = _fp32_against_twin(smoke, what, net, cond, x0, noise, table, packed)
     rec.update(_time_unet_fp32(smoke, what, net, cond, x0, noise, table,
-                               packed))
+                               packed, "B dp 3099 fp32"))
     out["B dp 3099 fp32"] = rec
 
     # kernel A's variants of the default LDP IDM

@@ -7,10 +7,20 @@
 //         kernel A: each operand split a = hi + lo, hi*hi + hi*lo + lo*hi on
 //         mma.sync m16n8k8 summed in fp32, a tile's products from zero and
 //         added to the fp32 sum on the CUDA cores (fp32-accurate results).
-//         Tiles are 16 KB and a ring stage is one tile; operands are read
-//         with plain loads at a row stride of 4 mod 32 floats (conflict-free
-//         fragment loads), so in wide mode the operand buffers can sit in the
-//         per-block global scratch beside the fp32 buffers and the skips.
+//         Tiles are 16 KB. The main kernel streams them through SliceTiles:
+//         a warp reads 1 KB of each tile, so each thread copies exactly the
+//         32 bytes it reads into a ring of its own (cp.async), and no stage
+//         costs a barrier; the prologue keeps WeightRing. A row's K slots
+//         of a 16-channel half are four consecutive channels (the tiles'
+//         order), read as one 16-byte plain load at a row stride of 16 mod
+//         32 floats (conflict-free), so the wide mode can keep the fp32
+//         buffers and skips (and, where they do not fit, the operand
+//         buffers) in the per-block global scratch, which frees shared
+//         memory for two samples a block at the default widths. The wide
+//         instance's GEMM splits each tile's K between warp pairs, so one A
+//         split feeds two n8 column blocks, and for at most 8 rows (the
+//         deepest level) runs transposed: 16 output columns by the 8 rows a
+//         mma, no empty rows.
 // One translation unit instantiates one W, so the two build in parallel and
 // neither instance set costs the other registers.
 #pragma once
@@ -56,7 +66,8 @@ struct Fmt<bf16> {
 template <>
 struct Fmt<float> {
   static constexpr int kStageTiles = 1;
-  static constexpr int kPad = 4;    // fragment rows 4 floats apart in banks
+  static constexpr int kPad = 16;   // a quarter warp's two rows of 16-byte
+                                    // loads miss each other's banks
 };
 template <typename W>
 struct Sizes {
@@ -114,6 +125,71 @@ struct Tiles {
   }
   // Skip the zero tiles that pad the stream to whole stages.
   __device__ void align() { pos = kStageTiles; }
+  // The fp32 GEMM's interface (SliceTiles'): the next tile, and the end of
+  // its reads (nothing to do: enter() holds the block's barrier).
+  __device__ const W* tile() {
+    avail();
+    return reinterpret_cast<const W*>(take(1));
+  }
+  __device__ void release() {}
+};
+
+// The fp32 main kernel's stream as each thread's own: a warp's fp32 GEMM
+// reads 1 KB of each 16 KB tile, two 512-byte runs (kSplitK false: its own
+// 8 columns, warp w's slice; true, the k-split GEMM's: the k-half w / 8 of
+// slices 2 (w % 8) and 2 (w % 8) + 1), and each lane reads 16 bytes of each
+// run at lane * 16, so each thread copies exactly what it reads with two
+// 16-byte cp.async a tile into a ring of `stages` tiles, waits on its own
+// copies and refills the slot it has read: no barrier of any kind.
+template <bool kSplitK>
+struct SliceTiles {
+  const char* src;
+  char* buf;
+  int stages, cycle, left, src_stage, fill_slot, slot;
+  int off0, off1;   // this lane's 16 bytes of the two runs, in a tile
+
+  __device__ void fill() {
+    if (left > 0) {
+      const char* s = src + static_cast<size_t>(src_stage) *
+                                Sizes<float>::kTileBytes;
+      const uint32_t d = ldp::smem_u32(buf + fill_slot *
+                                             Sizes<float>::kTileBytes);
+      ldp::cp_async16(d + off0, s + off0);
+      ldp::cp_async16(d + off1, s + off1);
+      --left;
+      if (++src_stage == cycle) src_stage = 0;
+    }
+    if (++fill_slot == stages) fill_slot = 0;
+    ldp::cp_async_commit();
+  }
+  __device__ void start(const float* stream, void* smem, int ring_stages,
+                        int cycle_stages, int total) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    src = reinterpret_cast<const char*>(stream);
+    buf = static_cast<char*>(smem);
+    stages = ring_stages;
+    cycle = cycle_stages;
+    left = total;
+    src_stage = fill_slot = slot = 0;
+    if (kSplitK) {
+      off0 = 2 * (warp & 7) * 1024 + (warp >> 3) * 512 + lane * 16;
+      off1 = off0 + 1024;
+    } else {
+      off0 = warp * 1024 + lane * 16;
+      off1 = off0 + 512;
+    }
+    for (int n = 0; n < stages - 1; ++n) fill();
+  }
+  __device__ const float* tile() {
+    ldp::cp_async_wait_pending(stages - 2);
+    fill();   // the slot this thread read last
+    const char* p = buf + slot * Sizes<float>::kTileBytes;
+    if (++slot == stages) slot = 0;
+    return reinterpret_cast<const float*>(p);
+  }
+  __device__ void release() {}
+  __device__ void align() {}
+  __device__ void finish() { ldp::cp_async_wait<0>(); }
 };
 
 // Source row of output row r for one tap, or -1 (reads zeros).
@@ -187,10 +263,59 @@ __device__ __forceinline__ void gemm_store(const Gemm<W>& g, int MT, int col,
   }
 }
 
+// x = hi + lo: hi rounded to TF32, lo the exact rest, which the tensor
+// core reads as TF32 by dropping its low 13 bits (an error of at most
+// 2^-21 |x|, where rounding lo too would cost an instruction an operand).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = ldp::to_tf32(x);
-  lo = ldp::to_tf32(x - __uint_as_float(hi));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// acc += (A rows of one m16 row tile) x (a tile's B fragments), 3xTF32:
+// r0 / r1 the lane's rows g and g + 8 (l0 / l1: inside a sample), the four
+// k8 steps in two independent chains, each summed from zero on the tensor
+// core (which truncates) and added on the CUDA cores (which round to
+// nearest). kUpper false: rows 8-15 of the tile lie past the block's rows
+// (warp-uniform; a tile of 8 rows, the deep levels at two samples), so
+// their operands are neither read nor split.
+template <bool kUpper>
+__device__ __forceinline__ void row_tile_products(
+    float (&acc)[4], const float* r0, const float* r1, bool l0, bool l1,
+    const uint32_t (&bh)[4][2], const uint32_t (&bl)[4][2]) {
+  // the lane's K slots of each 16-row half h: channels 16 h + 4 tq .. + 3,
+  // one 16-byte load a row (tile_matrix_f32's order)
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 f0[2], f1[2] = {z, z};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    f0[h] = l0 ? *reinterpret_cast<const float4*>(r0 + 16 * h) : z;
+    if constexpr (kUpper)
+      f1[h] = l1 ? *reinterpret_cast<const float4*>(r1 + 16 * h) : z;
+  }
+  float p[2][4];
+#pragma unroll
+  for (int k8 = 0; k8 < 4; ++k8) {
+    const float4& u = f0[k8 >> 1];
+    const float4& v = f1[k8 >> 1];
+    const bool odd = k8 & 1;
+    uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
+    split_tf32(odd ? u.z : u.x, ah[0], al[0]);
+    split_tf32(odd ? u.w : u.y, ah[2], al[2]);
+    if constexpr (kUpper) {
+      split_tf32(odd ? v.z : v.x, ah[1], al[1]);
+      split_tf32(odd ? v.w : v.y, ah[3], al[3]);
+    }
+    float (&c)[4] = p[k8 & 1];
+    if (k8 < 2)
+      ldp::mma_tf32_zero(c, al, bh[k8][0], bh[k8][1]);
+    else
+      ldp::mma_tf32(c, al, bh[k8][0], bh[k8][1]);
+    ldp::mma_tf32(c, ah, bl[k8][0], bl[k8][1]);
+    ldp::mma_tf32(c, ah, bh[k8][0], bh[k8][1]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += p[0][e] + p[1][e];
 }
 
 // out[r][n] = bias[n] + sum_tap sum_c A[src(r, tap)][c] W[tap][c][n], the
@@ -280,11 +405,15 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
 // The fp32 GEMM: one 16 KB tile (32 K-rows) at a time. Lane l of warp w
 // holds the tile's m16n8k8 B fragments of columns [8w, 8w + 8) as two
 // float4: (k8 0, b0 b1; k8 1, b0 b1) and (k8 2 ...; k8 3 ...), each read of
-// the warp one contiguous 512 bytes. A-fragment rows are read directly
-// (rows g and g + 8 of each row tile, columns tq and tq + 4), a row outside
-// its sample as zeros.
-template <int kMtMax>
-__device__ void gemm(const Gemm<float>& g, Tiles<float>& tiles, uint32_t) {
+// the warp one contiguous 512 bytes; once they are split into registers the
+// warp releases the tile, and the split feeds every row tile. The K slots
+// tq and tq + 4 of a k8 step s of K-half h are rows 16 h + 4 tq + 2 s and
+// + 1 (tile_matrix_f32), so the A fragments of a row (rows g and g + 8 of
+// each row tile) for a half are one 16-byte load of channels 16 h + 4 tq ..
+// + 3; a row outside its sample reads zeros. TilesT: Tiles<float> (the
+// prologue) or SliceTiles<false> (the main kernel).
+template <int kMtMax, typename TilesT>
+__device__ void gemm(const Gemm<float>& g, TilesT& tiles, uint32_t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int MT = (g.rows + 15) >> 4;
@@ -312,15 +441,13 @@ __device__ void gemm(const Gemm<float>& g, Tiles<float>& tiles, uint32_t) {
             const int sr = src_row(g.mode, mt * 16 + gq + 8 * h, g.rows,
                                    g.Tin, g.Tout, tap, pad);
             if (sr >= 0) {
-              off[mt][h] = sr * g.lda + tq;
+              off[mt][h] = sr * g.lda + 4 * tq;
               live |= 1u << (2 * mt + h);
             }
           }
         }
       for (int kt = 0; kt < kt_per_tap; ++kt) {
-        tiles.avail();
-        const float* tile = reinterpret_cast<const float*>(tiles.take(1))
-            + warp * 256 + lane * 4;
+        const float* tile = tiles.tile() + warp * 256 + lane * 4;
         const float4 q0 = *reinterpret_cast<const float4*>(tile);
         const float4 q1 = *reinterpret_cast<const float4*>(tile + 128);
         const float bv[4][2] = {{q0.x, q0.y}, {q0.z, q0.w},
@@ -331,6 +458,7 @@ __device__ void gemm(const Gemm<float>& g, Tiles<float>& tiles, uint32_t) {
           split_tf32(bv[k8][0], bh[k8][0], bl[k8][0]);
           split_tf32(bv[k8][1], bh[k8][1], bl[k8][1]);
         }
+        tiles.release();
         const int k0 = kt * 32;
 #pragma unroll
         for (int mt = 0; mt < kMtMax; ++mt) {
@@ -339,32 +467,265 @@ __device__ void gemm(const Gemm<float>& g, Tiles<float>& tiles, uint32_t) {
             const bool l1 = (live >> (2 * mt + 1)) & 1;
             const float* r0 = g.A + off[mt][0] + k0;
             const float* r1 = g.A + off[mt][1] + k0;
-            // two independent chains (even and odd k8), each summed from
-            // zero on the tensor core and added on the CUDA cores, which
-            // round to nearest
-            float p[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-            for (int k8 = 0; k8 < 4; ++k8) {
-              const float a0 = l0 ? r0[8 * k8] : 0.f;
-              const float a2 = l0 ? r0[8 * k8 + 4] : 0.f;
-              const float a1 = l1 ? r1[8 * k8] : 0.f;
-              const float a3 = l1 ? r1[8 * k8 + 4] : 0.f;
-              uint32_t ah[4], al[4];
-              split_tf32(a0, ah[0], al[0]);
-              split_tf32(a1, ah[1], al[1]);
-              split_tf32(a2, ah[2], al[2]);
-              split_tf32(a3, ah[3], al[3]);
-              ldp::mma_tf32(p[k8 & 1], al, bh[k8][0], bh[k8][1]);
-              ldp::mma_tf32(p[k8 & 1], ah, bl[k8][0], bl[k8][1]);
-              ldp::mma_tf32(p[k8 & 1], ah, bh[k8][0], bh[k8][1]);
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][e] += p[0][e] + p[1][e];
+            if (mt * 16 + 8 < g.rows)
+              row_tile_products<true>(acc[mt], r0, r1, l0, l1, bh, bl);
+            else
+              row_tile_products<false>(acc[mt], r0, r1, l0, l1, bh, bl);
           }
         }
       }
     }
     gemm_store<float, kMtMax>(g, MT, col, gq, acc);
+  }
+}
+
+// The wide instance's fp32 GEMM (two row tiles at most): the warps split
+// each tile's K in halves and its columns in blocks of 16, so one A
+// fragment split feeds two n8 column blocks. Warp w takes columns [16 (w %
+// 8), +16) of the 128-column group and k8 steps {2 h, 2 h + 1}, h = w / 8
+// (its B fragments: two float4 of the tile's layout); each (n8 block, k8)
+// is a chain of three products. At a group's end each warp of a pair (w,
+// w ^ 8) keeps one n8 block, sends the other's partial sums through `red`
+// (per block, in the global scratch, two buffers by the group's parity)
+// and adds what its partner sent, behind a barrier of the pair alone.
+constexpr int kRedFloats = 2 * kWarps * 32 * 2 * 4;   // two buffers, kMt 2
+
+template <bool kUpper>
+__device__ __forceinline__ void ksplit_products(
+    float (&acc0)[4], float (&acc1)[4], const float* r0, const float* r1,
+    bool l0, bool l1, const uint32_t (&bh)[2][2][2],
+    const uint32_t (&bl)[2][2][2]) {
+  // the lane's K slots of the warp's half: 4 channels, one 16-byte load
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 u = l0 ? *reinterpret_cast<const float4*>(r0) : z;
+  float4 v = z;
+  if constexpr (kUpper) v = l1 ? *reinterpret_cast<const float4*>(r1) : z;
+  float p[2][2][4];   // [n8 block][k8]
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
+    split_tf32(kk ? u.z : u.x, ah[0], al[0]);
+    split_tf32(kk ? u.w : u.y, ah[2], al[2]);
+    if constexpr (kUpper) {
+      split_tf32(kk ? v.z : v.x, ah[1], al[1]);
+      split_tf32(kk ? v.w : v.y, ah[3], al[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ldp::mma_tf32_zero(p[j][kk], al, bh[j][kk][0], bh[j][kk][1]);
+      ldp::mma_tf32(p[j][kk], ah, bl[j][kk][0], bl[j][kk][1]);
+      ldp::mma_tf32(p[j][kk], ah, bh[j][kk][0], bh[j][kk][1]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc0[e] += p[0][0][e] + p[0][1][e];
+    acc1[e] += p[1][0][e] + p[1][1][e];
+  }
+}
+
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// One output element of the fp32 GEMM's epilogue (gemm_store's, for the
+// transposed k-split GEMM): bias and sum in v, + out32, Mish, out32, the
+// operand copy.
+__device__ __forceinline__ void store_elem(const Gemm<float>& g, int r, int c,
+                                           float v) {
+  if (r >= g.rows) return;
+  if (c < g.N) {
+    if (g.accum) v += g.out32[static_cast<size_t>(r) * g.ld32 + c];
+    if (g.mish) v = ldp::mishf(v);
+    if (g.out32 != nullptr) g.out32[static_cast<size_t>(r) * g.ld32 + c] = v;
+  } else {
+    v = 0.f;
+  }
+  if (g.outb != nullptr && c < g.nb_cols) g.outb[r * g.ldob + c] = v;
+}
+
+// gemm_ksplit for at most 8 rows (the deepest level at two samples, most of
+// the default widths' tiles): the product transposed, out^T = W^T A^T, so
+// the 16 x 8 mma tile holds 16 output columns by the 8 rows and carries no
+// empty rows. The weights' fragments are the A operand as they stand: n8
+// blocks 2 cb and 2 cb + 1 of a tile give rows g and g + 8 (columns 16 cb +
+// g, + 8); a lane's activation row g, its K slots (four channels, one
+// 16-byte load), is the B fragment. Warp w takes columns [16 (w % 8), +16)
+// and k8 steps {2 h, 2 h + 1}, h = w / 8, as gemm_ksplit does; at a
+// group's end warp h keeps the columns 16 cb + g + 8 h and takes its
+// partner's partial sums of them.
+template <typename TilesT>
+__device__ void gemm_ksplit_t(const Gemm<float>& g, TilesT& tiles,
+                              float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cb = warp & 7, kh = warp >> 3;
+  const int n_groups = (g.N + kGroupN - 1) / kGroupN;
+  const int kt_per_tap = g.cin_pad >> 5;
+  const int pad = g.taps >> 1;
+  for (int ng = 0; ng < n_groups; ++ng) {
+    const int c0 = ng * kGroupN + cb * 16 + gq;   // this lane's columns c0, +8
+    const bool biased = kh == 0 && g.bias != nullptr;
+    const float blo = biased ? g.bias[c0] : 0.f;
+    const float bhi = biased ? g.bias[c0 + 8] : 0.f;
+    // (column c0, row 2 tq), (c0, 2 tq + 1), (c0 + 8, 2 tq), (c0 + 8, ...)
+    float acc[4] = {blo, blo, bhi, bhi};
+    for (int tap = 0; tap < g.taps; ++tap) {
+      const int sr = src_row(g.mode, gq, g.rows, g.Tin, g.Tout, tap, pad);
+      const bool live = sr >= 0;
+      const int off = live ? sr * g.lda + 4 * tq : 0;
+      for (int kt = 0; kt < kt_per_tap; ++kt) {
+        const float* tile = tiles.tile() + kh * 128 + lane * 4;
+        const float4 q0 = *reinterpret_cast<const float4*>(tile + 512 * cb);
+        const float4 q1 =
+            *reinterpret_cast<const float4*>(tile + 512 * cb + 256);
+        // the weights as the A fragment of k8 step kk: (g, tq), (g + 8,
+        // tq), (g, tq + 4), (g + 8, tq + 4)
+        const float wv[2][4] = {{q0.x, q1.x, q0.y, q1.y},
+                                {q0.z, q1.z, q0.w, q1.w}};
+        uint32_t wh[2][4], wl[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(wv[kk][e], wh[kk][e], wl[kk][e]);
+        tiles.release();
+        // the lane's K slots: 4 channels of its row, one 16-byte load
+        const float4 x = live ? *reinterpret_cast<const float4*>(
+                                    g.A + off + kt * 32 + 16 * kh)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        float p[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t xh0, xl0, xh1, xl1;
+          split_tf32(kk ? x.z : x.x, xh0, xl0);
+          split_tf32(kk ? x.w : x.y, xh1, xl1);
+          ldp::mma_tf32_zero(p[kk], wl[kk], xh0, xh1);
+          ldp::mma_tf32(p[kk], wh[kk], xl0, xl1);
+          ldp::mma_tf32(p[kk], wh[kk], xh0, xh1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += p[0][e] + p[1][e];
+      }
+    }
+    // warp kh keeps columns c0 + 8 kh and sends its partner the other two
+    float* mine = red + (((ng & 1) * kWarps + warp) * 32 + lane) * 8;
+    const float* theirs =
+        red + (((ng & 1) * kWarps + (warp ^ 8)) * 32 + lane) * 8;
+    mine[0] = kh ? acc[0] : acc[2];
+    mine[1] = kh ? acc[1] : acc[3];
+    pair_sync(1 + cb);
+    const float v0 = (kh ? acc[2] : acc[0]) + theirs[0];
+    const float v1 = (kh ? acc[3] : acc[1]) + theirs[1];
+    store_elem(g, 2 * tq, c0 + 8 * kh, v0);
+    store_elem(g, 2 * tq + 1, c0 + 8 * kh, v1);
+  }
+}
+
+template <int kMtMax, typename TilesT>
+__device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
+  static_assert(kMtMax <= 2, "the k-split GEMM holds two row tiles");
+  if (g.rows <= 8) {
+    gemm_ksplit_t(g, tiles, red);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cb = warp & 7, kh = warp >> 3;
+  const int MT = (g.rows + 15) >> 4;
+  const int n_groups = (g.N + kGroupN - 1) / kGroupN;
+  const int kt_per_tap = g.cin_pad >> 5;
+  const int pad = g.taps >> 1;
+  for (int ng = 0; ng < n_groups; ++ng) {
+    const int col = ng * kGroupN + cb * 16 + 2 * tq;   // n8 block 2 cb; +8
+    float acc0[kMtMax][4], acc1[kMtMax][4];
+    const bool biased = kh == 0 && g.bias != nullptr;
+    const float b00 = biased ? g.bias[col] : 0.f;
+    const float b01 = biased ? g.bias[col + 1] : 0.f;
+    const float b10 = biased ? g.bias[col + 8] : 0.f;
+    const float b11 = biased ? g.bias[col + 9] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMtMax; ++mt) {
+      acc0[mt][0] = b00; acc0[mt][1] = b01; acc0[mt][2] = b00;
+      acc0[mt][3] = b01;
+      acc1[mt][0] = b10; acc1[mt][1] = b11; acc1[mt][2] = b10;
+      acc1[mt][3] = b11;
+    }
+    for (int tap = 0; tap < g.taps; ++tap) {
+      int off[kMtMax][2];
+      uint32_t live = 0;
+#pragma unroll
+      for (int mt = 0; mt < kMtMax; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          off[mt][h] = 0;
+          if (mt < MT) {
+            const int sr = src_row(g.mode, mt * 16 + gq + 8 * h, g.rows,
+                                   g.Tin, g.Tout, tap, pad);
+            if (sr >= 0) {
+              off[mt][h] = sr * g.lda + 4 * tq;
+              live |= 1u << (2 * mt + h);
+            }
+          }
+        }
+      for (int kt = 0; kt < kt_per_tap; ++kt) {
+        const float* tile = tiles.tile() + kh * 128 + lane * 4;
+        const float4 q0 = *reinterpret_cast<const float4*>(tile + 512 * cb);
+        const float4 q1 =
+            *reinterpret_cast<const float4*>(tile + 512 * cb + 256);
+        const float bv[2][2][2] = {{{q0.x, q0.y}, {q0.z, q0.w}},
+                                   {{q1.x, q1.y}, {q1.z, q1.w}}};
+        uint32_t bh[2][2][2], bl[2][2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            split_tf32(bv[j][kk][0], bh[j][kk][0], bl[j][kk][0]);
+            split_tf32(bv[j][kk][1], bh[j][kk][1], bl[j][kk][1]);
+          }
+        tiles.release();
+        const int k0 = kt * 32 + 16 * kh;
+#pragma unroll
+        for (int mt = 0; mt < kMtMax; ++mt) {
+          if (mt < MT) {
+            const bool l0 = (live >> (2 * mt)) & 1;
+            const bool l1 = (live >> (2 * mt + 1)) & 1;
+            const float* r0 = g.A + off[mt][0] + k0;
+            const float* r1 = g.A + off[mt][1] + k0;
+            if (mt * 16 + 8 < g.rows)
+              ksplit_products<true>(acc0[mt], acc1[mt], r0, r1, l0, l1, bh,
+                                    bl);
+            else
+              ksplit_products<false>(acc0[mt], acc1[mt], r0, r1, l0, l1, bh,
+                                     bl);
+          }
+        }
+      }
+    }
+    // warp kh keeps n8 block 2 cb + kh and sends its partner the other
+    float* mine = red + (((ng & 1) * kWarps + warp) * 32 + lane) * 8;
+    const float* theirs =
+        red + (((ng & 1) * kWarps + (warp ^ 8)) * 32 + lane) * 8;
+#pragma unroll
+    for (int mt = 0; mt < kMtMax; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[mt * 4 + e] = kh ? acc0[mt][e] : acc1[mt][e];
+    pair_sync(1 + cb);
+#pragma unroll
+    for (int mt = 0; mt < kMtMax; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float t = theirs[mt * 4 + e];
+        if (kh)
+          acc1[mt][e] += t;
+        else
+          acc0[mt][e] += t;
+      }
+    if (kh)
+      gemm_store<float, kMtMax>(g, MT, col + 8, gq, acc1);
+    else
+      gemm_store<float, kMtMax>(g, MT, col, gq, acc0);
   }
 }
 
@@ -529,10 +890,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
   tiles.ring.drain();
 }
 
-// kWide: the fp32 buffers and the skips (fp32 weights: also the operand
-// buffers) in this block's slice of the global scratch (a template
-// parameter, so the ordinary instances keep their registers; one instance,
-// for up to 32 rows a block, keeps the build short)
+// kWide: the fp32 buffers and the skips (fp32 weights with d.wide 2: also
+// the operand buffers) in this block's slice of the global scratch (a
+// template parameter, so the ordinary instances keep their registers; one
+// instance, for up to 32 rows a block, keeps the build short)
 template <typename W, int kMt, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     const float* __restrict__ x_init, const float* __restrict__ coefs,
@@ -551,7 +912,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
 
   // shared: [ring | X32 Y32 | xcur | stats | Xb Yb | skips | zero]; in wide
   // mode X32, Y32 and the skips sit in this block's slice of the scratch,
-  // and with fp32 weights Xb and Yb too
+  // and with fp32 weights Xb and Yb too where d.wide is 2
   float* X32;
   float* Y32;
   float* xcur;
@@ -565,11 +926,11 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     Y32 = X32 + d.max32;
     xcur = reinterpret_cast<float*>(sm + ring_bytes);
     const int n_floats = (nb * T * D + 2 * nb * G + 3) & ~3;
-    if constexpr (kF32) {
-      Xb = Y32 + d.max32;
+    if (kF32 && d.wide == 2) {   // fp32: the operand buffers too
+      Xb = reinterpret_cast<W*>(Y32 + d.max32);
       Yb = Xb + d.maxb;
       skipb = Yb + d.maxb;
-      zero = xcur + n_floats;
+      zero = reinterpret_cast<W*>(xcur + n_floats);
     } else {
       skipb = reinterpret_cast<W*>(Y32 + d.max32);
       Xb = reinterpret_cast<W*>(xcur + n_floats);
@@ -591,7 +952,20 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
   const uint32_t zero_addr = ldp::smem_u32(zero);
   const W* V = Wp + d.vec_base;
 
-  Tiles<W> tiles;
+  std::conditional_t<kF32, SliceTiles<kWide>, Tiles<W>> tiles;
+  // fp32 in wide mode: the k-split GEMM, its partial sums at the end of
+  // this block's slice of the scratch
+  float* red = nullptr;
+  if constexpr (kF32 && kWide)
+    red = reinterpret_cast<float*>(
+        scratch + static_cast<size_t>(blockIdx.x + 1) * d.scratch_bytes) -
+        kRedFloats;
+  auto run_gemm = [&](const Gemm<W>& g) {
+    if constexpr (kF32 && kWide)
+      gemm_ksplit<kMt>(g, tiles, red);
+    else
+      gemm<kMt>(g, tiles, zero_addr);
+  };
   tiles.start(Wp, sm, d.stages_main, d.main_stages, d.main_stages * d.n_steps);
 
   for (int i = tid; i < nb * T * D; i += NT) {
@@ -624,7 +998,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = rows; g.N = ch;
         g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
-        gemm<kMt>(g, tiles, zero_addr);
+        run_gemm(g);
         __syncthreads();
         Film film{film_t + static_cast<size_t>(step) * d.film_ld + rec[6],
                   film_g + rec[6], d.film_ld, b0, d.B};
@@ -632,7 +1006,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
                            v1 + np + ch, stats, &film, nullptr, 0, nullptr,
                            Yb, ldb<W>(ch));
         g.A = Yb; g.lda = ldb<W>(ch); g.cin_pad = pad32(ch); g.bias = v2;
-        gemm<kMt>(g, tiles, zero_addr);
+        run_gemm(g);
         __syncthreads();
         if (rec[7] >= 0) {
           group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v2 + np,
@@ -644,7 +1018,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
           p.bias = V + rec[10]; p.out32 = Y32; p.ld32 = ld32(ch);
           p.accum = true; p.outb = Yb; p.ldob = ldb<W>(ch);
           p.nb_cols = pad32(ch);
-          gemm<kMt>(p, tiles, zero_addr);
+          run_gemm(p);
           __syncthreads();
         } else {
           group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v2 + np,
@@ -679,7 +1053,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.Tin = Tin; g.Tout = Tout; g.rows = nb * Tout; g.N = ch;
         g.bias = V + rec[4]; g.out32 = Y32; g.ld32 = ld32(ch);
         g.outb = Yb; g.ldob = ldb<W>(ch); g.nb_cols = pad32(ch);
-        gemm<kMt>(g, tiles, zero_addr);
+        run_gemm(g);
         __syncthreads();
         float* t32 = X32; X32 = Y32; Y32 = t32;
         W* tb = Xb; Xb = Yb; Yb = tb;
@@ -691,7 +1065,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = ch;
         g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
-        gemm<kMt>(g, tiles, zero_addr);
+        run_gemm(g);
         __syncthreads();
         group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v1 + np,
                            v1 + np + ch, stats, nullptr, nullptr, 0, nullptr,
@@ -703,7 +1077,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = 1;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = Dout;
         g.bias = V + rec[5]; g.out32 = Y32; g.ld32 = ld32(Dout);
-        gemm<kMt>(g, tiles, zero_addr);
+        run_gemm(g);
         __syncthreads();
       }
     }
@@ -731,7 +1105,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     }
     __syncthreads();
   }
-  tiles.ring.drain();
+  if constexpr (kF32)
+    tiles.finish();
+  else
+    tiles.ring.drain();
 
   for (int i = tid; i < n_valid * T * D; i += NT)
     out[static_cast<size_t>(b0) * T * D + i] = xcur[i];
@@ -768,7 +1145,8 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
   if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
       d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
       d.stages_pro > 8 || d.cond_rows != kCondRows || d.cond_chunk < 32 ||
-      d.cond_chunk % 32 ||
+      d.cond_chunk % 32 || d.wide < 0 ||
+      d.wide > (std::is_same<W, float>::value ? 2 : 1) ||
       (d.wide && (scratch == nullptr || d.scratch_bytes % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto sc = static_cast<char*>(scratch);

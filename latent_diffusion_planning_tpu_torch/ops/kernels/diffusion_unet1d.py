@@ -48,7 +48,11 @@ default, ``diffusion_unet1d.cu``) and fp32 (``dtype=torch.float32``, the JAX
 kernel's ``dtype=float32`` that ``fused_dtype: float32`` selects;
 ``diffusion_unet1d_f32.cu``): fp32 tiles of 16 KB, one a ring stage, fp32
 operand buffers, products as 3×TF32 on the tensor cores. The layout, the
-program and the tile choice take the dtype; the records are the same.
+program and the tile choice take the dtype; the records are the same. The
+fp32 main kernel streams each thread's own bytes of every tile (no barrier
+a stage), and its plan (``choose_tile``) picks samples a block and mode by
+waves of blocks on the card times a block's work, then by the bytes it
+streams: two samples a block at the default widths, in the wide mode.
 
 The condition half of FiLM's projection is streamed in chunks of
 ``COND_CHUNK`` condition channels (GEMMs ``film_g.0``, ``film_g.1``, …), so
@@ -91,6 +95,10 @@ PROLOGUE_STAGES = 3
 COND_ROWS = 64                  # samples per prologue block (cond half)
 COND_CHUNK = 256                # condition channels it holds at a time
 REC = 12                        # ints per program record
+# the fp32 wide GEMM's partial sums (two buffers of 16 warps x 32 lanes x
+# 2 row tiles x 4), at the end of a block's slice of the scratch
+F32_RED_BYTES = 4 * 2 * 16 * 32 * 2 * 4
+H100_SMS = 132                  # one block an SM: the blocks of a wave
 
 FILM, SAVE, CONCAT, DOWN, UP, FINAL_BLOCK, FINAL_CONV = range(7)
 
@@ -123,8 +131,9 @@ def stage_bytes(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
 def ldb(C: int, dtype: torch.dtype = WEIGHT_DTYPE) -> int:
     """Row stride (elements) of a C-channel operand buffer: channels padded
     to the tile depth, plus 8 bf16 so ``ldmatrix`` rows miss each other's
-    banks, or plus 4 floats so fp32 fragment rows do."""
-    return _up(C, TILE_K) + (8 if esize(dtype) == 2 else 4)
+    banks, or plus 16 floats so the fp32 GEMM's 16-byte loads of two rows
+    (a quarter warp's) do."""
+    return _up(C, TILE_K) + (8 if esize(dtype) == 2 else 16)
 
 
 def ld32(C: int) -> int:
@@ -258,27 +267,31 @@ def untile_matrix(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
 
 def tile_matrix_f32(w: torch.Tensor) -> torch.Tensor:
     """The fp32 kernel's tiles of a (K, N) matrix: the same tiles (32 K-rows
-    × 128 columns, N-group major, then along K), each in ``m16n8k8`` TF32
-    B-fragment order: element (k, n) sits at ``[n // 8][k // 16][(n % 8) *
-    4 + k % 4][k % 16 // 8][k % 8 // 4]`` of a (16 warps, 2, 32 lanes, 2, 2)
-    block, so lane ``l`` of warp ``w`` reads the fragments of its four 8-row
-    steps as two 16-byte words, each read of the warp 512 contiguous
-    bytes."""
+    × 128 columns, N-group major, then along K), each in the fp32 GEMM's
+    ``m16n8k8`` TF32 fragment order: element (k, n) sits at ``[n // 8][k //
+    16][(n % 8) * 4 + k % 16 // 4][k % 4]`` of a (16 warps, 2, 32 lanes, 4)
+    block. Lane ``l = 4 g + tq`` of warp ``w`` reads rows ``16 h + 4 tq``
+    to ``+ 3`` of column ``8 w + g`` as one 16-byte word a K-half ``h``,
+    each read of the warp 512 contiguous bytes: the B fragments of two
+    8-row steps whose K slots ``tq`` and ``tq + 4`` are rows ``4 tq + 2 s``
+    and ``+ 1`` (the mma sums over slots, so any assignment that A shares
+    is the product), which lets the activations' slots, the same four
+    consecutive channels, load as one 16-byte word too."""
     K, N = w.shape
     Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
     full = w.new_zeros((Kp, Np))
     full[:K, :N] = w
-    # k = kt*32 + kh*16 + k8*8 + b*4 + tq ; n = ng*128 + warp*8 + g
-    v = full.reshape(Kp // 32, 2, 2, 2, 4, Np // TILE_N, WARPS, 8)
-    #      dims:     kt     kh k8 b  tq  ng            warp  g
-    return v.permute(5, 0, 6, 1, 7, 4, 2, 3).reshape(-1)
+    # k = kt*32 + kh*16 + tq*4 + e ; n = ng*128 + warp*8 + g
+    v = full.reshape(Kp // 32, 2, 4, 4, Np // TILE_N, WARPS, 8)
+    #      dims:     kt     kh tq e  ng            warp  g
+    return v.permute(4, 0, 5, 1, 6, 2, 3).reshape(-1)
 
 
 def untile_matrix_f32(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
     """Inverse of ``tile_matrix_f32``."""
     Kp, Np = _up(K, TILE_K), _up(N, TILE_N)
-    v = flat.reshape(Np // TILE_N, Kp // 32, WARPS, 2, 8, 4, 2, 2)
-    return v.permute(1, 3, 6, 7, 5, 0, 2, 4).reshape(Kp, Np)
+    v = flat.reshape(Np // TILE_N, Kp // 32, WARPS, 2, 8, 4, 4)
+    return v.permute(1, 3, 5, 6, 0, 2, 4).reshape(Kp, Np)
 
 
 def _pad_taps(w: torch.Tensor) -> torch.Tensor:
@@ -390,8 +403,10 @@ def _build_program(signature: tuple, T: int, nb: int,
     buffers X32/Y32, the current sample, the GroupNorm statistics, the
     operand buffers Xb/Yb (of the weight type) and the skips; in wide mode
     X32, Y32 and the skips in ``scratch_bytes`` of global memory a block
-    instead, and with fp32 weights Xb and Yb too. The records do not depend
-    on the mode; their skip offsets (in operand elements) on the dtype.
+    instead, and with fp32 weights Xb and Yb too where they do not fit
+    shared memory beside the ring (``operands_global``). The records do not
+    depend on the mode; their skip offsets (in operand elements) on the
+    dtype.
 
     Records (12 ints, unused fields 0):
       FILM         cin ch Tl tile(conv1) tile(conv2) film_off tile(proj)|-1
@@ -459,25 +474,37 @@ def _build_program(signature: tuple, T: int, nb: int,
 
     small = nb * T * D + 2 * nb * n_groups     # the sample, the statistics
     es = esize(dtype)
+    # X32 and Y32 (nb samples each); fp32 rounds them to whole 16 bytes, so
+    # operand buffers placed after them take 16-byte loads
+    m32 = nb * max32 if es == 2 else _up(nb * max32, 4)
+    sb = stage_bytes(dtype)
+    operands_global = False
     if wide and es == 4:
-        # fp32: the operand buffers in the scratch too (plain loads)
-        floats, elems = _up(small, 4), 16
-        scratch = _up(4 * 2 * nb * max32 + 4 * (2 * nb * maxb + skip_total),
-                      256)
+        # fp32: the operand buffers in shared memory where they fit beside
+        # a ring of MIN_STAGES, else in the scratch too (plain loads)
+        floats, elems = _up(small, 4), 2 * nb * maxb + 16
+        scratch = _up(4 * 2 * m32 + 4 * skip_total + F32_RED_BYTES, 256)
+        if 4 * floats + 4 * elems + MIN_STAGES * sb > SMEM_LIMIT:
+            operands_global = True
+            elems = 16
+            scratch = _up(4 * 2 * m32 + 4 * (2 * nb * maxb + skip_total)
+                          + F32_RED_BYTES, 256)
     elif wide:
         floats, elems = _up(small, 4), 2 * nb * maxb + 16
-        scratch = _up(4 * 2 * nb * max32 + 2 * skip_total, 256)
+        scratch = _up(4 * 2 * m32 + 2 * skip_total, 256)
     else:
-        floats = _up(2 * nb * max32 + small, 4)
+        floats = _up(2 * m32 + small, 4)
         elems = 2 * nb * maxb + skip_total + 16
         scratch = 0
     rest = 4 * floats + es * elems
-    sb = stage_bytes(dtype)
     stages = min(MAX_STAGES, max(MIN_STAGES, (SMEM_LIMIT - rest) // sb))
-    return dict(records=recs, max32=nb * max32, maxb=nb * maxb,
-                skip_total=skip_total, stages=stages,
-                smem_bytes=stages * sb + rest, wide=wide,
-                scratch_bytes=scratch, dtype=dtype)
+    out = dict(records=recs, max32=m32, maxb=nb * maxb,
+               skip_total=skip_total, stages=stages,
+               smem_bytes=stages * sb + rest, wide=wide,
+               scratch_bytes=scratch, dtype=dtype)
+    if es == 4:
+        out["operands_global"] = operands_global
+    return out
 
 
 def prologue_smem_bytes(net: ConditionalUnet1D,
@@ -492,33 +519,96 @@ def prologue_smem_bytes(net: ConditionalUnet1D,
             + esize(dtype) * (2 * elems + 16))
 
 
-def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None,
-                dtype: torch.dtype = WEIGHT_DTYPE) -> tuple[int, dict]:
-    """Samples per block and the program for them: the most that fit the
-    shared memory and the GEMM's row limit, but no more than leaves
-    ``MIN_BLOCKS`` blocks for a batch of ``B`` (the weight stream a block
-    reads is the same whatever it holds, so larger tiles divide the L2
-    traffic; too few blocks leave the card empty). Wide mode only where no
-    tile fits whole, so a net that fits keeps its tiles."""
+def _fits(net: ConditionalUnet1D, T: int, dtype: torch.dtype,
+          every_mode: bool) -> list:
+    """(nb, program) of every tile that fits a block, most samples first:
+    the ordinary mode, then (where none fits, or ``every_mode``) the wide."""
     fits = []
     for wide in (False, True):
+        if fits and not every_mode:
+            break
         for nb in NB_CHOICES:
             if nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS):
                 continue
             prog = build_program(net, T, nb, wide, dtype)
             if prog["smem_bytes"] <= SMEM_LIMIT:
                 fits.append((nb, prog))
-        if fits:
-            break
     if not fits:
         where = ("buffers and skips" if esize(dtype) == 2
                  else "and operand buffers and skips")
         raise ValueError("net too wide for the kernel's shared memory at "
                          f"length {T}, even with its fp32 {where} in global "
                          f"memory (up to {WIDE_MAX_ROWS} rows a block)")
+    return fits
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_rows(signature: tuple, T: int) -> tuple:
+    """(tiles, output length) of every GEMM of the main stream, in order."""
+    gm = _layout(signature, torch.float32)["gemm"]
+    out, Tl = [], T
+    for op in _walk(len(signature[3]), signature[6]):
+        if op[0] == "film":
+            names = [f"conv1.{op[1]}", f"conv2.{op[1]}", f"proj.{op[1]}"]
+        elif op[0] in ("down", "up"):
+            Tl = Tl // 2 if op[0] == "down" else 2 * Tl
+            names = [f"{op[0]}.{op[1]}"]
+        elif op[0] in ("final_block", "final_conv"):
+            names = [op[0]]
+        else:
+            names = []
+        out += [(gm[n]["n_tiles"], Tl) for n in names if n in gm]
+    return tuple(out)
+
+
+TILE_FIXED = 0.4    # a tile's own work (wait, B split) in row tiles' work
+
+
+def block_cost(net: ConditionalUnet1D, T: int, nb: int,
+               wide: bool = False) -> float:
+    """The fp32 main kernel's work a block and step, in units of one m16
+    row tile's work on one weight tile: every tile of the stream costs
+    ``TILE_FIXED`` plus the row tiles its GEMM has at ``nb`` samples (the
+    deep levels' rows are few, so a second sample there is nearly free);
+    the wide instance runs a GEMM of at most 8 rows transposed, on half a
+    row tile's products."""
+    def row_tiles(rows):
+        return 0.5 if wide and rows <= 8 else -(-rows // 16)
+    return sum(n * (TILE_FIXED + row_tiles(nb * tl))
+               for n, tl in _stream_rows(_signature(net), T))
+
+
+def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None,
+                dtype: torch.dtype = WEIGHT_DTYPE,
+                sms: int = H100_SMS) -> tuple[int, dict]:
+    """Samples per block and the program for them.
+
+    bf16: the most that fit the shared memory and the GEMM's row limit, but
+    no more than leaves ``MIN_BLOCKS`` blocks for a batch of ``B`` (the
+    weight stream a block reads is the same whatever it holds, so larger
+    tiles divide the L2 traffic; too few blocks leave the card empty). Wide
+    mode only where no tile fits whole, so a net that fits keeps its tiles.
+
+    fp32: every tile in both modes is a candidate (the wide mode keeps the
+    fp32 buffers and skips in global memory, so it holds more samples). For
+    a batch of ``B`` the tile and mode that take the least work: waves of
+    blocks on ``sms`` SMs (one block an SM) times a block's work
+    (``block_cost``); then the fewest blocks (bytes streamed), the fewest
+    padding samples, the ordinary mode. Without ``B``: the largest tile,
+    the ordinary mode where one fits."""
+    f32 = esize(dtype) == 4
+    fits = _fits(net, T, dtype, every_mode=f32 and B is not None)
     if B is None:
         return fits[0]
-    return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))
+    if not f32:
+        return next(f for f in fits if -(-B // f[0]) >= min(MIN_BLOCKS, B))
+
+    def key(fit):
+        nb, prog = fit
+        blocks = -(-B // nb)
+        return (-(-blocks // sms) * block_cost(net, T, nb, prog["wide"]),
+                blocks, blocks * nb - B, prog["wide"])
+    return min(fits, key=key)
 
 
 @functools.lru_cache(maxsize=64)
@@ -579,16 +669,19 @@ def unet1d_ddim_sample_plain(net: ConditionalUnet1D, global_cond: torch.Tensor,
 
 def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
                 nb: int | None = None,
-                dtype: torch.dtype = WEIGHT_DTYPE) -> dict:
+                dtype: torch.dtype = WEIGHT_DTYPE, *,
+                wide: bool | None = None, sms: int = H100_SMS) -> dict:
     """What a launch at this shape looks like (``n_steps`` 100 for DDPM-100):
     tile, mode, grid, shared memory, the global scratch of wide mode and
-    the bytes of weights its blocks stream in all."""
+    the bytes of weights its blocks stream in all; fp32 also the waves of
+    blocks on ``sms`` SMs. ``nb`` and ``wide`` override the plan as the
+    wrapper takes them."""
     if nb is None:
-        nb, prog = choose_tile(net, T, B, dtype)
+        nb, prog = choose_tile(net, T, B, dtype, sms)
     else:
-        prog = build_program(net, T, nb,
-                             choose_tile(net, T, dtype=dtype)[1]["wide"],
-                             dtype)
+        if wide is None:
+            wide = choose_tile(net, T, dtype=dtype)[1]["wide"]
+        prog = build_program(net, T, nb, wide, dtype)
     lay = layout(net, dtype)
     grid = -(-B // nb)
     stage = stage_bytes(dtype)
@@ -596,6 +689,7 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
     rows = COND_ROWS
     pro = (n_steps * lay["stream"]["time"]["stages"]
            + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
+    extra = {"waves": -(-grid // sms)} if esize(dtype) == 4 else {}
     return dict(dtype=str(dtype).removeprefix("torch."),
                 samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
                 wide=prog["wide"], scratch_bytes=grid * prog["scratch_bytes"],
@@ -604,7 +698,26 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
                 prologue_grid=n_steps + -(-B // rows),
                 prologue_smem_bytes=prologue_smem_bytes(net, dtype),
                 weight_bytes_per_step_and_block=main,
-                weight_bytes_streamed=grid * n_steps * main + pro)
+                weight_bytes_streamed=grid * n_steps * main + pro, **extra)
+
+
+def _dims(net: ConditionalUnet1D, B: int, T: int, S: int, nb: int,
+          prog: dict, dtype: torch.dtype) -> list[int]:
+    """The kernel's ``Dims`` (``csrc/unet1d.cuh``) for a launch."""
+    lay = layout(net, dtype)
+    st = lay["stream"]
+    return [B, T, net.input_dim, net.global_cond_dim, net.dsed,
+            net.kernel_size, net.n_groups, nb, prog["max32"], prog["maxb"],
+            prog["skip_total"], len(prog["records"]), S, lay["film_total"],
+            lay["film_ld"], st["main"]["stages"], st["time"]["tile_base"],
+            st["time"]["stages"], st["cond"]["tile_base"],
+            st["cond"]["stages"], lay["vec_base"],
+            lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
+            lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
+            prologue_smem_bytes(net, dtype), prog["stages"], PROLOGUE_STAGES,
+            TILE_N, COND_ROWS,
+            int(prog["wide"]) + int(prog.get("operands_global", False)),
+            prog["scratch_bytes"], COND_CHUNK]
 
 
 def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
@@ -623,10 +736,11 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     ``ddim_coef_table`` with ``noise`` None, or ``ddpm_coef_table`` with
     ``noise`` (S, B, T, D), one draw per step (its s_var column scales it).
     CPU tensors run the plain twin (with the net's own weights); CUDA
-    tensors launch the kernel with weights of ``dtype`` (bf16 or fp32).
-    ``packed`` is ``pack_params(net, dtype)`` on the device; ``nb``
-    overrides the samples per block and, with it, ``wide`` the mode (for
-    measurements).
+    tensors launch the kernel with weights of ``dtype`` (bf16 or fp32; fp32
+    plans its waves on the card's SMs). ``packed`` is ``pack_params(net,
+    dtype)`` on the device; ``nb`` overrides the samples per block and,
+    with it, ``wide`` the mode (for measurements). A launch the card refuses
+    raises.
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
@@ -638,8 +752,10 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     _check_dtype(dtype)
     if D != net.input_dim or global_cond.shape != (B, net.global_cond_dim):
         raise ValueError("sample or condition width does not match the net")
+    dev = x_init.device
     if nb is None:
-        nb, prog = choose_tile(net, T, B, dtype)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nb, prog = choose_tile(net, T, B, dtype, sms)
     else:
         if wide is None:
             wide = choose_tile(net, T, dtype=dtype)[1]["wide"]
@@ -648,11 +764,12 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                 or prog["smem_bytes"] > SMEM_LIMIT):
             raise ValueError(f"a tile of {nb} samples does not fit a block")
     lay = layout(net, dtype)
-    dev = x_init.device
     if packed is None:
         packed = pack_params(net, dtype).to(dev)
     if packed.dtype != dtype or packed.numel() != lay["numel"]:
         raise ValueError(f"packed weights are not pack_params(net, {dtype})")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed weights must be 16-byte aligned")
     S = int(timesteps.shape[0])
     if tuple(coefs.shape) != (S, 6):
         raise ValueError(f"coefs must be the (S, 6) table of "
@@ -680,19 +797,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     # wide mode: each block's fp32 buffers and skips
     scratch = (torch.empty(grid * prog["scratch_bytes"], device=dev,
                            dtype=torch.uint8) if prog["wide"] else None)
-    st = lay["stream"]
-    dims = torch.tensor(
-        [B, T, D, net.global_cond_dim, net.dsed, net.kernel_size,
-         net.n_groups, nb, prog["max32"], prog["maxb"], prog["skip_total"],
-         len(prog["records"]), S, lay["film_total"], lay["film_ld"],
-         st["main"]["stages"], st["time"]["tile_base"], st["time"]["stages"],
-         st["cond"]["tile_base"], st["cond"]["stages"], lay["vec_base"],
-         lay["gemm"]["time0"]["vec_off"], lay["gemm"]["time1"]["vec_off"],
-         lay["gemm"]["film_t"]["vec_off"], prog["smem_bytes"],
-         prologue_smem_bytes(net, dtype), prog["stages"],
-         PROLOGUE_STAGES, TILE_N, rows, int(prog["wide"]),
-         prog["scratch_bytes"], COND_CHUNK],
-        dtype=torch.int32)
+    dims = torch.tensor(_dims(net, B, T, S, nb, prog, dtype),
+                        dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
     entry = ("ldp_unet1d_sampler" if dtype == torch.bfloat16
              else "ldp_unet1d_sampler_f32")

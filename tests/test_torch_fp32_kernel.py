@@ -124,7 +124,10 @@ def test_fp32_tiles_hold_the_fragments_the_kernel_reads():
     streams are not padded (a ring stage is one tile), and a lane's two
     16-byte reads of a tile (``gemm`` in ``csrc/unet1d.cuh``: floats
     ``warp·256 + lane·4`` and 128 past them) are the ``m16n8k8`` B
-    fragments of its column: (k8, b) = B[8 k8 + 4 b + tq][8 warp + g]."""
+    fragments of its column for the K slots the kernel assigns: word h
+    holds rows 16 h + 4 tq .. + 3 of column 8 warp + g, so (k8, b) = B[16
+    (k8 // 2) + 4 tq + 2 (k8 % 2) + b][8 warp + g] — the same four
+    consecutive channels the kernel loads from an activation row."""
     torch.manual_seed(2)
     net = ConditionalUnet1D(25, 300, 64, (24, 40), 5, 8)
     lay = kunet.layout(net, F32)
@@ -154,7 +157,8 @@ def test_fp32_tiles_hold_the_fragments_the_kernel_reads():
                                tile[warp * 256 + 128 + lane * 4:][:4]])
             for k8 in range(4):
                 for b in range(2):
-                    k, n = 8 * k8 + 4 * b + tq, 8 * warp + g
+                    k = 16 * (k8 // 2) + 4 * tq + 2 * (k8 % 2) + b
+                    n = 8 * warp + g
                     want = w[k, n] if n < w.shape[1] else 0.0
                     assert float(words[2 * k8 + b]) == float(want)
 
@@ -173,24 +177,32 @@ DEFAULT_CALLS = {   # (D, Dc, down_dims, k, downsample, T, B)
 @pytest.mark.parametrize("call", sorted(DEFAULT_CALLS))
 def test_fp32_programs_fit_every_default_call(call):
     """Every call of the four default agents (and the bench planner) has an
-    fp32 program that fits a block: the ordinary one where a tile fits,
-    else the wide mode with the operand buffers in the global scratch
-    beside the fp32 buffers and the skips (LDP-hier's window). The records
-    are bf16's but for the skips' offsets, which count fp32 operands."""
+    fp32 program that fits a block: the ordinary one, or the wide mode,
+    where no tile fits whole (LDP-hier's window) or where it lets more
+    samples share a block, with the fp32 buffers and the skips in the
+    global scratch and the operand buffers in shared memory where they fit
+    beside the ring, else in the scratch too (the window). The records are
+    bf16's but for the skips' offsets, which count fp32 operands."""
     D, Dc, dd, k, down, T, B = DEFAULT_CALLS[call]
     net = _meta_unet(D, Dc, dd, k, down)
     nb, prog = kunet.choose_tile(net, T, B, F32)
     assert prog["smem_bytes"] <= kunet.SMEM_LIMIT
-    assert prog["wide"] == (call == "ldp_hier window")
+    whole = kunet.build_program(net, T, 1, False, F32)
+    if whole["smem_bytes"] > kunet.SMEM_LIMIT:
+        assert prog["wide"]
     bf16 = kunet.build_program(net, T, nb, prog["wide"])
     for r32, r16 in zip(prog["records"], bf16["records"]):
         if r32[0] in (kunet.SAVE, kunet.CONCAT):
             r32, r16 = r32[2:], r16[2:]
         assert r32 == r16
     if prog["wide"]:
+        operands = 2 * prog["maxb"] if prog["operands_global"] else 0
         assert prog["scratch_bytes"] == kunet._up(
-            8 * prog["max32"] + 4 * (2 * prog["maxb"] + prog["skip_total"]),
-            256)
+            8 * prog["max32"] + 4 * (operands + prog["skip_total"])
+            + kunet.F32_RED_BYTES, 256)
+    assert prog["operands_global"] == (call in ("ldp_hier window",
+                                                "ldp_hier chunk IDM"))
+    if call == "ldp_hier window":
         assert prog["maxb"] == nb * T * kunet.ldb(2048, F32)
     assert kunet.prologue_smem_bytes(net, F32) <= kunet.SMEM_LIMIT
     info = kunet.kernel_info(net, B, T, 100, dtype=F32)
