@@ -139,7 +139,8 @@
    states a few expert steps apart, at C's bar; each scripted expert over
    1024 envs × 300 steps from the CUDA graph (every state finite; success
    not told apart from the JAX expert's over the episodes of
-   ``tests/fixtures/pick_place_golden.npz`` by Fisher's exact test at the
+   ``tests/fixtures/pick_place_golden.npz`` (and, for Square, of
+   ``square_expert_golden.npz``) by Fisher's exact test at the
    3-sigma level, since the reference's experts reach well under 0.9); the
    Can recipe's lines
    read off ``tools/run_can_pipeline_torch.sh`` (demos 256 + 32 × 300
@@ -2732,10 +2733,15 @@ def _expert_run(env, n: int, steps: int, device: str, seed: int = 9) -> dict:
     return out
 
 
+# the JAX expert's episodes past the first 8 of pick_place_golden.npz
+MORE_EXPERT_EPISODES = {"SquarePhysicsEnv": "square_expert_golden.npz"}
+
+
 def _expert_against_jax(name: str, wins: int, n: int,
                         fixture: str = "pick_place_golden.npz") -> dict:
     """The expert's ``wins`` of ``n`` envs beside the JAX expert's over the
-    episodes of ``tests/fixtures/<fixture>`` (its ``run_scripted_collection``
+    episodes of ``tests/fixtures/<fixture>`` and, for Square, of
+    ``MORE_EXPERT_EPISODES`` (its ``run_scripted_collection``
     from ``PRNGKey(1)``: 300 steps for Can and Square, 120 and 160 for the
     ALOHA tasks). After the squeeze an object's path hangs on float
     rounding, so episodes are not compared one by one: Fisher's exact test
@@ -2746,6 +2752,11 @@ def _expert_against_jax(name: str, wins: int, n: int,
     from scipy.stats import fisher_exact
     f = np.load(REPO / "tests" / "fixtures" / fixture)
     jax_wins = f[f"{name}_expert_success"].any(1)
+    if name in MORE_EXPERT_EPISODES:
+        more = np.load(REPO / "tests" / "fixtures"
+                       / MORE_EXPERT_EPISODES[name])
+        jax_wins = np.concatenate([jax_wins,
+                                   more[f"{name}_expert_success"].any(1)])
     m = len(jax_wins)
     k = int(jax_wins.sum())
     p = float(fisher_exact([[wins, n - wins], [k, m - k]])[1])

@@ -2,8 +2,9 @@
 the JAX package.
 
 An XLA-CPU compile of these envs' steps takes minutes and a physics step
-seconds, so the port is held against ``tests/fixtures/pick_place_golden.npz``,
-which ``tools/record_pick_place_fixture.py`` writes from the JAX package:
+seconds, so the port is held against ``tests/fixtures/pick_place_golden.npz``
+and ``tests/fixtures/square_expert_golden.npz``, which
+``tools/record_pick_place_fixture.py`` writes from the JAX package:
 
 - resets from handed-in draws: the JAX resets' spawns handed to the port,
   bodies, joints and observations (the 14-dim ``object`` among them)
@@ -42,6 +43,8 @@ from latent_diffusion_planning_tpu_torch.rollout import engine
 from torch_thread import one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).parent / "fixtures" / "pick_place_golden.npz"
+SQUARE_FIXTURE = (Path(__file__).parent / "fixtures"
+                  / "square_expert_golden.npz")
 PHYS = ("CanPhysicsEnv", "SquarePhysicsEnv")
 KIN = ("CanEnv", "SquareEnv")
 OBJ_ATOL, EEF_ATOL, REWARD_ATOL, STATE_ATOL = 1e-3, 1e-4, 1e-3, 1e-5
@@ -238,26 +241,42 @@ def test_kinematic_render_matches_jax(golden, name):
 
 # -- the scripted experts ------------------------------------------------
 
+def _expert_episodes(golden, name) -> dict:
+    """The JAX expert's recorded episodes: spawns (``obj_xy``, ``obj_yaw``)
+    and success per step. Square's seeds 8 and up, from
+    ``SQUARE_FIXTURE``, follow the first 8."""
+    keys = ("obj_xy", "obj_yaw", "success")
+    eps = {k: golden[f"{name}_expert_{k}"] for k in keys}
+    if name == "SquarePhysicsEnv":
+        with np.load(SQUARE_FIXTURE) as f:
+            assert f[f"{name}_expert_seeds"].min() == len(eps["success"])
+            eps = {k: np.concatenate([eps[k], f[f"{name}_expert_{k}"]])
+                   for k in keys}
+    return eps
+
+
 @pytest.mark.parametrize("name", PHYS)
 def test_physics_expert_rate_matches_jax(golden, name):
     """The expert from each spawn the JAX expert ran from (its
-    ``run_scripted_collection``, 32 Can and 8 Square episodes × 300 steps):
-    Fisher's exact test does not tell the two success rates apart at the
-    3-sigma level (two-sided p ≥ 0.0027). Episodes are not compared one by
-    one: after the squeeze an object's path hangs on float rounding (see
-    the module's docstring)."""
-    want = golden[f"{name}_expert_success"].any(1)
-    n, steps = golden[f"{name}_expert_success"].shape
+    ``run_scripted_collection``, 32 Can and 56 Square episodes × 300
+    steps): Fisher's exact test does not tell the two success rates apart
+    at the 3-sigma level (two-sided p ≥ 0.0027). Episodes are not compared
+    one by one: after the squeeze an object's path hangs on float rounding
+    (see the module's docstring)."""
+    eps = _expert_episodes(golden, name)
+    want = eps["success"].any(1)
+    n, steps = eps["success"].shape
     env = _env(name, render_images=False)
     s = env.reset_state(
-        n, torch.Generator(), obj_xy=_t(golden[f"{name}_expert_obj_xy"]),
-        obj_yaw=_t(golden[f"{name}_expert_obj_yaw"].astype(np.float32)))
+        n, torch.Generator(), obj_xy=_t(eps["obj_xy"]),
+        obj_yaw=_t(eps["obj_yaw"].astype(np.float32)))
     success = torch.zeros(n, dtype=torch.bool)
     for _ in range(steps):
         s, _, ok = env.transition(s, env.scripted_action(s))
         success |= ok
     got, k = int(success.sum()), int(want.sum())
     p = fisher_exact([[got, n - got], [k, n - k]])[1]
+    print(f"{name}: the port {got} of {n}, JAX {k} of {n}, Fisher p {p:.3g}")
     assert p >= 0.0027, (got, k, n, p)
 
 

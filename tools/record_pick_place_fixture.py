@@ -4,7 +4,8 @@ Can and Square envs, for ``tests/test_torch_pick_place.py``.
 
 Usage: JAX_PLATFORMS=cpu python tools/record_pick_place_fixture.py
        [--steps 20] [--out tests/fixtures/pick_place_golden.npz]
-       [--experts]
+       [--experts [--env SquarePhysicsEnv --seeds LO HI]]
+       [--merge PART.npz ...] [--contact-step]
 
 An XLA-CPU compile of these envs' steps takes minutes and a physics step
 seconds, so the tests read what this writes (about 20 minutes on a CPU).
@@ -39,6 +40,22 @@ and adds to the existing fixture each episode's spawn
 0–31, Square 8, seeds 0–7; seeds 0–7 are the JAX test's own episodes.
 Each batch of 8 seeds runs in its own process (a step of 8 envs takes
 about 15 s on one core, so this takes over an hour).
+
+``--experts --env NAME --seeds LO HI`` runs the expert of one env over
+seeds LO..HI-1 only, in batches of 8 (one process each, all at once), and
+writes a fixture of its own to ``--out`` with the same keys plus
+``{name}_expert_seeds``; ``tests/fixtures/square_expert_golden.npz`` holds
+Square's seeds 8 and up. ``--merge`` joins such files into ``--out``,
+ordered by seed, so that batches can run as separate processes (about 70
+minutes a batch of 8 on one core each).
+
+``--contact-step`` writes ``tests/fixtures/can_contact_golden.npz``: one
+control step of JAX's ``CanPhysicsEnv`` from 72 states where the pads,
+the can and the bin walls touch, as a policy's imprecise grasp leaves
+them. The states come from the port's own expert on 8 envs, at 9 points
+from the approach to the drop (steps 15 to 121), with the can's pose and
+velocities perturbed (3 mm, 0.1 m/s, 1 rad/s) and random actions (about
+3 minutes: the step's XLA compile).
 """
 
 import argparse
@@ -212,34 +229,123 @@ def _expert_batch(job) -> dict:
           f"{success.any(1).astype(int).tolist()}", flush=True)
     return {"obj_xy": np.asarray(states.bodies.pos[:, J.OBJ, :2]),
             "obj_yaw": 2 * np.arctan2(q[:, 3], q[:, 0]),
-            "success": success}
+            "success": success, "seeds": np.asarray(seeds)}
 
 
-def expert_success() -> dict:
-    jobs = [(name, list(range(lo, lo + N_ENVS)))
-            for name, n in EXPERT_EPISODES.items()
-            for lo in range(0, n, N_ENVS)]
+def expert_success(ranges=None) -> dict:
+    """``ranges``: ``{name: (lo, hi)}``, the seeds of each expert to run;
+    by default ``EXPERT_EPISODES``' seeds from 0."""
+    ranges = ranges or {name: (0, n) for name, n in EXPERT_EPISODES.items()}
+    jobs = [(name, list(range(first, min(first + N_ENVS, hi))))
+            for name, (lo, hi) in ranges.items()
+            for first in range(lo, hi, N_ENVS)]
     with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
         parts = pool.map(_expert_batch, jobs)
     out = {}
-    for name in EXPERT_EPISODES:
+    for name in ranges:
         mine = [p for (n, _), p in zip(jobs, parts) if n == name]
         for k in mine[0]:
             out[f"{name}_expert_{k}"] = np.concatenate([p[k] for p in mine])
         won = out[f"{name}_expert_success"].any(1)
         print(f"{name} expert over {len(won)} episodes x {EXPERT_STEPS} "
-              f"steps: {won.sum()} succeed ({won.mean():.3f}); seeds 0-7 "
-              f"(the JAX test's): {won[:N_ENVS].mean():.3f}", flush=True)
+              f"steps: {won.sum()} succeed ({won.mean():.3f})", flush=True)
     return out
+
+
+def merge(parts, out_path) -> None:
+    """Join fixtures that ``--seeds`` wrote into one, ordered by seed."""
+    loaded = [dict(np.load(p)) for p in parts]
+    out = {}
+    for k in loaded[0]:
+        out[k] = np.concatenate([d[k] for d in loaded])
+    for k in [k for k in out if k.endswith("_expert_seeds")]:
+        name = k[:-len("_expert_seeds")]
+        order = np.argsort(out[k], kind="stable")
+        assert len(np.unique(out[k])) == len(order), "a seed twice"
+        for key in [key for key in out if key.startswith(f"{name}_expert_")]:
+            out[key] = out[key][order]
+        won = out[f"{name}_expert_success"].any(1)
+        print(f"{name}: seeds {out[k].min()}-{out[k].max()}, "
+              f"{won.sum()} of {len(won)} succeed", flush=True)
+    np.savez_compressed(out_path, **out)
+    print(f"wrote {out_path}")
+
+
+def contact_step() -> dict:
+    """One JAX control step of ``CanPhysicsEnv`` from perturbed contact
+    states the port's expert reaches (see the module's docstring)."""
+    import torch
+
+    from latent_diffusion_planning_tpu_torch.envs import (
+        pick_place_physics as P)
+    env, n = P.CanPhysicsEnv(render_images=False), N_ENVS
+    s = env.reset_state(n, torch.Generator().manual_seed(5))
+    snaps = []
+    for t in range(121):
+        if t in (15, 20, 25, 30, 40, 60, 90, 120):
+            snaps.append(s)
+        s = env.transition(s, env.scripted_action(s))[0]
+    s = s.map(lambda *xs: torch.cat(xs), *snaps)
+    m = s.qpos.shape[0]
+    rng = np.random.default_rng(0)
+    noise = lambda sd: rng.normal(0, sd, (m, 3)).astype(np.float32)
+    rec = {k: getattr(s.bodies, k).numpy().copy()
+           for k in ("pos", "quat", "linvel", "angvel")}
+    rec["pos"][:, J.OBJ] += noise(0.003)
+    rec["linvel"][:, J.OBJ] += noise(0.1)
+    rec["angvel"][:, J.OBJ] += noise(1.0)
+    rec.update(qpos=s.qpos.numpy(), eef_target=s.eef_target.numpy(),
+               gripper=s.gripper.numpy(), t=s.t.numpy(),
+               action=rng.uniform(-1, 1, (m, 7)).astype(np.float32))
+    jenv = J.CanPhysicsEnv(render_images=False)
+    states = J.PickPlacePhysState(
+        bodies=J.ph.RigidBody(**{k: jnp.asarray(rec[k]) for k in
+                                 ("pos", "quat", "linvel", "angvel")}),
+        qpos=jnp.asarray(rec["qpos"]), eef_target=jnp.asarray(
+            rec["eef_target"]), gripper=jnp.asarray(rec["gripper"]),
+        t=jnp.asarray(rec["t"]))
+
+    def step(state, action):
+        new, _, r, ok = jenv.step(state, action)
+        return new, r, ok, jenv.holding(new)
+    new, r, ok, held = jax.jit(jax.vmap(step))(states,
+                                               jnp.asarray(rec["action"]))
+    rec.update({f"next_{k}": getattr(new.bodies, k)
+                for k in ("pos", "quat", "linvel", "angvel")})
+    rec.update(next_qpos=new.qpos, reward=r, success=ok, holding=held)
+    return {k: np.asarray(v) for k, v in rec.items()}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--experts", action="store_true")
+    ap.add_argument("--env", choices=tuple(EXPERT_EPISODES),
+                    help="with --seeds: the one expert to run")
+    ap.add_argument("--seeds", type=int, nargs=2, metavar=("LO", "HI"),
+                    help="with --experts and --env: run seeds LO..HI-1 and "
+                         "write them to --out as a fixture of their own")
+    ap.add_argument("--merge", nargs="+", metavar="PART",
+                    help="join --seeds fixtures into --out")
+    ap.add_argument("--contact-step", action="store_true",
+                    help="write one Can contact step to --out")
     ap.add_argument("--out", default=str(ROOT / "tests" / "fixtures"
                                          / "pick_place_golden.npz"))
     args = ap.parse_args()
+    if args.merge:
+        merge(args.merge, args.out)
+        return
+    if args.contact_step:
+        np.savez_compressed(args.out, **contact_step())
+        print(f"wrote {args.out}")
+        return
+    if args.experts and args.seeds:
+        if not args.env:
+            ap.error("--seeds needs --env")
+        out = expert_success({args.env: tuple(args.seeds)})
+        np.savez_compressed(args.out, **out)
+        print(f"wrote {args.out}")
+        return
     if args.experts:
         # merged into the fixture beside what it holds
         out = {k: v for k, v in np.load(args.out).items()

@@ -6,14 +6,20 @@
 # .npz datasets and runs in experiments/$RUN. It writes nothing under
 # assets/ (the JAX script snapshots its runs into the tracked tree).
 #
-# Knobs: RUN=can_pipeline  STEPS=30000  DATA=datasets/can  ARGS=""
-# (added to every stage, e.g. ARGS=device=cpu).
+# Knobs: RUN=can_pipeline  STEPS=30000  DATA=datasets/can  SEED (unset)
+# ARGS="" (added to every stage, e.g. ARGS=device=cpu). SEED, when set,
+# seeds the VAE's and the LDP's training (their nets' init, batches and
+# draws; unset, the configs' seed 0, as the JAX script); the demos keep
+# the JAX script's seeds 0 and 77, so runs of several SEEDs differ only in
+# training. The latents in DATA belong to the run's VAE: give each RUN a
+# DATA of its own.
 # Stages whose output exists are skipped, so an interrupted run resumes.
 set -e
 cd "$(dirname "$0")/.."
 RUN=${RUN:-can_pipeline}
 STEPS=${STEPS:-30000}
 DATA=${DATA:-datasets/can}
+SEED_ARGS=${SEED:+seed=$SEED data.seed=$SEED}
 ARGS=${ARGS:-}
 ENV=latent_diffusion_planning_tpu.envs.pick_place_physics.CanPhysicsEnv
 VAE=experiments/$RUN/vae/ckpt/4000.ckpt
@@ -33,7 +39,7 @@ python tools/train_vae_torch.py data=can/img \
   model.vae.norm_groups=16 \
   batch_size=64 n_grad_steps=4000 warmup_steps=100 lr=3e-4 \
   eval_every=2000 save_every=2000 \
-  experiment_folder=$RUN experiment_name=vae $ARGS
+  experiment_folder=$RUN experiment_name=vae $SEED_ARGS $ARGS
 fi
 if [ ! -f $DATA/demos_latent.npz ]; then
 python tools/process_latents_torch.py vae_snapshot_path=$VAE \
@@ -57,5 +63,5 @@ python tools/train_bc_torch.py agent=ldp_agent data=can/latent_img \
   horizon=9 obs_horizon=1 action_horizon=4 pred_horizon=8 batch_size=128 \
   n_grad_steps=$STEPS warmup_steps=200 lr=3e-4 n_eval_episodes=256 \
   eval_every=10000 save_every=10000 \
-  experiment_folder=$RUN experiment_name=ldp $ARGS
+  experiment_folder=$RUN experiment_name=ldp $SEED_ARGS $ARGS
 fi

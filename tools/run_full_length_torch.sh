@@ -11,13 +11,18 @@
 #         tools/run_lift_mixed_study_torch.sh with STEPS=20000 N_EVAL=512
 #         (its corpus comes from that checkpoint)
 #   can:  tools/run_can_pipeline_torch.sh with STEPS=30000 (Workspace evals
-#         of 256 episodes x 400 steps at 10k/20k/30k)
+#         of 256 episodes x 400 steps at 10k/20k/30k) once per training
+#         seed of $SEEDS, all at once, each run (build/can_s<seed>,
+#         experiments/can_s<seed>) then scored by tools/run_can_ldp_torch.py
+#         (4 x 256 episodes at each checkpoint, the plain loop at 30k) into
+#         $OUT/can_s<seed>.json
 #   aloha: tools/run_aloha_phys4_torch.sh with STEPS=50000, the length the
 #         JAX phys4 run reached (assets/runs/aloha_phys4: Workspace evals of
 #         64 episodes at 20k/40k, then eval_bc over the 30k/40k/50k
 #         checkpoints, 256 episodes at eval_action_horizon=1, plan_blend=0.7)
 #
 # Knobs: TASKS="lift can"  OUT=chiprun_out/full_length
+# and SEEDS="0" (the Can recipe's training seeds)
 # Datasets go to build/<task>, runs to experiments/ (both git-ignored).
 # Every stage's command line is echoed beside the Unix time (xtrace), so
 # each stage's wall time is read off the task's log.
@@ -25,6 +30,7 @@ set -e
 cd "$(dirname "$0")/.."
 TASKS=${TASKS:-lift can}
 OUT=${OUT:-chiprun_out/full_length}
+SEEDS=${SEEDS:-0}
 # the mixed study's corpus needs a checkpoint that lifts in 30% of its
 # episodes or more, else it would not be comparable to the JAX study's
 MIN_SUBOPT=0.3
@@ -58,8 +64,18 @@ EOF
 }
 
 can() {
-  DATA=build/can STEPS=30000 xtrace tools/run_can_pipeline_torch.sh
+  local pids=() s rc=0
+  for s in $SEEDS; do
+    { DATA=build/can_s$s RUN=can_s$s SEED=$s STEPS=30000 \
+        xtrace tools/run_can_pipeline_torch.sh
+      echo "+ $(date +%s.%N) python tools/run_can_ldp_torch.py"
+      python tools/run_can_ldp_torch.py --run experiments/can_s$s/ldp \
+        --out "$OUT/can_s$s.json"; } > "$OUT/can_s$s.log" 2>&1 &
+    pids+=($!)
+  done
+  for s in "${pids[@]}"; do wait "$s" || rc=1; done
   echo "+ $(date +%s.%N) done"
+  return $rc
 }
 
 aloha() {
@@ -86,7 +102,7 @@ done
 for task in $TASKS; do
   echo "== $task: $(tail -n 1 "$OUT/$task.log")"
   grep -a -E "^\++ [0-9.]+ (python|eval_bc|done)|success|Wilson" \
-    "$OUT/$task.log" \
+    "$OUT/$task"*.log \
     | cut -c1-200 || true
 done
 ! grep -q -x -v "exit 0" <(for t in $TASKS; do tail -n 1 "$OUT/$t.log"; done)

@@ -73,32 +73,42 @@ def fp32_sampling(agent):
         del agent._unet_sample
 
 
-def closed_loops(ws, seeds, route: str, card: str) -> list[dict]:
-    """The workspace's agent in one closed loop of its eval size per seed,
-    with the kernels it launched."""
+def closed_loops(env, agent, keys, cfg, seeds, route: str, card: str,
+                 device) -> list[dict]:
+    """``agent`` in one closed loop of ``cfg``'s eval size on ``env`` per
+    seed, with its success count, reward, horizon and the kernels it
+    launched."""
     from latent_diffusion_planning_tpu_torch.ops import kernels
     from latent_diffusion_planning_tpu_torch.rollout import engine
-    cfg, rows = ws.cfg, []
+    rows = []
     for seed in seeds:
         kernels.reset_launch_counts()
         m = engine.run_batched_eval(
-            ws._make_env(), ws.agent, cfg["n_eval_episodes"], seed,
+            env, agent, cfg["n_eval_episodes"], seed,
             obs_horizon=cfg["obs_horizon"],
-            action_horizon=cfg["action_horizon"],
-            policy_obs_keys=ws._policy_obs_keys(), device=ws.device)["metrics"]
-        row = dict(route=route, seed=seed, success=float(m["success"]),
+            action_horizon=cfg["action_horizon"], policy_obs_keys=keys,
+            device=device)["metrics"]
+        n = int(m["n_episodes"])
+        row = dict(route=route, seed=seed, n_episodes=n,
+                   successes=round(float(m["success"]) * n),
+                   success=float(m["success"]), reward=float(m["reward"]),
                    horizon=float(m["horizon"]),
-                   n_episodes=float(m["n_episodes"]),
                    launches=kernels.launch_counts())
-        print(f"{type(ws.agent).__name__} {route}, seed {seed}: success "
-              f"{row['success']:.4f} over {row['n_episodes']:.0f} episodes, "
-              f"horizon {row['horizon']:.2f}, launches {row['launches']} "
-              f"[{card}]", flush=True)
+        print(f"{type(agent).__name__} {route}, seed {seed}: success "
+              f"{row['success']:.4f} over {n} episodes, reward "
+              f"{row['reward']:.4f}, horizon {row['horizon']:.2f}, launches "
+              f"{row['launches']} [{card}]", flush=True)
         rows.append(row)
     mean = sum(r["success"] for r in rows) / len(rows)
-    print(f"{type(ws.agent).__name__} {route}: mean success {mean:.4f} over "
+    print(f"{type(agent).__name__} {route}: mean success {mean:.4f} over "
           f"{len(rows)} seeds [{card}]", flush=True)
     return rows
+
+
+def workspace_loops(ws, seeds, route: str, card: str) -> list[dict]:
+    """``closed_loops`` of a workspace's agent on its eval env."""
+    return closed_loops(ws._make_env(), ws.agent, ws._policy_obs_keys(),
+                        ws.cfg, seeds, route, card, ws.device)
 
 
 def main() -> int:
@@ -184,9 +194,9 @@ def main() -> int:
           f"{record['ldp_hier']['steps_per_s']:.2f} steps/s [{card}]",
           flush=True)
     seeds = range(args.steps, args.steps + EVAL_SEEDS)
-    loops = closed_loops(ws, seeds, "kernel B", card)
+    loops = workspace_loops(ws, seeds, "kernel B", card)
     with fp32_sampling(ws.agent):
-        loops += closed_loops(ws, seeds, "plain fp32", card)
+        loops += workspace_loops(ws, seeds, "plain fp32", card)
     record["ldp_hier"]["closed_loops"] = loops
 
     if args.dp_vae_steps:
@@ -210,7 +220,7 @@ def main() -> int:
         record["dp_vae"] = dict(
             steps=args.dp_vae_steps, train_s=dws.train_seconds,
             steps_per_s=args.dp_vae_steps / dws.train_seconds, evals=evals,
-            closed_loops=closed_loops(
+            closed_loops=workspace_loops(
                 dws, range(args.dp_vae_steps, args.dp_vae_steps + EVAL_SEEDS),
                 "kernel B", card))
     if args.out is not None:
