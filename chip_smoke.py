@@ -157,7 +157,13 @@
    against the fp32 twin (1e-3 after DDPM-100, 2e-4 after DDIM-10), B at
    the default DP's 3099-wide condition in both weight types, kernel A on
    five IDM variants (mish, no LayerNorm, fixed time features, hidden 48
-   and 512) within 1e-3 of the twin, each timed with its bound; then LDP
+   and 512) within 1e-3 of the twin, each timed with its bound; the shapes
+   the TPU kernels take that the CUDA kernels gained (``_kernel_shapes``,
+   ``--only shapes``: A at hidden 36 and 1024 and with 1100- and 2048-wide
+   ``[x|s]`` rows; B at 160 and 256 plan steps, on down_dims (32, 16, 16)
+   in both weight types, in the wide mode at 40 rows and with bf16
+   operands in global memory on a [1024,2048,4096] planner), each against
+   its twin with its plan, time and bound; then LDP
    with ``OPT_LDP`` and DP with ``OPT_DP`` through ``train_bc`` and
    ``eval_bc`` on a stable VAE trained in bf16 (``OPT_VAE``), launches
    stated before the closed loops and checked.
@@ -366,14 +372,14 @@ def idm_net(device):
                         "swish", cfg["n_blocks"], cfg["hidden_dim"]).to(device)
 
 
-def mlp_entry(net, rows: int) -> str:
+def mlp_entry(net, rows: int, chunked: bool = False) -> str:
     """The mangled-name part of kernel A's instance for ``net`` at ``rows``
-    rows a block."""
+    rows a block, its ``[x|s]`` row whole or walked in chunks."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_mlp as KA)
     Hp = KA.padded(KA.hidden(net))
     return (f"mlp_sampler_kernelILi{Hp // 64}ELi{rows}ELb"
-            f"{int(net.use_layer_norm)}ELi{KA.passes(Hp)}E")
+            f"{int(net.use_layer_norm)}ELi{KA.passes(Hp)}ELb{int(chunked)}E")
 
 
 def idm_flops_bytes(net, N, S, A, T, with_noise):
@@ -457,9 +463,9 @@ def taps_inside(n_out, k, stride, offset, n_in) -> int:
 
 def unet_entry(row_tiles: int, wide: bool, fp32: bool = False) -> str:
     """The mangled-name part of kernel B's main instance for a tile of
-    ``row_tiles`` m16 row tiles (instances of 2, 4 and 8), in wide mode or
-    not, with bf16 or fp32 weights."""
-    entry = next(n for n in (2, 4, 8) if row_tiles <= n)
+    ``row_tiles`` m16 row tiles (instances of 2, 4, 8 and, bf16, 16), in
+    wide mode or not, with bf16 or fp32 weights."""
+    entry = next(n for n in (2, 4, 8, 16) if row_tiles <= n)
     w = "f" if fp32 else "13__nv_bfloat16"
     return f"unet1d_sampler_kernelI{w}Li{entry}ELb{int(wide)}E"
 
@@ -1761,7 +1767,7 @@ def phase_mixed(smoke: Smoke, run: TrainRun):
 
 
 def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
-                       seeded=None, hold_max=True) -> dict:
+                       seeded=None, hold_max=True, plan=None) -> dict:
     """Kernel B on ``net`` against its rounding twin: after all of
     ``table`` the mean within 5e-3 and, with ``hold_max``, no element beyond
     0.1 (phase B's bars), and closer to the twin than the fp32 net is after
@@ -1774,7 +1780,8 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     25 steps at the reference widths it passed 0.1 once (0.149; the fp32
     net 0.252), so the timing shapes print it as a reading too. With
     ``seeded``, also how far the seeded weights' twin lands (a stale pack
-    would sit there)."""
+    would sit there). ``plan`` overrides the kernel's plan (``nb``,
+    ``wide``)."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
     twin = KB.rounding_twin(net)
@@ -1782,7 +1789,8 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
         m, cond, x_init, ts[:n], coefs[:n], clip)
     kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
-        net, cond, x_init, ts[:n], coefs[:n], clip_range=clip, packed=packed)
+        net, cond, x_init, ts[:n], coefs[:n], clip_range=clip, packed=packed,
+        **(plan or {}))
     ref1 = plain(twin, 1)
     one, fp32_one = err_stats(kernel(1), ref1), err_stats(plain(net, 1), ref1)
     ref = plain(twin)
@@ -1805,11 +1813,12 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     return out
 
 
-def _time_unet(smoke, what, net, B, table, clip, g, T=8) -> dict:
+def _time_unet(smoke, what, net, B, table, clip, g, T=8, plan=None) -> dict:
     """Kernel B alone on ``net`` at ``B`` samples of length ``T`` over
     ``table`` (seeded condition and initial sample): held against the
     rounding twin (the max as a reading), timed beside the twin, with its
-    launch geometry, the weight bytes it streams and its bound."""
+    launch geometry, the weight bytes it streams and its bound; ``plan``
+    overrides the kernel's plan as ``fused_unet1d_ddim_sample`` takes it."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
@@ -1817,17 +1826,18 @@ def _time_unet(smoke, what, net, B, table, clip, g, T=8) -> dict:
     gc = torch.randn(B, net.global_cond_dim, generator=g, device="cuda")
     x0 = torch.randn(B, T, net.input_dim, generator=g, device="cuda")
     packed = KB.pack_params(net).to("cuda")
+    plan = plan or {}
     checks = _unet_against_twin(smoke, what, net, gc, x0, table, clip, packed,
-                                hold_max=False)
+                                hold_max=False, plan=plan)
     twin = KB.rounding_twin(net)
     run_k = lambda: KB.fused_unet1d_ddim_sample(
-        net, gc, x0, ts, coefs, clip_range=clip, packed=packed)
+        net, gc, x0, ts, coefs, clip_range=clip, packed=packed, **plan)
     run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs, clip)
     ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
     smoke.timing(what, ms, plain_ms)
     elem, mm, nbytes = unet_flops_bytes(net, B, T, int(ts.shape[0]))
     b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
-    shape = KB.kernel_info(net, B, T, int(ts.shape[0]))
+    shape = KB.kernel_info(net, B, T, int(ts.shape[0]), **plan)
     row_tiles = -(-shape["samples_per_block"] * T // 16)
     info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"]), shape,
                             mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
@@ -4326,7 +4336,8 @@ def _default_decision(smoke: Smoke, agent, device: str) -> dict:
 
 OPT_KERNEL_PHASE = ("options: kernel B with fp32 weights at the default "
                     "agents' calls and the bench planner, B at a 3099-wide "
-                    "condition, kernel A's IDM variants")
+                    "condition, kernel A's IDM variants, and the shapes the "
+                    "TPU kernels take")
 OPT_PHASE = ("options: LDP with fp32 B, a mish IDM with dropout and a bf16 "
              "planner, and DP at obs_horizon 3 with a bf16 encoder, from the "
              "command line on a stable VAE trained in bf16")
@@ -4394,7 +4405,8 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed,
     launch geometry (samples a block, mode, grid and its waves on the card,
     ring stages, the bytes it streams to the SMs) and its bound: the
     products at three TF32 passes (``unet_flops_bytes``, fp32 weights read
-    once); the first design's time (``FIRST_FP32_MS[key]``) beside it."""
+    once); the first design's time (``FIRST_FP32_MS[key]``, where it has
+    one) beside it."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
@@ -4424,10 +4436,11 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed,
           f"{shape['ring_stages']} tiles, "
           f"{shape['weight_bytes_streamed'] / 1e12:.4f} TB of weights to the "
           f"SMs a call", flush=True)
-    old = FIRST_FP32_MS[key]
-    print(f"   {what}: {ms:.3f} ms against the first design's {old:.3f} ms "
-          f"({old / ms:.2f}x), twin {plain_ms:.3f} ms [{smoke.card}]",
-          flush=True)
+    old = FIRST_FP32_MS.get(key)
+    if old is not None:
+        print(f"   {what}: {ms:.3f} ms against the first design's {old:.3f} "
+              f"ms ({old / ms:.2f}x), twin {plain_ms:.3f} ms [{smoke.card}]",
+              flush=True)
     row_tiles = -(-shape["samples_per_block"] * T // 16)
     info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"], True),
                             shape, 3 * mm, PEAK_TF32_FLOPS,
@@ -4487,7 +4500,8 @@ def phase_options_kernels(smoke: Smoke):
     phase B's statistics, and in fp32 against the fp32 twin. Kernel A on the default LDP IDM with
     the upstream recipe's mish, with no LayerNorm, with fixed time features
     and at hidden 48 and 512, 4096 rows DDPM-100, each within 1e-3 of its
-    fp32 twin."""
+    fp32 twin. Then the shapes the JAX package's Pallas kernels take that
+    the CUDA kernels once refused (``_kernel_shapes``)."""
     import torch
     from latent_diffusion_planning_tpu_torch import configs
     from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
@@ -4614,6 +4628,141 @@ def phase_options_kernels(smoke: Smoke):
               flush=True)
         out[key] = dict(max_abs_err=err, tol=1e-3, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, shape=shape)
+    out.update(_kernel_shapes(smoke, agents["ldp_agent"], g))
+    return out
+
+
+# kernel A at the shapes the JAX kernel takes: (change to the default LDP
+# IDM, rows, S, DDPM-100 or DDIM-10)
+SHAPE_IDM = {
+    "A hidden 36": (dict(hidden_dim=36), 256, None, False),
+    "A hidden 1024": (dict(hidden_dim=1024), 4096, None, True),
+    "A [x|s] 1100": ({}, 256, 1100, False),
+    "A [x|s] 2048": ({}, 256, 2048, False),
+}
+# kernel B: (down_dims, downsample, samples, length, weight type, plan
+# override), DDIM-10
+SHAPE_UNET = {
+    "B T=160": ((64, 128, 256), True, 16, 160, "bf16", None),
+    "B T=256": ((64, 128, 256), True, 16, 256, "bf16", None),
+    "B (32,16,16)": ((32, 16, 16), True, 256, 8, "bf16", None),
+    "B (32,16,16) fp32": ((32, 16, 16), True, 256, 8, "fp32", None),
+    "B wide 40 rows": ((64, 128, 256), True, 64, 40, "bf16",
+                       dict(nb=1, wide=True)),
+    "B [1024,2048,4096] no-downsample 8 rows": (
+        (1024, 2048, 4096), False, 4, 8, "bf16", None),
+    "B [1024,2048,4096] 32 rows": (
+        (1024, 2048, 4096), True, 4, 32, "bf16", None),
+}
+
+
+def _kernel_shapes(smoke: Smoke, ldp, g) -> dict:
+    """Each route the CUDA kernels gained for a shape the JAX package's
+    Pallas kernels take, launched on the card and held against its plain
+    twin, with its plan, time and bound printed. Kernel A on the default
+    LDP IDM at hidden 36 (not a multiple of 8) and 1024 (16 rows a block,
+    the 4H layer in 16 passes; 4096 rows DDPM-100, 1e-3) and with 1100- and
+    2048-wide ``[x|s]`` rows (walked in chunks; DDIM-10, 2e-4). Kernel B
+    (the bench planner's embedding width, 25 channels, DDIM-10) at plans of
+    160 and 256 steps (one sample a block, 16 row tiles), on down_dims (32,
+    16, 16) (an up block without a projection reading its skip in fp32) in
+    bf16 and fp32, in the wide mode at 40 rows, and on a [1024,2048,4096]
+    planner, whose bf16 operands the plan puts in global memory (at 8 rows
+    without downsampling, LDP-hier's topology, and at 32 with): bf16 by phase
+    B's statistics against the rounding twin, fp32 within 2e-4 of the fp32
+    twin."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConditionalUnet1D)
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_mlp as KA)
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    from latent_diffusion_planning_tpu_torch.utils.precision import fp32_math
+    dev = torch.device("cuda")
+    out: dict = {}
+    A = ldp.config.action_dim
+    for key, (variant, N, S, ddpm) in SHAPE_IDM.items():
+        S = S or 2 * ldp.config.obs_dim
+        sched = ldp.idm_sched.to("cpu")
+        ts, coefs = (dlib.ddpm_coef_table(sched) if ddpm
+                     else dlib.ddim_coef_table(sched, 10))
+        ts, coefs = ts.to(dev, torch.int32), coefs.to(dev)
+        net = options_idm(variant, dev, S, A)
+        s = torch.randn(N, S, generator=g, device=dev)
+        x0 = torch.randn(N, A, generator=g, device=dev)
+        noise = (torch.randn(len(ts), N, A, generator=g, device=dev)
+                 if ddpm else None)
+        packed = KA.pack_params(net).to(dev)
+        run_k = lambda: KA.fused_mlp_diffusion_sample(
+            net, s, x0, ts, coefs, noise, packed=packed)
+
+        def run_p():
+            with fp32_math():
+                return KA.mlp_diffusion_sample_plain(net, s, x0, ts, coefs,
+                                                     noise)
+        info = KA.kernel_info(net, N, A, S, len(ts))
+        what = (f"{key} ({variant or 'default'}, S={S}) {N} rows, "
+                f"{'DDPM' if ddpm else 'DDIM'}-{len(ts)}")
+        print(f"   {what}: plan: {info['rows_per_block']} rows a block, "
+              f"hidden padded to {info['hidden_padded']}, {info['passes']} "
+              f"passes over the 4H layer, [x|s] "
+              f"{'in chunks' if info['chunked'] else 'whole'}, ring "
+              f"{info['ring_stages']} stages, grid {info['grid']}",
+              flush=True)
+        got, ref = run_k(), run_p()
+        if not (bool(torch.isfinite(got).all()) and got.shape == (N, A)):
+            raise AssertionError(f"{key}: output not finite or misshapen")
+        tol = 1e-3 if ddpm else 2e-4
+        err = float((got - ref).abs().max())
+        smoke.check(f"{what} max_abs_err vs the fp32 twin", err, tol)
+        ms, plain_ms = time_ms(run_k, iters=2), time_ms(run_p, iters=1)
+        smoke.timing(what, ms, plain_ms)
+        products, rest, nbytes = idm_flops_bytes(net, N, S, A, len(ts), ddpm)
+        b_ms, b_by = bound(rest, nbytes, fp32_products=products)
+        shape = smoke.shape_line(
+            what, mlp_entry(net, info["rows_per_block"], info["chunked"]),
+            info, 3 * products, PEAK_TF32_FLOPS, "TF32 tensor-core", ms)
+        print(f"   {what}: bound {b_ms:.4f} ms ({b_by}) [{smoke.card}]",
+              flush=True)
+        out[key] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, shape=shape,
+                        source="latent_diffusion_planning_tpu_torch/csrc/"
+                        "diffusion_mlp.cu")
+
+    ts, coefs = dlib.ddim_coef_table(dlib.DiffusionSchedule.create(50), 10)
+    table = (ts.to(dev, torch.int32), coefs.to(dev))
+    for key, (dd, down, B, T, wt, plan) in SHAPE_UNET.items():
+        net = ConditionalUnet1D(25, 25, 256, dd, 5, 8 if dd[0] > 32 else 4,
+                                downsample=down,
+                                generator=torch.Generator().manual_seed(3)
+                                ).to(dev)
+        what = f"{key} {list(dd)} B={B} T={T} {wt}, DDIM-10"
+        if wt == "bf16":
+            info = KB.kernel_info(net, B, T, 10, **(plan or {}))
+            print(f"   {what}: plan: {info['samples_per_block']} sample(s) "
+                  f"a block ({info['samples_per_block'] * T} rows), "
+                  f"{'wide' if info['wide'] else 'ordinary'} mode, operands "
+                  f"in {'global' if info['operands_global'] else 'shared'} "
+                  f"memory (staging window {info['stage_elems']} elements), "
+                  f"ring {info['ring_stages']} stages, grid {info['grid']}",
+                  flush=True)
+            rec = _time_unet(smoke, what, net, B, table, 1.0, g, T, plan)
+            rec["max_abs_err"] = rec["kernel"]["max"]
+            rec["source"] = ("latent_diffusion_planning_tpu_torch/csrc/"
+                             "diffusion_unet1d.cu")
+        else:
+            cond = torch.randn(B, 25, generator=g, device=dev)
+            x0 = torch.randn(B, T, 25, generator=g, device=dev)
+            packed = KB.pack_params(net, torch.float32).to(dev)
+            rec = _fp32_against_twin(smoke, what, net, cond, x0, None, table,
+                                     packed, tol=2e-4)
+            rec.update(_time_unet_fp32(smoke, what, net, cond, x0, None,
+                                       table, packed, key))
+        out[key] = rec
+        del net
+        torch.cuda.empty_cache()
     return out
 
 

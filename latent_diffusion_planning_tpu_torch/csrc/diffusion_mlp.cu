@@ -53,14 +53,22 @@
 //    kernel of the same call computes, per step, the cond MLP and its share
 //    of the trunk's input layer (+ bias) on the CUDA cores into scratch; the
 //    7-wide output layer, LayerNorm and the update stay on the CUDA cores.
-//  * Any hidden width h that is a multiple of 8 up to 512: the kernel runs
-//    Hp = h padded to whole 64-column tiles (to 128 past 256), the padding
-//    zero in every weight and vector, so the padded columns of the residual
-//    stay 0; LayerNorm's mean and variance are taken over the h real
-//    columns. Past 256 a block holds 32 rows (the residual in registers
-//    doubles) and the 4h layer runs in eight passes of Hp / 2 columns
-//    instead of four of Hp, so one pass's accumulator stays 32 registers.
-//    LayerNorm or none is a template parameter.
+//  * Any hidden width h up to 1024: the kernel runs Hp = h padded to whole
+//    64-column tiles (to 128 past 256, to 256 past 512), the padding zero in
+//    every weight and vector, so the padded columns of the residual stay 0;
+//    LayerNorm's mean and variance are taken over the h real columns. Past
+//    256 a block holds 32 rows (the residual in registers doubles) and the
+//    4h layer runs in eight passes of Hp / 2 columns instead of four of Hp,
+//    so one pass's accumulator stays 32 registers; past 512 a block holds 16
+//    rows and the 4h layer runs in Hp / 64 passes of 256 columns, and the
+//    products walk the column tiles one at a time (gemm3's lean order), so
+//    a tile's split weights are 8 registers, not 8 NT. LayerNorm or none is
+//    a template parameter.
+//  * A [x|s] row too wide for the rows a block holds (kChunk): the block
+//    keeps x (rows x A) and a window of one 16-column chunk of [x|s]; the
+//    trunk input layer fills the window chunk by chunk, s read from global
+//    memory, each chunk's product taking the ring's next stage as before, so
+//    the sums are the same in the same order as with the row held whole.
 //
 // Packed buffer (fp32): [ stream | vectors ]. Stream, per step: the trunk
 // input layer's [x|s] rows (K padded to 16), then per block and per pass c
@@ -85,9 +93,9 @@ enum Act : int { kRelu = 0, kSwish = 1, kMish = 2, kGelu = 3 };
 struct Dims {
   int N, S, A, T, half, H, Hp, n_blocks, kxs, stages, stream_stages,
       vec_base, smem_main, smem_pro, rows, ln, n_cond, act, learnable, maxw,
-      blk_base, ow_off, cond_w[kMaxCond];
+      blk_base, ow_off, chunk, cond_w[kMaxCond];
 };
-constexpr int kNDims = 22 + kMaxCond;
+constexpr int kNDims = 23 + kMaxCond;
 
 __device__ __forceinline__ float act_fn(int act, float x) {
   switch (act) {
@@ -154,6 +162,10 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // the next K / (16 kSub) stages of the stream; a stage holds kSub tiles of
 // 16 K-rows), as hi*hi + hi*lo + lo*hi in TF32. Warp w computes columns
 // [8 NT w, 8 NT (w + 1)).
+// Past 8 column tiles (Hp > 512) the lean order: row tile by row tile, the
+// A fragments of both k8 steps split once, then column tile by column tile
+// its weights split and its six products chained; each element's products
+// and sums are the same, in the same order, as in the order above.
 template <int NT, int kMt, int kSub, typename Ring>
 __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
                                       int lda, int K, Ring& ring, int warp,
@@ -165,52 +177,88 @@ __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
     for (int sub = 0; sub < kSub; ++sub) {
       const float* st = stage + sub * kStageK * 64 * NT;
       const int kb = k0 + sub * kStageK;
-      uint32_t bh[2][NT][2], bl[2][NT][2];
+      if constexpr (NT > 8) {
 #pragma unroll
-      for (int k8 = 0; k8 < 2; ++k8)
+        for (int mt = 0; mt < kMt; ++mt) {
+          uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float2 wv = *reinterpret_cast<const float2*>(
-              st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
-          split_tf32(wv.x, bh[k8][nt][0], bl[k8][nt][0]);
-          split_tf32(wv.y, bh[k8][nt][1], bl[k8][nt][1]);
-        }
-#pragma unroll
-      for (int mt = 0; mt < kMt; ++mt) {
-        // the tensor core truncates when it adds into its accumulator: sum
-        // a stage's products from zero there and add the
-        // partial sum on the CUDA cores, which round to nearest
-        float part[NT][4];
-#pragma unroll
-        for (int k8 = 0; k8 < 2; ++k8) {
-          const float* ap = A + (mt * 16 + g) * lda + kb + k8 * 8 + tq;
-          uint32_t ah[4], al[4];
-          split_tf32(ap[0], ah[0], al[0]);
-          split_tf32(ap[8 * lda], ah[1], al[1]);
-          split_tf32(ap[4], ah[2], al[2]);
-          split_tf32(ap[8 * lda + 4], ah[3], al[3]);
-#pragma unroll
+          for (int k8 = 0; k8 < 2; ++k8) {
+            const float* ap = A + (mt * 16 + g) * lda + kb + k8 * 8 + tq;
+            split_tf32(ap[0], ah[k8][0], al[k8][0]);
+            split_tf32(ap[8 * lda], ah[k8][1], al[k8][1]);
+            split_tf32(ap[4], ah[k8][2], al[k8][2]);
+            split_tf32(ap[8 * lda + 4], ah[k8][3], al[k8][3]);
+          }
+#pragma unroll 2
           for (int nt = 0; nt < NT; ++nt) {
-            if (k8 == 0)
-              ldp::mma_tf32_zero(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
-            else
-              ldp::mma_tf32(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
-            ldp::mma_tf32(part[nt], ah, bl[k8][nt][0], bl[k8][nt][1]);
-            ldp::mma_tf32(part[nt], ah, bh[k8][nt][0], bh[k8][nt][1]);
+            float part[4];
+#pragma unroll
+            for (int k8 = 0; k8 < 2; ++k8) {
+              const float2 wv = *reinterpret_cast<const float2*>(
+                  st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
+              uint32_t bh0, bl0, bh1, bl1;
+              split_tf32(wv.x, bh0, bl0);
+              split_tf32(wv.y, bh1, bl1);
+              if (k8 == 0)
+                ldp::mma_tf32_zero(part, al[k8], bh0, bh1);
+              else
+                ldp::mma_tf32(part, al[k8], bh0, bh1);
+              ldp::mma_tf32(part, ah[k8], bl0, bl1);
+              ldp::mma_tf32(part, ah[k8], bh0, bh1);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
           }
         }
+      } else {
+        uint32_t bh[2][NT][2], bl[2][NT][2];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+        for (int k8 = 0; k8 < 2; ++k8)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 wv = *reinterpret_cast<const float2*>(
+                st + ((((k8 * kWarps + warp) * NT + nt) * 32 + lane) << 1));
+            split_tf32(wv.x, bh[k8][nt][0], bl[k8][nt][0]);
+            split_tf32(wv.y, bh[k8][nt][1], bl[k8][nt][1]);
+          }
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          // the tensor core truncates when it adds into its accumulator: sum
+          // a stage's products from zero there and add the
+          // partial sum on the CUDA cores, which round to nearest
+          float part[NT][4];
+#pragma unroll
+          for (int k8 = 0; k8 < 2; ++k8) {
+            const float* ap = A + (mt * 16 + g) * lda + kb + k8 * 8 + tq;
+            uint32_t ah[4], al[4];
+            split_tf32(ap[0], ah[0], al[0]);
+            split_tf32(ap[8 * lda], ah[1], al[1]);
+            split_tf32(ap[4], ah[2], al[2]);
+            split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              if (k8 == 0)
+                ldp::mma_tf32_zero(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+              else
+                ldp::mma_tf32(part[nt], al, bh[k8][nt][0], bh[k8][nt][1]);
+              ldp::mma_tf32(part[nt], ah, bl[k8][nt][0], bl[k8][nt][1]);
+              ldp::mma_tf32(part[nt], ah, bh[k8][nt][0], bh[k8][nt][1]);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
+        }
       }
     }
   }
 }
 
 // NT: 64-column tiles of Hp (Hp = 64 NT); kLn: LayerNorm in the blocks;
-// kNC: passes over the 4H layer (4 of Hp columns, or 8 of Hp / 2).
-template <int NT, int kRows, bool kLn, int kNC>
+// kNC: passes over the 4H layer (4 of Hp columns, 8 of Hp / 2, or Hp / 64
+// of 256); kChunk: the [x|s] row walked in 16-column chunks.
+template <int NT, int kRows, bool kLn, int kNC, bool kChunk>
 __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
     const float* __restrict__ s, const float* __restrict__ x_init,
     const float* __restrict__ coefs, const float* __restrict__ noise,
@@ -223,6 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   constexpr int kSub = H / Hc;      // 16-row tiles of w0[:, c] a stage
   constexpr int kStageBytes = kStageK * H * 4;
   constexpr int lda = H + 4;
+  constexpr int ldc = Hc + 4;       // one pass of the 4H layer
   extern __shared__ float4 smem4[];
   char* smc = reinterpret_cast<char*>(smem4);
   const int tid = threadIdx.x;
@@ -232,11 +281,16 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   const float inv_h = 1.f / Hr;
   const bool padded = Hr < H;        // LayerNorm masks the padding
 
+  // xs: the [x|s] rows whole (kxs = Kin + 4), or one 16-column chunk of
+  // them (kxs = 20), x then in xv
   float* xs = reinterpret_cast<float*>(smc + d.stages * kStageBytes);
   float* ln = xs + kRows * kxs;      // rows x lda: LayerNorm out, relu(h)
-  float* act = ln + kRows * lda;     // rows x lda: one pass of the 4H layer
-  float* part = act + kRows * lda;   // rows x 8 partial row sums
+  float* act = ln + kRows * lda;     // rows x ldc: one pass of the 4H layer
+  float* part = act + kRows * ldc;   // rows x 8 partial row sums
   float* eps = part + kRows * kWarps;  // rows x A: the net's output y
+  float* xv = eps + kRows * A;       // kChunk: rows x A, the sample x
+  float* xp = kChunk ? xv : xs;      // where x lives, row stride xld
+  const int xld = kChunk ? A : kxs;
 
   const float* v = w + d.vec_base;
   const float* blocks = v + d.blk_base;
@@ -246,20 +300,28 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   ldp::WeightRing<kStageBytes> ring;
   ring.start(w, smc, d.stages, d.stream_stages, d.stream_stages * d.T);
 
-  for (int i = tid; i < kRows * kxs; i += kThreads) {
-    const int r = i / kxs, k = i - r * kxs, row = row0 + r;
-    float val = 0.f;
-    if (row < N) {
-      if (k < A) val = x_init[static_cast<size_t>(row) * A + k];
-      else if (k < A + S) val = s[static_cast<size_t>(row) * S + (k - A)];
+  if constexpr (kChunk) {
+    for (int i = tid; i < kRows * A; i += kThreads) {
+      const int r = i / A, row = row0 + r;
+      xv[i] = row < N ? x_init[static_cast<size_t>(row) * A + i - r * A]
+                      : 0.f;
     }
-    xs[i] = val;
+  } else {
+    for (int i = tid; i < kRows * kxs; i += kThreads) {
+      const int r = i / kxs, k = i - r * kxs, row = row0 + r;
+      float val = 0.f;
+      if (row < N) {
+        if (k < A) val = x_init[static_cast<size_t>(row) * A + k];
+        else if (k < A + S) val = s[static_cast<size_t>(row) * S + (k - A)];
+      }
+      xs[i] = val;
+    }
   }
   __syncthreads();
 
   const int col0 = warp * 8 * NT + 2 * tq;   // + 8 nt + e
   const int colc = warp * 8 * NTc + 2 * tq;  // a 4H pass's columns
-  const int Kin = kxs - 4;                   // A + S padded to 16
+  const int Kin = (A + S + kStageK - 1) / kStageK * kStageK;  // padded to 16
   float h[kMt][NT][4];
 
   for (int step = 0; step < d.T; ++step) {
@@ -274,7 +336,25 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
         h[mt][nt][2] = c0; h[mt][nt][3] = c1;
       }
     }
-    gemm3<NT, kMt, 1>(h, xs, kxs, Kin, ring, warp, lane);
+    if constexpr (kChunk) {
+      // chunk j of [x|s]: x from xv, s from global memory; a barrier before
+      // each fill, so no warp still reads the chunk before
+      for (int k0 = 0; k0 < Kin; k0 += kStageK) {
+        __syncthreads();
+        for (int i = tid; i < kRows * kStageK; i += kThreads) {
+          const int r = i / kStageK, k = k0 + i - r * kStageK, row = row0 + r;
+          float val = 0.f;
+          if (k < A) val = xv[r * A + k];
+          else if (k < A + S && row < N)
+            val = __ldg(s + static_cast<size_t>(row) * S + (k - A));
+          xs[r * kxs + i - r * kStageK] = val;
+        }
+        __syncthreads();
+        gemm3<NT, kMt, 1>(h, xs, kxs, kStageK, ring, warp, lane);
+      }
+    } else {
+      gemm3<NT, kMt, 1>(h, xs, kxs, Kin, ring, warp, lane);
+    }
 
     // ---- residual blocks ----
     for (int b = 0; b < d.n_blocks; ++b) {
@@ -400,10 +480,10 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
               y.x = fmaxf(a1[mt][nt][2 * hf], 0.f);
               y.y = fmaxf(a1[mt][nt][2 * hf + 1], 0.f);
               *reinterpret_cast<float2*>(
-                  act + (mt * 16 + g + 8 * hf) * lda + colc + 8 * nt) = y;
+                  act + (mt * 16 + g + 8 * hf) * ldc + colc + 8 * nt) = y;
             }
         __syncthreads();
-        gemm3<NT, kMt, 1>(h, act, lda, Hc, ring, warp, lane);
+        gemm3<NT, kMt, 1>(h, act, ldc, Hc, ring, warp, lane);
       }
     }
 
@@ -436,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
     const float k4 = coefs[step * 6 + 4], kx = coefs[step * 6 + 5];
     for (int i = tid; i < kRows * A; i += kThreads) {
       const int r = i / A, a = i - r * A, row = row0 + r;
-      const float x = xs[r * kxs + a];
+      const float x = xp[r * xld + a];
       // x0 = clip(k0 (kx x - k1 y)): kx = 1 for eps, 0 for sample (x0
       // prediction), sqrt(abar) for v; 1 * x is x, so eps runs as before
       const float x0 = fminf(
@@ -444,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
       float xn = k2 * x0 + k3 * x;
       if (noise != nullptr && row < N)
         xn += k4 * noise[(static_cast<size_t>(step) * N + row) * A + a];
-      xs[r * kxs + a] = xn;
+      xp[r * xld + a] = xn;
     }
     __syncthreads();
   }
@@ -452,15 +532,15 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
 
   for (int i = tid; i < kRows * A; i += kThreads) {
     const int r = i / A, a = i - r * A, row = row0 + r;
-    if (row < N) out[static_cast<size_t>(row) * A + a] = xs[r * kxs + a];
+    if (row < N) out[static_cast<size_t>(row) * A + a] = xp[r * xld + a];
   }
 }
 
-template <int NT, int kRows, bool kLn, int kNC>
+template <int NT, int kRows, bool kLn, int kNC, bool kChunk>
 int launch_rows(const float* s, const float* x_init, const float* coefs,
                 const float* noise, const float* w, const float* cbias,
                 float* out, const Dims& d, float clip, cudaStream_t stream) {
-  auto kernel = mlp_sampler_kernel<NT, kRows, kLn, kNC>;
+  auto kernel = mlp_sampler_kernel<NT, kRows, kLn, kNC, kChunk>;
   cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (d.N + kRows - 1) / kRows;
@@ -469,35 +549,46 @@ int launch_rows(const float* s, const float* x_init, const float* coefs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// kWide: Hp past 256, 32 rows a block and eight passes over the 4H layer
-template <int NT, bool kWide>
+template <int NT, int kRows, int kNC, bool kChunk>
+int launch_ln(const float* s, const float* x_init, const float* coefs,
+              const float* noise, const float* w, const float* cbias,
+              float* out, const Dims& d, float clip, cudaStream_t stream) {
+  return d.ln ? launch_rows<NT, kRows, true, kNC, kChunk>(
+                    s, x_init, coefs, noise, w, cbias, out, d, clip, stream)
+              : launch_rows<NT, kRows, false, kNC, kChunk>(
+                    s, x_init, coefs, noise, w, cbias, out, d, clip, stream);
+}
+
+// kTop: the most rows a block holds at this width (64 up to Hp 256, then 32
+// and 16); up to Hp 256 also 32 with the row whole. The chunked instance
+// runs at kTop rows only.
+template <int NT, int kTop, int kNC>
 int launch(const float* s, const float* x_init, const float* coefs,
            const float* noise, const float* w, const float* cbias, float* out,
            const Dims& d, float clip, cudaStream_t stream) {
-  constexpr int kNC = kWide ? 8 : 4;
-  if (d.rows == 64) {
-    if constexpr (kWide) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      return d.ln ? launch_rows<NT, 64, true, kNC>(s, x_init, coefs, noise, w,
-                                                   cbias, out, d, clip, stream)
-                  : launch_rows<NT, 64, false, kNC>(s, x_init, coefs, noise,
-                                                    w, cbias, out, d, clip,
-                                                    stream);
-    }
+  if (d.chunk)
+    return d.rows == kTop
+               ? launch_ln<NT, kTop, kNC, true>(s, x_init, coefs, noise, w,
+                                                cbias, out, d, clip, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (d.rows == kTop)
+    return launch_ln<NT, kTop, kNC, false>(s, x_init, coefs, noise, w, cbias,
+                                           out, d, clip, stream);
+  if constexpr (kTop == 64) {
+    if (d.rows == 32)
+      return launch_ln<NT, 32, kNC, false>(s, x_init, coefs, noise, w, cbias,
+                                           out, d, clip, stream);
   }
-  return d.ln ? launch_rows<NT, 32, true, kNC>(s, x_init, coefs, noise, w,
-                                               cbias, out, d, clip, stream)
-              : launch_rows<NT, 32, false, kNC>(s, x_init, coefs, noise, w,
-                                                cbias, out, d, clip, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // `dims` is kNDims host ints in the order of Dims; Hp (the padded hidden
-// width) must be 64, 128, 192, 256, 384 or 512, rows 64 or 32 (32 past
-// 256); coefs is the (T, 6) table of ops/diffusion.py; noise may be null
-// (DDIM); cbias (T x Hp) is scratch. Returns a cudaError_t.
+// width) must be 64, 128, 192, 256, 384, 512, 768 or 1024, rows 64 or 32
+// (32 past 256, 16 past 512; chunked at the most rows); coefs is the (T, 6)
+// table of ops/diffusion.py; noise may be null (DDIM); cbias (T x Hp) is
+// scratch. Returns a cudaError_t.
 extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
                                const int* ts, const float* coefs,
                                const float* noise, const float* w,
@@ -507,9 +598,10 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
   Dims d;
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
-  if (d.Hp % 64 || d.Hp < 64 || d.Hp > 512 || d.H > d.Hp || d.H < 1 ||
-      d.stages < 2 || d.stages > 8 || (d.rows != 64 && d.rows != 32) ||
-      d.n_cond < 1 || d.n_cond > kMaxCond)
+  if (d.Hp % 64 || d.Hp < 64 || d.Hp > 1024 || d.H > d.Hp || d.H < 1 ||
+      d.stages < 2 || d.stages > 8 ||
+      (d.rows != 64 && d.rows != 32 && d.rows != 16) || d.n_cond < 1 ||
+      d.n_cond > kMaxCond || d.chunk < 0 || d.chunk > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = ldp::allow_smem(mlp_time_kernel, d.smem_pro);
@@ -518,18 +610,22 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (d.Hp / 64) {
-    case 1: return launch<1, false>(s, x_init, coefs, noise, w, cbias, out, d,
+    case 1: return launch<1, 64, 4>(s, x_init, coefs, noise, w, cbias, out, d,
                                     clip, st);
-    case 2: return launch<2, false>(s, x_init, coefs, noise, w, cbias, out, d,
+    case 2: return launch<2, 64, 4>(s, x_init, coefs, noise, w, cbias, out, d,
                                     clip, st);
-    case 3: return launch<3, false>(s, x_init, coefs, noise, w, cbias, out, d,
+    case 3: return launch<3, 64, 4>(s, x_init, coefs, noise, w, cbias, out, d,
                                     clip, st);
-    case 4: return launch<4, false>(s, x_init, coefs, noise, w, cbias, out, d,
+    case 4: return launch<4, 64, 4>(s, x_init, coefs, noise, w, cbias, out, d,
                                     clip, st);
-    case 6: return launch<6, true>(s, x_init, coefs, noise, w, cbias, out, d,
-                                   clip, st);
-    case 8: return launch<8, true>(s, x_init, coefs, noise, w, cbias, out, d,
-                                   clip, st);
+    case 6: return launch<6, 32, 8>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 8: return launch<8, 32, 8>(s, x_init, coefs, noise, w, cbias, out, d,
+                                    clip, st);
+    case 12: return launch<12, 16, 12>(s, x_init, coefs, noise, w, cbias, out,
+                                       d, clip, st);
+    case 16: return launch<16, 16, 16>(s, x_init, coefs, noise, w, cbias, out,
+                                       d, clip, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -68,9 +68,8 @@
 // the full length, so at 16 rows LDP-hier's default planner [256,512,1024]
 // needs 16 x 1032 floats for each of the two fp32 buffers, 2 x 16 x 2056
 // bf16 for the operand buffers of its 2048-wide concat and 16 x 1552 bf16
-// of skips: 362 KB, more than a block's 227 KB. The operand buffers must
-// stay in shared memory (ldmatrix reads nothing else), so wide mode keeps
-// the fp32 buffers and the skips in a per-block slice of a global scratch
+// of skips: 362 KB, more than a block's 227 KB. Wide mode keeps the fp32
+// buffers and the skips in a per-block slice of a global scratch
 // instead (d.scratch_bytes a block, 182 KB there) and the rest of the
 // program is unchanged: the GEMM epilogue, GroupNorm / Mish, the residual,
 // SAVE and CONCAT read and write them through generic pointers, and
@@ -79,8 +78,15 @@
 // barriers, so it stays in L2 (a resident block's slice is 182 KB; 132 of
 // them 24 MB); beside the 84 MB of weights the block streams a step it is
 // small. The wrapper takes wide mode only where no tile fits shared memory
-// whole, so every other net keeps its tiles, and for up to 32 rows a block
-// (one kernel instance).
+// whole, so every other net keeps its tiles, for up to 32 rows a block, or
+// one sample of up to 256 rows (instances of 2, 4, 8 and 16 row tiles).
+// Where even the operand buffers outgrow a block beside the ring (a
+// [1024,2048,4096] planner at 32 rows), d.wide is 2: they move to the
+// scratch too, and since ldmatrix reads shared memory only, the GEMM reads
+// its input through a window of channels that every input row has copied
+// into shared memory, between two barriers: the whole input where it fits
+// beside a ring of four stages (copied once a GEMM), else as many 32-channel
+// runs as fit (copied again when a run of tiles reaches past it).
 #include "unet1d.cuh"
 
 // Returns a cudaError_t. `dims` is kNDims host ints in the order of Dims

@@ -52,7 +52,8 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kGroupN = 8 * kWarps;             // columns of a tile: 8 a warp
 constexpr int kTileElems = 32 * kGroupN;        // 32 K-rows x kGroupN columns
 constexpr int kChunk = 3;          // bf16 tiles a warp takes at a time
-constexpr int kMtCap = 8;          // most m16 row tiles a warp accumulates
+constexpr int kMtCap = 16;         // most m16 row tiles a warp accumulates
+                                   // (bf16; the fp32 instances go to 8)
 constexpr int kCondRows = 64;      // samples per prologue cond block
 constexpr float kGnEps = 1e-6f;
 
@@ -214,8 +215,13 @@ __device__ __forceinline__ int src_row(int mode, int r, int rows, int Tin,
 
 template <typename W>
 struct Gemm {
-  const W* A;       // operand rows (shared memory; fp32: or global)
+  const W* A;       // operand rows (shared memory; or global, fp32 read
+                    // directly, bf16 through `stage`)
   int lda;          // its row stride, elements
+  W* stage;         // bf16 with A in global memory: a window of A's
+                    // channels for every input row in shared memory (room
+                    // for stage_cap elements); else null
+  int stage_cap;
   int cin_pad;      // channels per tap, padded to 32
   int taps, mode, Tin, Tout;
   int rows;         // nb * Tout
@@ -320,17 +326,35 @@ __device__ __forceinline__ void row_tile_products(
 
 // out[r][n] = bias[n] + sum_tap sum_c A[src(r, tap)][c] W[tap][c][n], the
 // weights taken tile by tile from the stream. Every thread of the block
-// takes part in every tile.
+// takes part in every tile. With g.stage set, A lies in global memory and
+// ldmatrix reads a window of its channels that every input row has copied
+// into g.stage: as many 32-channel runs as stage_cap holds at this GEMM's
+// rows (all of cin where they fit), copied between two barriers only when a
+// run of tiles reaches past the window, so a GEMM whose input fits copies
+// it once for all its column groups and taps. Past 8 row tiles (a 256-row
+// plan) the warp takes one tile at a time, which keeps its operand
+// fragments to 8 registers beside 64 of accumulators.
 template <int kMtMax>
 __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
                      uint32_t zero_addr) {
   constexpr int kTileBytes = Sizes<bf16>::kTileBytes;
+  constexpr int kCh = kMtMax > 8 ? 1 : kChunk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int MT = (g.rows + 15) >> 4;
   const int n_groups = (g.N + kGroupN - 1) / kGroupN;
   const int kt_per_tap = g.cin_pad >> 5;
-  const uint32_t a_base = ldp::smem_u32(g.A) + (lane >> 4) * 16;
+  const bool staged = g.stage != nullptr;
+  const int rows_in = g.Tin * (g.rows / g.Tout + (g.rows % g.Tout != 0));
+  // the window: wt tiles of channels a row at stride 32 wt + 8 (a stride
+  // of 16 bytes past a multiple of 64, so ldmatrix's rows miss each other's
+  // banks); w0 its first tile, -1 before the first copy
+  const int wt = staged ? min(kt_per_tap, (g.stage_cap / rows_in - 8) >> 5)
+                        : 0;
+  int w0 = -1;
+  const int lda = staged ? 32 * wt + 8 : g.lda;
+  const uint32_t a_base =
+      ldp::smem_u32(staged ? g.stage : g.A) + (lane >> 4) * 16;
   const int pad = g.taps >> 1;
   for (int ng = 0; ng < n_groups; ++ng) {
     const int col = ng * kGroupN + warp * 8 + 2 * tq;
@@ -351,7 +375,7 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
           const int sr = src_row(g.mode, mt * 16 + (lane & 15), g.rows, g.Tin,
                                  g.Tout, tap, pad);
           if (sr >= 0) {
-            raddr[mt] = a_base + static_cast<uint32_t>(sr * g.lda) * 2;
+            raddr[mt] = a_base + static_cast<uint32_t>(sr * lda) * 2;
             live |= 1u << mt;
           }
         }
@@ -361,22 +385,37 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
       // two independent chains, so a warp with one row tile (the deep
       // levels) is not a single chain of dependent instructions
       for (int kt = 0; kt < kt_per_tap;) {
-        const int n = min(min(tiles.avail(), kChunk), kt_per_tap - kt);
+        const int n = min(min(tiles.avail(), kCh), kt_per_tap - kt);
         const char* tile = tiles.take(n) + warp * 512 + lane * 16;
-        uint4 bq[kChunk];
+        if (staged && (w0 < 0 || kt < w0 || kt + n > w0 + wt)) {
+          // channels [32 kt, 32 (kt + nw)) of every input row, 8 at a time
+          // (block-uniform: every thread takes the same tiles)
+          w0 = kt;
+          const int nw = min(wt, kt_per_tap - kt);
+          __syncthreads();   // no warp still reads the window before
+          const int per_row = 4 * nw;
+          for (int i = threadIdx.x; i < rows_in * per_row; i += blockDim.x) {
+            const int r = i / per_row, q = i - r * per_row;
+            *reinterpret_cast<uint4*>(g.stage + r * lda + 8 * q) =
+                *reinterpret_cast<const uint4*>(g.A + r * g.lda + 32 * kt +
+                                                8 * q);
+          }
+          __syncthreads();
+        }
+        uint4 bq[kCh];
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j)
+        for (int j = 0; j < kCh; ++j)
           if (j < n)
             bq[j] = *reinterpret_cast<const uint4*>(tile + j * kTileBytes);
-        const uint32_t k0 = kt * 64;
+        const uint32_t k0 = (kt - (staged ? w0 : 0)) * 64;
 #pragma unroll
         for (int mt = 0; mt < kMtMax; ++mt) {
           if (mt < MT) {
             const bool on = (live >> mt) & 1;
             const uint32_t ad = raddr[mt] + (on ? k0 : 0u);
-            uint32_t a[kChunk][2][4];
+            uint32_t a[kCh][2][4];
 #pragma unroll
-            for (int j = 0; j < kChunk; ++j)
+            for (int j = 0; j < kCh; ++j)
               if (j < n) {
                 ldp::ldmatrix_x4(a[j][0], ad + (on ? 64u * j : 0u));
                 ldp::ldmatrix_x4(a[j][1], ad + (on ? 64u * j + 32u : 0u));
@@ -386,7 +425,7 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
             // sums on the CUDA cores, which round to nearest
             float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int j = 0; j < kChunk; ++j)
+            for (int j = 0; j < kCh; ++j)
               if (j < n) {
                 ldp::mma_bf16(p0, a[j][0], bq[j].x, bq[j].y);
                 ldp::mma_bf16(p1, a[j][1], bq[j].z, bq[j].w);
@@ -795,9 +834,9 @@ struct Dims {
       film_total, film_ld, main_stages, time_tile_base, time_stages,
       cond_tile_base, cond_stages, vec_base, v_time0, v_time1, v_film_t,
       smem_main, smem_pro, stages_main, stages_pro, tile_n, cond_rows,
-      wide, scratch_bytes, cond_chunk;
+      wide, scratch_bytes, cond_chunk, skip32_total;
 };
-constexpr int kNDims = 33;
+constexpr int kNDims = 34;
 
 template <typename W>
 __device__ __forceinline__ Gemm<W> dense(const W* A, int K, int rows, int N,
@@ -890,10 +929,12 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
   tiles.ring.drain();
 }
 
-// kWide: the fp32 buffers and the skips (fp32 weights with d.wide 2: also
-// the operand buffers) in this block's slice of the global scratch (a
-// template parameter, so the ordinary instances keep their registers; one
-// instance, for up to 32 rows a block, keeps the build short)
+// kWide: the fp32 buffers and the skips (with d.wide 2: also the operand
+// buffers, which the bf16 GEMM stages through shared memory) in this
+// block's slice of the global scratch (a template parameter, so the
+// ordinary instances keep their registers). The fp32 skips an up block
+// without a projection reads back (d.skip32_total floats) follow the bf16
+// skips wherever those are.
 template <typename W, int kMt, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     const float* __restrict__ x_init, const float* __restrict__ coefs,
@@ -912,7 +953,8 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
 
   // shared: [ring | X32 Y32 | xcur | stats | Xb Yb | skips | zero]; in wide
   // mode X32, Y32 and the skips sit in this block's slice of the scratch,
-  // and with fp32 weights Xb and Yb too where d.wide is 2
+  // and Xb and Yb too where d.wide is 2 (bf16: a staging window for them
+  // in the shared memory after zero)
   float* X32;
   float* Y32;
   float* xcur;
@@ -920,17 +962,23 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
   W* Yb;
   W* skipb;
   W* zero;
+  W* stageb = nullptr;
+  int stage_cap = 0;
   if constexpr (kWide) {
     X32 = reinterpret_cast<float*>(
         scratch + static_cast<size_t>(blockIdx.x) * d.scratch_bytes);
     Y32 = X32 + d.max32;
     xcur = reinterpret_cast<float*>(sm + ring_bytes);
     const int n_floats = (nb * T * D + 2 * nb * G + 3) & ~3;
-    if (kF32 && d.wide == 2) {   // fp32: the operand buffers too
+    if (d.wide == 2) {   // the operand buffers too
       Xb = reinterpret_cast<W*>(Y32 + d.max32);
       Yb = Xb + d.maxb;
       skipb = Yb + d.maxb;
       zero = reinterpret_cast<W*>(xcur + n_floats);
+      if constexpr (!kF32) {   // the staging window: the rest of the block's
+        stageb = zero + 16;    // shared memory
+        stage_cap = (d.smem_main - ring_bytes - 4 * n_floats) / 2 - 16;
+      }
     } else {
       skipb = reinterpret_cast<W*>(Y32 + d.max32);
       Xb = reinterpret_cast<W*>(xcur + n_floats);
@@ -945,8 +993,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     Xb = reinterpret_cast<W*>(X32 + n_floats);
     Yb = Xb + d.maxb;
     skipb = Yb + d.maxb;
-    zero = skipb + d.skip_total;
+    zero = reinterpret_cast<W*>(
+        reinterpret_cast<float*>(skipb + d.skip_total) + d.skip32_total);
   }
+  float* skip32 = reinterpret_cast<float*>(skipb + d.skip_total);
   float* stats = xcur + nb * T * D;             // nb x G x 2
   if (tid < 16) zero[tid] = fromf<W>(0.f);
   const uint32_t zero_addr = ldp::smem_u32(zero);
@@ -960,11 +1010,14 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     red = reinterpret_cast<float*>(
         scratch + static_cast<size_t>(blockIdx.x + 1) * d.scratch_bytes) -
         kRedFloats;
-  auto run_gemm = [&](const Gemm<W>& g) {
-    if constexpr (kF32 && kWide)
+  auto run_gemm = [&](Gemm<W> g) {
+    if constexpr (kF32 && kWide) {
       gemm_ksplit<kMt>(g, tiles, red);
-    else
+    } else {
+      g.stage = stageb;
+      g.stage_cap = stage_cap;
       gemm<kMt>(g, tiles, zero_addr);
+    }
   };
   tiles.start(Wp, sm, d.stages_main, d.main_stages, d.main_stages * d.n_steps);
 
@@ -1030,6 +1083,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
       } else if (kind == kSave) {
         const int n = nb * rec[3] * ldb<W>(rec[2]);
         for (int i = tid; i < n; i += NT) skipb[rec[1] + i] = Xb[i];
+        if (rec[4]) {   // and the fp32 copy an up block's residual reads
+          const int m = nb * rec[3] * ld32(rec[2]);
+          for (int i = tid; i < m; i += NT) skip32[rec[5] + i] = X32[i];
+        }
         __syncthreads();
       } else if (kind == kConcat) {
         const int C1 = rec[2], C2 = rec[3], Cp = pad32(C1 + C2);
@@ -1041,8 +1098,19 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
                            : c < C1 + C2 ? sk[r * l2 + c - C1]
                                          : fromf<W>(0.f);
         }
+        if (rec[5]) {   // [h | skip] in fp32 too: the block's residual
+          const float* s32 = skip32 + rec[6];
+          const int C = C1 + C2, f1 = ld32(C1), f2 = ld32(C2), fo = ld32(C);
+          for (int i = tid; i < nb * rec[4] * C; i += NT) {
+            const int r = i / C, c = i - r * C;
+            Y32[r * fo + c] = c < C1 ? X32[r * f1 + c] : s32[r * f2 + c - C1];
+          }
+        }
         __syncthreads();
         W* tb = Xb; Xb = Yb; Yb = tb;
+        if (rec[5]) {
+          float* t32 = X32; X32 = Y32; Y32 = t32;
+        }
       } else if (kind == kDown || kind == kUp) {
         const int ch = rec[1], Tin = rec[2];
         const int Tout = kind == kDown ? Tin / 2 : 2 * Tin;
@@ -1142,11 +1210,12 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
   Dims d;
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
-  if (d.nb < 1 || d.nb * d.T > 16 * kMtCap || d.tile_n != kGroupN ||
+  constexpr bool kF32 = std::is_same<W, float>::value;
+  if (d.nb < 1 || d.nb * d.T > 16 * (kF32 ? kMtCap / 2 : kMtCap) ||
+      d.tile_n != kGroupN ||
       d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
       d.stages_pro > 8 || d.cond_rows != kCondRows || d.cond_chunk < 32 ||
-      d.cond_chunk % 32 || d.wide < 0 ||
-      d.wide > (std::is_same<W, float>::value ? 2 : 1) ||
+      d.cond_chunk % 32 || d.wide < 0 || d.wide > 2 || d.skip32_total < 0 ||
       (d.wide && (scratch == nullptr || d.scratch_bytes % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto sc = static_cast<char*>(scratch);
@@ -1159,21 +1228,38 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
       gcond, ts, Wp, film_t, film_g, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // accumulators sized to the rows the tile holds: 2, 4 or 8 m16 tiles
+  // accumulators sized to the rows the tile holds: 2, 4, 8 or (bf16) 16
+  // m16 tiles; the fp32 wide mode (its k-split GEMM) holds 2
   const int mt = (d.nb * d.T + 15) / 16;
-  if (d.wide)
-    return mt <= 2 ? launch_main<W, 2, true>(x_init, coefs, noise, Wp, prog,
-                                             film_t, film_g, sc, out, d, clip,
-                                             st)
-                   : static_cast<int>(cudaErrorInvalidValue);
+  if (d.wide) {
+    if (mt <= 2)
+      return launch_main<W, 2, true>(x_init, coefs, noise, Wp, prog, film_t,
+                                     film_g, sc, out, d, clip, st);
+    if constexpr (!kF32) {
+      if (mt <= 4)
+        return launch_main<W, 4, true>(x_init, coefs, noise, Wp, prog,
+                                       film_t, film_g, sc, out, d, clip, st);
+      if (mt <= 8)
+        return launch_main<W, 8, true>(x_init, coefs, noise, Wp, prog,
+                                       film_t, film_g, sc, out, d, clip, st);
+      return launch_main<W, 16, true>(x_init, coefs, noise, Wp, prog, film_t,
+                                      film_g, sc, out, d, clip, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (mt <= 2)
     return launch_main<W, 2, false>(x_init, coefs, noise, Wp, prog, film_t,
                                     film_g, sc, out, d, clip, st);
   if (mt <= 4)
     return launch_main<W, 4, false>(x_init, coefs, noise, Wp, prog, film_t,
                                     film_g, sc, out, d, clip, st);
-  return launch_main<W, 8, false>(x_init, coefs, noise, Wp, prog, film_t,
-                                  film_g, sc, out, d, clip, st);
+  if (kF32 || mt <= 8)
+    return launch_main<W, 8, false>(x_init, coefs, noise, Wp, prog, film_t,
+                                    film_g, sc, out, d, clip, st);
+  if constexpr (!kF32)
+    return launch_main<W, 16, false>(x_init, coefs, noise, Wp, prog, film_t,
+                                     film_g, sc, out, d, clip, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -214,7 +214,7 @@ class ActionSampler:
               fused_dtype: str) -> None:
         """Raise, with the reason, for what kernel B cannot run."""
         dtype = fused_weight_dtype(fused_dtype)
-        kunet.check_supported(net, pred_horizon)
+        kunet.check_supported(net, pred_horizon, dtype)
         kunet.choose_tile(net, pred_horizon, dtype=dtype)
 
     def weights_changed(self) -> None:

@@ -25,8 +25,8 @@ through the kernels on the card: the planner through B, the IDM through A,
 DDPM with one noise draw per step. Kernel B runs the planner with the
 weight type ``fused_dtype`` names (bfloat16 or float32, the JAX kernel's
 two), kernel A every MLP IDM the JAX package builds (any cond MLP and
-activation, fixed or learnable time features, LayerNorm or none, a hidden
-width that is a multiple of 8 up to 512). Where the JAX agent drops to its
+activation, fixed or learnable time features, LayerNorm or none, any hidden
+width up to 1024, any condition width). Where the JAX agent drops to its
 XLA scan when a kernel cannot take a configuration, this agent raises on
 CUDA with the reason (a plan length not divisible by the U-Net stride, a
 ``fused_dtype`` of neither type); on the CPU those run through the plain
@@ -171,7 +171,7 @@ class LDPAgent:
         run (called when the agent is built on the card)."""
         c = self.config
         dtype = common.fused_weight_dtype(c.fused_dtype)
-        kunet.check_supported(self.planner, c.pred_horizon)
+        kunet.check_supported(self.planner, c.pred_horizon, dtype)
         kunet.choose_tile(self.planner, c.pred_horizon, dtype=dtype)
         kmlp.check_supported(self.idm)
 

@@ -107,14 +107,14 @@ class LDPHierAgent(LDPAgent):
         window's ``pred_horizon`` in ``sample_plan_stats``; a net that does
         not downsample keeps full-length skips, so its shared memory grows
         with the length (where no tile fits, kernel B's wide mode moves the
-        fp32 buffers and skips to global memory; only a net whose operand
-        buffers alone outgrow a block is refused)."""
+        fp32 buffers and skips, and where need be the operand buffers, to
+        global memory)."""
         c = self.config
         dtype = common.fused_weight_dtype(c.fused_dtype)
         for name, lengths in (("planner", (self.plan_length, c.pred_horizon)),
                               ("idm", (c.idm_horizon,))):
             for T in lengths:
-                kunet.check_supported(getattr(self, name), T)
+                kunet.check_supported(getattr(self, name), T, dtype)
                 kunet.choose_tile(getattr(self, name), T, dtype=dtype)
 
     # ------------------------------------------------------------------

@@ -12,12 +12,17 @@ weight stream: every 64-row block reads all the weights (6.4 MB at the bench
 widths) from L2 once per step. A block holds 64 rows, or 32 where a wide
 condition's 64-row ``[x|s]`` tile would leave the weight ring fewer than two
 stages of shared memory (``_smem``): the ALOHA recipe's IDM conditions on
-two 270-wide observations (S = 540) and runs 32 rows a block. Every
-``MLPDiffusion`` variant runs: any cond MLP (depth, widths, relu, swish,
-mish or gelu), fixed or learnable time features, LayerNorm or none, and any
-hidden width that is a multiple of 8 up to 512, padded to whole 64-column
-tiles (128 past 256, where a block holds 32 rows and the 4h layer runs in
-eight passes). The design keeps the residual in registers as
+two 270-wide observations (S = 540) and runs 32 rows a block. A row too
+wide for either (``chunked``) is walked in 16-column chunks: the block keeps
+only x and one chunk of ``[x|s]`` in shared memory and reads s from global
+memory chunk by chunk as the trunk input layer streams its weights, the same
+products in the same order. Every ``MLPDiffusion`` variant runs: any cond
+MLP (depth, widths, relu, swish, mish or gelu), fixed or learnable time
+features, LayerNorm or none, and any hidden width up to ``MAX_HIDDEN``,
+padded to whole 64-column tiles (128 past 256, where a block holds 32 rows
+and the 4h layer runs in eight passes; 256 past 512, where a block holds 16
+rows and the 4h layer runs in passes of 256 columns). The design keeps the
+residual in registers as
 the products' accumulator for all steps, keeps only the products' left
 operands in shared memory, and streams the weights, pre-tiled here in the
 order and fragment layout the kernel consumes, through a shared-memory ring
@@ -47,11 +52,12 @@ from ...models.nets.mlp import MLPDiffusion
 from .. import diffusion as dlib
 from . import _build
 
-ROW_CHOICES = (64, 32)  # the kernel's instances, widest first
+ROW_CHOICES = (64, 32)  # the kernel's instances, widest first (Hp <= 256)
 STAGE_K = 16            # K-rows per ring stage
 MAX_STAGES = 8
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
-MAX_HIDDEN = 512
+MAX_HIDDEN = 1024       # a ring stage of 16 x 1024 floats is 64 KB
+PASS_COLS = 256         # columns of a 4H pass past a padded width of 512
 MAX_COND_LAYERS = 16
 ACTIVATIONS = ("relu", "swish", "mish", "gelu")   # the time kernel's codes
 
@@ -66,15 +72,29 @@ def hidden(net: MLPDiffusion) -> int:
 
 def padded(H: int) -> int:
     """The width the kernel runs a hidden width at: whole 64-column tiles
-    (eight warps of 8-column ``mma`` tiles), and past 256 whole 128-column
-    ones, so each of the eight passes over the 4H layer is whole tiles."""
-    return _up(H, 64) if H <= 256 else _up(H, 128)
+    (eight warps of 8-column ``mma`` tiles), past 256 whole 128-column ones,
+    so each of the eight passes over the 4H layer is whole tiles, and past
+    512 whole 256-column ones, so a stage holds whole passes of w0."""
+    if H <= 256:
+        return _up(H, 64)
+    return _up(H, 128) if H <= 512 else _up(H, PASS_COLS)
 
 
 def passes(Hp: int) -> int:
-    """Passes over the 4H layer: 4 of Hp columns, or 8 of Hp / 2 past 256
-    (one pass's accumulator stays 32 registers a thread)."""
-    return 4 if Hp <= 256 else 8
+    """Passes over the 4H layer: 4 of Hp columns, 8 of Hp / 2 past 256, and
+    Hp / 64 of ``PASS_COLS`` past 512 (one pass's accumulator stays at most
+    32 registers a thread)."""
+    if Hp <= 256:
+        return 4
+    return 8 if Hp <= 512 else 4 * Hp // PASS_COLS
+
+
+def row_choices(Hp: int) -> tuple[int, ...]:
+    """Rows a block may hold at a padded width, most first: the residual
+    lives in registers, 64 x Hp floats up to 256, then 32 and 16 rows."""
+    if Hp <= 256:
+        return ROW_CHOICES
+    return (32,) if Hp <= 512 else (16,)
 
 
 def check_supported(net: MLPDiffusion) -> None:
@@ -92,9 +112,9 @@ def check_supported(net: MLPDiffusion) -> None:
         raise ValueError("kernel takes the cond MLP the JAX MLPDiffusion "
                          "builds (no LayerNorm, final activation or tanh)")
     H = hidden(net)
-    if H % 8 or H > MAX_HIDDEN:
-        raise ValueError(f"kernel needs a hidden_dim that is a multiple of 8 "
-                         f"up to {MAX_HIDDEN}, net has {H}")
+    if H > MAX_HIDDEN:
+        raise ValueError(f"kernel needs a hidden_dim up to {MAX_HIDDEN}, net "
+                         f"has {H}")
 
 
 def tile_matrix(w: torch.Tensor) -> torch.Tensor:
@@ -135,13 +155,21 @@ def _pad(w: torch.Tensor, rows: int | None, cols: int | None = None
     return out
 
 
+def pass_cols(H: int) -> tuple[int, int]:
+    """(real, padded) columns of a pass over the 4H layer: the 4H real
+    columns cut into ``passes`` runs of ``ceil(4H / passes)`` (the last
+    shorter), each padded to ``4 Hp / passes``."""
+    nc = passes(padded(H))
+    return -(-4 * H // nc), 4 * padded(H) // nc
+
+
 def _stream(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
     """The padded (K, N) matrices of one step in the order the kernel
     consumes them."""
     H = hidden(net)
     Hp = padded(H)
     nc = passes(Hp)
-    hr, hc = 4 * H // nc, 4 * Hp // nc      # a pass's real and padded width
+    hr, hc = pass_cols(H)                   # a pass's real and padded width
     n_in = net.out_dim + net.s_dim
     out = [("trunk_in", _pad(net.trunk.dense0.weight.t()[:n_in], None, Hp))]
     for b, blk in enumerate(net.trunk.blocks):
@@ -165,7 +193,7 @@ def _vectors(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
     H = hidden(net)
     Hp = padded(H)
     nc = passes(Hp)
-    hr, hc = 4 * H // nc, 4 * Hp // nc
+    hr, hc = pass_cols(H)
     n_in = net.out_dim + net.s_dim
     parts = [("ff", time_freqs(net))]
     for i, lin in enumerate(net.cond.dense):
@@ -177,7 +205,8 @@ def _vectors(net: MLPDiffusion) -> list[tuple[str, torch.Tensor]]:
             ln_s, ln_b = blk.norm.weight, blk.norm.bias
         else:
             ln_s = ln_b = blk.dense1.bias.new_zeros(H)
-        b0 = _pad(blk.dense0.bias.reshape(nc, hr), nc, hc).reshape(-1)
+        b0 = torch.cat([_pad(blk.dense0.bias[c * hr:(c + 1) * hr], hc)
+                        for c in range(nc)])
         parts += [(f"blk.{b}", torch.cat([_pad(ln_s, Hp), _pad(ln_b, Hp), b0,
                                           _pad(blk.dense1.bias, Hp)]))]
     return parts + [("ow", _pad(net.trunk.dense1.weight.t(), Hp,
@@ -213,32 +242,46 @@ def pack_params(net: MLPDiffusion) -> torch.Tensor:
 
 
 def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
-    """Rows a block, its shared memory and the ring's stages: 64 rows where
-    the ring keeps at least two stages beside them, else 32 (always 32 past
-    a padded width of 256); a net that does not fit at 32 raises."""
+    """Rows a block, its shared memory and the ring's stages. The whole
+    ``[x|s]`` row in shared memory at the most rows (``row_choices``) where
+    the ring keeps at least two stages beside it; else ``chunked``: at the
+    most rows, only x and one 16-column chunk of the row (``kxs`` is then the
+    chunk's row stride), whatever S is."""
     H = padded(hidden(net))
-    kxs = _up(A + S, STAGE_K) + 4
+    hc = 4 * H // passes(H)
     stage = STAGE_K * H * 4
-    for rows in ROW_CHOICES if H <= 256 else ROW_CHOICES[-1:]:
-        rest = 4 * (rows * kxs + 2 * rows * (H + 4) + rows * 8 + rows * A)
+    rowsets = row_choices(H)
+
+    def plan(rows, chunked):
+        kxs = (STAGE_K if chunked else _up(A + S, STAGE_K)) + 4
+        rest = 4 * (rows * kxs + rows * (H + 4) + rows * (hc + 4) + rows * 8
+                    + rows * A * (2 if chunked else 1))
         stages = min(MAX_STAGES, (SMEM_LIMIT - rest) // stage)
-        if stages >= 2:
-            return dict(rows=rows, kxs=kxs, stages=stages,
-                        smem_bytes=stages * stage + rest)
-    raise ValueError(
-        f"net too wide for the kernel's shared memory: {ROW_CHOICES[-1]} rows "
-        f"of a {A + S}-wide [x|s] tile and hidden {H} leave the weight ring "
-        f"under two {stage}-byte stages of {SMEM_LIMIT} bytes")
+        return dict(rows=rows, kxs=kxs, stages=stages, chunked=chunked,
+                    smem_bytes=stages * stage + rest)
+
+    for rows in rowsets:
+        p = plan(rows, False)
+        if p["stages"] >= 2:
+            return p
+    p = plan(rowsets[0], True)
+    if p["stages"] < 2:
+        raise ValueError(f"hidden {H} leaves the weight ring under two "
+                         f"{stage}-byte stages of {SMEM_LIMIT} bytes")
+    return p
 
 
 def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
     """What a launch at this shape looks like: tile, grid, shared memory and
-    the bytes of weights its blocks stream in all."""
+    the bytes of weights its blocks stream in all (a net the kernel cannot
+    run raises with the reason)."""
+    check_supported(net)
     H = padded(hidden(net))
     sm = _smem(net, A, S)
     grid = -(-N // sm["rows"])
     per_step = layout(net)["stream_stages"] * STAGE_K * H * 4
     return dict(rows_per_block=sm["rows"], grid=grid, hidden_padded=H,
+                passes=passes(H), chunked=sm["chunked"],
                 layer_norm=net.use_layer_norm,
                 smem_bytes=sm["smem_bytes"],
                 ring_stages=sm["stages"],
@@ -314,7 +357,7 @@ def fused_mlp_diffusion_sample(net: MLPDiffusion, s: torch.Tensor,
          sm["smem_bytes"], 8 * maxw, sm["rows"], int(net.use_layer_norm),
          len(widths), ACTIVATIONS.index(net.cond_activation),
          int(net.time.learnable), maxw, vo.get("blk.0", vo["ow"]), vo["ow"],
-         *widths, *[0] * (MAX_COND_LAYERS - len(widths))],
+         int(sm["chunked"]), *widths, *[0] * (MAX_COND_LAYERS - len(widths))],
         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
     fn = _build.function("ldp_mlp_sampler", [P] * 9 + [I, F, P])

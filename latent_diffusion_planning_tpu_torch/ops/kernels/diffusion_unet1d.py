@@ -40,8 +40,17 @@ program has no DOWN or UP record, and every level runs at the full length.
 Where no tile of such a net fits the shared memory whole (LDP-hier's
 default planner [256,512,1024] at 16 rows), the program runs in *wide*
 mode: the fp32 activation buffers and the skips move to a per-block slice
-of a global scratch (``wide_scratch_bytes``), the same records, the same
-weight stream.
+of a global scratch, the same records, the same weight stream; where even
+the operand buffers do not fit beside the ring (``operands_global``: a
+[1024,2048,4096] planner), they move to the scratch too, and the bf16 GEMM
+reads its input through a window of channels staged in shared memory for
+``ldmatrix`` (``stage_elems``: the whole input where it fits). A tile
+holds up to ``MAX_ROWS`` GEMM rows (samples × time steps), and one sample
+up to ``MAX_SAMPLE_ROWS`` (a plan of 256 steps: bf16 instances of 16 row
+tiles). An up block whose concatenated input is as wide
+as its output has no projection, so its residual is that input in fp32: the
+program then keeps an fp32 copy of the skip beside the bf16 one
+(``skip32``) and concatenates both halves in fp32.
 
 Two weight types, one template each (``csrc/unet1d.cuh``): bf16 (the
 default, ``diffusion_unet1d.cu``) and fp32 (``dtype=torch.float32``, the JAX
@@ -81,7 +90,8 @@ SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
 NB_CHOICES = (16, 8, 4, 2, 1)   # samples per block
 MIN_BLOCKS = 64         # prefer a tile that leaves at least this many blocks
 MAX_ROWS = 128          # GEMM rows (samples × time steps) a block can hold
-WIDE_MAX_ROWS = 32      # ... in the wide mode (its one kernel instance)
+WIDE_MAX_ROWS = 32      # ... in the wide mode
+MAX_SAMPLE_ROWS = 256   # one sample's rows: bf16 instances of 16 row tiles
 WEIGHT_DTYPE = torch.bfloat16   # the default weight type
 WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -95,6 +105,12 @@ PROLOGUE_STAGES = 3
 COND_ROWS = 64                  # samples per prologue block (cond half)
 COND_CHUNK = 256                # condition channels it holds at a time
 REC = 12                        # ints per program record
+# bf16 operands in global memory: a GEMM stages a window of its input rows'
+# channels in shared memory, at least three 32-channel tiles of every row at
+# this row stride (elements), and as much of a row as fits beside a ring of
+# STAGED_RING stages
+STAGED_LD = 3 * TILE_K + 8
+STAGED_RING = 4
 # the fp32 wide GEMM's partial sums (two buffers of 16 warps x 32 lanes x
 # 2 row tiles x 4), at the end of a block's slice of the scratch
 F32_RED_BYTES = 4 * 2 * 16 * 32 * 2 * 4
@@ -141,8 +157,31 @@ def ld32(C: int) -> int:
     return C + 8
 
 
-def check_supported(net: ConditionalUnet1D, T: int) -> None:
-    """Raise ValueError, with the reason, for a call the kernel cannot run."""
+def sample_rows(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    """The most rows one sample may have: the bf16 instances go to 16 row
+    tiles, the fp32 ones to 8."""
+    return MAX_SAMPLE_ROWS if esize(dtype) == 2 else MAX_ROWS
+
+
+def rows_fit(nb: int, T: int, wide: bool,
+             dtype: torch.dtype = WEIGHT_DTYPE) -> bool:
+    """Whether a tile of ``nb`` samples of length ``T`` has rows an instance
+    takes: ``MAX_ROWS`` (``WIDE_MAX_ROWS`` in the wide mode), or one sample
+    of up to ``sample_rows(dtype)`` (the fp32 wide mode: 32)."""
+    cap = WIDE_MAX_ROWS if wide else MAX_ROWS
+    if nb * T <= cap:
+        return True
+    one = WIDE_MAX_ROWS if wide and esize(dtype) == 4 else sample_rows(dtype)
+    return nb == 1 and T <= one
+
+
+def check_supported(net: ConditionalUnet1D, T: int,
+                    dtype: torch.dtype = WEIGHT_DTYPE) -> None:
+    """Raise ValueError, with the reason, for a call the kernel cannot run:
+    a plan length the U-Net's stride does not divide (the JAX agent samples
+    it with its scan), an even kernel_size (the JAX net does not build),
+    widths GroupNorm cannot split, or a plan past the rows one block
+    holds."""
     dd = net.down_dims
     stride = 2 ** (len(dd) - 1) if net.downsample else 1
     if T % stride:
@@ -152,17 +191,21 @@ def check_supported(net: ConditionalUnet1D, T: int) -> None:
         raise ValueError("every down_dims entry must divide into n_groups")
     if net.kernel_size % 2 == 0:
         raise ValueError("kernel needs an odd kernel_size")
-    if T > MAX_ROWS:
-        raise ValueError(f"plan length {T} exceeds the {MAX_ROWS} GEMM rows a "
-                         "block holds")
-    # skips live as bf16 conv operands only, so a block that reads a concat
-    # must project its residual (always so unless the widths conspire)
-    cin = dd[-1]
+    if T > sample_rows(dtype):
+        raise ValueError(f"plan length {T} exceeds the {sample_rows(dtype)} "
+                         f"GEMM rows a block holds with "
+                         f"{str(dtype).removeprefix('torch.')} weights")
+
+
+def _skip32_levels(dd, downsample: bool) -> set:
+    """Levels whose skip an up block without a projection reads back: the
+    block's input, [h | skip], as wide as its output, is its residual."""
+    out, cin = set(), dd[-1]
     for lvl in range(len(dd) - 1, 0, -1):
         if cin + dd[lvl] == dd[lvl - 1]:
-            raise ValueError("an up block whose concatenated input width "
-                             "equals its output width is not supported")
+            out.add(lvl)
         cin = dd[lvl - 1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -411,8 +454,8 @@ def _build_program(signature: tuple, T: int, nb: int,
     Records (12 ints, unused fields 0):
       FILM         cin ch Tl tile(conv1) tile(conv2) film_off tile(proj)|-1
                    vec(conv1) vec(conv2) vec(proj)
-      SAVE         skip_off C Tl
-      CONCAT       skip_off C_h C_skip Tl
+      SAVE         skip_off C Tl has32 skip32_off
+      CONCAT       skip_off C_h C_skip Tl has32 skip32_off
       DOWN / UP    ch Tl_in tile vec
       FINAL_BLOCK  cin ch Tl tile vec
       FINAL_CONV   cin D Tl tile vec
@@ -432,11 +475,19 @@ def _build_program(signature: tuple, T: int, nb: int,
     def rec(*v):
         recs.append(list(v) + [0] * (REC - len(v)))
 
-    # one bf16 skip slot per level >= 1 (the level-0 skip is never read back)
+    # one bf16 skip slot per level >= 1 (the level-0 skip is never read
+    # back), and an fp32 one (floats) where an up block without a
+    # projection adds the skip to its residual
     slot, skip_total = {}, 0
+    slot32, skip32_total = {}, 0
+    need32 = _skip32_levels(dd, downsample)
     for i in range(1, len(dd)):
+        tl = T >> i if downsample else T
         slot[i] = skip_total
-        skip_total += nb * (T >> i if downsample else T) * ldb_(dd[i])
+        skip_total += nb * tl * ldb_(dd[i])
+        if i in need32:
+            slot32[i] = skip32_total
+            skip32_total += nb * tl * ld32(dd[i])
 
     Tl, cin = T, D
     for op in _walk(len(dd), downsample):
@@ -453,11 +504,17 @@ def _build_program(signature: tuple, T: int, nb: int,
             maxb = max(maxb, Tl * ldb_(cin), Tl * ldb_(ch))
             cin = ch
         elif kind == "save":
-            rec(SAVE, slot[op[1]], cin, Tl)
+            lvl = op[1]
+            rec(SAVE, slot[lvl], cin, Tl,
+                *((1, slot32[lvl]) if lvl in slot32 else ()))
         elif kind == "concat":
-            rec(CONCAT, slot[op[1]], cin, dd[op[1]], Tl)
-            cin += dd[op[1]]
+            lvl = op[1]
+            rec(CONCAT, slot[lvl], cin, dd[lvl], Tl,
+                *((1, slot32[lvl]) if lvl in slot32 else ()))
+            cin += dd[lvl]
             maxb = max(maxb, Tl * ldb_(cin))
+            if lvl in slot32:
+                max32 = max(max32, Tl * ld32(cin))
         elif kind in ("down", "up"):
             g = gm[f"{kind}.{op[1]}"]
             rec(DOWN if kind == "down" else UP, cin, Tl, g["tile_off"],
@@ -476,34 +533,41 @@ def _build_program(signature: tuple, T: int, nb: int,
     es = esize(dtype)
     # X32 and Y32 (nb samples each); fp32 rounds them to whole 16 bytes, so
     # operand buffers placed after them take 16-byte loads
-    m32 = nb * max32 if es == 2 else _up(nb * max32, 4)
+    m32 = nb * max32 if es == 2 and not wide else _up(nb * max32, 4)
     sb = stage_bytes(dtype)
-    operands_global = False
-    if wide and es == 4:
-        # fp32: the operand buffers in shared memory where they fit beside
-        # a ring of MIN_STAGES, else in the scratch too (plain loads)
+    s32 = 4 * skip32_total      # bytes of the fp32 skips, after the bf16 ones
+    red = F32_RED_BYTES if es == 4 else 0
+    operands_global, window = False, 0
+    if wide:
+        # the operand buffers in shared memory where they fit beside a ring
+        # of MIN_STAGES, else in the scratch too: plain loads in fp32, and
+        # in bf16 staged through a window in shared memory
         floats, elems = _up(small, 4), 2 * nb * maxb + 16
-        scratch = _up(4 * 2 * m32 + 4 * skip_total + F32_RED_BYTES, 256)
-        if 4 * floats + 4 * elems + MIN_STAGES * sb > SMEM_LIMIT:
+        scratch = _up(4 * 2 * m32 + es * skip_total + s32 + red, 256)
+        if 4 * floats + es * elems + MIN_STAGES * sb > SMEM_LIMIT:
             operands_global = True
-            elems = 16
-            scratch = _up(4 * 2 * m32 + 4 * (2 * nb * maxb + skip_total)
-                          + F32_RED_BYTES, 256)
-    elif wide:
-        floats, elems = _up(small, 4), 2 * nb * maxb + 16
-        scratch = _up(4 * 2 * m32 + 2 * skip_total, 256)
+            if es == 2:
+                # the staging window: the widest operand buffer where it
+                # fits beside a ring of STAGED_RING, else what room is left
+                room = (SMEM_LIMIT - STAGED_RING * sb - 4 * floats) // 2 - 16
+                window = max(nb * T * STAGED_LD, min(nb * maxb, room) & ~7)
+            elems = 16 + window
+            scratch = _up(4 * 2 * m32 + es * (2 * nb * maxb + skip_total)
+                          + s32 + red, 256)
     else:
         floats = _up(2 * m32 + small, 4)
-        elems = 2 * nb * maxb + skip_total + 16
+        elems = 2 * nb * maxb + skip_total + s32 // es + 16
         scratch = 0
     rest = 4 * floats + es * elems
     stages = min(MAX_STAGES, max(MIN_STAGES, (SMEM_LIMIT - rest) // sb))
     out = dict(records=recs, max32=m32, maxb=nb * maxb,
-               skip_total=skip_total, stages=stages,
-               smem_bytes=stages * sb + rest, wide=wide,
+               skip_total=skip_total, skip32_total=skip32_total,
+               stages=stages, smem_bytes=stages * sb + rest, wide=wide,
                scratch_bytes=scratch, dtype=dtype)
-    if es == 4:
+    if es == 4 or operands_global:
         out["operands_global"] = operands_global
+    if window:
+        out["stage_elems"] = window
     return out
 
 
@@ -522,23 +586,29 @@ def prologue_smem_bytes(net: ConditionalUnet1D,
 def _fits(net: ConditionalUnet1D, T: int, dtype: torch.dtype,
           every_mode: bool) -> list:
     """(nb, program) of every tile that fits a block, most samples first:
-    the ordinary mode, then (where none fits, or ``every_mode``) the wide."""
+    the ordinary mode, then (where none fits, or ``every_mode``) the wide;
+    bf16 takes the wide mode with its operands in global memory only where
+    no tile fits otherwise."""
     fits = []
-    for wide in (False, True):
+    # (wide, operands in global memory): None lets the program choose
+    modes = (((False, False), (True, False), (True, True))
+             if esize(dtype) == 2 else ((False, None), (True, None)))
+    for wide, global_ops in modes:
         if fits and not every_mode:
             break
         for nb in NB_CHOICES:
-            if nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS):
+            if not rows_fit(nb, T, wide, dtype):
                 continue
             prog = build_program(net, T, nb, wide, dtype)
+            if (global_ops is not None
+                    and prog.get("operands_global", False) != global_ops):
+                continue
             if prog["smem_bytes"] <= SMEM_LIMIT:
                 fits.append((nb, prog))
     if not fits:
-        where = ("buffers and skips" if esize(dtype) == 2
-                 else "and operand buffers and skips")
         raise ValueError("net too wide for the kernel's shared memory at "
-                         f"length {T}, even with its fp32 {where} in global "
-                         f"memory (up to {WIDE_MAX_ROWS} rows a block)")
+                         f"length {T}, even with its buffers, skips and "
+                         f"operands in global memory")
     return fits
 
 
@@ -693,6 +763,8 @@ def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
     return dict(dtype=str(dtype).removeprefix("torch."),
                 samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
                 wide=prog["wide"], scratch_bytes=grid * prog["scratch_bytes"],
+                operands_global=prog.get("operands_global", False),
+                stage_elems=prog.get("stage_elems", 0),
                 film_t_bytes=4 * n_steps * lay["film_ld"],
                 ring_stages=prog["stages"], prologue_cond_rows=rows,
                 prologue_grid=n_steps + -(-B // rows),
@@ -717,7 +789,7 @@ def _dims(net: ConditionalUnet1D, B: int, T: int, S: int, nb: int,
             prologue_smem_bytes(net, dtype), prog["stages"], PROLOGUE_STAGES,
             TILE_N, COND_ROWS,
             int(prog["wide"]) + int(prog.get("operands_global", False)),
-            prog["scratch_bytes"], COND_CHUNK]
+            prog["scratch_bytes"], COND_CHUNK, prog["skip32_total"]]
 
 
 def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
@@ -748,8 +820,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     if x_init.device.type != "cuda":
         raise ValueError(f"unsupported device {x_init.device}")
     B, T, D = x_init.shape
-    check_supported(net, T)
     _check_dtype(dtype)
+    check_supported(net, T, dtype)
     if D != net.input_dim or global_cond.shape != (B, net.global_cond_dim):
         raise ValueError("sample or condition width does not match the net")
     dev = x_init.device
@@ -760,7 +832,7 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
         if wide is None:
             wide = choose_tile(net, T, dtype=dtype)[1]["wide"]
         prog = build_program(net, T, nb, wide, dtype)
-        if (nb * T > (WIDE_MAX_ROWS if wide else MAX_ROWS)
+        if (not rows_fit(nb, T, wide, dtype)
                 or prog["smem_bytes"] > SMEM_LIMIT):
             raise ValueError(f"a tile of {nb} samples does not fit a block")
     lay = layout(net, dtype)

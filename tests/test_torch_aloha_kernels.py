@@ -177,7 +177,9 @@ def test_kernel_b_twin_matches_jax_scan(kind):
 def test_kernel_a_fits_wide_conditions():
     """The phys4 IDM (hidden 256, 3 blocks, A = 14, S = 540: two 270-wide
     observations) runs 32 rows a block with a five-stage ring; the bench
-    IDM keeps 64 rows; past what 32 rows allow it raises with the reason."""
+    IDM keeps 64 rows; past what 32 rows allow (S = 4000) the row is walked
+    in chunks at 64 rows; a hidden width past 1024 still raises with the
+    reason."""
     from latent_diffusion_planning_tpu_torch.models.nets.mlp import (
         MLPDiffusion as TorchMLP)
     with torch.device("meta"):
@@ -189,5 +191,12 @@ def test_kernel_a_fits_wide_conditions():
     assert info["grid"] == 8 and info["smem_bytes"] <= kmlp.SMEM_LIMIT
     main = kmlp.kernel_info(bench, 8192, 7, 50, 10)
     assert main["rows_per_block"] == 64 and main["grid"] == 128
-    with pytest.raises(ValueError, match="too wide for the kernel's shared"):
-        kmlp.kernel_info(huge, 64, 14, 4000, 25)
+    chunked = kmlp.kernel_info(huge, 64, 14, 4000, 25)
+    assert chunked["chunked"] and chunked["rows_per_block"] == 64
+    assert chunked["smem_bytes"] <= kmlp.SMEM_LIMIT
+    assert not main["chunked"] and not info["chunked"]
+    with torch.device("meta"):
+        too_wide = TorchMLP(s_dim=540, out_dim=14, n_blocks=3,
+                            hidden_dim=kmlp.MAX_HIDDEN + 8)
+    with pytest.raises(ValueError, match="hidden_dim up to"):
+        kmlp.kernel_info(too_wide, 64, 14, 540, 25)

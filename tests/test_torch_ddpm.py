@@ -213,19 +213,22 @@ def test_nets_that_fit_keep_their_tiles(D, Dc, dd, k, down, T, B):
 
 
 def test_what_wide_mode_cannot_hold_is_refused():
-    """The bf16 operand buffers stay in shared memory (``ldmatrix`` reads
-    nothing else): a net whose widest concat's operands alone outgrow a
-    block is refused, with the reason. [1024,2048,4096] at 8 rows: 2 × 8 ×
-    8200 bf16. The wide mode has one kernel instance, for up to 32 rows a
-    block: [64,128,256] fits whole at 32 rows and is refused at 40."""
+    """A net whose widest concat's bf16 operands alone outgrow a block, once
+    refused, runs in the wide mode with its operands in global memory
+    (staged through shared memory for ``ldmatrix``): [1024,2048,4096] at
+    8 rows, 2 × 8 × 8200 bf16. The wide mode holds one sample of up to 256
+    rows: [64,128,256] fits whole at 32 rows and runs one sample a block,
+    wide, at 40. Past 256 rows a plan is refused, with the reason."""
     net = _meta_unet(25, 25, (1024, 2048, 4096), 5, False)
     assert kunet.choose_tile(net, 2, 64)[0] >= 1
-    with pytest.raises(ValueError, match="even with its fp32 buffers"):
-        kunet.choose_tile(net, 8, 64)
+    nb, prog = kunet.choose_tile(net, 8, 64)
+    assert nb == 1 and prog["wide"] and prog["operands_global"]
     narrow = _meta_unet(25, 25, (64, 128, 256), 5, False)
     assert not kunet.choose_tile(narrow, 32, 64)[1]["wide"]
-    with pytest.raises(ValueError, match="up to 32 rows a block"):
-        kunet.choose_tile(narrow, 40, 64)
+    nb, prog = kunet.choose_tile(narrow, 40, 64)
+    assert nb == 1 and prog["wide"]
+    with pytest.raises(ValueError, match="exceeds the 256 GEMM rows"):
+        kunet.check_supported(narrow, 272)
 
 
 def test_kernel_info_reports_a_ddpm_call():

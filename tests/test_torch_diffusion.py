@@ -438,7 +438,7 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip, noise=None,
 
     # ---- the steps ----
     xcur = x.reshape(nb * T, D).astype(np.float64)
-    skip = {}
+    skip, skip32 = {}, {}
     for step in range(len(film_t)):
         cur = Cursor("main")
         h = xcur.copy()
@@ -463,8 +463,13 @@ def _run_unet_program(net, gcond, x, ts, coefs, clip, noise=None,
                     h = z + h
             elif kind == kunet.SAVE:
                 skip[rec[1]] = _bf16(h)
+                if rec[4]:      # the fp32 copy an up block's residual reads
+                    skip32[rec[5]] = h.copy()
             elif kind == kunet.CONCAT:
-                h = np.concatenate([_bf16(h), skip[rec[1]]], 1)
+                # [h | skip] in fp32 where the up block's residual reads it,
+                # else its bf16 operand (the proj conv reads only that)
+                h = (np.concatenate([h, skip32[rec[6]]], 1) if rec[5]
+                     else np.concatenate([_bf16(h), skip[rec[1]]], 1))
             elif kind == kunet.DOWN:
                 h = conv(cur, _bf16(h), rec[1], rec[2], rec[1], rec[2] // 2,
                          rec[4], 3, "down")
@@ -650,13 +655,13 @@ def test_idm_packing_round_trips(H):
     assert torch.equal(packed[o:], vec)
     n_params = sum(p.numel() for p in net.parameters())
     assert packed.numel() == n_params + (64 - 57) * H
-    # any multiple of 8 up to 512 runs (padded to whole tiles); nothing else
-    kmlp.check_supported(kmlp.MLPDiffusion(50, 7, 64, (128, 128), "swish",
-                                           3, 96))
-    for bad in (100, 520):
-        with pytest.raises(ValueError, match="hidden_dim"):
-            kmlp.check_supported(kmlp.MLPDiffusion(
-                50, 7, 64, (128, 128), "swish", 3, bad))
+    # any width up to MAX_HIDDEN runs (padded to whole tiles); past it not
+    for ok in (96, 100, 520, 1024):
+        kmlp.check_supported(kmlp.MLPDiffusion(50, 7, 64, (128, 128),
+                                               "swish", 3, ok))
+    with pytest.raises(ValueError, match="hidden_dim"):
+        kmlp.check_supported(kmlp.MLPDiffusion(
+            50, 7, 64, (128, 128), "swish", 3, kmlp.MAX_HIDDEN + 8))
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

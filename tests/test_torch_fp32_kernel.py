@@ -480,13 +480,14 @@ def test_idm_variant_packing_matches_the_twin(case):
 
 
 def test_what_kernel_a_still_refuses():
-    """Only a hidden width that is not a multiple of 8 or passes 512, and a
-    cond MLP the JAX IDM never builds, are refused."""
-    for bad, reason in ((dict(hidden_dim=100), "multiple of 8"),
-                        (dict(hidden_dim=520), "multiple of 8")):
-        net = MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, **bad)
-        with pytest.raises(ValueError, match=reason):
-            kmlp.check_supported(net)
+    """Only a hidden width past ``MAX_HIDDEN`` (1024: a ring stage of 16 x
+    1024 floats) and a cond MLP the JAX IDM never builds are refused; widths
+    that are not a multiple of 8 or pass 512 run."""
+    for ok in (100, 520, 1024):
+        kmlp.check_supported(MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, ok))
+    net = MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, kmlp.MAX_HIDDEN + 8)
+    with pytest.raises(ValueError, match="hidden_dim up to 1024"):
+        kmlp.check_supported(net)
     net = MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, 64)
     kmlp.check_supported(net)
     net.cond.tanh_output = True

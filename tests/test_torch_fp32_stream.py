@@ -45,8 +45,9 @@ def test_fp32_plan_fits_a_block_in_one_wave(call):
     assert info["samples_per_block"] == nb and info["waves"] == 1
     assert info["grid"] <= kunet.H100_SMS
     dims = kunet._dims(net, B, T, S, nb, prog, F32)
-    assert len(dims) == 33
+    assert len(dims) == 34
     assert dims[30] == int(prog["wide"]) + int(prog["operands_global"])
+    assert dims[33] == prog["skip32_total"] == 0
 
 
 @pytest.mark.parametrize("B", [1, 255, 256, 257])

@@ -223,8 +223,11 @@ def test_run_batched_eval_matches_jax(plan_blend):
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 48, "time_dim": 16,
                    "cond_hidden_dims": [32, 32]}), None),
     (dict(fused_dtype="float32"), None),
+    # hidden 52 (not a multiple of 8), once refused, runs too; past 1024 not
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 52, "time_dim": 16,
-                   "cond_hidden_dims": [32, 32]}), "multiple of 8"),
+                   "cond_hidden_dims": [32, 32]}), None),
+    (dict(idm_net={"n_blocks": 1, "hidden_dim": 1032, "time_dim": 16,
+                   "cond_hidden_dims": [32, 32]}), "hidden_dim up to 1024"),
     (dict(fused_dtype="float16"), "float32 or bfloat16"),
 ])
 def test_kernel_refusals(change, reason):

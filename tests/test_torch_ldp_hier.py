@@ -602,10 +602,12 @@ def test_kernel_check_covers_the_planner_at_the_windows_length():
     level at the full length, so its shared memory grows with it. Where no
     tile fits whole, kernel B's wide mode moves the fp32 buffers and the
     skips to global memory: [512,1024,2048] fits that way at T 8. A planner
-    [1024,2048,4096] fits at T 2 and not at T 8 even so (its widest
-    concat's bf16 operands alone outgrow a block), so the check refuses it
-    when the agent is built, not at the first eval after training. Its
-    shapes are enough: the nets are built on the meta device."""
+    [1024,2048,4096], whose widest concat's bf16 operands alone outgrow a
+    block at T 8, once refused, moves those operands to global memory too,
+    so the check passes; what it still refuses when the agent is built
+    (not at the first eval after training) is a length past the 256 rows
+    a block holds. Its shapes are enough: the nets are built on the meta
+    device."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as kunet)
     agent = LDPHierAgent.create(_config(), configs.SHAPE_META, device="cpu")
@@ -618,8 +620,10 @@ def test_kernel_check_covers_the_planner_at_the_windows_length():
              "down_dims": [1024, 2048, 4096]}, D, D)
     assert kunet.choose_tile(wide, 8)[1]["wide"]
     kunet.choose_tile(agent.planner, P)
-    with pytest.raises(ValueError, match="shared memory at length 8"):
-        agent._check_kernels()
+    agent._check_kernels()
+    assert kunet.choose_tile(agent.planner, 8)[1]["operands_global"]
+    with pytest.raises(ValueError, match="exceeds the 256 GEMM rows"):
+        kunet.check_supported(agent.planner, 264)
 
 
 def test_the_recipe_passes_the_kernel_check_and_refuses_what_it_must():

@@ -74,12 +74,16 @@ RGB = "agentview_image"
 
 
 def npz_to_hdf5(src: Path, dst: Path) -> None:
-    """A port ``.npz`` demo file as robomimic HDF5 (the same key paths)."""
+    """A port ``.npz`` demo or latent file as robomimic HDF5 (the same key
+    paths; a latent file's ``min_z``/``max_z`` as the attributes JAX's
+    ``tools/process_latents.py`` records)."""
     with np.load(src) as z, h5py.File(dst, "w") as f:
         data = f.create_group("data")
         for k in z.files:
             if k == "data/env_args":
                 data.attrs["env_args"] = str(z[k])
+            elif k in ("data/min_z", "data/max_z"):
+                data.attrs[k[5:]] = float(json.loads(str(z[k])))
             elif k.endswith("/num_samples"):
                 f.require_group(k.rsplit("/", 1)[0]).attrs[
                     "num_samples"] = int(z[k])
