@@ -134,7 +134,13 @@
    decision at which they part is printed), ``collect_data`` of the first
    checkpoint (``DRIVER_COLLECT`` episodes) with its latents, and the mixed
    arm (``DRIVER_MIXED_STEPS``). Every file must be there and read back.
-7. Can and Square on the contact engine (``phase_pick_place``): kernel C on
+7. Can and Square on the contact engine (``phase_pick_place``): first one
+   Can control step on the card from the 72 contact states of
+   ``tests/fixtures/can_contact_golden.npz`` against JAX's next states
+   (``contact_check``: fp32 from the CUDA graph and eagerly, held within 5
+   times the card's own fp32-to-fp64 distance, as the CPU test holds the
+   CPU's; kernel C's frames of those states against the plain
+   renderer's); kernel C on
    1024 Can and 1024 Square scenes (10 prims, 2 of them spheres) from
    states a few expert steps apart, at C's bar; each scripted expert over
    1024 envs × 300 steps from the CUDA graph (every state finite; success
@@ -154,17 +160,26 @@
    ``--only defaults``) and then the options their configs take
    (``phase_options_kernels``, ``phase_options``, ``--only options``):
    kernel B with fp32 weights at every default call and the bench planner
-   against the fp32 twin (1e-3 after DDPM-100, 2e-4 after DDIM-10), B at
+   against the fp32 twin (1e-3 after DDPM-100, 2e-4 after DDIM-10), and
+   with fp16 weights at every default call against its fp16 rounding twin
+   (phase B's statistics), timed beside the bf16 instance, and on a narrow
+   net against the twin with and without each of JAX's fp16 rounding
+   points and with one sample's draw times 500 (``_fp16_rounding_points``:
+   the samples it holds within 1e-6, the overflow's NaN); B at
    the default DP's 3099-wide condition in both weight types, kernel A on
    five IDM variants (mish, no LayerNorm, fixed time features, hidden 48
    and 512) within 1e-3 of the twin, each timed with its bound; the shapes
    the TPU kernels take that the CUDA kernels gained (``_kernel_shapes``,
-   ``--only shapes``: A at hidden 36 and 1024 and with 1100- and 2048-wide
-   ``[x|s]`` rows; B at 160 and 256 plan steps, on down_dims (32, 16, 16)
+   ``--only shapes``: A at hidden 36, 1024 and 1536 and with 1100- and
+   2048-wide ``[x|s]`` rows; B at 160, 256 and 320 plan steps (320 in bf16
+   and fp16) and at 160 in fp32, in the ordinary mode past its rows (288
+   steps on down_dims (8, 16, 32) in bf16 and fp16, 160 on (32, 16, 16) in
+   fp32), on down_dims (32, 16, 16)
    in both weight types, in the wide mode at 40 rows and with bf16
    operands in global memory on a [1024,2048,4096] planner), each against
    its twin with its plan, time and bound; then LDP
-   with ``OPT_LDP`` and DP with ``OPT_DP`` through ``train_bc`` and
+   with ``OPT_LDP``, DP with ``OPT_DP`` and LDP with
+   ``fused_dtype: float16`` through ``train_bc`` and
    ``eval_bc`` on a stable VAE trained in bf16 (``OPT_VAE``), launches
    stated before the closed loops and checked.
 
@@ -461,13 +476,18 @@ def taps_inside(n_out, k, stride, offset, n_in) -> int:
                for o in range(n_out) for j in range(k))
 
 
-def unet_entry(row_tiles: int, wide: bool, fp32: bool = False) -> str:
+def unet_entry(row_tiles: int, wide: bool, fp32: bool = False,
+               fp16: bool = False) -> str:
     """The mangled-name part of kernel B's main instance for a tile of
-    ``row_tiles`` m16 row tiles (instances of 2, 4, 8 and, bf16, 16), in
-    wide mode or not, with bf16 or fp32 weights."""
-    entry = next(n for n in (2, 4, 8, 16) if row_tiles <= n)
-    w = "f" if fp32 else "13__nv_bfloat16"
-    return f"unet1d_sampler_kernelI{w}Li{entry}ELb{int(wide)}E"
+    ``row_tiles`` m16 row tiles (instances of 2, 4, 8 and, bf16 and fp16,
+    16; the fp32 wide mode 2; more rows in the largest's copy that walks
+    them in groups), in wide mode or not, with bf16, fp16 or fp32
+    weights."""
+    top = (2 if wide else 8) if fp32 else 16
+    entry = next(n for n in (2, 4, 8, 16) if min(row_tiles, top) <= n)
+    w = "f" if fp32 else "6__half" if fp16 else "13__nv_bfloat16"
+    return (f"unet1d_sampler_kernelI{w}Li{entry}ELb{int(wide)}E"
+            f"Lb{int(row_tiles > top)}E")
 
 
 def unet_flops_bytes(net, B, T, steps, weight_bytes: int = 2):
@@ -1767,7 +1787,8 @@ def phase_mixed(smoke: Smoke, run: TrainRun):
 
 
 def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
-                       seeded=None, hold_max=True, plan=None) -> dict:
+                       seeded=None, hold_max=True, plan=None,
+                       dtype=None) -> dict:
     """Kernel B on ``net`` against its rounding twin: after all of
     ``table`` the mean within 5e-3 and, with ``hold_max``, no element beyond
     0.1 (phase B's bars), and closer to the twin than the fp32 net is after
@@ -1781,16 +1802,18 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     net 0.252), so the timing shapes print it as a reading too. With
     ``seeded``, also how far the seeded weights' twin lands (a stale pack
     would sit there). ``plan`` overrides the kernel's plan (``nb``,
-    ``wide``)."""
+    ``wide``); ``dtype`` the weight type (bf16, or fp16 against its own
+    rounding twin)."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
-    twin = KB.rounding_twin(net)
+    dtype = dtype or KB.WEIGHT_DTYPE
+    twin = KB.rounding_twin(net, dtype)
     ts, coefs = table
     plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
         m, cond, x_init, ts[:n], coefs[:n], clip)
     kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
         net, cond, x_init, ts[:n], coefs[:n], clip_range=clip, packed=packed,
-        **(plan or {}))
+        dtype=dtype, **(plan or {}))
     ref1 = plain(twin, 1)
     one, fp32_one = err_stats(kernel(1), ref1), err_stats(plain(net, 1), ref1)
     ref = plain(twin)
@@ -1813,34 +1836,41 @@ def _unet_against_twin(smoke, what, net, cond, x_init, table, clip, packed,
     return out
 
 
-def _time_unet(smoke, what, net, B, table, clip, g, T=8, plan=None) -> dict:
+def _time_unet(smoke, what, net, B, table, clip, g, T=8, plan=None,
+               dtype=None) -> dict:
     """Kernel B alone on ``net`` at ``B`` samples of length ``T`` over
     ``table`` (seeded condition and initial sample): held against the
     rounding twin (the max as a reading), timed beside the twin, with its
     launch geometry, the weight bytes it streams and its bound; ``plan``
-    overrides the kernel's plan as ``fused_unet1d_ddim_sample`` takes it."""
+    overrides the kernel's plan as ``fused_unet1d_ddim_sample`` takes it;
+    ``dtype`` the weight type (bf16 or fp16; fp16's products are counted at
+    the same tensor-core peak)."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
+    dtype = dtype or KB.WEIGHT_DTYPE
     ts, coefs = table
     gc = torch.randn(B, net.global_cond_dim, generator=g, device="cuda")
     x0 = torch.randn(B, T, net.input_dim, generator=g, device="cuda")
-    packed = KB.pack_params(net).to("cuda")
+    packed = KB.pack_params(net, dtype).to("cuda")
     plan = plan or {}
     checks = _unet_against_twin(smoke, what, net, gc, x0, table, clip, packed,
-                                hold_max=False, plan=plan)
-    twin = KB.rounding_twin(net)
+                                hold_max=False, plan=plan, dtype=dtype)
+    twin = KB.rounding_twin(net, dtype)
     run_k = lambda: KB.fused_unet1d_ddim_sample(
-        net, gc, x0, ts, coefs, clip_range=clip, packed=packed, **plan)
+        net, gc, x0, ts, coefs, clip_range=clip, packed=packed, dtype=dtype,
+        **plan)
     run_p = lambda: KB.unet1d_ddim_sample_plain(twin, gc, x0, ts, coefs, clip)
     ms, plain_ms = time_ms(run_k, iters=3), time_ms(run_p, iters=1)
     smoke.timing(what, ms, plain_ms)
     elem, mm, nbytes = unet_flops_bytes(net, B, T, int(ts.shape[0]))
     b_ms, b_by = bound(elem, nbytes, bf16_flops=mm)
-    shape = KB.kernel_info(net, B, T, int(ts.shape[0]), **plan)
+    shape = KB.kernel_info(net, B, T, int(ts.shape[0]), dtype=dtype, **plan)
     row_tiles = -(-shape["samples_per_block"] * T // 16)
-    info = smoke.shape_line(what, unet_entry(row_tiles, shape["wide"]), shape,
-                            mm, PEAK_BF16_FLOPS, "bf16 tensor-core", ms)
+    info = smoke.shape_line(
+        what, unet_entry(row_tiles, shape["wide"],
+                         fp16=dtype == torch.float16), shape,
+        mm, PEAK_BF16_FLOPS, "bf16/fp16 tensor-core", ms)
     print(f"   {what}: bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.2%} of "
           f"the kernel's time; weights "
           f"{shape['weight_bytes_per_step_and_block'] / 1e6:.1f} MB a step "
@@ -2816,9 +2846,98 @@ def _time_idm(smoke: Smoke, what: str, agent, n_rows: int, g) -> dict:
                 bound_by=b_by)
 
 
+CONTACT_FIXTURE = REPO / "tests" / "fixtures" / "can_contact_golden.npz"
+CONTACT_ROUNDING = 5.0     # tests/test_torch_can_parity.py's ROUNDING
+CONTACT_FLOORS = {"pos": 1e-6, "quat": 1e-5, "linvel": 1e-5, "angvel": 1e-5}
+
+
+def contact_check(smoke: Smoke, device: str = "cuda") -> dict:
+    """One Can control step on the card from the 72 contact states of
+    ``tests/fixtures/can_contact_golden.npz`` against JAX's next states,
+    at ``test_can_contact_step_matches_jax``'s bar: in each group of 8
+    states a body field within ``CONTACT_ROUNDING`` times the card's own
+    fp32-to-fp64 distance plus its floor; the arm and the reward within
+    1e-5, success and holding exactly. Stepped in fp32 from the CUDA graph
+    and eagerly, and in fp64 eagerly (the yardstick). Then every third
+    state's 64x64 frame through kernel C against the plain renderer's: more
+    than 98% of each frame's pixels within 2.0 (the CPU test's bar against
+    JAX's renderer). Prints the largest err / (ROUNDING own + floor) of
+    each field."""
+    import numpy as np
+    import torch
+    from latent_diffusion_planning_tpu_torch.envs import pick_place_physics as P
+    from latent_diffusion_planning_tpu_torch.ops import render as R
+    from latent_diffusion_planning_tpu_torch.ops.kernels import raycast as K
+
+    with np.load(CONTACT_FIXTURE) as f:
+        g = {k: f[k] for k in f}
+
+    def state(dtype, rows=slice(None)):
+        t = lambda k: torch.from_numpy(g[k][rows]).to(device, dtype)
+        return P.PickPlacePhysState(
+            bodies=P.ph.RigidBody(pos=t("pos"), quat=t("quat"),
+                                  linvel=t("linvel"), angvel=t("angvel")),
+            qpos=t("qpos"), eef_target=t("eef_target"), gripper=t("gripper"),
+            t=torch.from_numpy(g["t"][rows]).to(device))
+
+    def step(dtype, graph):
+        old = torch.get_default_dtype()
+        torch.set_default_dtype(dtype)
+        try:
+            env = P.CanPhysicsEnv(render_images=False, cuda_graph=graph)
+            new, reward, success = env.transition(
+                state(dtype), torch.from_numpy(g["action"]).to(device, dtype))
+            return new, reward, success, env.holding(new)
+        finally:
+            torch.set_default_dtype(old)
+
+    new64 = step(torch.float64, False)[0]
+    groups = len(g["t"]) // 8
+    out: dict = {}
+    for route, graph in (("graphed", True), ("eager", False)):
+        new, reward, success, held = step(torch.float32, graph)
+        ratios = {}
+        for k, floor in CONTACT_FLOORS.items():
+            got = getattr(new.bodies, k).double().cpu().numpy()
+            own = np.abs(got - getattr(new64.bodies, k).cpu().numpy())
+            err = np.abs(got - g[f"next_{k}"])
+            own, err = (x.reshape(groups, -1).max(1) for x in (own, err))
+            ratios[k] = float((err / (CONTACT_ROUNDING * own + floor)).max())
+        ratios["qpos"] = float(np.abs(new.qpos.double().cpu().numpy()
+                                      - g["next_qpos"]).max() / 1e-5)
+        ratios["reward"] = float(np.abs(reward.double().cpu().numpy()
+                                        - g["reward"]).max() / 1e-5)
+        exact = {"success": bool((success.cpu().numpy()
+                                  == g["success"]).all()),
+                 "holding": bool((held.cpu().numpy() == g["holding"]).all())}
+        print(f"   Can contact step on the card, fp32 {route}: largest "
+              f"err / bar {json.dumps({k: round(v, 4) for k, v in ratios.items()})}"
+              f", {exact} [{smoke.card}]", flush=True)
+        out[route] = {"ratios": ratios, **exact}
+        if max(ratios.values()) > 1 or not all(exact.values()):
+            raise AssertionError(f"Can contact step ({route}) departs from "
+                                 f"JAX's: {ratios} {exact}")
+    env = P.CanPhysicsEnv(image_size=64)
+    st = state(torch.float32, slice(None, None, 3))
+    scene = env.scene(st)
+    n_convex = int((scene.kind[0] == 2).sum())
+    got = K.render_batch_cuda(scene, env.camera, 64, 64, n_convex)
+    want = R.render_batch(scene, env.camera, 64, 64)
+    share = ((got - want).abs().amax(-1) < 2.0).double().mean((1, 2))
+    out["frames"] = {"n": int(share.numel()), "least_share": float(share.min()),
+                     "finite": bool(torch.isfinite(got).all())}
+    print(f"   C on {share.numel()} contact states at 64x64: least share of "
+          f"pixels within 2.0 {float(share.min()):.4f} (bar > 0.98)",
+          flush=True)
+    if not (out["frames"]["least_share"] > 0.98 and out["frames"]["finite"]):
+        raise AssertionError(f"C on the contact states: {out['frames']}")
+    return out
+
+
 def phase_pick_place(smoke: Smoke, device: str = "cuda"):
-    """Can and Square on the contact engine: kernel C on their scenes, the
-    scripted experts from the CUDA graph, the Can recipe from the command
+    """Can and Square on the contact engine: the card's Can contact step
+    and frames against JAX's (``contact_check``), kernel C on their scenes,
+    the scripted experts from the CUDA graph, the Can recipe from the command
     line (``tools/run_can_pipeline_torch.sh``'s lines, counts cut, in a
     scratch folder under ``build/``) with ``eval_bc`` over
     ``PP_EVAL_EPISODES`` × 400 steps, kernels B and A alone at the recipe's
@@ -2830,7 +2949,7 @@ def phase_pick_place(smoke: Smoke, device: str = "cuda"):
     import tempfile
     from latent_diffusion_planning_tpu_torch.envs import pick_place_physics
 
-    out: dict = {}
+    out: dict = {"can contact": contact_check(smoke, device)}
     for name in ("can", "square"):
         cls = getattr(pick_place_physics, f"{name.title()}PhysicsEnv")
         env = cls(render_images=False)
@@ -3845,7 +3964,7 @@ def default_unets(agents: dict) -> dict:
 
 
 def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
-                       packed) -> dict:
+                       packed, dtype=None) -> dict:
     """Kernel B's DDPM on ``net`` against its rounding twin with the same
     per-step noise, by phase B's statistics, which bf16 rounding flips
     cannot move: after the first step, the share of elements beyond 5e-3
@@ -3853,17 +3972,20 @@ def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
     steps, the mean within 5e-3 of the fp32 twin and closer to it than the
     unrounded fp32 net lands. The largest error is one element's worst
     flip carried through the steps and noise (over 1024 samples × 25 DDIM
-    steps it passed 0.1 once): a reading, as at the DDIM timing shapes."""
+    steps it passed 0.1 once): a reading, as at the DDIM timing shapes.
+    ``dtype``: the weight type (bf16, or fp16 against its own rounding
+    twin)."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
+    dtype = dtype or KB.WEIGHT_DTYPE
     ts, coefs = table
-    twin = KB.rounding_twin(net)
-    twin64 = KB.rounding_twin(net).double()
+    twin = KB.rounding_twin(net, dtype)
+    twin64 = KB.rounding_twin(net, dtype).double()
     kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
         net, cond, x_init, ts[:n], coefs[:n], noise[:n], clip_range=1.0,
-        packed=packed)
+        packed=packed, dtype=dtype)
     plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
         m, cond, x_init, ts[:n], coefs[:n], 1.0, noise[:n])
     with torch.no_grad():
@@ -4232,7 +4354,8 @@ def _trained_default_checks(smoke, name: str, agent, device: str,
     """Kernel B's DDPM on a trained default agent's U-Nets (kernel A's on
     LDP's IDM) against the twins, at the closed loop's shapes, the same
     noise handed to both: with ``fused_dtype: float32`` B in fp32 against
-    the fp32 twin (1e-3)."""
+    the fp32 twin (1e-3), with ``float16`` against its fp16 rounding twin
+    by phase B's statistics."""
     import torch
     from latent_diffusion_planning_tpu_torch.models.agents import common
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
@@ -4267,10 +4390,12 @@ def _trained_default_checks(smoke, name: str, agent, device: str,
         noise = common.step_noise(steps, sched, None, tuple(x0.shape), g, dev)
         what = (f"trained {run_name or name} B {net_name} ({B} samples, T "
                 f"{T}, DDPM-{int(table[0].shape[0])})")
-        check = (_ddpm_against_twin if dtype == torch.bfloat16
-                 else _fp32_against_twin)
-        out[net_name] = check(smoke, what, net, cond, x0, noise, table,
-                              packed)
+        if dtype == torch.float32:
+            out[net_name] = _fp32_against_twin(smoke, what, net, cond, x0,
+                                               noise, table, packed)
+        else:
+            out[net_name] = _ddpm_against_twin(smoke, what, net, cond, x0,
+                                               noise, table, packed, dtype)
     if name == "ldp_agent":
         c = agent.config
         steps = c.idm_inference_steps
@@ -4334,19 +4459,21 @@ def _default_decision(smoke: Smoke, agent, device: str) -> dict:
     return out
 
 
-OPT_KERNEL_PHASE = ("options: kernel B with fp32 weights at the default "
-                    "agents' calls and the bench planner, B at a 3099-wide "
-                    "condition, kernel A's IDM variants, and the shapes the "
-                    "TPU kernels take")
+OPT_KERNEL_PHASE = ("options: kernel B with fp32 and fp16 weights at the "
+                    "default agents' calls and the bench planner, B at a "
+                    "3099-wide condition, kernel A's IDM variants, and the "
+                    "shapes the TPU kernels take")
 OPT_PHASE = ("options: LDP with fp32 B, a mish IDM with dropout and a bf16 "
              "planner, and DP at obs_horizon 3 with a bf16 encoder, from the "
-             "command line on a stable VAE trained in bf16")
+             "command line on a stable VAE trained in bf16; the default LDP "
+             "with fp16 B in a closed loop")
 OPT_LDP = ("agent.fused_dtype=float32", "agent.idm_net.cond_activation=mish",
            "agent.idm_net.dropout_rate=0.1",
            "agent.planner.compute_dtype=bfloat16")
 OPT_DP = ("obs_horizon=3", "agent.encoder.compute_dtype=bfloat16")
 OPT_RUNS = (("ldp_options", "ldp_agent", OPT_LDP),
-            ("dp_options", "dp_agent", OPT_DP))
+            ("dp_options", "dp_agent", OPT_DP),
+            ("ldp_fp16", "ldp_agent", ("agent.fused_dtype=float16",)))
 OPT_VAE = ("model.vae.compute_dtype=bfloat16",)
 OPT_IDM_ROWS = 4096          # kernel A's variants: 256 envs x 16 pairs
 # kernel A's variants of the default LDP IDM (hidden 256, swish, LayerNorm,
@@ -4457,6 +4584,154 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed,
                 "diffusion_unet1d_f32.cu")
 
 
+def _fp16_call(smoke, key, net, cond, x0, noise, table) -> dict:
+    """Kernel B with fp16 weights (``fused_dtype: float16``) at one default
+    call (DDPM-100): against its fp16 rounding twin by phase B's
+    statistics, timed beside that twin and beside the bf16 instance at the
+    same call, with its bound (the products at the fp16 tensor-core peak,
+    bf16's) and launch geometry."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    f16 = torch.float16
+    B, T = x0.shape[:2]
+    S = int(table[0].shape[0])
+    what = (f"{key} fp16 {list(net.down_dims)} B={B} T={T}"
+            f"{'' if net.downsample else ' no-downsample'}, DDPM-{S}")
+    packed = KB.pack_params(net, f16).to(x0.device)
+    rec = _ddpm_against_twin(smoke, what, net, cond, x0, noise, table, packed,
+                             dtype=f16)
+    twin = KB.rounding_twin(net, f16)
+    bf16_pack = KB.pack_params(net).to(x0.device)
+    run_k = lambda: KB.fused_unet1d_ddim_sample(
+        net, cond, x0, *table, noise, packed=packed, dtype=f16)
+    run_b = lambda: KB.fused_unet1d_ddim_sample(
+        net, cond, x0, *table, noise, packed=bf16_pack)
+    run_p = lambda: KB.unet1d_ddim_sample_plain(twin, cond, x0, *table, 1.0,
+                                                noise)
+    ms, bf16_ms = time_ms(run_k, iters=1), time_ms(run_b, iters=1)
+    plain_ms = time_ms(run_p, iters=1, warmup=0)
+    smoke.timing(what, ms, plain_ms)
+    print(f"   {what}: the bf16 instance at this call {bf16_ms:.3f} ms "
+          f"[{smoke.card}]", flush=True)
+    elem, mm, nbytes = unet_flops_bytes(net, B, T, S)
+    b_ms, b_by = bound(elem, nbytes + noise.numel() * 4, bf16_flops=mm)
+    shape = KB.kernel_info(net, B, T, S, dtype=f16)
+    info = smoke.shape_line(
+        what, unet_entry(-(-shape["samples_per_block"] * T // 16),
+                         shape["wide"], fp16=True),
+        shape, mm, PEAK_BF16_FLOPS, "fp16 tensor-core", ms)
+    return dict(rec, ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=info,
+                source="latent_diffusion_planning_tpu_torch/csrc/"
+                "diffusion_unet1d_f16.cu")
+
+
+# the JAX fp16 kernel's rounding points that the fp16 instance and
+# ``rounding_twin(net, float16)`` keep and the bf16 program lacks
+FP16_POINTS = ("groupnorm", "film", "down", "final conv")
+
+
+def fp16_twin_without(net, points=FP16_POINTS):
+    """``rounding_twin(net, float16)`` without the JAX kernel's rounding
+    points named in ``points``: GroupNorm's statistics from the unrounded
+    values ("groupnorm"), FiLM's scale and bias and the downsample's output
+    unrounded ("film", "down"), the final 1x1 conv's input rounded like
+    every other operand ("final conv"). Without all four it is the bf16
+    program with fp16 operands."""
+    import functools
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConvBlock1D)
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    hooks = {KB._round_film: "film", KB._round_down: "down"}
+    twin = KB.rounding_twin(net, torch.float16)
+    for m in twin.modules():
+        if "groupnorm" in points and isinstance(m, ConvBlock1D):
+            m.norm = m.norm.norm
+        for k, h in list(m._forward_hooks.items()):
+            if hooks.get(getattr(h, "func", None)) in points:
+                del m._forward_hooks[k]
+    if "final conv" in points:
+        twin.final_conv.register_forward_pre_hook(
+            functools.partial(KB._round_input, torch.float16))
+    return twin
+
+
+def _fp16_rounding_points(smoke, g) -> dict:
+    """The fp16 instance computes JAX's fp16 function, each rounding point
+    included, not the bf16 program in fp16. On a narrow net where every
+    point shows (5 channels, down_dims (8, 8, 16): widths not a multiple of
+    128, an identity residual after the downsample), 256 samples of 8 steps,
+    DDIM-2 of a 12-step cosine schedule: the samples on which the kernel
+    holds the fp64-sum rounding twin within 1e-6 (those no fp16 rounding
+    flip between the two orders of summation touches; 145 of 256 for the
+    fp32-sum twin on the CPU) are at least an eighth, and more than four
+    times as many as the twin without any one point (or all four) holds
+    (none on the CPU). Then the overflow: 4 samples, sample 1's initial draw
+    times 500, so x * x overflows fp16 in the GroupNorm statistics; the
+    kernel's output is NaN and inf exactly where the twin's is, and the
+    other samples are finite."""
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConditionalUnet1D)
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    f16, dev, B = torch.float16, torch.device("cuda"), 256
+    net = ConditionalUnet1D(5, 5, 32, (8, 8, 16), 5, 4,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+    ts, coefs = dlib.ddim_coef_table(
+        dlib.DiffusionSchedule.create(12, "squaredcos_cap_v2"), 2)
+    ts, coefs = ts.to(dev, torch.int32), coefs.to(dev)
+    cond = torch.randn(B, 5, generator=g, device=dev)
+    x0 = torch.randn(B, 8, 5, generator=g, device=dev)
+    packed = KB.pack_params(net, f16).to(dev)
+    run_k = lambda c, x: KB.fused_unet1d_ddim_sample(
+        net, c, x, ts, coefs, packed=packed, dtype=f16)
+    twin64 = KB.rounding_twin(net, f16).double()
+    with torch.no_grad():
+        ref = dlib.sample_with_coefs(
+            lambda x, t: twin64(x, t, cond.double()), x0.double(), ts,
+            coefs.double(), None, 1.0)
+
+    def exact(y):
+        e = (y.double() - ref).abs().reshape(B, -1).amax(1)
+        return int((e <= 1e-6).sum())
+    what = "B fp16 rounding points (8, 8, 16) B=256 T=8, DDIM-2"
+    held = {"kernel": exact(run_k(cond, x0))}
+    for name, pts in [(p, (p,)) for p in FP16_POINTS] + [("all four",
+                                                          FP16_POINTS)]:
+        held[f"twin without {name}"] = exact(KB.unet1d_ddim_sample_plain(
+            fp16_twin_without(net, pts), cond, x0, ts, coefs))
+    print(f"   {what}: samples within 1e-6 of the fp64-sum twin: {held}",
+          flush=True)
+    worst = max(v for k, v in held.items() if k != "kernel")
+    if not (held["kernel"] >= B // 8 and held["kernel"] > 4 * worst):
+        raise AssertionError(f"{what}: the kernel holds the twin on "
+                             f"{held['kernel']} samples (at least {B // 8} "
+                             f"and more than 4 x {worst} wanted)")
+
+    c4, x4 = cond[:4].clone(), x0[:4].clone()
+    x4[1] *= 500
+    got = run_k(c4, x4)
+    want = KB.unet1d_ddim_sample_plain(KB.rounding_twin(net, f16), c4, x4,
+                                       ts, coefs)
+    same = (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isinf(), want.isinf()))
+    print(f"   {what}: sample 1 times 500: the kernel's non-finite elements "
+          f"{int((~got.isfinite()).sum())} (NaN "
+          f"{int(got.isnan().sum())}), the twin's "
+          f"{int((~want.isfinite()).sum())} (NaN {int(want.isnan().sum())});"
+          f" the same places: {same}", flush=True)
+    if not (same and bool(want[1].isnan().all())
+            and bool(got[[0, 2, 3]].isfinite().all())):
+        raise AssertionError(f"{what}: the overflow's NaN and inf differ "
+                             "from the twin's")
+    return dict(held, overflow_same_places=same)
+
+
 def options_dp_agent(device):
     """The default DP agent at ``obs_horizon=3`` (a (1024 + 9) × 3 = 3099-wide
     condition), built on ``device`` from the command line."""
@@ -4497,7 +4772,10 @@ def phase_options_kernels(smoke: Smoke):
     geometry; at the default LDP planner it must be faster than its twin.
     Kernel B at the default DP's condition at ``obs_horizon=3`` (3099 wide,
     the prologue walking it in chunks) in bf16 against the rounding twin by
-    phase B's statistics, and in fp32 against the fp32 twin. Kernel A on the default LDP IDM with
+    phase B's statistics, and in fp32 against the fp32 twin. Kernel B with
+    fp16 weights at every default call (``_fp16_call``): against its fp16
+    rounding twin, timed beside it and beside the bf16 instance; then
+    ``_fp16_rounding_points``. Kernel A on the default LDP IDM with
     the upstream recipe's mish, with no LayerNorm, with fixed time features
     and at hidden 48 and 512, 4096 rows DDPM-100, each within 1e-3 of its
     fp32 twin. Then the shapes the JAX package's Pallas kernels take that
@@ -4541,6 +4819,9 @@ def phase_options_kernels(smoke: Smoke):
             raise AssertionError(
                 f"{what}: the fp32 kernel ({rec['ms']:.1f} ms) is not faster "
                 f"than its fp32 twin ({rec['plain_ms']:.1f} ms)")
+        out[f"{key} fp16"] = _fp16_call(smoke, key, net, cond, x0, noise,
+                                        table)
+    out["B fp16 rounding points"] = _fp16_rounding_points(smoke, g)
 
     # the bench planner, DDIM-10 over 1024 samples (phase B's net)
     p = configs.BENCH_AGENT["planner"]
@@ -4637,6 +4918,7 @@ def phase_options_kernels(smoke: Smoke):
 SHAPE_IDM = {
     "A hidden 36": (dict(hidden_dim=36), 256, None, False),
     "A hidden 1024": (dict(hidden_dim=1024), 4096, None, True),
+    "A hidden 1536": (dict(hidden_dim=1536), 4096, None, True),
     "A [x|s] 1100": ({}, 256, 1100, False),
     "A [x|s] 2048": ({}, 256, 2048, False),
 }
@@ -4645,6 +4927,12 @@ SHAPE_IDM = {
 SHAPE_UNET = {
     "B T=160": ((64, 128, 256), True, 16, 160, "bf16", None),
     "B T=256": ((64, 128, 256), True, 16, 256, "bf16", None),
+    "B T=320": ((64, 128, 256), True, 16, 320, "bf16", None),
+    "B T=320 fp16": ((64, 128, 256), True, 16, 320, "fp16", None),
+    "B T=160 fp32": ((64, 128, 256), True, 16, 160, "fp32", None),
+    "B (8,16,32) T=288": ((8, 16, 32), True, 16, 288, "bf16", None),
+    "B (8,16,32) T=288 fp16": ((8, 16, 32), True, 16, 288, "fp16", None),
+    "B (32,16,16) T=160 fp32": ((32, 16, 16), True, 16, 160, "fp32", None),
     "B (32,16,16)": ((32, 16, 16), True, 256, 8, "bf16", None),
     "B (32,16,16) fp32": ((32, 16, 16), True, 256, 8, "fp32", None),
     "B wide 40 rows": ((64, 128, 256), True, 64, 40, "bf16",
@@ -4654,23 +4942,32 @@ SHAPE_UNET = {
     "B [1024,2048,4096] 32 rows": (
         (1024, 2048, 4096), True, 4, 32, "bf16", None),
 }
+# the entries whose plan is the ordinary mode with rows past its instance's
+# (the row groups with their buffers in shared memory)
+ORDINARY_ROW_GROUPS = ("B (8,16,32) T=288", "B (8,16,32) T=288 fp16",
+                       "B (32,16,16) T=160 fp32")
 
 
 def _kernel_shapes(smoke: Smoke, ldp, g) -> dict:
     """Each route the CUDA kernels gained for a shape the JAX package's
     Pallas kernels take, launched on the card and held against its plain
     twin, with its plan, time and bound printed. Kernel A on the default
-    LDP IDM at hidden 36 (not a multiple of 8) and 1024 (16 rows a block,
-    the 4H layer in 16 passes; 4096 rows DDPM-100, 1e-3) and with 1100- and
-    2048-wide ``[x|s]`` rows (walked in chunks; DDIM-10, 2e-4). Kernel B
-    (the bench planner's embedding width, 25 channels, DDIM-10) at plans of
-    160 and 256 steps (one sample a block, 16 row tiles), on down_dims (32,
-    16, 16) (an up block without a projection reading its skip in fp32) in
-    bf16 and fp32, in the wide mode at 40 rows, and on a [1024,2048,4096]
-    planner, whose bf16 operands the plan puts in global memory (at 8 rows
-    without downsampling, LDP-hier's topology, and at 32 with): bf16 by phase
-    B's statistics against the rounding twin, fp32 within 2e-4 of the fp32
-    twin."""
+    LDP IDM at hidden 36 (not a multiple of 8), 1024 (16 rows a block, the
+    4H layer in 16 passes) and 1536 (ring stages of 8 K-rows; 4096 rows
+    DDPM-100, 1e-3) and with 1100- and 2048-wide ``[x|s]`` rows (walked in
+    chunks; DDIM-10, 2e-4). Kernel B (the bench planner's embedding width,
+    25 channels, DDIM-10) at plans of 160, 256 and 320 steps (one sample a
+    block, 16 row tiles; 320 in row groups, in bf16 and fp16) and of 160 in
+    fp32 (past its 128 rows, in groups), in the ordinary mode's row groups
+    (``ORDINARY_ROW_GROUPS``: 288 steps on down_dims (8, 16, 32) in bf16
+    and fp16, 160 on (32, 16, 16) in fp32, each checked to plan so), on
+    down_dims (32, 16, 16) (an up
+    block without a projection reading its skip in fp32) in bf16 and fp32,
+    in the wide mode at 40 rows, and on a [1024,2048,4096] planner, whose
+    bf16 operands the plan puts in global memory (at 8 rows without
+    downsampling, LDP-hier's topology, and at 32 with): bf16 and fp16 by
+    phase B's statistics against their rounding twins, fp32 within 2e-4 of
+    the fp32 twin."""
     import torch
     from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
         ConditionalUnet1D)
@@ -4739,8 +5036,18 @@ def _kernel_shapes(smoke: Smoke, ldp, g) -> dict:
                                 generator=torch.Generator().manual_seed(3)
                                 ).to(dev)
         what = f"{key} {list(dd)} B={B} T={T} {wt}, DDIM-10"
-        if wt == "bf16":
-            info = KB.kernel_info(net, B, T, 10, **(plan or {}))
+        dtype = {"bf16": torch.bfloat16, "fp16": torch.float16,
+                 "fp32": torch.float32}[wt]
+        if key in ORDINARY_ROW_GROUPS:
+            info = KB.kernel_info(net, B, T, 10, dtype=dtype)
+            rows = info["samples_per_block"] * T
+            if info["wide"] or rows <= KB.row_group(False, dtype):
+                raise AssertionError(
+                    f"{what}: planned {'wide' if info['wide'] else ''} at "
+                    f"{rows} rows, not the ordinary mode past its "
+                    f"{KB.row_group(False, dtype)}")
+        if wt in ("bf16", "fp16"):
+            info = KB.kernel_info(net, B, T, 10, dtype=dtype, **(plan or {}))
             print(f"   {what}: plan: {info['samples_per_block']} sample(s) "
                   f"a block ({info['samples_per_block'] * T} rows), "
                   f"{'wide' if info['wide'] else 'ordinary'} mode, operands "
@@ -4748,10 +5055,12 @@ def _kernel_shapes(smoke: Smoke, ldp, g) -> dict:
                   f"memory (staging window {info['stage_elems']} elements), "
                   f"ring {info['ring_stages']} stages, grid {info['grid']}",
                   flush=True)
-            rec = _time_unet(smoke, what, net, B, table, 1.0, g, T, plan)
+            rec = _time_unet(smoke, what, net, B, table, 1.0, g, T, plan,
+                             dtype)
             rec["max_abs_err"] = rec["kernel"]["max"]
             rec["source"] = ("latent_diffusion_planning_tpu_torch/csrc/"
-                             "diffusion_unet1d.cu")
+                             "diffusion_unet1d"
+                             f"{'_f16' if wt == 'fp16' else ''}.cu")
         else:
             cond = torch.randn(B, 25, generator=g, device=dev)
             x0 = torch.randn(B, T, 25, generator=g, device=dev)
@@ -4779,7 +5088,8 @@ def phase_options(smoke: Smoke, device: str = "cuda"):
     ``eval_bc`` over ``DEF_EVAL_ENVS`` × ``DEF_EVAL_LEN`` with its launches
     stated before the run (LDP: B, A and C once a decision; DP: B and C),
     and B (A) on the trained nets against their twins (B in fp32 against
-    the fp32 twin)."""
+    the fp32 twin); and the same for the default LDP with
+    ``fused_dtype: float16`` (B in fp16 against its fp16 rounding twin)."""
     import os
     import shutil
     import tempfile
@@ -4853,6 +5163,10 @@ PATHS = (
     (OPT_PHASE, "DP at obs_horizon 3 (a 3099-wide condition), closed loop "
      "(DDPM-100)", "dp_options loop",
      {"raycast": "C 256", "diffusion_unet1d": "B dp 3099 bf16"}),
+    (OPT_PHASE, "LDP with fused_dtype float16, closed loop (DDPM-100; B in "
+     "fp16)", "ldp_fp16 loop",
+     {"raycast": "C 256", "diffusion_unet1d": "B ldp planner fp16",
+      "diffusion_mlp": "A ldp"}),
 )
 
 

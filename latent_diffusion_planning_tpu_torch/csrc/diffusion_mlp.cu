@@ -53,8 +53,9 @@
 //    kernel of the same call computes, per step, the cond MLP and its share
 //    of the trunk's input layer (+ bias) on the CUDA cores into scratch; the
 //    7-wide output layer, LayerNorm and the update stay on the CUDA cores.
-//  * Any hidden width h up to 1024: the kernel runs Hp = h padded to whole
-//    64-column tiles (to 128 past 256, to 256 past 512), the padding zero in
+//  * Any hidden width h up to 1536: the kernel runs Hp = h padded to whole
+//    64-column tiles (to 128 past 256, to 256 past 512, to 1536 past 1024),
+//    the padding zero in
 //    every weight and vector, so the padded columns of the residual stay 0;
 //    LayerNorm's mean and variance are taken over the h real columns. Past
 //    256 a block holds 32 rows (the residual in registers doubles) and the
@@ -62,8 +63,13 @@
 //    so one pass's accumulator stays 32 registers; past 512 a block holds 16
 //    rows and the 4h layer runs in Hp / 64 passes of 256 columns, and the
 //    products walk the column tiles one at a time (gemm3's lean order), so
-//    a tile's split weights are 8 registers, not 8 NT. LayerNorm or none is
-//    a template parameter.
+//    a tile's split weights are 8 registers, not 8 NT. Past 1024 (Hp 1536:
+//    a stage of 16 K-rows would be 96 KB, and two of them beside the
+//    LayerNorm output no longer fit) a ring stage holds 8 K-rows: one k8
+//    half of a 16-row tile of the Hp-wide matrices (their products summed
+//    from zero a half at a time), or half the 16-row tiles of a 4H pass's
+//    w0 columns; the stream is the same. LayerNorm or none is a template
+//    parameter.
 //  * A [x|s] row too wide for the rows a block holds (kChunk): the block
 //    keeps x (rows x A) and a window of one 16-column chunk of [x|s]; the
 //    trunk input layer fills the window chunk by chunk, s read from global
@@ -161,20 +167,56 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // acc[mt][nt] += A (16 kMt rows x K, shared, stride lda) * W (K x 64 NT,
 // the next K / (16 kSub) stages of the stream; a stage holds kSub tiles of
 // 16 K-rows), as hi*hi + hi*lo + lo*hi in TF32. Warp w computes columns
-// [8 NT w, 8 NT (w + 1)).
+// [8 NT w, 8 NT (w + 1)). kHalf: stages of 8 K-rows, so a stage holds one
+// k8 half of a tile (kSub 1) or kSub / 2 tiles.
 // Past 8 column tiles (Hp > 512) the lean order: row tile by row tile, the
 // A fragments of both k8 steps split once, then column tile by column tile
 // its weights split and its six products chained; each element's products
 // and sums are the same, in the same order, as in the order above.
-template <int NT, int kMt, int kSub, typename Ring>
+template <int NT, int kMt, int kSub, bool kHalf = false, typename Ring>
 __device__ __forceinline__ void gemm3(float (&acc)[kMt][NT][4], const float* A,
                                       int lda, int K, Ring& ring, int warp,
                                       int lane) {
   const int g = lane >> 2, tq = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += kStageK * kSub) {
+  if constexpr (kHalf && kSub == 1) {
+    // a stage is one k8 half of a tile: its products summed from zero on
+    // the tensor core and added on the CUDA cores
+    for (int kb = 0; kb < K; kb += 8) {
+      const float* st = reinterpret_cast<const float*>(ring.enter());
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        uint32_t ah[4], al[4];
+        const float* ap = A + (mt * 16 + g) * lda + kb + tq;
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8 * lda], ah[1], al[1]);
+        split_tf32(ap[4], ah[2], al[2]);
+        split_tf32(ap[8 * lda + 4], ah[3], al[3]);
+#pragma unroll 2
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 wv = *reinterpret_cast<const float2*>(
+              st + (((warp * NT + nt) * 32 + lane) << 1));
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(wv.x, bh0, bl0);
+          split_tf32(wv.y, bh1, bl1);
+          float part[4];
+          ldp::mma_tf32_zero(part, al, bh0, bh1);
+          ldp::mma_tf32(part, ah, bl0, bl1);
+          ldp::mma_tf32(part, ah, bh0, bh1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
+        }
+      }
+    }
+    return;
+  }
+  // tiles a stage (8 K-rows a stage: half of them)
+  constexpr int kSubS = kHalf && kSub > 1 ? kSub / 2 : kSub;
+  static_assert(!kHalf || kSub == 1 || kSub % 2 == 0,
+                "a stage of 8 K-rows holds whole tiles");
+  for (int k0 = 0; k0 < K; k0 += kStageK * kSubS) {
     const float* stage = reinterpret_cast<const float*>(ring.enter());
 #pragma unroll
-    for (int sub = 0; sub < kSub; ++sub) {
+    for (int sub = 0; sub < kSubS; ++sub) {
       const float* st = stage + sub * kStageK * 64 * NT;
       const int kb = k0 + sub * kStageK;
       if constexpr (NT > 8) {
@@ -269,7 +311,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
   constexpr int NTc = NT * 4 / kNC; // column tiles of one 4H pass
   constexpr int Hc = 64 * NTc;
   constexpr int kSub = H / Hc;      // 16-row tiles of w0[:, c] a stage
-  constexpr int kStageBytes = kStageK * H * 4;
+  constexpr bool kHalf = H > 1024;  // stages of 8 K-rows (see the note)
+  constexpr int kStageBytes = (kHalf ? kStageK / 2 : kStageK) * H * 4;
   constexpr int lda = H + 4;
   constexpr int ldc = Hc + 4;       // one pass of the 4H layer
   extern __shared__ float4 smem4[];
@@ -350,10 +393,10 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
           xs[r * kxs + i - r * kStageK] = val;
         }
         __syncthreads();
-        gemm3<NT, kMt, 1>(h, xs, kxs, kStageK, ring, warp, lane);
+        gemm3<NT, kMt, 1, kHalf>(h, xs, kxs, kStageK, ring, warp, lane);
       }
     } else {
-      gemm3<NT, kMt, 1>(h, xs, kxs, Kin, ring, warp, lane);
+      gemm3<NT, kMt, 1, kHalf>(h, xs, kxs, Kin, ring, warp, lane);
     }
 
     // ---- residual blocks ----
@@ -467,7 +510,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
             a1[mt][nt][2] = c0; a1[mt][nt][3] = c1;
           }
         }
-        gemm3<NTc, kMt, kSub>(a1, ln, lda, H, ring, warp, lane);
+        gemm3<NTc, kMt, kSub, kHalf>(a1, ln, lda, H, ring, warp, lane);
         // every warp is past its reads of `act` from the pass before: the
         // ring's barriers inside the product above saw to that
 #pragma unroll
@@ -483,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_sampler_kernel(
                   act + (mt * 16 + g + 8 * hf) * ldc + colc + 8 * nt) = y;
             }
         __syncthreads();
-        gemm3<NT, kMt, 1>(h, act, ldc, Hc, ring, warp, lane);
+        gemm3<NT, kMt, 1, kHalf>(h, act, ldc, Hc, ring, warp, lane);
       }
     }
 
@@ -585,8 +628,8 @@ int launch(const float* s, const float* x_init, const float* coefs,
 }  // namespace
 
 // `dims` is kNDims host ints in the order of Dims; Hp (the padded hidden
-// width) must be 64, 128, 192, 256, 384, 512, 768 or 1024, rows 64 or 32
-// (32 past 256, 16 past 512; chunked at the most rows); coefs is the (T, 6)
+// width) must be 64, 128, 192, 256, 384, 512, 768, 1024 or 1536, rows 64 or
+// 32 (32 past 256, 16 past 512; chunked at the most rows); coefs is the (T, 6)
 // table of ops/diffusion.py; noise may be null (DDIM); cbias (T x Hp) is
 // scratch. Returns a cudaError_t.
 extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
@@ -598,7 +641,8 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
   Dims d;
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
-  if (d.Hp % 64 || d.Hp < 64 || d.Hp > 1024 || d.H > d.Hp || d.H < 1 ||
+  if (d.Hp % 64 || d.Hp < 64 || (d.Hp > 1024 && d.Hp != 1536) ||
+      d.H > d.Hp || d.H < 1 ||
       d.stages < 2 || d.stages > 8 ||
       (d.rows != 64 && d.rows != 32 && d.rows != 16) || d.n_cond < 1 ||
       d.n_cond > kMaxCond || d.chunk < 0 || d.chunk > 1)
@@ -625,6 +669,8 @@ extern "C" int ldp_mlp_sampler(const float* s, const float* x_init,
     case 12: return launch<12, 16, 12>(s, x_init, coefs, noise, w, cbias, out,
                                        d, clip, st);
     case 16: return launch<16, 16, 16>(s, x_init, coefs, noise, w, cbias, out,
+                                       d, clip, st);
+    case 24: return launch<24, 16, 24>(s, x_init, coefs, noise, w, cbias, out,
                                        d, clip, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,6 +2,16 @@
 // templated on the type W of the weights and of the GEMM operand buffers:
 //   bf16  (diffusion_unet1d.cu): mma.sync m16n8k16 bf16 x bf16, operands
 //         read with ldmatrix; a ring stage is 3 tiles of 8 KB;
+//   fp16  (diffusion_unet1d_f16.cu): the JAX kernel's dtype=float16, the
+//         bf16 program with fp16 operands (mma.sync m16n8k16 f16 x f16),
+//         which rounds where the JAX kernel rounds: GroupNorm's statistics
+//         from x and x*x rounded to fp16 (E[x^2] - E[x]^2, non-finite
+//         statistics spread to the sample's other groups as JAX's 0/1
+//         broadcast matmuls spread them), FiLM's scale and bias and the
+//         downsample's output rounded where the JAX kernel's layout rounds
+//         them (a level whose width is not a multiple of 128), the final
+//         1x1 conv on the fp32 activations (split hi + lo in fp16), and a
+//         NaN kept through the clip;
 //   float (diffusion_unet1d_f32.cu): the JAX kernel's dtype=float32. Every
 //         product runs as error-compensated TF32 on the tensor cores, as in
 //         kernel A: each operand split a = hi + lo, hi*hi + hi*lo + lo*hi on
@@ -21,11 +31,21 @@
 //         split feeds two n8 column blocks, and for at most 8 rows (the
 //         deepest level) runs transposed: 16 output columns by the 8 rows a
 //         mma, no empty rows.
-// One translation unit instantiates one W, so the two build in parallel and
-// neither instance set costs the other registers.
+// One translation unit instantiates one W, so the three build in parallel
+// and no instance set costs another registers.
+//
+// A GEMM of more rows than an instance holds (a plan past 256 steps in
+// bf16 / fp16, past 128 rows in fp32, past 32 in the fp32 wide mode) walks
+// its row tiles in groups of the instance's limit, each group one pass over
+// the GEMM's weight tiles: the last group takes them from the stream's ring,
+// the ones before read them from global memory (Gemm::wtiles; the stream
+// brings them into L2). Only the largest instance of a mode takes such rows,
+// in a copy of its own (kGroups), so no other instance pays registers for
+// the groups.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -36,6 +56,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 enum Op : int {
   kFilm = 0,        // cin ch Tl t1 t2 film_off tproj v1 v2 vproj
@@ -52,8 +73,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kGroupN = 8 * kWarps;             // columns of a tile: 8 a warp
 constexpr int kTileElems = 32 * kGroupN;        // 32 K-rows x kGroupN columns
 constexpr int kChunk = 3;          // bf16 tiles a warp takes at a time
-constexpr int kMtCap = 16;         // most m16 row tiles a warp accumulates
-                                   // (bf16; the fp32 instances go to 8)
 constexpr int kCondRows = 64;      // samples per prologue cond block
 constexpr float kGnEps = 1e-6f;
 
@@ -64,6 +83,8 @@ struct Fmt<bf16> {
   static constexpr int kStageTiles = 3;
   static constexpr int kPad = 8;    // ldmatrix rows miss each other's banks
 };
+template <>
+struct Fmt<f16> : Fmt<bf16> {};
 template <>
 struct Fmt<float> {
   static constexpr int kStageTiles = 1;
@@ -79,6 +100,7 @@ struct Sizes {
 enum ConvMode { kSame = 0, kStride2 = 1, kTranspose = 2 };
 
 __device__ __forceinline__ float tof(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float tof(f16 v) { return __half2float(v); }
 __device__ __forceinline__ float tof(float v) { return v; }
 template <typename W>
 __device__ __forceinline__ W fromf(float v);
@@ -87,7 +109,16 @@ __device__ __forceinline__ bf16 fromf<bf16>(float v) {
   return __float2bfloat16(v);
 }
 template <>
+__device__ __forceinline__ f16 fromf<f16>(float v) {
+  return __float2half_rn(v);
+}
+template <>
 __device__ __forceinline__ float fromf<float>(float v) { return v; }
+// v through W and back (the value an operand of type W holds)
+template <typename W>
+__device__ __forceinline__ float roundw(float v) {
+  return tof(fromf<W>(v));
+}
 
 __device__ __forceinline__ int pad32(int c) { return (c + 31) & ~31; }
 __device__ __forceinline__ int padn(int c) {
@@ -234,19 +265,25 @@ struct Gemm {
   W* outb;          // operand copy of the result (of the next GEMM)
   int ldob;
   int nb_cols;      // columns of outb to write (zeros from N on)
+  bool round32;     // out32 holds the result rounded through W (fp16: where
+                    // the JAX kernel rounds it)
+  const W* wtiles;  // the GEMM's first weight tile in global memory, read
+                    // by the row groups before the last (or null)
+  bool global_only; // every row group reads wtiles; the ring is untouched
 };
 
 // The epilogue of one 128-column group: bias + sum (+ out32), Mish, out32,
 // and the operand copy.
 template <typename W, int kMtMax>
 __device__ __forceinline__ void gemm_store(const Gemm<W>& g, int MT, int col,
-                                           int gq, float (&acc)[kMtMax][4]) {
+                                           int gq, float (&acc)[kMtMax][4],
+                                           int r0 = 0) {
 #pragma unroll
   for (int mt = 0; mt < kMtMax; ++mt) {
     if (mt < MT) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + gq + 8 * h;
+        const int r = r0 + mt * 16 + gq + 8 * h;
         if (r < g.rows) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -255,6 +292,8 @@ __device__ __forceinline__ void gemm_store(const Gemm<W>& g, int MT, int col,
             if (c < g.N) {
               if (g.accum) v += g.out32[static_cast<size_t>(r) * g.ld32 + c];
               if (g.mish) v = ldp::mishf(v);
+              if constexpr (std::is_same<W, f16>::value)
+                if (g.round32) v = roundw<W>(v);
               if (g.out32 != nullptr)
                 g.out32[static_cast<size_t>(r) * g.ld32 + c] = v;
             } else {
@@ -333,15 +372,18 @@ __device__ __forceinline__ void row_tile_products(
 // run of tiles reaches past the window, so a GEMM whose input fits copies
 // it once for all its column groups and taps. Past 8 row tiles (a 256-row
 // plan) the warp takes one tile at a time, which keeps its operand
-// fragments to 8 registers beside 64 of accumulators.
-template <int kMtMax>
-__device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
-                     uint32_t zero_addr) {
-  constexpr int kTileBytes = Sizes<bf16>::kTileBytes;
+// fragments to 8 registers beside 64 of accumulators. W is bf16 or fp16 (2
+// bytes, the same fragments and tiles). Past kMtMax row tiles the rows are
+// walked in groups of kMtMax (see the note at the top).
+template <int kMtMax, bool kGroups = false, typename W,
+          std::enable_if_t<sizeof(W) == 2, int> = 0>
+__device__ void gemm(const Gemm<W>& g, Tiles<W>& tiles, uint32_t zero_addr) {
+  constexpr int kTileBytes = Sizes<W>::kTileBytes;
   constexpr int kCh = kMtMax > 8 ? 1 : kChunk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int MT = (g.rows + 15) >> 4;
+  const int mt_all = (g.rows + 15) >> 4;
+  const int n_rg = kGroups ? (mt_all + kMtMax - 1) / kMtMax : 1;
   const int n_groups = (g.N + kGroupN - 1) / kGroupN;
   const int kt_per_tap = g.cin_pad >> 5;
   const bool staged = g.stage != nullptr;
@@ -356,88 +398,111 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
   const uint32_t a_base =
       ldp::smem_u32(staged ? g.stage : g.A) + (lane >> 4) * 16;
   const int pad = g.taps >> 1;
-  for (int ng = 0; ng < n_groups; ++ng) {
-    const int col = ng * kGroupN + warp * 8 + 2 * tq;
-    float acc[kMtMax][4];
-    const float b0 = g.bias != nullptr ? tof(g.bias[col]) : 0.f;
-    const float b1 = g.bias != nullptr ? tof(g.bias[col + 1]) : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < kMtMax; ++mt) {
-      acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
-    }
-    for (int tap = 0; tap < g.taps; ++tap) {
-      uint32_t raddr[kMtMax];
-      uint32_t live = 0;
+  for (int rg = 0; rg < n_rg; ++rg) {
+    // block-uniform: the last group takes the ring's tiles, the ones
+    // before read the same tiles from global memory (fp16's second pass of
+    // the final conv reads them all from there)
+    const bool ring = (!kGroups || rg == n_rg - 1) &&
+                      !(std::is_same<W, f16>::value && g.global_only);
+    const int mt0 = rg * kMtMax;
+    const int MT = kGroups ? min(kMtMax, mt_all - mt0) : mt_all;
+    const char* wg = reinterpret_cast<const char*>(g.wtiles);
+    for (int ng = 0; ng < n_groups; ++ng) {
+      const int col = ng * kGroupN + warp * 8 + 2 * tq;
+      float acc[kMtMax][4];
+      const float b0 = g.bias != nullptr ? tof(g.bias[col]) : 0.f;
+      const float b1 = g.bias != nullptr ? tof(g.bias[col + 1]) : 0.f;
 #pragma unroll
       for (int mt = 0; mt < kMtMax; ++mt) {
-        raddr[mt] = zero_addr;
-        if (mt < MT) {
-          const int sr = src_row(g.mode, mt * 16 + (lane & 15), g.rows, g.Tin,
-                                 g.Tout, tap, pad);
-          if (sr >= 0) {
-            raddr[mt] = a_base + static_cast<uint32_t>(sr * lda) * 2;
-            live |= 1u << mt;
-          }
-        }
+        acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
       }
-      // up to kChunk tiles at a time: all their loads are
-      // started before the products that need them, and the products run in
-      // two independent chains, so a warp with one row tile (the deep
-      // levels) is not a single chain of dependent instructions
-      for (int kt = 0; kt < kt_per_tap;) {
-        const int n = min(min(tiles.avail(), kCh), kt_per_tap - kt);
-        const char* tile = tiles.take(n) + warp * 512 + lane * 16;
-        if (staged && (w0 < 0 || kt < w0 || kt + n > w0 + wt)) {
-          // channels [32 kt, 32 (kt + nw)) of every input row, 8 at a time
-          // (block-uniform: every thread takes the same tiles)
-          w0 = kt;
-          const int nw = min(wt, kt_per_tap - kt);
-          __syncthreads();   // no warp still reads the window before
-          const int per_row = 4 * nw;
-          for (int i = threadIdx.x; i < rows_in * per_row; i += blockDim.x) {
-            const int r = i / per_row, q = i - r * per_row;
-            *reinterpret_cast<uint4*>(g.stage + r * lda + 8 * q) =
-                *reinterpret_cast<const uint4*>(g.A + r * g.lda + 32 * kt +
-                                                8 * q);
-          }
-          __syncthreads();
-        }
-        uint4 bq[kCh];
-#pragma unroll
-        for (int j = 0; j < kCh; ++j)
-          if (j < n)
-            bq[j] = *reinterpret_cast<const uint4*>(tile + j * kTileBytes);
-        const uint32_t k0 = (kt - (staged ? w0 : 0)) * 64;
+      for (int tap = 0; tap < g.taps; ++tap) {
+        uint32_t raddr[kMtMax];
+        uint32_t live = 0;
 #pragma unroll
         for (int mt = 0; mt < kMtMax; ++mt) {
+          raddr[mt] = zero_addr;
           if (mt < MT) {
-            const bool on = (live >> mt) & 1;
-            const uint32_t ad = raddr[mt] + (on ? k0 : 0u);
-            uint32_t a[kCh][2][4];
-#pragma unroll
-            for (int j = 0; j < kCh; ++j)
-              if (j < n) {
-                ldp::ldmatrix_x4(a[j][0], ad + (on ? 64u * j : 0u));
-                ldp::ldmatrix_x4(a[j][1], ad + (on ? 64u * j + 32u : 0u));
-              }
-            // the tensor core truncates when it adds into its accumulator;
-            // sum these tiles' products from zero there and add the partial
-            // sums on the CUDA cores, which round to nearest
-            float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int j = 0; j < kCh; ++j)
-              if (j < n) {
-                ldp::mma_bf16(p0, a[j][0], bq[j].x, bq[j].y);
-                ldp::mma_bf16(p1, a[j][1], bq[j].z, bq[j].w);
-              }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][e] += p0[e] + p1[e];
+            const int sr = src_row(g.mode, (mt0 + mt) * 16 + (lane & 15),
+                                   g.rows, g.Tin, g.Tout, tap, pad);
+            if (sr >= 0) {
+              raddr[mt] = a_base + static_cast<uint32_t>(sr * lda) * 2;
+              live |= 1u << mt;
+            }
           }
         }
-        kt += n;
+        // up to kChunk tiles at a time: all their loads are
+        // started before the products that need them, and the products run
+        // in two independent chains, so a warp with one row tile (the deep
+        // levels) is not a single chain of dependent instructions
+        for (int kt = 0; kt < kt_per_tap;) {
+          const int n = min(min(ring ? tiles.avail() : kCh, kCh),
+                            kt_per_tap - kt);
+          const char* tile =
+              (ring ? tiles.take(n)
+                    : wg + static_cast<size_t>((ng * g.taps + tap) *
+                                                   kt_per_tap + kt) *
+                               kTileBytes) +
+              warp * 512 + lane * 16;
+          if (staged && (w0 < 0 || kt < w0 || kt + n > w0 + wt)) {
+            // channels [32 kt, 32 (kt + nw)) of every input row, 8 at a
+            // time (block-uniform: every thread takes the same tiles)
+            w0 = kt;
+            const int nw = min(wt, kt_per_tap - kt);
+            __syncthreads();   // no warp still reads the window before
+            const int per_row = 4 * nw;
+            for (int i = threadIdx.x; i < rows_in * per_row;
+                 i += blockDim.x) {
+              const int r = i / per_row, q = i - r * per_row;
+              *reinterpret_cast<uint4*>(g.stage + r * lda + 8 * q) =
+                  *reinterpret_cast<const uint4*>(g.A + r * g.lda + 32 * kt +
+                                                  8 * q);
+            }
+            __syncthreads();
+          }
+          uint4 bq[kCh];
+#pragma unroll
+          for (int j = 0; j < kCh; ++j)
+            if (j < n)
+              bq[j] = *reinterpret_cast<const uint4*>(tile + j * kTileBytes);
+          const uint32_t k0 = (kt - (staged ? w0 : 0)) * 64;
+#pragma unroll
+          for (int mt = 0; mt < kMtMax; ++mt) {
+            if (mt < MT) {
+              const bool on = (live >> mt) & 1;
+              const uint32_t ad = raddr[mt] + (on ? k0 : 0u);
+              uint32_t a[kCh][2][4];
+#pragma unroll
+              for (int j = 0; j < kCh; ++j)
+                if (j < n) {
+                  ldp::ldmatrix_x4(a[j][0], ad + (on ? 64u * j : 0u));
+                  ldp::ldmatrix_x4(a[j][1], ad + (on ? 64u * j + 32u : 0u));
+                }
+              // the tensor core truncates when it adds into its
+              // accumulator; sum these tiles' products from zero there and
+              // add the partial sums on the CUDA cores, which round to
+              // nearest
+              float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int j = 0; j < kCh; ++j)
+                if (j < n) {
+                  if constexpr (std::is_same<W, bf16>::value) {
+                    ldp::mma_bf16(p0, a[j][0], bq[j].x, bq[j].y);
+                    ldp::mma_bf16(p1, a[j][1], bq[j].z, bq[j].w);
+                  } else {
+                    ldp::mma_f16(p0, a[j][0], bq[j].x, bq[j].y);
+                    ldp::mma_f16(p1, a[j][1], bq[j].z, bq[j].w);
+                  }
+                }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][e] += p0[e] + p1[e];
+            }
+          }
+          kt += n;
+        }
       }
+      gemm_store<W, kMtMax>(g, MT, col, gq, acc, mt0 * 16);
     }
-    gemm_store<bf16, kMtMax>(g, MT, col, gq, acc);
   }
 }
 
@@ -450,71 +515,83 @@ __device__ void gemm(const Gemm<bf16>& g, Tiles<bf16>& tiles,
 // + 1 (tile_matrix_f32), so the A fragments of a row (rows g and g + 8 of
 // each row tile) for a half are one 16-byte load of channels 16 h + 4 tq ..
 // + 3; a row outside its sample reads zeros. TilesT: Tiles<float> (the
-// prologue) or SliceTiles<false> (the main kernel).
-template <int kMtMax, typename TilesT>
+// prologue) or SliceTiles<false> (the main kernel). Past kMtMax row tiles
+// the rows are walked in groups (see the note at the top).
+template <int kMtMax, bool kGroups = false, typename TilesT>
 __device__ void gemm(const Gemm<float>& g, TilesT& tiles, uint32_t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int MT = (g.rows + 15) >> 4;
+  const int mt_all = (g.rows + 15) >> 4;
+  const int n_rg = kGroups ? (mt_all + kMtMax - 1) / kMtMax : 1;
   const int n_groups = (g.N + kGroupN - 1) / kGroupN;
   const int kt_per_tap = g.cin_pad >> 5;
   const int pad = g.taps >> 1;
-  for (int ng = 0; ng < n_groups; ++ng) {
-    const int col = ng * kGroupN + warp * 8 + 2 * tq;
-    float acc[kMtMax][4];
-    const float b0 = g.bias != nullptr ? g.bias[col] : 0.f;
-    const float b1 = g.bias != nullptr ? g.bias[col + 1] : 0.f;
+  for (int rg = 0; rg < n_rg; ++rg) {
+    const bool ring = !kGroups || rg == n_rg - 1;
+    const int mt0 = rg * kMtMax;
+    const int MT = kGroups ? min(kMtMax, mt_all - mt0) : mt_all;
+    for (int ng = 0; ng < n_groups; ++ng) {
+      const int col = ng * kGroupN + warp * 8 + 2 * tq;
+      float acc[kMtMax][4];
+      const float b0 = g.bias != nullptr ? g.bias[col] : 0.f;
+      const float b1 = g.bias != nullptr ? g.bias[col + 1] : 0.f;
 #pragma unroll
-    for (int mt = 0; mt < kMtMax; ++mt) {
-      acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
-    }
-    for (int tap = 0; tap < g.taps; ++tap) {
-      int off[kMtMax][2];
-      uint32_t live = 0;
+      for (int mt = 0; mt < kMtMax; ++mt) {
+        acc[mt][0] = b0; acc[mt][1] = b1; acc[mt][2] = b0; acc[mt][3] = b1;
+      }
+      for (int tap = 0; tap < g.taps; ++tap) {
+        int off[kMtMax][2];
+        uint32_t live = 0;
 #pragma unroll
-      for (int mt = 0; mt < kMtMax; ++mt)
+        for (int mt = 0; mt < kMtMax; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          off[mt][h] = 0;
-          if (mt < MT) {
-            const int sr = src_row(g.mode, mt * 16 + gq + 8 * h, g.rows,
-                                   g.Tin, g.Tout, tap, pad);
-            if (sr >= 0) {
-              off[mt][h] = sr * g.lda + 4 * tq;
-              live |= 1u << (2 * mt + h);
+          for (int h = 0; h < 2; ++h) {
+            off[mt][h] = 0;
+            if (mt < MT) {
+              const int sr = src_row(g.mode, (mt0 + mt) * 16 + gq + 8 * h,
+                                     g.rows, g.Tin, g.Tout, tap, pad);
+              if (sr >= 0) {
+                off[mt][h] = sr * g.lda + 4 * tq;
+                live |= 1u << (2 * mt + h);
+              }
+            }
+          }
+        for (int kt = 0; kt < kt_per_tap; ++kt) {
+          const float* tile =
+              (ring ? tiles.tile()
+                    : g.wtiles + static_cast<size_t>((ng * g.taps + tap) *
+                                                         kt_per_tap + kt) *
+                                     kTileElems) +
+              warp * 256 + lane * 4;
+          const float4 q0 = *reinterpret_cast<const float4*>(tile);
+          const float4 q1 = *reinterpret_cast<const float4*>(tile + 128);
+          const float bv[4][2] = {{q0.x, q0.y}, {q0.z, q0.w},
+                                  {q1.x, q1.y}, {q1.z, q1.w}};
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int k8 = 0; k8 < 4; ++k8) {
+            split_tf32(bv[k8][0], bh[k8][0], bl[k8][0]);
+            split_tf32(bv[k8][1], bh[k8][1], bl[k8][1]);
+          }
+          if (ring) tiles.release();
+          const int k0 = kt * 32;
+#pragma unroll
+          for (int mt = 0; mt < kMtMax; ++mt) {
+            if (mt < MT) {
+              const bool l0 = (live >> (2 * mt)) & 1;
+              const bool l1 = (live >> (2 * mt + 1)) & 1;
+              const float* r0 = g.A + off[mt][0] + k0;
+              const float* r1 = g.A + off[mt][1] + k0;
+              if ((mt0 + mt) * 16 + 8 < g.rows)
+                row_tile_products<true>(acc[mt], r0, r1, l0, l1, bh, bl);
+              else
+                row_tile_products<false>(acc[mt], r0, r1, l0, l1, bh, bl);
             }
           }
         }
-      for (int kt = 0; kt < kt_per_tap; ++kt) {
-        const float* tile = tiles.tile() + warp * 256 + lane * 4;
-        const float4 q0 = *reinterpret_cast<const float4*>(tile);
-        const float4 q1 = *reinterpret_cast<const float4*>(tile + 128);
-        const float bv[4][2] = {{q0.x, q0.y}, {q0.z, q0.w},
-                                {q1.x, q1.y}, {q1.z, q1.w}};
-        uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8) {
-          split_tf32(bv[k8][0], bh[k8][0], bl[k8][0]);
-          split_tf32(bv[k8][1], bh[k8][1], bl[k8][1]);
-        }
-        tiles.release();
-        const int k0 = kt * 32;
-#pragma unroll
-        for (int mt = 0; mt < kMtMax; ++mt) {
-          if (mt < MT) {
-            const bool l0 = (live >> (2 * mt)) & 1;
-            const bool l1 = (live >> (2 * mt + 1)) & 1;
-            const float* r0 = g.A + off[mt][0] + k0;
-            const float* r1 = g.A + off[mt][1] + k0;
-            if (mt * 16 + 8 < g.rows)
-              row_tile_products<true>(acc[mt], r0, r1, l0, l1, bh, bl);
-            else
-              row_tile_products<false>(acc[mt], r0, r1, l0, l1, bh, bl);
-          }
-        }
       }
+      gemm_store<float, kMtMax>(g, MT, col, gq, acc, mt0 * 16);
     }
-    gemm_store<float, kMtMax>(g, MT, col, gq, acc);
   }
 }
 
@@ -592,10 +669,11 @@ __device__ __forceinline__ void store_elem(const Gemm<float>& g, int r, int c,
 // 16-byte load), is the B fragment. Warp w takes columns [16 (w % 8), +16)
 // and k8 steps {2 h, 2 h + 1}, h = w / 8, as gemm_ksplit does; at a
 // group's end warp h keeps the columns 16 cb + g + 8 h and takes its
-// partner's partial sums of them.
+// partner's partial sums of them. Rows row0 to row0 + 7; ring and round0 as
+// in gemm_ksplit_rows.
 template <typename TilesT>
 __device__ void gemm_ksplit_t(const Gemm<float>& g, TilesT& tiles,
-                              float* red) {
+                              float* red, int row0, bool ring, int round0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int cb = warp & 7, kh = warp >> 3;
@@ -610,11 +688,17 @@ __device__ void gemm_ksplit_t(const Gemm<float>& g, TilesT& tiles,
     // (column c0, row 2 tq), (c0, 2 tq + 1), (c0 + 8, 2 tq), (c0 + 8, ...)
     float acc[4] = {blo, blo, bhi, bhi};
     for (int tap = 0; tap < g.taps; ++tap) {
-      const int sr = src_row(g.mode, gq, g.rows, g.Tin, g.Tout, tap, pad);
+      const int sr = src_row(g.mode, row0 + gq, g.rows, g.Tin, g.Tout, tap,
+                             pad);
       const bool live = sr >= 0;
       const int off = live ? sr * g.lda + 4 * tq : 0;
       for (int kt = 0; kt < kt_per_tap; ++kt) {
-        const float* tile = tiles.tile() + kh * 128 + lane * 4;
+        const float* tile =
+            (ring ? tiles.tile()
+                  : g.wtiles + static_cast<size_t>((ng * g.taps + tap) *
+                                                       kt_per_tap + kt) *
+                                   kTileElems) +
+            kh * 128 + lane * 4;
         const float4 q0 = *reinterpret_cast<const float4*>(tile + 512 * cb);
         const float4 q1 =
             *reinterpret_cast<const float4*>(tile + 512 * cb + 256);
@@ -628,7 +712,7 @@ __device__ void gemm_ksplit_t(const Gemm<float>& g, TilesT& tiles,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             split_tf32(wv[kk][e], wh[kk][e], wl[kk][e]);
-        tiles.release();
+        if (ring) tiles.release();
         // the lane's K slots: 4 channels of its row, one 16-byte load
         const float4 x = live ? *reinterpret_cast<const float4*>(
                                     g.A + off + kt * 32 + 16 * kh)
@@ -648,30 +732,33 @@ __device__ void gemm_ksplit_t(const Gemm<float>& g, TilesT& tiles,
       }
     }
     // warp kh keeps columns c0 + 8 kh and sends its partner the other two
-    float* mine = red + (((ng & 1) * kWarps + warp) * 32 + lane) * 8;
+    const int par = (round0 + ng) & 1;
+    float* mine = red + ((par * kWarps + warp) * 32 + lane) * 8;
     const float* theirs =
-        red + (((ng & 1) * kWarps + (warp ^ 8)) * 32 + lane) * 8;
+        red + ((par * kWarps + (warp ^ 8)) * 32 + lane) * 8;
     mine[0] = kh ? acc[0] : acc[2];
     mine[1] = kh ? acc[1] : acc[3];
     pair_sync(1 + cb);
     const float v0 = (kh ? acc[2] : acc[0]) + theirs[0];
     const float v1 = (kh ? acc[3] : acc[1]) + theirs[1];
-    store_elem(g, 2 * tq, c0 + 8 * kh, v0);
-    store_elem(g, 2 * tq + 1, c0 + 8 * kh, v1);
+    store_elem(g, row0 + 2 * tq, c0 + 8 * kh, v0);
+    store_elem(g, row0 + 2 * tq + 1, c0 + 8 * kh, v1);
   }
 }
 
+// gemm_ksplit over one group of rows, row0 to row0 + 16 kMtMax (more than
+// 8);
+// ring false: the weight tiles from global memory (a group before the last).
+// round0: the column groups run before it in this GEMM (the partial sums'
+// buffer parity continues across groups).
 template <int kMtMax, typename TilesT>
-__device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
-  static_assert(kMtMax <= 2, "the k-split GEMM holds two row tiles");
-  if (g.rows <= 8) {
-    gemm_ksplit_t(g, tiles, red);
-    return;
-  }
+__device__ void gemm_ksplit_rows(const Gemm<float>& g, TilesT& tiles,
+                                 float* red, int row0, bool ring,
+                                 int round0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int cb = warp & 7, kh = warp >> 3;
-  const int MT = (g.rows + 15) >> 4;
+  const int MT = min(kMtMax, (g.rows - row0 + 15) >> 4);
   const int n_groups = (g.N + kGroupN - 1) / kGroupN;
   const int kt_per_tap = g.cin_pad >> 5;
   const int pad = g.taps >> 1;
@@ -699,8 +786,8 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
         for (int h = 0; h < 2; ++h) {
           off[mt][h] = 0;
           if (mt < MT) {
-            const int sr = src_row(g.mode, mt * 16 + gq + 8 * h, g.rows,
-                                   g.Tin, g.Tout, tap, pad);
+            const int sr = src_row(g.mode, row0 + mt * 16 + gq + 8 * h,
+                                   g.rows, g.Tin, g.Tout, tap, pad);
             if (sr >= 0) {
               off[mt][h] = sr * g.lda + 4 * tq;
               live |= 1u << (2 * mt + h);
@@ -708,7 +795,12 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
           }
         }
       for (int kt = 0; kt < kt_per_tap; ++kt) {
-        const float* tile = tiles.tile() + kh * 128 + lane * 4;
+        const float* tile =
+            (ring ? tiles.tile()
+                  : g.wtiles + static_cast<size_t>((ng * g.taps + tap) *
+                                                       kt_per_tap + kt) *
+                                   kTileElems) +
+            kh * 128 + lane * 4;
         const float4 q0 = *reinterpret_cast<const float4*>(tile + 512 * cb);
         const float4 q1 =
             *reinterpret_cast<const float4*>(tile + 512 * cb + 256);
@@ -722,7 +814,7 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
             split_tf32(bv[j][kk][0], bh[j][kk][0], bl[j][kk][0]);
             split_tf32(bv[j][kk][1], bh[j][kk][1], bl[j][kk][1]);
           }
-        tiles.release();
+        if (ring) tiles.release();
         const int k0 = kt * 32 + 16 * kh;
 #pragma unroll
         for (int mt = 0; mt < kMtMax; ++mt) {
@@ -731,7 +823,7 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
             const bool l1 = (live >> (2 * mt + 1)) & 1;
             const float* r0 = g.A + off[mt][0] + k0;
             const float* r1 = g.A + off[mt][1] + k0;
-            if (mt * 16 + 8 < g.rows)
+            if (row0 + mt * 16 + 8 < g.rows)
               ksplit_products<true>(acc0[mt], acc1[mt], r0, r1, l0, l1, bh,
                                     bl);
             else
@@ -742,9 +834,10 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
       }
     }
     // warp kh keeps n8 block 2 cb + kh and sends its partner the other
-    float* mine = red + (((ng & 1) * kWarps + warp) * 32 + lane) * 8;
+    const int par = (round0 + ng) & 1;
+    float* mine = red + ((par * kWarps + warp) * 32 + lane) * 8;
     const float* theirs =
-        red + (((ng & 1) * kWarps + (warp ^ 8)) * 32 + lane) * 8;
+        red + ((par * kWarps + (warp ^ 8)) * 32 + lane) * 8;
 #pragma unroll
     for (int mt = 0; mt < kMtMax; ++mt)
 #pragma unroll
@@ -762,9 +855,33 @@ __device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
           acc0[mt][e] += t;
       }
     if (kh)
-      gemm_store<float, kMtMax>(g, MT, col + 8, gq, acc1);
+      gemm_store<float, kMtMax>(g, MT, col + 8, gq, acc1, row0);
     else
-      gemm_store<float, kMtMax>(g, MT, col, gq, acc0);
+      gemm_store<float, kMtMax>(g, MT, col, gq, acc0, row0);
+  }
+}
+
+// The k-split GEMM over the rows (with kGroups in groups of 16 kMtMax, see
+// the note at the top), each run transposed where it has at most 8.
+template <int kMtMax, bool kGroups, typename TilesT>
+__device__ void gemm_ksplit(const Gemm<float>& g, TilesT& tiles, float* red) {
+  static_assert(kMtMax <= 2, "the k-split GEMM holds two row tiles");
+  if constexpr (!kGroups) {
+    if (g.rows <= 8)
+      gemm_ksplit_t(g, tiles, red, 0, true, 0);
+    else
+      gemm_ksplit_rows<kMtMax>(g, tiles, red, 0, true, 0);
+    return;
+  }
+  const int n_rg = (g.rows + 16 * kMtMax - 1) / (16 * kMtMax);
+  for (int rg = 0; rg < n_rg; ++rg) {
+    const bool ring = rg == n_rg - 1;
+    const int r0 = rg * 16 * kMtMax;
+    const int round0 = rg * ((g.N + kGroupN - 1) / kGroupN);
+    if (g.rows - r0 <= 8)
+      gemm_ksplit_t(g, tiles, red, r0, ring, round0);
+    else
+      gemm_ksplit_rows<kMtMax>(g, tiles, red, r0, ring, round0);
   }
 }
 
@@ -777,34 +894,91 @@ struct Film {
 // GroupNorm(G, eps 1e-6) -> Mish over y (nb*Tl rows x C, stride ldy), then
 // FiLM when given, then + res when given. Writes the fp32 result to out32
 // (stride ldy; may be y itself) and its operand copy, channels zero-padded
-// to 32, to outb, each where given.
+// to 32, to outb, each where given; outlo (fp16: the final block) gets what
+// the operand copy misses of each value, v - hi, in W, so hi + lo carries
+// the fp32 value to the final 1x1 conv. The fp16 instance computes the JAX
+// kernel's statistics (see the note at the top).
 template <typename W>
 __device__ void group_norm_mish(const float* y, int ldy, int C, int Tl, int nb,
                                 int G, const W* gs, const W* gb,
                                 float* stats, const Film* film,
                                 const float* res, int ldr, float* out32,
-                                W* outb, int ldob) {
+                                W* outb, int ldob, W* outlo = nullptr) {
+  constexpr bool kJax = std::is_same<W, f16>::value;
   const int Cg = C / G, n = Tl * Cg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int p = warp; p < nb * G; p += n_warps) {
     const int b = p / G, g = p - b * G;
     const float* yb = y + b * Tl * ldy + g * Cg;
-    float s = 0.f;
-    for (int i = lane; i < n; i += 32) s += yb[(i / Cg) * ldy + i % Cg];
-    const float mu = ldp::warp_sum(s) / n;
-    float sq = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float d = yb[(i / Cg) * ldy + i % Cg] - mu;
-      sq = fmaf(d, d, sq);
-    }
-    const float var = ldp::warp_sum(sq) / n;
-    if (lane == 0) {
-      stats[2 * p] = mu;
-      stats[2 * p + 1] = rsqrtf(var + kGnEps);
+    if constexpr (kJax) {
+      // E[x] and E[x^2] of x and x * x rounded to fp16, summed in fp32
+      float s = 0.f, s2 = 0.f;
+      for (int i = lane; i < n; i += 32) {
+        const float v = yb[(i / Cg) * ldy + i % Cg];
+        s += roundw<W>(v);
+        s2 += roundw<W>(v * v);
+      }
+      const float mu = ldp::warp_sum(s) / n;
+      const float e2 = ldp::warp_sum(s2) / n;
+      if (lane == 0) {
+        stats[2 * p] = mu;
+        stats[2 * p + 1] = e2 - mu * mu;   // the variance, for now
+      }
+    } else {
+      float s = 0.f;
+      for (int i = lane; i < n; i += 32) s += yb[(i / Cg) * ldy + i % Cg];
+      const float mu = ldp::warp_sum(s) / n;
+      float sq = 0.f;
+      for (int i = lane; i < n; i += 32) {
+        const float d = yb[(i / Cg) * ldy + i % Cg] - mu;
+        sq = fmaf(d, d, sq);
+      }
+      const float var = ldp::warp_sum(sq) / n;
+      if (lane == 0) {
+        stats[2 * p] = mu;
+        stats[2 * p + 1] = rsqrtf(var + kGnEps);
+      }
     }
   }
   __syncthreads();
+  if constexpr (kJax) {
+    // JAX broadcasts the statistics back to the channels through 0/1
+    // matmuls, so a non-finite mean (variance) of one group makes every
+    // other group's of the sample NaN (0 x inf); at most 4 (sample, group)
+    // pairs a thread (the wrapper holds nb * G to 4 blocks of threads)
+    float mu[4], rs[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = threadIdx.x + k * blockDim.x;
+      if (p < nb * G) {
+        const int b0 = p / G * G;
+        bool bad_mu = false, bad_var = false;
+        for (int q = b0; q < b0 + G; ++q)
+          if (q != p) {
+            bad_mu |= !isfinite(stats[2 * q]);
+            bad_var |= !isfinite(stats[2 * q + 1]);
+          }
+        mu[k] = bad_mu ? __int_as_float(0x7fc00000) : stats[2 * p];
+        const float var =
+            bad_var ? __int_as_float(0x7fc00000) : stats[2 * p + 1];
+        rs[k] = rsqrtf(var + kGnEps);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = threadIdx.x + k * blockDim.x;
+      if (p < nb * G) {
+        stats[2 * p] = mu[k];
+        stats[2 * p + 1] = rs[k];
+      }
+    }
+    __syncthreads();
+  }
+  // fp16: the JAX kernel rounds FiLM's scale and bias to its dtype where it
+  // broadcasts them with a matmul (a width not a multiple of 128, Tl > 1)
+  const bool round_film = kJax && (C % 128) != 0 && Tl > 1;
   const int Cp = pad32(C);
 #pragma unroll 4
   for (int i = threadIdx.x; i < nb * Tl * Cp; i += blockDim.x) {
@@ -818,13 +992,29 @@ __device__ void group_norm_mish(const float* y, int ldy, int C, int Tl, int nb,
       if (film != nullptr) {
         const float* fg = film->g
             + static_cast<size_t>(min(film->b0 + b, film->B - 1)) * film->ld;
-        v = (__ldg(film->t + c) + __ldg(fg + c)) * v
-            + (__ldg(film->t + C + c) + __ldg(fg + C + c));
+        if constexpr (kJax) {
+          float sc = __ldg(film->t + c) + __ldg(fg + c);
+          float bi = __ldg(film->t + C + c) + __ldg(fg + C + c);
+          if (round_film) {
+            sc = roundw<W>(sc);
+            bi = roundw<W>(bi);
+          }
+          v = sc * v + bi;
+        } else {
+          v = (__ldg(film->t + c) + __ldg(fg + c)) * v
+              + (__ldg(film->t + C + c) + __ldg(fg + C + c));
+        }
       }
       if (res != nullptr) v += res[r * ldr + c];
       if (out32 != nullptr) out32[r * ldy + c] = v;
     }
     if (outb != nullptr) outb[r * ldob + c] = fromf<W>(v);
+    if constexpr (kJax) {
+      if (outlo != nullptr) {
+        const float hi = roundw<W>(v);
+        outlo[r * ldob + c] = fromf<W>(isfinite(hi) ? v - hi : 0.f);
+      }
+    }
   }
   __syncthreads();
 }
@@ -934,8 +1124,9 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_prologue_kernel(
 // block's slice of the global scratch (a template parameter, so the
 // ordinary instances keep their registers). The fp32 skips an up block
 // without a projection reads back (d.skip32_total floats) follow the bf16
-// skips wherever those are.
-template <typename W, int kMt, bool kWide>
+// skips wherever those are. kGroups: the GEMMs walk rows past kMt row
+// tiles in groups.
+template <typename W, int kMt, bool kWide, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     const float* __restrict__ x_init, const float* __restrict__ coefs,
     const float* __restrict__ noise, const W* __restrict__ Wp,
@@ -943,10 +1134,20 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     const float* __restrict__ film_g, char* scratch,
     float* __restrict__ out, Dims d, float clip) {
   constexpr bool kF32 = std::is_same<W, float>::value;
+  constexpr bool kF16 = std::is_same<W, f16>::value;
   extern __shared__ uint4 smem_raw[];
   char* sm = reinterpret_cast<char*>(smem_raw);
   const int tid = threadIdx.x, NT = blockDim.x;
   const int nb = d.nb, T = d.T, D = d.D, K = d.K, G = d.G;
+  // a GEMM's weight tiles in global memory, for its row groups before the
+  // last and fp16's second pass of the final conv (the main stream starts
+  // the packed buffer); null in the instances that read none
+  auto wtiles = [&](int tile) -> const W* {
+    if constexpr (kGroups || kF16)
+      return Wp + static_cast<size_t>(tile) * kTileElems;
+    else
+      return nullptr;
+  };
   const int b0 = blockIdx.x * nb;
   const int n_valid = min(nb, d.B - b0);
   const int ring_bytes = d.stages_main * Sizes<W>::kStageBytes;
@@ -1012,11 +1213,11 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         kRedFloats;
   auto run_gemm = [&](Gemm<W> g) {
     if constexpr (kF32 && kWide) {
-      gemm_ksplit<kMt>(g, tiles, red);
+      gemm_ksplit<kMt, kGroups>(g, tiles, red);
     } else {
       g.stage = stageb;
       g.stage_cap = stage_cap;
-      gemm<kMt>(g, tiles, zero_addr);
+      gemm<kMt, kGroups>(g, tiles, zero_addr);
     }
   };
   tiles.start(Wp, sm, d.stages_main, d.main_stages, d.main_stages * d.n_steps);
@@ -1051,6 +1252,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = rows; g.N = ch;
         g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        g.wtiles = wtiles(rec[4]);
         run_gemm(g);
         __syncthreads();
         Film film{film_t + static_cast<size_t>(step) * d.film_ld + rec[6],
@@ -1059,6 +1261,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
                            v1 + np + ch, stats, &film, nullptr, 0, nullptr,
                            Yb, ldb<W>(ch));
         g.A = Yb; g.lda = ldb<W>(ch); g.cin_pad = pad32(ch); g.bias = v2;
+        g.wtiles = wtiles(rec[5]);
         run_gemm(g);
         __syncthreads();
         if (rec[7] >= 0) {
@@ -1070,7 +1273,7 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
           p.mode = kSame; p.Tin = Tl; p.Tout = Tl; p.rows = rows; p.N = ch;
           p.bias = V + rec[10]; p.out32 = Y32; p.ld32 = ld32(ch);
           p.accum = true; p.outb = Yb; p.ldob = ldb<W>(ch);
-          p.nb_cols = pad32(ch);
+          p.nb_cols = pad32(ch); p.wtiles = wtiles(rec[7]);
           run_gemm(p);
           __syncthreads();
         } else {
@@ -1121,6 +1324,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.Tin = Tin; g.Tout = Tout; g.rows = nb * Tout; g.N = ch;
         g.bias = V + rec[4]; g.out32 = Y32; g.ld32 = ld32(ch);
         g.outb = Yb; g.ldob = ldb<W>(ch); g.nb_cols = pad32(ch);
+        g.wtiles = wtiles(rec[3]);
+        // fp16: the JAX kernel's downsample rounds its output where the
+        // width is not a multiple of 128 (a selection matmul)
+        g.round32 = kF16 && kind == kDown && ch % 128 != 0;
         run_gemm(g);
         __syncthreads();
         float* t32 = X32; X32 = Y32; Y32 = t32;
@@ -1133,11 +1340,13 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = K;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = ch;
         g.bias = v1; g.out32 = Y32; g.ld32 = ld32(ch);
+        g.wtiles = wtiles(rec[4]);
         run_gemm(g);
         __syncthreads();
+        // fp16: the lo half of the result into Xb (this GEMM's input, read)
         group_norm_mish<W>(Y32, ld32(ch), ch, Tl, nb, G, v1 + np,
                            v1 + np + ch, stats, nullptr, nullptr, 0, nullptr,
-                           Yb, ldb<W>(ch));
+                           Yb, ldb<W>(ch), kF16 ? Xb : nullptr);
         W* tb = Xb; Xb = Yb; Yb = tb;
       } else {  // kFinalConv: eps into Y32
         const int cin = rec[1], Dout = rec[2], Tl = rec[3];
@@ -1145,7 +1354,15 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
         g.A = Xb; g.lda = ldb<W>(cin); g.cin_pad = pad32(cin); g.taps = 1;
         g.mode = kSame; g.Tin = Tl; g.Tout = Tl; g.rows = nb * Tl; g.N = Dout;
         g.bias = V + rec[5]; g.out32 = Y32; g.ld32 = ld32(Dout);
+        g.wtiles = wtiles(rec[4]);
         run_gemm(g);
+        if constexpr (kF16) {
+          // the JAX kernel's final conv takes the fp32 activations: add the
+          // lo half's products (the same weights, from global memory)
+          __syncthreads();
+          g.A = Yb; g.bias = nullptr; g.accum = true; g.global_only = true;
+          run_gemm(g);
+        }
         __syncthreads();
       }
     }
@@ -1164,9 +1381,10 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
       const float x = xcur[i];
       // x0 = clip(k0 (kx x - k1 y)): kx = 1 for eps, 0 for sample (x0
       // prediction), sqrt(abar) for v; 1 * x is x, so eps runs as before
-      const float x0 = fminf(
-          fmaxf(k0 * fmaf(-k1, Y32[r * lf + c], __fmul_rn(kx, x)), -clip),
-          clip);
+      float x0 = k0 * fmaf(-k1, Y32[r * lf + c], __fmul_rn(kx, x));
+      // fp16 keeps a NaN as the JAX kernel's clip does (an overflow of its
+      // GroupNorm statistics shows)
+      if (!kF16 || x0 == x0) x0 = fminf(fmaxf(x0, -clip), clip);
       float xn = k2 * x0 + k3 * x;
       if (nz != nullptr && i < n_valid * T * D) xn += k4 * __ldg(nz + i);
       xcur[i] = xn;
@@ -1182,12 +1400,12 @@ __global__ void __launch_bounds__(kThreads, 1) unet1d_sampler_kernel(
     out[static_cast<size_t>(b0) * T * D + i] = xcur[i];
 }
 
-template <typename W, int kMt, bool kWide>
+template <typename W, int kMt, bool kWide, bool kGroups = false>
 int launch_main(const float* x_init, const float* coefs, const float* noise,
                 const W* Wp, const int* prog, const float* film_t,
                 const float* film_g, char* scratch, float* out, const Dims& d,
                 float clip, cudaStream_t st) {
-  auto kernel = unet1d_sampler_kernel<W, kMt, kWide>;
+  auto kernel = unet1d_sampler_kernel<W, kMt, kWide, kGroups>;
   cudaError_t err = ldp::allow_smem(kernel, d.smem_main);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (d.B + d.nb - 1) / d.nb;
@@ -1211,8 +1429,10 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
   int* fields = reinterpret_cast<int*>(&d);
   for (int i = 0; i < kNDims; ++i) fields[i] = dims[i];
   constexpr bool kF32 = std::is_same<W, float>::value;
-  if (d.nb < 1 || d.nb * d.T > 16 * (kF32 ? kMtCap / 2 : kMtCap) ||
-      d.tile_n != kGroupN ||
+  // rows past an instance's are walked in groups; fp16's GroupNorm holds
+  // at most 4 (sample, group) pairs a thread
+  if (d.nb < 1 || d.T < 1 || d.tile_n != kGroupN ||
+      (std::is_same<W, f16>::value && d.nb * d.G > 4 * kThreads) ||
       d.stages_main < 2 || d.stages_main > 8 || d.stages_pro < 2 ||
       d.stages_pro > 8 || d.cond_rows != kCondRows || d.cond_chunk < 32 ||
       d.cond_chunk % 32 || d.wide < 0 || d.wide > 2 || d.skip32_total < 0 ||
@@ -1228,10 +1448,17 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
       gcond, ts, Wp, film_t, film_g, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // accumulators sized to the rows the tile holds: 2, 4, 8 or (bf16) 16
-  // m16 tiles; the fp32 wide mode (its k-split GEMM) holds 2
+  // accumulators sized to the rows the tile holds: 2, 4, 8 or (bf16,
+  // fp16) 16 m16 tiles, more rows in groups of the largest; the fp32 wide
+  // mode (its k-split GEMM) holds 2
   const int mt = (d.nb * d.T + 15) / 16;
   if (d.wide) {
+    if constexpr (kF32) {
+      if (mt > 2)
+        return launch_main<W, 2, true, true>(x_init, coefs, noise, Wp, prog,
+                                             film_t, film_g, sc, out, d, clip,
+                                             st);
+    }
     if (mt <= 2)
       return launch_main<W, 2, true>(x_init, coefs, noise, Wp, prog, film_t,
                                      film_g, sc, out, d, clip, st);
@@ -1242,6 +1469,10 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
       if (mt <= 8)
         return launch_main<W, 8, true>(x_init, coefs, noise, Wp, prog,
                                        film_t, film_g, sc, out, d, clip, st);
+      if (mt > 16)
+        return launch_main<W, 16, true, true>(x_init, coefs, noise, Wp, prog,
+                                              film_t, film_g, sc, out, d,
+                                              clip, st);
       return launch_main<W, 16, true>(x_init, coefs, noise, Wp, prog, film_t,
                                       film_g, sc, out, d, clip, st);
     }
@@ -1253,13 +1484,21 @@ int unet1d_sample(const float* gcond, const float* x_init, const int* ts,
   if (mt <= 4)
     return launch_main<W, 4, false>(x_init, coefs, noise, Wp, prog, film_t,
                                     film_g, sc, out, d, clip, st);
-  if (kF32 || mt <= 8)
+  if (mt <= 8)
     return launch_main<W, 8, false>(x_init, coefs, noise, Wp, prog, film_t,
                                     film_g, sc, out, d, clip, st);
-  if constexpr (!kF32)
-    return launch_main<W, 16, false>(x_init, coefs, noise, Wp, prog, film_t,
-                                     film_g, sc, out, d, clip, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kF32) {
+    return launch_main<W, 8, false, true>(x_init, coefs, noise, Wp, prog,
+                                          film_t, film_g, sc, out, d, clip,
+                                          st);
+  } else {
+    if (mt <= 16)
+      return launch_main<W, 16, false>(x_init, coefs, noise, Wp, prog,
+                                       film_t, film_g, sc, out, d, clip, st);
+    return launch_main<W, 16, false, true>(x_init, coefs, noise, Wp, prog,
+                                           film_t, film_g, sc, out, d, clip,
+                                           st);
+  }
 }
 
 }  // namespace

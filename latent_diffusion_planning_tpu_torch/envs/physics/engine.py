@@ -308,7 +308,7 @@ def _geom_poses(w: dict, body: RigidBody, mats: torch.Tensor):
     r = mats[:, gb]
     pos = torch.where(w["geom_static"], w["geom_offset"],
                       body.pos[:, gb] + rot.rotate(r, w["geom_offset"]))
-    eye = rot._tables(pos.device)["eye"].reshape(3, 3)
+    eye = rot._tables(pos.device, pos.dtype)["eye"].reshape(3, 3)
     return pos, torch.where(w["geom_static"][..., None], eye, r)
 
 

@@ -107,7 +107,7 @@ def dls_ik_step(chain: JointChain, qpos: torch.Tensor,
     positions, _, mats = _frames(chain, qpos)
     J = _jacobian(chain, positions, mats)                        # (N, 3, J)
     err = target_pos - positions[:, -1]
-    eye = rot._tables(qpos.device)["eye"].reshape(3, 3)
+    eye = rot._tables(qpos.device, qpos.dtype)["eye"].reshape(3, 3)
     A = (J[:, :, None, :] * J[:, None, :, :]).sum(-1) + (damping ** 2) * eye
     dq = (J * solve3(A, err)[:, :, None]).sum(1)
     q = qpos + dq

@@ -182,12 +182,12 @@ def step_noise(steps: int | None, sched: dlib.DiffusionSchedule,
 
 def fused_weight_dtype(name: str) -> torch.dtype:
     """The weight type kernel B runs for an agent's ``fused_dtype``
-    (``"bfloat16"`` or ``"float32"``, the JAX kernel's two); anything else
-    raises with the reason."""
+    (``"bfloat16"``, ``"float16"`` or ``"float32"``, the JAX kernel's
+    three); anything else raises with the reason."""
     dtype = getattr(torch, str(name), None)
     if dtype not in kunet.WEIGHT_DTYPES:
-        raise ValueError(f"fused_dtype must be float32 or bfloat16 (kernel "
-                         f"B's weight types), not {name!r}")
+        raise ValueError(f"fused_dtype must be float16, float32 or bfloat16 "
+                         f"(kernel B's weight types), not {name!r}")
     return dtype
 
 

@@ -15,8 +15,8 @@ null``, 100 steps); it keeps the first ``action_horizon`` actions;
 ``use_ema`` samples the EMA weights.
 
 On the card a configuration kernel B does not take raises, with the reason,
-when the agent is built: a ``fused_dtype`` other than bfloat16 or float32
-(kernel B's two weight types), a prediction horizon not divisible by the U-Net's stride, or widths the
+when the agent is built: a ``fused_dtype`` other than bfloat16, float16 or
+float32 (kernel B's three weight types), a prediction horizon not divisible by the U-Net's stride, or widths the
 kernel refuses. On the CPU DDIM and DDPM run through the kernel's plain
 twin.
 

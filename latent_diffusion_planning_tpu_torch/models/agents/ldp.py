@@ -23,13 +23,13 @@ below the train steps, else with the full ancestral DDPM process (the JAX
 package's default configurations: ``null``, 100 steps), and both ways run
 through the kernels on the card: the planner through B, the IDM through A,
 DDPM with one noise draw per step. Kernel B runs the planner with the
-weight type ``fused_dtype`` names (bfloat16 or float32, the JAX kernel's
-two), kernel A every MLP IDM the JAX package builds (any cond MLP and
+weight type ``fused_dtype`` names (bfloat16, float16 or float32, the JAX
+kernel's three), kernel A every MLP IDM the JAX package builds (any cond MLP and
 activation, fixed or learnable time features, LayerNorm or none, any hidden
 width up to 1024, any condition width). Where the JAX agent drops to its
 XLA scan when a kernel cannot take a configuration, this agent raises on
 CUDA with the reason (a plan length not divisible by the U-Net stride, a
-``fused_dtype`` of neither type); on the CPU those run through the plain
+``fused_dtype`` of none of those types); on the CPU those run through the plain
 versions. Every
 prediction type (ε, sample, v) runs through the kernels: their coefficient
 tables hold x0 = clip(c1 (cx x - c2 y)) for the net's output y

@@ -20,7 +20,7 @@ with per-step noise; on the CPU through its plain twin. The yaml's planner
 outgrows a block's shared memory; kernel B runs it in its wide mode
 (fp32 buffers and skips in global memory). Where the JAX agent samples a
 net with its XLA scan, this agent raises on CUDA, with the reason, when it
-is built: a ``fused_dtype`` other than bfloat16 or float32, or widths
+is built: a ``fused_dtype`` other than bfloat16, float16 or float32, or widths
 kernel B refuses even in wide mode.
 
 Behaviours of the JAX agent reproduced as they are:

@@ -21,7 +21,8 @@ MLP (depth, widths, relu, swish, mish or gelu), fixed or learnable time
 features, LayerNorm or none, and any hidden width up to ``MAX_HIDDEN``,
 padded to whole 64-column tiles (128 past 256, where a block holds 32 rows
 and the 4h layer runs in eight passes; 256 past 512, where a block holds 16
-rows and the 4h layer runs in passes of 256 columns). The design keeps the
+rows and the 4h layer runs in passes of 256 columns; 1536 past 1024, where
+a ring stage holds 8 K-rows instead of 16). The design keeps the
 residual in registers as
 the products' accumulator for all steps, keeps only the products' left
 operands in shared memory, and streams the weights, pre-tiled here in the
@@ -33,10 +34,10 @@ The stream holds, per step, the trunk input layer's ``[x|s]`` rows (K padded
 to 16) and then, per block and per pass ``c`` of the 4H layer (``passes``
 of ``4 Hp / passes`` columns), ``w0[:, c]`` and ``w1[c, :]``; each (K, N)
 matrix as tiles of 16 K-rows in ``mma`` B-fragment order (``tile_matrix``),
-Hp wide or narrower (a ring stage holds 16 × Hp floats). ``vectors`` holds
-everything the CUDA cores read: the time path (the Fourier frequencies and
-every cond layer), biases, LayerNorm and the output layer. Every padded row,
-column and vector entry is zero.
+Hp wide or narrower (a ring stage holds ``stage_rows`` × Hp floats).
+``vectors`` holds everything the CUDA cores read: the time path (the
+Fourier frequencies and every cond layer), biases, LayerNorm and the output
+layer. Every padded row, column and vector entry is zero.
 
 The caller supplies the initial sample, every step's noise (None for DDIM)
 and the (T, 6) coefficient table from ``ops.diffusion`` (any prediction
@@ -56,7 +57,7 @@ ROW_CHOICES = (64, 32)  # the kernel's instances, widest first (Hp <= 256)
 STAGE_K = 16            # K-rows per ring stage
 MAX_STAGES = 8
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
-MAX_HIDDEN = 1024       # a ring stage of 16 x 1024 floats is 64 KB
+MAX_HIDDEN = 1536       # past 1024 a ring stage holds 8 K-rows of Hp 1536
 PASS_COLS = 256         # columns of a 4H pass past a padded width of 512
 MAX_COND_LAYERS = 16
 ACTIVATIONS = ("relu", "swish", "mish", "gelu")   # the time kernel's codes
@@ -74,10 +75,20 @@ def padded(H: int) -> int:
     """The width the kernel runs a hidden width at: whole 64-column tiles
     (eight warps of 8-column ``mma`` tiles), past 256 whole 128-column ones,
     so each of the eight passes over the 4H layer is whole tiles, and past
-    512 whole 256-column ones, so a stage holds whole passes of w0."""
+    512 whole 256-column ones, so a stage holds whole passes of w0; past
+    1024 the one wider instance, 1536."""
     if H <= 256:
         return _up(H, 64)
+    if H > 1024:
+        return MAX_HIDDEN
     return _up(H, 128) if H <= 512 else _up(H, PASS_COLS)
+
+
+def stage_rows(Hp: int) -> int:
+    """K-rows of a ring stage: 16 (16 × Hp floats), 8 past 1024 (a stage of
+    16 × 1536 floats would leave no room for two beside the LayerNorm
+    output); the stream is the same."""
+    return STAGE_K if Hp <= 1024 else STAGE_K // 2
 
 
 def passes(Hp: int) -> int:
@@ -227,7 +238,8 @@ def layout(net: MLPDiffusion) -> dict:
     for name, p in _vectors(net):
         voff[name] = v
         v += p.numel()
-    return dict(offsets=off, stream_stages=o // (STAGE_K * Hp), vec_base=o,
+    return dict(offsets=off, stream_stages=o // (stage_rows(Hp) * Hp),
+                vec_base=o,
                 vec_offsets=voff, numel=o + v, Hp=Hp, passes=passes(Hp))
 
 
@@ -249,7 +261,7 @@ def _smem(net: MLPDiffusion, A: int, S: int) -> dict:
     chunk's row stride), whatever S is."""
     H = padded(hidden(net))
     hc = 4 * H // passes(H)
-    stage = STAGE_K * H * 4
+    stage = stage_rows(H) * H * 4
     rowsets = row_choices(H)
 
     def plan(rows, chunked):
@@ -279,7 +291,7 @@ def kernel_info(net: MLPDiffusion, N: int, A: int, S: int, T: int) -> dict:
     H = padded(hidden(net))
     sm = _smem(net, A, S)
     grid = -(-N // sm["rows"])
-    per_step = layout(net)["stream_stages"] * STAGE_K * H * 4
+    per_step = layout(net)["stream_stages"] * stage_rows(H) * H * 4
     return dict(rows_per_block=sm["rows"], grid=grid, hidden_padded=H,
                 passes=passes(H), chunked=sm["chunked"],
                 layer_norm=net.use_layer_norm,

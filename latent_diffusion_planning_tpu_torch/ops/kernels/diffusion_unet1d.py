@@ -44,16 +44,22 @@ of a global scratch, the same records, the same weight stream; where even
 the operand buffers do not fit beside the ring (``operands_global``: a
 [1024,2048,4096] planner), they move to the scratch too, and the bf16 GEMM
 reads its input through a window of channels staged in shared memory for
-``ldmatrix`` (``stage_elems``: the whole input where it fits). A tile
-holds up to ``MAX_ROWS`` GEMM rows (samples × time steps), and one sample
-up to ``MAX_SAMPLE_ROWS`` (a plan of 256 steps: bf16 instances of 16 row
-tiles). An up block whose concatenated input is as wide
-as its output has no projection, so its residual is that input in fp32: the
-program then keeps an fp32 copy of the skip beside the bf16 one
-(``skip32``) and concatenates both halves in fp32.
+``ldmatrix`` (``stage_elems``: the whole input where it fits). A tile of
+several samples holds up to ``MAX_ROWS`` GEMM rows (samples × time steps;
+``WIDE_MAX_ROWS`` in the wide mode), and one sample any number: a GEMM of
+more rows than its instance holds (16 row tiles in bf16 and fp16, 8 in
+fp32, 2 in the fp32 wide mode) walks them in groups, each group a pass
+over the GEMM's weight tiles, the ones before the last read from global
+memory (the stream has brought them into L2). An up block whose
+concatenated input is as wide as its output has no projection, so its
+residual is that input in fp32: the program then keeps an fp32 copy of the
+skip beside the bf16 one (``skip32``) and concatenates both halves in fp32.
 
-Two weight types, one template each (``csrc/unet1d.cuh``): bf16 (the
-default, ``diffusion_unet1d.cu``) and fp32 (``dtype=torch.float32``, the JAX
+Three weight types, one template each (``csrc/unet1d.cuh``): bf16 (the
+default, ``diffusion_unet1d.cu``), fp16 (``dtype=torch.float16``, the JAX
+kernel's ``dtype=float16``; ``diffusion_unet1d_f16.cu``: bf16's tiles and
+program with fp16 operands, rounding where the JAX kernel rounds, see
+``rounding_twin``) and fp32 (``dtype=torch.float32``, the JAX
 kernel's ``dtype=float32`` that ``fused_dtype: float32`` selects;
 ``diffusion_unet1d_f32.cu``): fp32 tiles of 16 KB, one a ring stage, fp32
 operand buffers, products as 3×TF32 on the tensor cores. The layout, the
@@ -71,8 +77,9 @@ any width at 64 samples a block.
 The twin computes the same update with the module's own weights in fp32; to
 hold the bf16 kernel against it on the card, give the twin
 ``rounding_twin(net)``: bf16-rounded weights and every conv and dense input
-rounded through bf16, which is where the kernel rounds. The fp32 kernel's
-twin is the net itself (under ``fp32_math``).
+rounded through bf16, which is where the kernel rounds; the fp16 kernel's
+is ``rounding_twin(net, torch.float16)``. The fp32 kernel's twin is the net
+itself (under ``fp32_math``).
 """
 
 from __future__ import annotations
@@ -82,18 +89,21 @@ import functools
 
 import torch
 
-from ...models.nets.unet1d import ConditionalUnet1D
+from ...models.nets.unet1d import (ConditionalUnet1D, ConvBlock1D,
+                                   FiLMResBlock1D)
 from .. import diffusion as dlib
 from . import _build
 
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on H100
 NB_CHOICES = (16, 8, 4, 2, 1)   # samples per block
 MIN_BLOCKS = 64         # prefer a tile that leaves at least this many blocks
-MAX_ROWS = 128          # GEMM rows (samples × time steps) a block can hold
-WIDE_MAX_ROWS = 32      # ... in the wide mode
-MAX_SAMPLE_ROWS = 256   # one sample's rows: bf16 instances of 16 row tiles
+MAX_ROWS = 128          # GEMM rows (samples × time steps) of a tile of
+WIDE_MAX_ROWS = 32      # several samples (in the wide mode); one sample any
 WEIGHT_DTYPE = torch.bfloat16   # the default weight type
-WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+WEIGHT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+ENTRIES = {torch.bfloat16: "ldp_unet1d_sampler",
+           torch.float16: "ldp_unet1d_sampler_f16",
+           torch.float32: "ldp_unet1d_sampler_f32"}
 
 WARPS = 16                      # warps of a block; each owns 8 columns
 TILE_K, TILE_N = 32, 8 * WARPS
@@ -125,18 +135,19 @@ def _up(n: int, m: int) -> int:
 
 def _check_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype not in WEIGHT_DTYPES:
-        raise ValueError(f"kernel B takes bfloat16 or float32 weights, not "
-                         f"{dtype}")
+        raise ValueError(f"kernel B takes bfloat16, float16 or float32 "
+                         f"weights, not {dtype}")
     return dtype
 
 
 def esize(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
     """Bytes of a weight and of an operand element."""
-    return 2 if _check_dtype(dtype) == torch.bfloat16 else 4
+    return _check_dtype(dtype).itemsize
 
 
 def stage_tiles(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
-    """Tiles per ring stage: 3 of 8 KB in bf16, 1 of 16 KB in fp32."""
+    """Tiles per ring stage: 3 of 8 KB in bf16 and fp16, 1 of 16 KB in
+    fp32."""
     return STAGE_TILES if esize(dtype) == 2 else 1
 
 
@@ -157,31 +168,30 @@ def ld32(C: int) -> int:
     return C + 8
 
 
-def sample_rows(dtype: torch.dtype = WEIGHT_DTYPE) -> int:
-    """The most rows one sample may have: the bf16 instances go to 16 row
-    tiles, the fp32 ones to 8."""
-    return MAX_SAMPLE_ROWS if esize(dtype) == 2 else MAX_ROWS
+def row_group(wide: bool, dtype: torch.dtype = WEIGHT_DTYPE) -> int:
+    """The rows an instance holds at once (16 row tiles in bf16 and fp16, 8
+    in fp32, 2 in the fp32 wide mode); a GEMM of more walks them in groups
+    of this many, one pass over its weight tiles each."""
+    return 16 * (16 if esize(dtype) == 2 else 2 if wide else 8)
 
 
 def rows_fit(nb: int, T: int, wide: bool,
              dtype: torch.dtype = WEIGHT_DTYPE) -> bool:
-    """Whether a tile of ``nb`` samples of length ``T`` has rows an instance
+    """Whether a tile of ``nb`` samples of length ``T`` has rows the kernel
     takes: ``MAX_ROWS`` (``WIDE_MAX_ROWS`` in the wide mode), or one sample
-    of up to ``sample_rows(dtype)`` (the fp32 wide mode: 32)."""
-    cap = WIDE_MAX_ROWS if wide else MAX_ROWS
-    if nb * T <= cap:
-        return True
-    one = WIDE_MAX_ROWS if wide and esize(dtype) == 4 else sample_rows(dtype)
-    return nb == 1 and T <= one
+    of any length (past ``row_group`` its GEMMs walk their rows in
+    groups)."""
+    return nb * T <= (WIDE_MAX_ROWS if wide else MAX_ROWS) or nb == 1
 
 
 def check_supported(net: ConditionalUnet1D, T: int,
                     dtype: torch.dtype = WEIGHT_DTYPE) -> None:
     """Raise ValueError, with the reason, for a call the kernel cannot run:
     a plan length the U-Net's stride does not divide (the JAX agent samples
-    it with its scan), an even kernel_size (the JAX net does not build),
-    widths GroupNorm cannot split, or a plan past the rows one block
-    holds."""
+    it with its scan), an even kernel_size (the JAX net does not build), or
+    widths GroupNorm cannot split. (A net too wide for a block's shared
+    memory at this length is refused by ``choose_tile``.)"""
+    _check_dtype(dtype)
     dd = net.down_dims
     stride = 2 ** (len(dd) - 1) if net.downsample else 1
     if T % stride:
@@ -191,10 +201,6 @@ def check_supported(net: ConditionalUnet1D, T: int,
         raise ValueError("every down_dims entry must divide into n_groups")
     if net.kernel_size % 2 == 0:
         raise ValueError("kernel needs an odd kernel_size")
-    if T > sample_rows(dtype):
-        raise ValueError(f"plan length {T} exceeds the {sample_rows(dtype)} "
-                         f"GEMM rows a block holds with "
-                         f"{str(dtype).removeprefix('torch.')} weights")
 
 
 def _skip32_levels(dd, downsample: bool) -> set:
@@ -688,9 +694,60 @@ def _records_on(signature: tuple, T: int, nb: int, wide: bool,
     return torch.tensor(prog["records"], dtype=torch.int32).to(device)
 
 
-def _round_input(module, args):
-    return tuple(a.to(WEIGHT_DTYPE).to(a.dtype) if torch.is_floating_point(a)
-                 else a for a in args)
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x through ``dtype`` and back to its own type."""
+    return x.to(dtype).to(x.dtype) if torch.is_floating_point(x) else x
+
+
+def _round_input(dtype, module, args):
+    return tuple(_round(a, dtype) for a in args)
+
+
+class _JaxGroupNorm(torch.nn.Module):
+    """GroupNorm as the JAX kernel computes it in fp16: the mean and the
+    variance (E[x^2] - E[x]^2) of x and x * x rounded to ``dtype`` (so x *
+    x overflows to inf past 256), and a non-finite statistic of one group
+    NaN in the sample's other groups (JAX's 0/1 broadcast matmuls: 0 x inf).
+    Per sample, as the JAX kernel at ``batch_tile=1``."""
+
+    def __init__(self, norm: torch.nn.GroupNorm, dtype: torch.dtype):
+        super().__init__()
+        self.norm, self.dtype = norm, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        G = self.norm.num_groups
+        xs = x.reshape(B, G, -1)
+        n = xs.shape[-1]
+        mu = _round(xs, self.dtype).sum(-1) / n
+        var = _round(xs * xs, self.dtype).sum(-1) / n - mu * mu
+        stats = []
+        for v in (mu, var):
+            bad = ~torch.isfinite(v)
+            others = bad.sum(-1, keepdim=True) - bad.int() > 0
+            stats.append(torch.where(others, torch.nan, v)[..., None])
+        y = (xs - stats[0]) * torch.rsqrt(stats[1] + self.norm.eps)
+        return (y.reshape(B, C, T) * self.norm.weight[:, None]
+                + self.norm.bias[:, None])
+
+
+def _note_length(block, args):
+    block.film.length = args[0].shape[-1]
+
+
+def _round_film(dtype, film, args, out):
+    """FiLM's scale and bias through ``dtype`` where the JAX kernel
+    broadcasts them with a matmul: a width not a multiple of 128, at a
+    level longer than 1."""
+    if out.shape[-1] // 2 % 128 and film.length > 1:
+        return _round(out, dtype)
+    return out
+
+
+def _round_down(dtype, conv, args, out):
+    """The downsample's output through ``dtype`` where the JAX kernel
+    selects its rows with a matmul (a width not a multiple of 128)."""
+    return _round(out, dtype) if conv.out_channels % 128 else out
 
 
 def fp32_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
@@ -707,20 +764,41 @@ def fp32_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
     return out
 
 
-def rounding_twin(net: ConditionalUnet1D) -> ConditionalUnet1D:
-    """A copy of the net that rounds where the bf16 kernel rounds: weights
-    through bf16, and the input of every Conv1d, ConvTranspose1d and Linear
-    through bf16 (products of bf16 operands, fp32 sums, everything else
-    fp32) — the function the kernel computes, for holding it against the
-    twin."""
+def rounding_twin(net: ConditionalUnet1D,
+                  dtype: torch.dtype = WEIGHT_DTYPE) -> ConditionalUnet1D:
+    """A copy of the net that rounds where the kernel of weight type
+    ``dtype`` rounds, the function that kernel computes, for holding it
+    against the twin. bf16: weights through bf16, and the input of every
+    Conv1d, ConvTranspose1d and Linear through bf16 (products of bf16
+    operands, fp32 sums, everything else fp32). fp16 rounds where the JAX
+    kernel with ``dtype=float16`` rounds: the same, but for the final 1x1
+    conv, which takes the fp32 activations; GroupNorm's statistics from
+    x and x * x rounded (``_JaxGroupNorm``); FiLM's scale and bias and the
+    downsample's output rounded at widths that are not a multiple of 128
+    (where that kernel broadcasts or selects rows with a matmul)."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"no rounding twin for {dtype}: the fp32 kernel's "
+                         f"twin is fp32_twin(net)")
     out = copy.deepcopy(fp32_twin(net))
     with torch.no_grad():
         for p in out.parameters():
-            p.copy_(p.to(WEIGHT_DTYPE).float())
+            p.copy_(p.to(dtype).float())
+    jax16 = dtype == torch.float16
     for m in out.modules():
-        if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d,
-                          torch.nn.Linear)):
-            m.register_forward_pre_hook(_round_input)
+        if (isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d,
+                           torch.nn.Linear))
+                and not (jax16 and m is out.final_conv)):
+            m.register_forward_pre_hook(functools.partial(_round_input, dtype))
+    if jax16:
+        for m in list(out.modules()):
+            if isinstance(m, ConvBlock1D):
+                m.norm = _JaxGroupNorm(m.norm, dtype)
+            elif isinstance(m, FiLMResBlock1D):
+                m.register_forward_pre_hook(_note_length)
+                m.film.register_forward_hook(
+                    functools.partial(_round_film, dtype))
+        for m in out.downs:
+            m.register_forward_hook(functools.partial(_round_down, dtype))
     return out
 
 
@@ -808,11 +886,11 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     ``ddim_coef_table`` with ``noise`` None, or ``ddpm_coef_table`` with
     ``noise`` (S, B, T, D), one draw per step (its s_var column scales it).
     CPU tensors run the plain twin (with the net's own weights); CUDA
-    tensors launch the kernel with weights of ``dtype`` (bf16 or fp32; fp32
-    plans its waves on the card's SMs). ``packed`` is ``pack_params(net,
-    dtype)`` on the device; ``nb`` overrides the samples per block and,
-    with it, ``wide`` the mode (for measurements). A launch the card refuses
-    raises.
+    tensors launch the kernel with weights of ``dtype`` (bf16, fp16 or
+    fp32; fp32 plans its waves on the card's SMs). ``packed`` is
+    ``pack_params(net, dtype)`` on the device; ``nb`` overrides the samples
+    per block and, with it, ``wide`` the mode (for measurements). A launch
+    the card refuses raises.
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
@@ -872,8 +950,7 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     dims = torch.tensor(_dims(net, B, T, S, nb, prog, dtype),
                         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    entry = ("ldp_unet1d_sampler" if dtype == torch.bfloat16
-             else "ldp_unet1d_sampler_f32")
+    entry = ENTRIES[dtype]
     fn = _build.function(entry, [P] * 12 + [I, F, P])
     err = fn(gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
              coefs.data_ptr(), _build.ptr(noise), packed.data_ptr(),

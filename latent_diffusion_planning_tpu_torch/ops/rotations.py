@@ -38,7 +38,10 @@ _ROT_TERMS = {
 
 
 @functools.cache
-def _tables(device: torch.device) -> dict:
+def _tables(device: torch.device, dtype: torch.dtype) -> dict:
+    """The product tables on ``device`` in the operands' ``dtype``: a table
+    of another type would promote the product (an fp32 step would run in
+    fp64 after an fp64 one had made the tables)."""
     mul = torch.zeros(16, 4)
     for k, terms in _MUL_TERMS.items():
         for i, j, sign in terms:
@@ -47,9 +50,9 @@ def _tables(device: torch.device) -> dict:
     for (r, c), terms in _ROT_TERMS.items():
         for i, j, coef in terms:
             rot[4 * i + j, 3 * r + c] = coef
-    return dict(mul=mul.to(device), rot=rot.to(device),
-                eye=torch.eye(3).reshape(9).to(device),
-                identity=torch.tensor([1.0, 0.0, 0.0, 0.0]).to(device))
+    return dict(mul=mul.to(device, dtype), rot=rot.to(device, dtype),
+                eye=torch.eye(3).reshape(9).to(device, dtype),
+                identity=torch.tensor([1.0, 0.0, 0.0, 0.0]).to(device, dtype))
 
 
 def _contract(outer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -60,7 +63,7 @@ def _contract(outer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def quat_identity(device) -> torch.Tensor:
     """(1, 0, 0, 0) on ``device`` (the caller names it), made once."""
-    return _tables(torch.device(device))["identity"]
+    return _tables(torch.device(device), torch.get_default_dtype())["identity"]
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -70,7 +73,7 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product a ⊗ b (wxyz); the leading axes broadcast."""
     return _contract(a[..., :, None] * b[..., None, :],
-                     _tables(a.device)["mul"])
+                     _tables(a.device, a.dtype)["mul"])
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
@@ -86,7 +89,7 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """(…, 4) wxyz → (…, 3, 3) rotation matrix."""
     q = quat_normalize(q)
-    t = _tables(q.device)
+    t = _tables(q.device, q.dtype)
     r = _contract(q[..., :, None] * q[..., None, :], t["rot"]) + t["eye"]
     return r.reshape(*q.shape[:-1], 3, 3)
 

@@ -33,6 +33,7 @@ demos, against the JAX package.
 """
 
 import contextlib
+import json
 from pathlib import Path
 
 import jax
@@ -55,6 +56,7 @@ from latent_diffusion_planning_tpu_torch.data.writer import (
 from latent_diffusion_planning_tpu_torch.envs import pick_place_physics as phys
 from latent_diffusion_planning_tpu_torch.models.agents import common
 from latent_diffusion_planning_tpu_torch.ops import normalize as nz
+from latent_diffusion_planning_tpu_torch.ops import rotations as rot
 from latent_diffusion_planning_tpu_torch.rollout import engine
 from latent_diffusion_planning_tpu_torch.utils.config import load_config
 from torch_thread import one_torch_thread  # noqa: F401
@@ -309,3 +311,48 @@ def test_can_contact_step_matches_jax():
     np.testing.assert_array_equal(success.numpy(), g["success"])
     np.testing.assert_array_equal(held.numpy(), g["holding"])
     assert g["holding"].any() and g["success"].any()
+
+
+def test_contact_step_keeps_its_type_after_an_fp64_step():
+    """The rotation tables are made per device and type: an fp64 step made
+    first in a process leaves the next fp32 step in fp32 and equal to one
+    made alone (a table of the first step's type promoted every later
+    product to it)."""
+    with np.load(CONTACT) as f:
+        g = dict(f)
+    rot._tables.cache_clear()
+    alone = _contact_step(g, torch.float32)[0]
+    rot._tables.cache_clear()
+    _contact_step(g, torch.float64)
+    after = _contact_step(g, torch.float32)[0]
+    for k in ("pos", "quat", "linvel", "angvel"):
+        a, b = getattr(alone.bodies, k), getattr(after.bodies, k)
+        assert b.dtype == torch.float32
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("rates,want", [
+    ({"card_d0": 60, "cpu_d0": 140, "card_d1": 70, "cpu_d1": 150},
+     "the card carries the gap"),
+    ({"card_d0": 88, "cpu_d0": 71, "card_d1": 80, "cpu_d1": 140},
+     "spread of the demo draw"),
+    ({"card_d0": 100, "cpu_d0": 140, "card_d1": 60, "cpu_d1": 90},
+     "spread of the demo draw"),
+    ({"card_d0": 100, "cpu_d0": 132, "card_d1": 101, "cpu_d1": 133},
+     "open")])
+def test_can_arms_rule(tmp_path, rates, want):
+    """``tools/compare_can_arms.py``'s demo-draw rule on arms of 1024
+    episodes at 30k: the card below the CPU at both draws by 0.03 or more
+    with p < 0.01 carries the gap; at or above it at one draw, or draws of
+    one device as far apart as the devices, is spread; else open."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import compare_can_arms as cca
+    arms = {}
+    for name, k in rates.items():
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps({"checkpoints": [
+            {"step": 30000, "route": cca.KERNELS, "successes": k,
+             "n_episodes": 1024}]}))
+        arms[name] = cca.pooled(path, 30000)[cca.KERNELS]
+    assert cca.verdict(arms) == want

@@ -216,9 +216,10 @@ def test_what_wide_mode_cannot_hold_is_refused():
     """A net whose widest concat's bf16 operands alone outgrow a block, once
     refused, runs in the wide mode with its operands in global memory
     (staged through shared memory for ``ldmatrix``): [1024,2048,4096] at
-    8 rows, 2 × 8 × 8200 bf16. The wide mode holds one sample of up to 256
-    rows: [64,128,256] fits whole at 32 rows and runs one sample a block,
-    wide, at 40. Past 256 rows a plan is refused, with the reason."""
+    8 rows, 2 × 8 × 8200 bf16. The wide mode holds one sample of any
+    length: [64,128,256] fits whole at 32 rows and runs one sample a block,
+    wide, at 40; past 256 rows, once refused, too (its GEMMs walk their rows
+    in groups of 256)."""
     net = _meta_unet(25, 25, (1024, 2048, 4096), 5, False)
     assert kunet.choose_tile(net, 2, 64)[0] >= 1
     nb, prog = kunet.choose_tile(net, 8, 64)
@@ -227,8 +228,9 @@ def test_what_wide_mode_cannot_hold_is_refused():
     assert not kunet.choose_tile(narrow, 32, 64)[1]["wide"]
     nb, prog = kunet.choose_tile(narrow, 40, 64)
     assert nb == 1 and prog["wide"]
-    with pytest.raises(ValueError, match="exceeds the 256 GEMM rows"):
-        kunet.check_supported(narrow, 272)
+    kunet.check_supported(narrow, 272)
+    nb, prog = kunet.choose_tile(narrow, 272, 64)
+    assert nb == 1 and prog["wide"] and 272 > kunet.row_group(True)
 
 
 def test_kernel_info_reports_a_ddpm_call():

@@ -463,7 +463,10 @@ def test_shared_encoder_condition_matches_jax(pair):
     (dict(pred_horizon=7), "not divisible"),
     # fp32 weights, once refused, run through kernel B's fp32 instances
     (dict(fused_dtype="float32"), None),
-    (dict(fused_dtype="float16"), "float32 or bfloat16"),
+    # fp16 weights, once refused (the case keeps its name), run through
+    # kernel B's fp16 instance
+    pytest.param(dict(fused_dtype="float16"), None,
+                 id="change2-float32 or bfloat16"),
     (dict(planner={"down_dims": [16, 32], "kernel_size": 4, "n_groups": 4,
                    "diffusion_step_embed_dim": 32}), "odd kernel_size"),
 ])

@@ -480,13 +480,13 @@ def test_idm_variant_packing_matches_the_twin(case):
 
 
 def test_what_kernel_a_still_refuses():
-    """Only a hidden width past ``MAX_HIDDEN`` (1024: a ring stage of 16 x
-    1024 floats) and a cond MLP the JAX IDM never builds are refused; widths
-    that are not a multiple of 8 or pass 512 run."""
-    for ok in (100, 520, 1024):
+    """Only a hidden width past ``MAX_HIDDEN`` (1536, run with ring stages
+    of 8 K-rows) and a cond MLP the JAX IDM never builds are refused; widths
+    that are not a multiple of 8 or pass 512 or 1024 run."""
+    for ok in (100, 520, 1024, 1100, 1536):
         kmlp.check_supported(MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, ok))
     net = MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, kmlp.MAX_HIDDEN + 8)
-    with pytest.raises(ValueError, match="hidden_dim up to 1024"):
+    with pytest.raises(ValueError, match="hidden_dim up to 1536"):
         kmlp.check_supported(net)
     net = MLPDiffusion(12, 7, 16, (32, 24), "swish", 2, 64)
     kmlp.check_supported(net)

@@ -1,7 +1,8 @@
 """The shapes the JAX package's Pallas kernels A and B take and the CUDA
 kernels once refused, on the CPU: kernel A at hidden widths that are not a
-multiple of 8 or pass 512 and with ``[x|s]`` rows too wide to hold whole;
-kernel B at plan lengths past 128 GEMM rows, on an up block whose
+multiple of 8 or pass 512 or 1024 and with ``[x|s]`` rows too wide to hold
+whole; kernel B at plan lengths past 128 GEMM rows (and past 256, and in
+fp32, where its GEMMs walk their rows in groups), on an up block whose
 concatenated input is as wide as its output, in the wide mode past 32 rows
 and with its bf16 operands in global memory.
 
@@ -15,6 +16,8 @@ twin (fp64 sums on both sides: 1e-4 for bf16, 1e-5 for fp32, the bars of
 """
 
 import copy
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +62,7 @@ def _np(tree):
 # name: (hidden, S, rows a block, passes, chunked)
 A_SHAPES = {"hidden-36": (36, 12, 64, 4, False),
             "hidden-1024": (1024, 12, 16, 16, False),
+            "hidden-1536": (1536, 12, 16, 24, False),
             "row-1100": (256, 1100, 64, 4, True),
             "row-2048": (256, 2048, 64, 4, True)}
 
@@ -123,7 +127,7 @@ def test_kernel_a_twin_matches_jax_kernel_at_shape(case):
                                rtol=0)
 
 
-@pytest.mark.parametrize("case", ["hidden-36", "hidden-1024"])
+@pytest.mark.parametrize("case", ["hidden-36", "hidden-1024", "hidden-1536"])
 def test_kernel_a_packing_matches_the_twin_at_shape(case):
     """The packed buffer at these widths (the 4H layer cut into passes of
     ceil(4H / passes) real columns, each padded) read as the kernel reads
@@ -164,10 +168,11 @@ def _unet(dd, T, D, Dc, d=32, G=8):
 # name: (down_dims, T, n_groups); 256 steps plan as 160 do (one sample a
 # block, the wide mode), held below by its program
 B_SHAPES = {"T160": ((64, 128, 256), 160, 8),
+            "T320": ((64, 128, 256), 320, 8),
             "skip-as-wide-as-output": ((32, 16, 16), 8, 4)}
 
 
-@pytest.mark.parametrize("case", ["T160", "skip-as-wide-as-output"])
+@pytest.mark.parametrize("case", ["T160", "T320", "skip-as-wide-as-output"])
 def test_kernel_b_twin_matches_jax_kernel_at_shape(case):
     """Kernel B's fp32 route (on the CPU its twin) against the JAX Pallas
     kernel with ``dtype=float32`` in interpret mode on the same weights and
@@ -246,8 +251,9 @@ def test_long_plan_runs_one_sample_a_block(T):
     bf16 wide instance of 16 row tiles (the wrapper's ``rows_fit``; the
     ordinary mode's buffers do not fit at the Lift planner's widths), its
     operands in shared memory; its program's transcription matches the
-    rounding twin (1e-4). The fp32 instances stop at 128 rows and refuse it
-    with the reason."""
+    rounding twin (1e-4). The fp32 instances, which once refused it, plan
+    it too: one sample a block inside the shared memory, its rows past the
+    instance's walked in groups."""
     net = ConditionalUnet1D(5, 5, 32, (64, 128, 256), 5, 8,
                             generator=torch.Generator().manual_seed(3))
     kunet.check_supported(net, T)
@@ -257,8 +263,10 @@ def test_long_plan_runs_one_sample_a_block(T):
     assert not kunet.rows_fit(2, T, True)
     assert prog["smem_bytes"] <= kunet.SMEM_LIMIT
     assert kunet.build_program(net, T, 1)["smem_bytes"] > kunet.SMEM_LIMIT
-    with pytest.raises(ValueError, match="exceeds the 128 GEMM rows"):
-        kunet.check_supported(net, T, F32)
+    kunet.check_supported(net, T, F32)
+    nb32, prog32 = kunet.choose_tile(net, T, 64, F32)
+    assert nb32 == 1 and prog32["smem_bytes"] <= kunet.SMEM_LIMIT
+    assert T > kunet.row_group(prog32["wide"], F32)
     if T == 160:
         assert _program_against_twin(net, T, wide=True) <= 1e-4
 
@@ -271,7 +279,10 @@ def test_wide_mode_past_32_rows():
     net = ConditionalUnet1D(5, 5, 32, (64, 128, 256), 5, 8,
                             generator=torch.Generator().manual_seed(4))
     assert kunet.rows_fit(1, 40, True) and not kunet.rows_fit(2, 40, True)
-    assert not kunet.rows_fit(1, 40, True, F32)
+    # the fp32 wide instance holds 32 rows and walks more in groups
+    assert kunet.rows_fit(1, 40, True, F32)
+    assert not kunet.rows_fit(2, 40, True, F32)
+    assert kunet.row_group(True, F32) == 32
     prog = kunet.build_program(net, 40, 1, True)
     assert prog["wide"] and not prog.get("operands_global", False)
     assert prog["smem_bytes"] <= kunet.SMEM_LIMIT
@@ -352,3 +363,71 @@ def test_bf16_operands_in_global_memory(T, downsample):
     with torch.device("meta"):
         small = ConditionalUnet1D(16, 16, 256, (256, 512, 1024), 5, 8)
     assert "operands_global" not in kunet.choose_tile(small, 16, 256)[1]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_plan_past_the_rows_of_an_instance(dtype):
+    """A 320-step plan on the Lift planner's widths (down_dims (64, 128,
+    256), 25 channels), refused once past 256 rows (bf16) and 128 (fp32):
+    one sample a block, the rows past the instance's (``row_group``: 256 in
+    bf16 and fp16, 128 in fp32, 32 in its wide mode) walked in groups; the
+    plan fits the shared memory and the check takes it; several samples a
+    block still stop at ``MAX_ROWS`` (``WIDE_MAX_ROWS`` wide)."""
+    dt = getattr(torch, dtype)
+    with torch.device("meta"):
+        net = ConditionalUnet1D(25, 25, 32, (64, 128, 256), 5, 8)
+    kunet.check_supported(net, 320, dt)
+    nb, prog = kunet.choose_tile(net, 320, 64, dt)
+    assert nb == 1 and prog["smem_bytes"] <= kunet.SMEM_LIMIT
+    assert 320 > kunet.row_group(prog["wide"], dt)
+    assert kunet.row_group(False, dt) == (256 if dt != F32 else 128)
+    for wide in (False, True):
+        assert kunet.rows_fit(1, 320, wide, dt)
+        cap = kunet.WIDE_MAX_ROWS if wide else kunet.MAX_ROWS
+        assert kunet.rows_fit(cap // 8, 8, wide, dt)
+        assert not kunet.rows_fit(2, cap // 2 + 8, wide, dt)
+    info = kunet.kernel_info(net, 16, 320, 10, dtype=dt)
+    assert info["samples_per_block"] == 1 and info["grid"] == 16
+
+
+def test_plan_past_256_rows_transcribed():
+    """The bf16 program at 320 steps (its records, offsets and index maps;
+    the row groups are the card's own) read as the kernel reads it matches
+    the rounding twin with fp64 sums: 1e-4."""
+    net = ConditionalUnet1D(5, 5, 32, (64, 128, 256), 5, 8,
+                            generator=torch.Generator().manual_seed(5))
+    assert _program_against_twin(net, 320, wide=True) <= 1e-4
+
+
+
+def _smoke_shapes():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SHAPE_UNET, mod.ORDINARY_ROW_GROUPS
+
+
+@pytest.mark.parametrize("key", ["B (8,16,32) T=288",
+                                 "B (8,16,32) T=288 fp16",
+                                 "B (32,16,16) T=160 fp32"])
+def test_ordinary_mode_row_groups(key):
+    """``chip_smoke.py``'s shapes that launch the ordinary mode's row-group
+    instances (bf16 and fp16 past 256 rows, fp32 past 128, the buffers in
+    shared memory): each plans one sample a block in the ordinary mode past
+    its instance's rows, as the card's check requires; the bf16 program's
+    transcription at 288 steps matches the rounding twin (1e-4)."""
+    shapes, ordinary = _smoke_shapes()
+    assert key in ordinary
+    dd, down, B, T, wt, plan = shapes[key]
+    dt = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": F32}[wt]
+    net = ConditionalUnet1D(25, 25, 256, dd, 5, 8 if dd[0] > 32 else 4,
+                            downsample=down,
+                            generator=torch.Generator().manual_seed(3))
+    kunet.check_supported(net, T, dt)
+    info = kunet.kernel_info(net, B, T, 10, dtype=dt)
+    assert plan is None and info["samples_per_block"] == 1
+    assert not info["wide"] and T > kunet.row_group(False, dt)
+    assert info["smem_bytes"] <= kunet.SMEM_LIMIT
+    if wt == "bf16":
+        assert _program_against_twin(net, T, Dc=25) <= 1e-4

@@ -223,12 +223,19 @@ def test_run_batched_eval_matches_jax(plan_blend):
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 48, "time_dim": 16,
                    "cond_hidden_dims": [32, 32]}), None),
     (dict(fused_dtype="float32"), None),
-    # hidden 52 (not a multiple of 8), once refused, runs too; past 1024 not
+    # hidden 52 (not a multiple of 8), once refused, runs too, and so does
+    # 1032 (at 1536; the case keeps its name); past 1536 not
     (dict(idm_net={"n_blocks": 2, "hidden_dim": 52, "time_dim": 16,
                    "cond_hidden_dims": [32, 32]}), None),
-    (dict(idm_net={"n_blocks": 1, "hidden_dim": 1032, "time_dim": 16,
-                   "cond_hidden_dims": [32, 32]}), "hidden_dim up to 1024"),
-    (dict(fused_dtype="float16"), "float32 or bfloat16"),
+    pytest.param(dict(idm_net={"n_blocks": 1, "hidden_dim": 1032,
+                               "time_dim": 16, "cond_hidden_dims": [32, 32]}),
+                 None, id="change5-hidden_dim up to 1024"),
+    (dict(idm_net={"n_blocks": 1, "hidden_dim": 1544, "time_dim": 16,
+                   "cond_hidden_dims": [32, 32]}), "hidden_dim up to 1536"),
+    # fp16 weights, once refused (the case keeps its name), run through
+    # kernel B's fp16 instance
+    pytest.param(dict(fused_dtype="float16"), None,
+                 id="change6-float32 or bfloat16"),
 ])
 def test_kernel_refusals(change, reason):
     """What the JAX agent hands to its XLA scan, the port refuses on the

@@ -604,9 +604,9 @@ def test_kernel_check_covers_the_planner_at_the_windows_length():
     skips to global memory: [512,1024,2048] fits that way at T 8. A planner
     [1024,2048,4096], whose widest concat's bf16 operands alone outgrow a
     block at T 8, once refused, moves those operands to global memory too,
-    so the check passes; what it still refuses when the agent is built
-    (not at the first eval after training) is a length past the 256 rows
-    a block holds. Its shapes are enough: the nets are built on the meta
+    so the check passes; a length past the 256 rows a bf16 instance holds,
+    once refused, plans too (one sample a block, its GEMMs walking their
+    rows in groups). Its shapes are enough: the nets are built on the meta
     device."""
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as kunet)
@@ -622,8 +622,10 @@ def test_kernel_check_covers_the_planner_at_the_windows_length():
     kunet.choose_tile(agent.planner, P)
     agent._check_kernels()
     assert kunet.choose_tile(agent.planner, 8)[1]["operands_global"]
-    with pytest.raises(ValueError, match="exceeds the 256 GEMM rows"):
-        kunet.check_supported(agent.planner, 264)
+    kunet.check_supported(agent.planner, 264)
+    nb, prog = kunet.choose_tile(agent.planner, 264)
+    assert nb == 1 and prog["operands_global"]
+    assert 264 > kunet.row_group(prog["wide"])
 
 
 def test_the_recipe_passes_the_kernel_check_and_refuses_what_it_must():

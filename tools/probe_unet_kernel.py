@@ -72,13 +72,19 @@ commit unpacked under ``build/``), in turns in one run (other, this, this,
 other), each turn a process that builds its tree's kernel B (both weight
 types) and runs ``--time-calls``: fp32 and bf16 at the default LDP planner
 (DDPM-100) and at the bench planner (DDIM-10), the kernel's time and the
-SHA-256 of its output (bf16 outputs are compared bit for bit).
+SHA-256 of its output (bf16 outputs are compared bit for bit). Then the
+SASS of each main-kernel instance in the two trees' objects (``cuobjdump
+-sass``), matched by weight type, row tiles and mode (an instance that walks
+rows in groups has no counterpart in a tree without them): one JSON line an
+instance with its instruction count in each tree and whether the
+instructions (operands included) and the opcodes alone are the same.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -454,6 +460,51 @@ def time_calls() -> None:
                               "sha256": digest, "card": card()}), flush=True)
 
 
+def sass(tree: Path) -> dict:
+    """The main-kernel instances of a tree's kernel B objects (as ``--turns``
+    built them): (weight type, row tiles, wide, groups) -> instructions."""
+    cuda_bin = Path("/usr/local/cuda/bin")
+    tool = lambda name: shutil.which(name) or str(cuda_bin / name)
+    out: dict = {}
+    for obj in sorted((tree / "build" / "probe_out_unet").glob(
+            "*.d/diffusion_unet1d*.o")):
+        text = subprocess.run([tool("cuobjdump"), "-sass", str(obj)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        key = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = subprocess.run(
+                    [tool("cu++filt"), line.split("Function :")[1].strip()],
+                    capture_output=True, text=True).stdout.strip()
+                m = re.search(r"unet1d_sampler_kernel<([^,]+), ([^,]+), "
+                              r"([^,>]+)(?:, ([^,>]+))?>", name)
+                # cu++filt writes a template's int and bool as (int)8 and
+                # (bool)0; a tree without row groups has no fourth
+                norm = lambda v: {"(bool)0": "false", "(bool)1": "true"}.get(
+                    v, v.replace("(int)", "")) if v else "false"
+                key = tuple(norm(v) for v in m.groups()) if m else None
+                if key:
+                    out[key] = []
+            elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                out[key].append(line.split("*/", 1)[1].split(";")[0].strip())
+    return out
+
+
+def compare_sass(other: Path) -> None:
+    mine, theirs = sass(REPO), sass(other)
+    for key in sorted(mine):
+        a, b = theirs.get(key), mine[key]
+        ops = lambda code: [re.sub(r"^@!?U?P[T0-9]\s+", "", i).split()[0]
+                            for i in code]
+        print(json.dumps({"instance": list(key), "other_instructions":
+                          None if a is None else len(a),
+                          "this_instructions": len(b),
+                          "same_instructions": a == b,
+                          "same_opcodes": a is not None and ops(a) == ops(b)}),
+              flush=True)
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--plans":
         run_plans()
@@ -471,6 +522,7 @@ def main() -> int:
                                 cwd=tree).returncode
             if rc:
                 return rc
+        compare_sass(other)
         return 0
     if len(sys.argv) > 2 and sys.argv[1] == "--build":
         from latent_diffusion_planning_tpu_torch.ops.kernels import _build

@@ -7,12 +7,15 @@
 # assets/ (the JAX script snapshots its runs into the tracked tree).
 #
 # Knobs: RUN=can_pipeline  STEPS=30000  DATA=datasets/can  SEED (unset)
-# ARGS="" (added to every stage, e.g. ARGS=device=cpu). SEED, when set,
-# seeds the VAE's and the LDP's training (their nets' init, batches and
-# draws; unset, the configs' seed 0, as the JAX script); the demos keep
-# the JAX script's seeds 0 and 77, so runs of several SEEDs differ only in
-# training. The latents in DATA belong to the run's VAE: give each RUN a
-# DATA of its own.
+# DEMO_SEED (unset)  ARGS="" (added to every stage, e.g. ARGS=device=cpu)
+# DEMO_ARGS="" (added to the two demo stages only: DEMO_ARGS=device=cpu
+# collects the demos on the CPU and trains on the card).
+# SEED, when set, seeds the VAE's and the LDP's training (their nets' init,
+# batches and draws; unset, the configs' seed 0, as the JAX script).
+# DEMO_SEED, when set, draws the demos from seeds DEMO_SEED (train) and
+# DEMO_SEED + 77 (eval); unset, the JAX script's seeds 0 and 77, so runs of
+# several SEEDs then differ only in training. The latents in DATA belong
+# to the run's VAE: give each RUN a DATA of its own.
 # Stages whose output exists are skipped, so an interrupted run resumes.
 set -e
 cd "$(dirname "$0")/.."
@@ -20,17 +23,21 @@ RUN=${RUN:-can_pipeline}
 STEPS=${STEPS:-30000}
 DATA=${DATA:-datasets/can}
 SEED_ARGS=${SEED:+seed=$SEED data.seed=$SEED}
+DEMO_SEED=${DEMO_SEED:-0}
 ARGS=${ARGS:-}
+DEMO_ARGS=${DEMO_ARGS:-}
 ENV=latent_diffusion_planning_tpu.envs.pick_place_physics.CanPhysicsEnv
 VAE=experiments/$RUN/vae/ckpt/4000.ckpt
 
 if [ ! -f $DATA/demos.npz ]; then
 python tools/collect_demos_torch.py env._target_=$ENV env.episode_len=300 \
-  n_episodes=256 episode_len=300 out_path=$DATA/demos.npz seed=0 $ARGS
+  n_episodes=256 episode_len=300 out_path=$DATA/demos.npz seed=$DEMO_SEED \
+  $ARGS $DEMO_ARGS
 fi
 if [ ! -f $DATA/demos_eval.npz ]; then
 python tools/collect_demos_torch.py env._target_=$ENV env.episode_len=300 \
-  n_episodes=32 episode_len=300 out_path=$DATA/demos_eval.npz seed=77 $ARGS
+  n_episodes=32 episode_len=300 out_path=$DATA/demos_eval.npz \
+  seed=$((DEMO_SEED + 77)) $ARGS $DEMO_ARGS
 fi
 if [ ! -f $VAE ]; then
 python tools/train_vae_torch.py data=can/img \

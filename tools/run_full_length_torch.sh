@@ -16,13 +16,20 @@
 #         experiments/can_s<seed>) then scored by tools/run_can_ldp_torch.py
 #         (4 x 256 episodes at each checkpoint, the plain loop at 30k) into
 #         $OUT/can_s<seed>.json
+#   can_draws: the Can recipe (SEED 0, STEPS=30000) once per demo draw of
+#         $DRAWS (DEMO_SEED) and per device the demos are collected on
+#         (card, and cpu: DEMO_ARGS=device=cpu; the rest on the card), all
+#         at once, each run (build/can_<device>_d<draw>,
+#         experiments/can_<device>_d<draw>) scored as above into
+#         $OUT/can_<device>_d<draw>.json; then
+#         tools/compare_can_demos.py on each draw's two demo sets
 #   aloha: tools/run_aloha_phys4_torch.sh with STEPS=50000, the length the
 #         JAX phys4 run reached (assets/runs/aloha_phys4: Workspace evals of
 #         64 episodes at 20k/40k, then eval_bc over the 30k/40k/50k
 #         checkpoints, 256 episodes at eval_action_horizon=1, plan_blend=0.7)
 #
 # Knobs: TASKS="lift can"  OUT=chiprun_out/full_length
-# and SEEDS="0" (the Can recipe's training seeds)
+# SEEDS="0" (the Can recipe's training seeds), DRAWS="0 1" (can_draws)
 # Datasets go to build/<task>, runs to experiments/ (both git-ignored).
 # Every stage's command line is echoed beside the Unix time (xtrace), so
 # each stage's wall time is read off the task's log.
@@ -31,6 +38,7 @@ cd "$(dirname "$0")/.."
 TASKS=${TASKS:-lift can}
 OUT=${OUT:-chiprun_out/full_length}
 SEEDS=${SEEDS:-0}
+DRAWS=${DRAWS:-0 1}
 # the mixed study's corpus needs a checkpoint that lifts in 30% of its
 # episodes or more, else it would not be comparable to the JAX study's
 MIN_SUBOPT=0.3
@@ -63,17 +71,43 @@ EOF
   fi
 }
 
+can_run() {  # NAME [VAR=value ...]: one Can recipe run and its scores
+  local name=$1
+  shift
+  { env DATA=build/$name RUN=$name STEPS=30000 "$@" \
+      bash -c 'PS4="+ \$(date +%s.%N) "; set -x; . "$0"' \
+      tools/run_can_pipeline_torch.sh
+    echo "+ $(date +%s.%N) python tools/run_can_ldp_torch.py"
+    python tools/run_can_ldp_torch.py --run experiments/$name/ldp \
+      --out "$OUT/$name.json"; } > "$OUT/$name.log" 2>&1
+}
+
 can() {
   local pids=() s rc=0
   for s in $SEEDS; do
-    { DATA=build/can_s$s RUN=can_s$s SEED=$s STEPS=30000 \
-        xtrace tools/run_can_pipeline_torch.sh
-      echo "+ $(date +%s.%N) python tools/run_can_ldp_torch.py"
-      python tools/run_can_ldp_torch.py --run experiments/can_s$s/ldp \
-        --out "$OUT/can_s$s.json"; } > "$OUT/can_s$s.log" 2>&1 &
+    can_run can_s$s SEED=$s &
     pids+=($!)
   done
   for s in "${pids[@]}"; do wait "$s" || rc=1; done
+  echo "+ $(date +%s.%N) done"
+  return $rc
+}
+
+can_draws() {
+  local pids=() d dev rc=0
+  for d in $DRAWS; do
+    for dev in card cpu; do
+      can_run can_${dev}_d$d SEED=0 DEMO_SEED=$d \
+        DEMO_ARGS=$([ "$dev" = cpu ] && echo device=cpu) &
+      pids+=($!)
+    done
+  done
+  for d in "${pids[@]}"; do wait "$d" || rc=1; done
+  for d in $DRAWS; do
+    echo "== draw $d: demos on the card (A) and on the CPU (B)"
+    python tools/compare_can_demos.py build/can_card_d$d/demos.npz \
+      build/can_cpu_d$d/demos.npz || rc=1
+  done
   echo "+ $(date +%s.%N) done"
   return $rc
 }
