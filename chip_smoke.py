@@ -3964,7 +3964,7 @@ def default_unets(agents: dict) -> dict:
 
 
 def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
-                       packed, dtype=None) -> dict:
+                       packed, dtype=None, grids=(None,)) -> dict:
     """Kernel B's DDPM on ``net`` against its rounding twin with the same
     per-step noise, by phase B's statistics, which bf16 rounding flips
     cannot move: after the first step, the share of elements beyond 5e-3
@@ -3974,7 +3974,9 @@ def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
     flip carried through the steps and noise (over 1024 samples × 25 DDIM
     steps it passed 0.1 once): a reading, as at the DDIM timing shapes.
     ``dtype``: the weight type (bf16, or fp16 against its own rounding
-    twin)."""
+    twin); ``grids``: fp16's mode, each of them held against the same
+    references (None: the wrapper's choice; True or False: forced); the
+    record is the first's, with every mode's under ``modes``."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
@@ -3983,40 +3985,52 @@ def _ddpm_against_twin(smoke, what, net, cond, x_init, noise, table,
     ts, coefs = table
     twin = KB.rounding_twin(net, dtype)
     twin64 = KB.rounding_twin(net, dtype).double()
-    kernel = lambda n=None: KB.fused_unet1d_ddim_sample(
+    kernel = lambda grid, n=None: KB.fused_unet1d_ddim_sample(
         net, cond, x_init, ts[:n], coefs[:n], noise[:n], clip_range=1.0,
-        packed=packed, dtype=dtype)
+        packed=packed, dtype=dtype, grid=grid)
     plain = lambda m, n=None: KB.unet1d_ddim_sample_plain(
         m, cond, x_init, ts[:n], coefs[:n], 1.0, noise[:n])
     with torch.no_grad():
         ref64 = dlib.sample_with_coefs(
             lambda x, t: twin64(x, t, cond.double()), x_init.double(),
             ts[:1], coefs[:1].double(), noise[:1].double(), 1.0)
-    one64 = {"kernel": err_stats(kernel(1), ref64),
-             "twin fp32": err_stats(plain(twin, 1), ref64),
+    one64 = {"twin fp32": err_stats(plain(twin, 1), ref64),
              "unrounded fp32 net": err_stats(plain(net, 1), ref64)}
     ref = plain(twin)
-    got = kernel()
-    if not (bool(torch.isfinite(got).all()) and got.shape == x_init.shape):
-        raise AssertionError(f"{what}: output not finite or misshapen")
-    full, fp32 = err_stats(got, ref), err_stats(plain(net), ref)
+    fp32 = err_stats(plain(net), ref)
     n = int(ts.shape[0])
     for k, v in one64.items():
         print(f"   {what}: after 1 step, {k} against the fp64-sum twin: {v}",
               flush=True)
-    print(f"   {what}: after {n} steps {full} (the fp32 net {fp32})",
-          flush=True)
-    beyond = {k: 1 - v["frac_within_5e3"] for k, v in one64.items()}
-    smoke.check(f"{what} share of elements beyond 5e-3 after 1 step "
-                "(kernel against the fp64-sum twin)", beyond["kernel"],
-                max(1e-2, beyond["twin fp32"]))
-    smoke.check(f"{what} mean_abs_err after {n} steps", full["mean"], 5e-3)
-    if not full["mean"] < fp32["mean"]:
-        raise AssertionError(f"{what}: the kernel is no closer to the "
-                             "rounding twin than the fp32 net is")
-    return dict(max_abs_err=full["max"], mean_abs_err=full["mean"],
-                one_step_vs_fp64_twin=one64, all_steps=full,
-                fp32_net_vs_twin=fp32, tol=5e-3)
+    modes, names = {}, {None: "chosen", True: "grid", False: "ordinary"}
+    for grid in grids:
+        label = what if len(grids) == 1 else f"{what} [{names[grid]} mode]"
+        one = err_stats(kernel(grid, 1), ref64)
+        got = kernel(grid)
+        if not (bool(torch.isfinite(got).all())
+                and got.shape == x_init.shape):
+            raise AssertionError(f"{label}: output not finite or misshapen")
+        full = err_stats(got, ref)
+        print(f"   {label}: after 1 step, kernel against the fp64-sum twin: "
+              f"{one}", flush=True)
+        print(f"   {label}: after {n} steps {full} (the fp32 net {fp32})",
+              flush=True)
+        smoke.check(f"{label} share of elements beyond 5e-3 after 1 step "
+                    "(kernel against the fp64-sum twin)",
+                    1 - one["frac_within_5e3"],
+                    max(1e-2, 1 - one64["twin fp32"]["frac_within_5e3"]))
+        smoke.check(f"{label} mean_abs_err after {n} steps", full["mean"],
+                    5e-3)
+        if not full["mean"] < fp32["mean"]:
+            raise AssertionError(f"{label}: the kernel is no closer to the "
+                                 "rounding twin than the fp32 net is")
+        modes[label] = dict(max_abs_err=full["max"], mean_abs_err=full["mean"],
+                            one_step_vs_fp64_twin=dict(one64, kernel=one),
+                            all_steps=full)
+    rec = dict(modes[next(iter(modes))], fp32_net_vs_twin=fp32, tol=5e-3)
+    if len(grids) > 1:
+        rec["modes"] = modes
+    return rec
 
 
 def phase_defaults_kernels(smoke: Smoke):
@@ -4294,6 +4308,8 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str,
             res = real(*a, **kw)
             _sync(device)
             counted.update(counts=kernels.launch_counts(),
+                           grid=kernels.diffusion_unet1d
+                           .fused_unet1d_ddim_sample.grid_launches,
                            wall_s=time.perf_counter() - t0, results=res)
             return res
         engine.run_batched_eval_multi = counting
@@ -4318,7 +4334,17 @@ def _drive_defaults(smoke: Smoke, work: Path, device: str,
         if device == "cuda" and counted["counts"] != want:
             raise AssertionError(f"{run_name} closed-loop launches "
                                  f"{counted['counts']} != {want}")
+        # fp16 B at the default planner's 256 samples: every launch in the
+        # grid mode
+        grid_want = (want["diffusion_unet1d"]
+                     if "agent.fused_dtype=float16" in extra else 0)
+        print(f"   {run_name} closed loop: B's grid-mode launches "
+              f"{counted['grid']} (stated: {grid_want})", flush=True)
+        if device == "cuda" and counted["grid"] != grid_want:
+            raise AssertionError(f"{run_name}: B's grid-mode launches "
+                                 f"{counted['grid']} != {grid_want}")
         rec.update(loop_launches=counted["counts"],
+                   loop_grid_launches=counted["grid"],
                    loop_wall_s=counted["wall_s"],
                    loop_success=float(m["success"]))
 
@@ -4586,10 +4612,13 @@ def _time_unet_fp32(smoke, what, net, cond, x0, noise, table, packed,
 
 def _fp16_call(smoke, key, net, cond, x0, noise, table) -> dict:
     """Kernel B with fp16 weights (``fused_dtype: float16``) at one default
-    call (DDPM-100): against its fp16 rounding twin by phase B's
-    statistics, timed beside that twin and beside the bf16 instance at the
-    same call, with its bound (the products at the fp16 tensor-core peak,
-    bf16's) and launch geometry."""
+    call (DDPM-100) in both modes, the grid mode (forced: the wrapper keeps
+    the ordinary mode at the chunk IDM, ``choose_grid``) and the ordinary
+    one: each against its fp16 rounding twin by phase B's statistics; the
+    same bits from two grid-mode launches; the grid mode timed beside that
+    twin and, in alternating turns, beside the bf16 instance and the
+    ordinary fp16 mode at the same call, with its bound (the products at
+    the fp16 tensor-core peak, bf16's) and launch geometry."""
     import torch
     from latent_diffusion_planning_tpu_torch.ops.kernels import (
         diffusion_unet1d as KB)
@@ -4598,33 +4627,67 @@ def _fp16_call(smoke, key, net, cond, x0, noise, table) -> dict:
     S = int(table[0].shape[0])
     what = (f"{key} fp16 {list(net.down_dims)} B={B} T={T}"
             f"{'' if net.downsample else ' no-downsample'}, DDPM-{S}")
+    sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
+    chosen = KB.choose_grid(net, T, B, f16, sms)
+    print(f"   {what}: the wrapper's mode here: "
+          f"{'grid' if chosen else 'ordinary'}", flush=True)
     packed = KB.pack_params(net, f16).to(x0.device)
+    KB.fused_unet1d_ddim_sample.grid_launches = 0
     rec = _ddpm_against_twin(smoke, what, net, cond, x0, noise, table, packed,
-                             dtype=f16)
+                             dtype=f16, grids=(True, False))
+    if KB.fused_unet1d_ddim_sample.grid_launches != 2:
+        raise AssertionError(f"{what}: the twin check ran "
+                             f"{KB.fused_unet1d_ddim_sample.grid_launches} "
+                             "grid launches, not 2")
     twin = KB.rounding_twin(net, f16)
     bf16_pack = KB.pack_params(net).to(x0.device)
     run_k = lambda: KB.fused_unet1d_ddim_sample(
-        net, cond, x0, *table, noise, packed=packed, dtype=f16)
+        net, cond, x0, *table, noise, packed=packed, dtype=f16, grid=True)
+    run_o = lambda: KB.fused_unet1d_ddim_sample(
+        net, cond, x0, *table, noise, packed=packed, dtype=f16, grid=False)
     run_b = lambda: KB.fused_unet1d_ddim_sample(
         net, cond, x0, *table, noise, packed=bf16_pack)
     run_p = lambda: KB.unet1d_ddim_sample_plain(twin, cond, x0, *table, 1.0,
                                                 noise)
-    ms, bf16_ms = time_ms(run_k, iters=1), time_ms(run_b, iters=1)
+    same = torch.equal(run_k(), run_k())
+    print(f"   {what}: two grid-mode launches give the same bits: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"{what}: two launches differ")
+    # every mode has run once above (the bf16 and ordinary ones now)
+    run_b(), run_o()
+    turns = {"grid": [], "bf16": [], "fp16 ordinary": []}
+    for _ in range(2):
+        for name, fn in (("grid", run_k), ("bf16", run_b),
+                         ("fp16 ordinary", run_o)):
+            turns[name].append(time_ms(fn, iters=1, warmup=0))
+    ms, bf16_ms = min(turns["grid"]), min(turns["bf16"])
     plain_ms = time_ms(run_p, iters=1, warmup=0)
     smoke.timing(what, ms, plain_ms)
-    print(f"   {what}: the bf16 instance at this call {bf16_ms:.3f} ms "
+    print(f"   {what}: in turns (ms) {json.dumps(turns)}: the grid mode "
+          f"{ms:.3f}, the bf16 instance {bf16_ms:.3f} ({ms / bf16_ms:.3f}x), "
+          f"the ordinary fp16 mode {min(turns['fp16 ordinary']):.3f} "
           f"[{smoke.card}]", flush=True)
     elem, mm, nbytes = unet_flops_bytes(net, B, T, S)
     b_ms, b_by = bound(elem, nbytes + noise.numel() * 4, bf16_flops=mm)
-    shape = KB.kernel_info(net, B, T, S, dtype=f16)
-    info = smoke.shape_line(
-        what, unet_entry(-(-shape["samples_per_block"] * T // 16),
-                         shape["wide"], fp16=True),
-        shape, mm, PEAK_BF16_FLOPS, "fp16 tensor-core", ms)
+    shape = KB.kernel_info(net, B, T, S, dtype=f16, sms=sms, grid=True)
+    ordinary = KB.kernel_info(net, B, T, S, dtype=f16, sms=sms, grid=False)
+    print(f"   {what}: the grid mode's blocks read "
+          f"{shape['weight_bytes_streamed'] / 1e12:.4f} TB of weights and "
+          f"move {shape['activation_bytes'] / 1e12:.4f} TB of activations "
+          f"a call ({shape['hbm_weight_bytes'] / 1e9:.2f} GB of weights "
+          f"from HBM, {shape['barriers']} barriers); the ordinary mode's "
+          f"{ordinary['grid']} blocks stream "
+          f"{ordinary['weight_bytes_streamed'] / 1e12:.4f} TB", flush=True)
+    info = smoke.shape_line(what, "unet1d_grid_kernel", shape, mm,
+                            PEAK_BF16_FLOPS, "fp16 tensor-core", ms)
     return dict(rec, ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
+                ordinary_ms=min(turns["fp16 ordinary"]), turns=turns,
+                mode="grid", wrapper_mode="grid" if chosen else "ordinary",
                 bound_ms=b_ms, bound_by=b_by, shape=info,
+                ordinary_weight_bytes=ordinary["weight_bytes_streamed"],
                 source="latent_diffusion_planning_tpu_torch/csrc/"
-                "diffusion_unet1d_f16.cu")
+                "unet1d_grid.cuh")
 
 
 # the JAX fp16 kernel's rounding points that the fp16 instance and
@@ -4700,36 +4763,95 @@ def _fp16_rounding_points(smoke, g) -> dict:
         e = (y.double() - ref).abs().reshape(B, -1).amax(1)
         return int((e <= 1e-6).sum())
     what = "B fp16 rounding points (8, 8, 16) B=256 T=8, DDIM-2"
-    held = {"kernel": exact(run_k(cond, x0))}
+    run_g = lambda c, x: KB.fused_unet1d_ddim_sample(
+        net, c, x, ts, coefs, packed=packed, dtype=f16, grid=True)
+    held = {"kernel": exact(run_k(cond, x0)),
+            "kernel, grid mode": exact(run_g(cond, x0))}
     for name, pts in [(p, (p,)) for p in FP16_POINTS] + [("all four",
                                                           FP16_POINTS)]:
         held[f"twin without {name}"] = exact(KB.unet1d_ddim_sample_plain(
             fp16_twin_without(net, pts), cond, x0, ts, coefs))
     print(f"   {what}: samples within 1e-6 of the fp64-sum twin: {held}",
           flush=True)
-    worst = max(v for k, v in held.items() if k != "kernel")
-    if not (held["kernel"] >= B // 8 and held["kernel"] > 4 * worst):
-        raise AssertionError(f"{what}: the kernel holds the twin on "
-                             f"{held['kernel']} samples (at least {B // 8} "
-                             f"and more than 4 x {worst} wanted)")
+    worst = max(v for k, v in held.items() if k.startswith("twin"))
+    for k in ("kernel", "kernel, grid mode"):
+        if not (held[k] >= B // 8 and held[k] > 4 * worst):
+            raise AssertionError(f"{what}: the {k} holds the twin on "
+                                 f"{held[k]} samples (at least {B // 8} and "
+                                 f"more than 4 x {worst} wanted)")
 
     c4, x4 = cond[:4].clone(), x0[:4].clone()
     x4[1] *= 500
-    got = run_k(c4, x4)
     want = KB.unet1d_ddim_sample_plain(KB.rounding_twin(net, f16), c4, x4,
                                        ts, coefs)
-    same = (torch.equal(got.isnan(), want.isnan())
-            and torch.equal(got.isinf(), want.isinf()))
-    print(f"   {what}: sample 1 times 500: the kernel's non-finite elements "
-          f"{int((~got.isfinite()).sum())} (NaN "
-          f"{int(got.isnan().sum())}), the twin's "
-          f"{int((~want.isfinite()).sum())} (NaN {int(want.isnan().sum())});"
-          f" the same places: {same}", flush=True)
-    if not (same and bool(want[1].isnan().all())
-            and bool(got[[0, 2, 3]].isfinite().all())):
-        raise AssertionError(f"{what}: the overflow's NaN and inf differ "
-                             "from the twin's")
-    return dict(held, overflow_same_places=same)
+    out = {}
+    for k, run in (("kernel", run_k), ("kernel, grid mode", run_g)):
+        got = run(c4, x4)
+        same = (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.isinf(), want.isinf()))
+        print(f"   {what}: sample 1 times 500: the {k}'s non-finite "
+              f"elements {int((~got.isfinite()).sum())} (NaN "
+              f"{int(got.isnan().sum())}), the twin's "
+              f"{int((~want.isfinite()).sum())} (NaN "
+              f"{int(want.isnan().sum())}); the same places: {same}",
+              flush=True)
+        if not (same and bool(want[1].isnan().all())
+                and bool(got[[0, 2, 3]].isfinite().all())):
+            raise AssertionError(f"{what}: the {k}'s overflow NaN and inf "
+                                 "differ from the twin's")
+        out[f"overflow_same_places ({k})"] = same
+    a, b = run_g(cond, x0), run_g(cond, x0)
+    print(f"   {what}: two grid-mode launches give the same bits: "
+          f"{torch.equal(a, b)}", flush=True)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two grid-mode launches differ")
+    return dict(held, **out)
+
+
+# the bf16 instance's output at the default LDP planner on the recipe of
+# tools/probe_unet_kernel.py's turns (widths (256, 512, 1024), 25 channels,
+# the port's init from seed 3, noise, condition and start from the CPU's
+# generator seeded 4, DDPM-100 cosine, 256 plans of 16), as the tree
+# before the grid mode computed it (probe_unet_kernel.py --turns, one
+# NVIDIA H100 80GB HBM3, torch 2.11 + CUDA 12.8). The kernel's sums do not
+# depend on torch, but the net's init and the draws pass through it:
+# recompute the digest with the parent's tree after a torch upgrade, as
+# after a change to the bf16 instance.
+PARENT_BF16_LDP_SHA256 = ("5aae4b85b02056f3e4af798d3015c1cc944dbd1d3f2448"
+                          "8966031ad6e1a29e82")
+
+
+def _bf16_planner_unchanged(smoke) -> dict:
+    """The bf16 instance is the parent's: its output at the default LDP
+    planner has the parent's SHA-256 bit for bit."""
+    import hashlib
+    import torch
+    from latent_diffusion_planning_tpu_torch.models.nets.unet1d import (
+        ConditionalUnet1D)
+    from latent_diffusion_planning_tpu_torch.ops import diffusion as dlib
+    from latent_diffusion_planning_tpu_torch.ops.kernels import (
+        diffusion_unet1d as KB)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    net = ConditionalUnet1D(25, 25, 256, (256, 512, 1024), 5, 8,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+    ts, coefs = dlib.ddpm_coef_table(
+        dlib.DiffusionSchedule.create(100, "squaredcos_cap_v2"))
+    noise = torch.randn(100, 256, 16, 25, generator=g).to(dev)
+    gc = torch.randn(256, 25, generator=g).to(dev)
+    x0 = torch.randn(256, 16, 25, generator=g).to(dev)
+    out = KB.fused_unet1d_ddim_sample(
+        net, gc, x0, ts.to(dev, torch.int32), coefs.to(dev), noise,
+        packed=KB.pack_params(net).to(dev))
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    same = digest == PARENT_BF16_LDP_SHA256
+    print(f"   B bf16 default LDP planner: output SHA-256 {digest}, the "
+          f"parent's {PARENT_BF16_LDP_SHA256}: the same {same} "
+          f"[{smoke.card}]", flush=True)
+    if not same:
+        raise AssertionError("the bf16 instance's output is not the "
+                             "parent's")
+    return dict(sha256=digest, same_as_parent=same)
 
 
 def options_dp_agent(device):
@@ -4822,6 +4944,7 @@ def phase_options_kernels(smoke: Smoke):
         out[f"{key} fp16"] = _fp16_call(smoke, key, net, cond, x0, noise,
                                         table)
     out["B fp16 rounding points"] = _fp16_rounding_points(smoke, g)
+    out["B bf16 ldp planner unchanged"] = _bf16_planner_unchanged(smoke)
 
     # the bench planner, DDIM-10 over 1024 samples (phase B's net)
     p = configs.BENCH_AGENT["planner"]
@@ -5176,7 +5299,9 @@ def kernel_entries(smoke: Smoke) -> list:
     B's max_abs_err against its rounding twin after the whole process)."""
     def entry(name, k, launches, path):
         err = k["max_abs_err"] if "max_abs_err" in k else k["kernel"]["max"]
+        mode = k.get("mode") or (k.get("shape") or {}).get("mode")
         return {"name": name, "path": path, "route": "cuda",
+                **({"mode": mode} if mode else {}),
                 "source": k.get("source", "latent_diffusion_planning_tpu_"
                                 f"torch/csrc/{name}.cu"),
                 "replaces": REPLACES[name], "launches": launches,

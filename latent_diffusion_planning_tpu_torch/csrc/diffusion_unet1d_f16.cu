@@ -21,8 +21,10 @@
 //
 // What bounds it on H100: as the bf16 instances, the weight stream (fp16
 // tiles are the same 8 KB) and the latency of short dependent chains; the
-// fp16 tensor-core rate is bf16's (989 TFLOP/s dense).
-#include "unet1d.cuh"
+// fp16 tensor-core rate is bf16's (989 TFLOP/s dense). At the default
+// calls (256 samples) that stream is 128 blocks x 122 MB a step, from HBM:
+// the grid mode (unet1d_grid.cuh) reads each tile once a step by the grid.
+#include "unet1d_grid.cuh"
 
 // As ldp_unet1d_sampler, with `w` the fp16 packing.
 extern "C" int ldp_unet1d_sampler_f16(const float* gcond, const float* x_init,
@@ -34,4 +36,24 @@ extern "C" int ldp_unet1d_sampler_f16(const float* gcond, const float* x_init,
                                       float clip, void* stream) {
   return unet1d_sample<f16>(gcond, x_init, ts, coefs, noise, w, prog, film_t,
                             film_g, scratch, out, dims, n_dims, clip, stream);
+}
+
+// The grid mode (unet1d_grid.cuh): every sample at once in one persistent
+// launch of `gdims[0]` blocks, a grid-wide barrier between dependent
+// phases. dims as above with nb = B (the program's records and buffer
+// sizes for all samples); gdims: blocks, shared memory bytes, the bytes of
+// it for the ring and the window, then the byte offsets in `scratch` of
+// X32, Y32, Xb, Yb, the skips (fp16, then fp32), the current sample, the
+// GroupNorm statistics and the barrier's two words, the GEMMs a step, and
+// four numbers a GEMM (GridGemm: rows an item and a pass, ring stages,
+// window bytes), in program order.
+extern "C" int ldp_unet1d_sampler_f16_grid(
+    const float* gcond, const float* x_init, const int* ts,
+    const float* coefs, const float* noise, const void* w, const int* prog,
+    float* film_t, float* film_g, void* scratch, float* out, const int* dims,
+    int n_dims, const long long* gdims, int n_gdims, float clip,
+    void* stream) {
+  return unet1d_sample_grid(gcond, x_init, ts, coefs, noise, w, prog, film_t,
+                            film_g, scratch, out, dims, n_dims, gdims,
+                            n_gdims, clip, stream);
 }

@@ -17,6 +17,7 @@ WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    diffusion_unet1d.fused_unet1d_ddim_sample.grid_launches = 0
 
 
 def launch_counts() -> dict:

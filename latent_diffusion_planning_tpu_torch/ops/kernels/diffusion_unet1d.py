@@ -687,6 +687,278 @@ def choose_tile(net: ConditionalUnet1D, T: int, B: int | None = None,
     return min(fits, key=key)
 
 
+# ---------------------------------------------------------------------------
+# the grid mode (fp16: csrc/unet1d_grid.cuh)
+# ---------------------------------------------------------------------------
+
+GRID_ROWS = 64          # output rows of a grid-mode item at most
+GRID_STAT_FLOATS = 2048  # a block's cache of GroupNorm statistics
+GRID_MAX_GEMMS = 64     # rows of the launch's GEMM table (kGridMaxGemms)
+GRID_ENTRY = "ldp_unet1d_sampler_f16_grid"
+# a phase's fixed cost in the grid mode (its barrier, the ring's first
+# stages and last drain, the window's copy, the statistics) in the bytes L2
+# would move in its time: the grid kernel with every GEMM's products
+# skipped took 106.8 ms for 6300 phases at the default LDP planner on one
+# H100 (17 us each), 85 MB at 5 TB/s
+GRID_BARRIER_BYTES = 85 << 20
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_gemms(signature: tuple, T: int) -> tuple:
+    """Every GEMM of the main stream in program order as the grid mode runs
+    it: (name, input length, output length, N, taps, pad32(Cin), first
+    tile, GroupNorm channels a group after it or 0, lo pass)."""
+    lay = _layout(signature, torch.float16)
+    gm = lay["gemm"]
+    G = signature[5]
+    out, Tl = [], T
+    for op in _walk(len(signature[3]), signature[6]):
+        names, Tin = [], Tl
+        if op[0] == "film":
+            names = [(f"conv1.{op[1]}", True), (f"conv2.{op[1]}", True),
+                     (f"proj.{op[1]}", False)]
+        elif op[0] in ("down", "up"):
+            Tl = Tl // 2 if op[0] == "down" else 2 * Tl
+            names = [(f"{op[0]}.{op[1]}", False)]
+        elif op[0] == "final_block":
+            names = [("final_block", True)]
+        elif op[0] == "final_conv":
+            names = [("final_conv", False)]
+        for name, gn in names:
+            if name not in gm:
+                continue
+            g = gm[name]
+            out.append((name, Tin, Tl, g["cout"], g["taps"],
+                        _up(g["cin"], TILE_K), g["tile_off"],
+                        g["cout"] // G if gn else 0, name == "final_conv"))
+    return tuple(out)
+
+
+def grid_schedule(net: ConditionalUnet1D, B: int, T: int,
+                  blocks: int = H100_SMS) -> list[dict]:
+    return _grid_schedule(_signature(net), B, T, blocks)
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_schedule(signature: tuple, B: int, T: int,
+                   blocks: int = H100_SMS) -> list[dict]:
+    """The grid mode's work, GEMM by GEMM in program order: each item's
+    block, output rows [r0, r0 + rows) (whole samples: ``GRID_ROWS``, or
+    half or a quarter of that where the items still fit one wave of
+    ``blocks``), columns [c0, c0 +
+    cols) (one 128-column group), K range [k0, k1) of taps × pad32(Cin)
+    (all of it: a K sum is never split) and the weight tiles it reads (its
+    column group's stripe, contiguous in the main stream); item i is column
+    group i % n_col of row tile i // n_col, run by block i % blocks, as
+    ``grid_gemm`` in ``csrc/unet1d_grid.cuh`` takes them (its rows an item
+    from ``grid_table``)."""
+    out = []
+    for name, Tin, Tl, N, taps, cinp, tile0, gn_ch, lo in _grid_gemms(
+            signature, T):
+        M = B * Tl
+        n_col = -(-N // TILE_N)
+        # GRID_ROWS, halved (whole samples, 16 rows at least) while the
+        # items still fit one wave of blocks
+        rows = GRID_ROWS
+        while (rows // 2 >= max(16, Tl)
+               and -(-M // (rows // 2)) * n_col <= blocks):
+            rows //= 2
+        n_row = -(-M // rows)
+        stripe = taps * cinp // TILE_K
+        items = []
+        for i in range(n_row * n_col):
+            ng, r0 = i % n_col, i // n_col * rows
+            items.append(dict(block=i % blocks, r0=r0,
+                              rows=min(rows, M - r0), c0=ng * TILE_N,
+                              cols=min(TILE_N, N - ng * TILE_N), k0=0,
+                              k1=taps * cinp,
+                              tiles=(tile0 + ng * stripe,
+                                     tile0 + (ng + 1) * stripe)))
+        out.append(dict(name=name, length_in=Tin, length=Tl, rows=M, N=N,
+                        item_rows=rows, taps=taps, cin_pad=cinp,
+                        K=taps * cinp,
+                        gn_channels=gn_ch, lo_pass=lo, items=items))
+    return out
+
+
+def grid_fits(net: ConditionalUnet1D, B: int, T: int,
+              dtype: torch.dtype = WEIGHT_DTYPE,
+              blocks: int = H100_SMS) -> bool:
+    """Whether the grid mode takes this call: fp16 weights, widths of whole
+    16-byte runs, every level's length divides ``GRID_ROWS`` (an item
+    holds whole samples), no GroupNorm group spans two 128-column groups,
+    each block's share of an elementwise pass holds the statistics of few
+    enough samples for its cache, and every item's input rows fit the
+    window (``grid_pass``)."""
+    if _check_dtype(dtype) != torch.float16:
+        return False
+    if any(ch % 8 for ch in net.down_dims):   # skips copied 16 bytes at once
+        return False
+    if len(_grid_gemms(_signature(net), T)) > GRID_MAX_GEMMS:
+        return False
+    for name, Tin, Tl, N, taps, cinp, tile0, gn_ch, lo in _grid_gemms(
+            _signature(net), T):
+        if GRID_ROWS % Tl:
+            return False
+        if gn_ch and N > TILE_N and TILE_N % gn_ch:
+            return False
+        per = -(-(B * Tl) // blocks)
+        if 2 * (-(-per // Tl) + 1) * net.n_groups > GRID_STAT_FLOATS:
+            return False
+    return all(stages >= MIN_STAGES
+               for _, _, stages, _ in grid_table(net, B, T, blocks))
+
+
+def grid_pass(g: dict, space: int) -> tuple[int, int, int]:
+    """(output rows a pass, ring stages, window bytes) of a GEMM of
+    ``grid_schedule`` in ``space`` bytes of ring and window: its item's
+    rows halved (whole samples) until its input rows (at pad32(Cin) + 8
+    fp16 a row) fit beside two ring stages, the ring as deep as the rest
+    allows (at most 8; fewer than 2 where one sample's rows do not fit,
+    which ``grid_fits`` refuses)."""
+    ldw = g["cin_pad"] + 8
+    rows_in = lambda p: p // g["length"] * g["length_in"]
+    stage = stage_bytes(torch.float16)
+    room = space - MIN_STAGES * stage
+    p = g["item_rows"]
+    while p > g["length"] and 2 * rows_in(p) * ldw > room:
+        p //= 2
+    win = _up(2 * rows_in(p) * ldw, 128)
+    return p, min(MAX_STAGES, (space - win) // stage), win
+
+
+def grid_table(net: ConditionalUnet1D, B: int, T: int,
+               blocks: int = H100_SMS) -> list[tuple[int, int, int, int]]:
+    """What ``grid_gemm`` runs each GEMM of a step with, in program order:
+    (output rows an item, output rows a pass, ring stages, window bytes),
+    from ``grid_schedule`` and ``grid_pass``. The launch carries the table
+    (``gdims``); the kernel derives none of it and refuses a launch whose
+    table does not fit its shared memory."""
+    space = grid_plan(net, B, T, blocks)["space"]
+    return [(g["item_rows"], *grid_pass(g, space))
+            for g in grid_schedule(net, B, T, blocks)]
+
+
+def grid_dims(net: ConditionalUnet1D, B: int, T: int,
+              blocks: int = H100_SMS) -> list[int]:
+    """The grid launch's ``gdims``: blocks, shared memory bytes, the bytes
+    of it for the ring and the window, the scratch offsets of ``grid_plan``,
+    the GEMMs a step, then ``grid_table`` row by row."""
+    plan = grid_plan(net, B, T, blocks)
+    table = grid_table(net, B, T, blocks)
+    o = plan["offsets"]
+    return [plan["blocks"], plan["smem_bytes"], plan["space"],
+            *(o[k] for k in ("x32", "y32", "xb", "yb", "skip", "xcur",
+                             "stats", "bar")),
+            len(table), *(v for row in table for v in row)]
+
+
+def grid_traffic(net: ConditionalUnet1D, B: int, T: int) -> dict:
+    """What the grid mode's blocks move a step, most of it through L2: the
+    weight tiles its items read (each item its stripe once a pass, the
+    final conv's twice; each tile comes from HBM once a step), and the
+    activations, which the ordinary mode keeps in shared memory: each
+    item's input rows into the window (or, past it, through it a run of
+    channels a tap), its fp32 output and operand copy, and the elementwise
+    pass after a GroupNorm (fp32 in and out, the residual, the operand
+    copy); and its barriers."""
+    weights = acts = 0
+    for g, (_, rows, _, _) in zip(grid_schedule(net, B, T),
+                                  grid_table(net, B, T)):
+        lo, hi = g["items"][0]["tiles"]
+        for it in g["items"]:
+            passes = -(-it["rows"] // rows)
+            weights += passes * (hi - lo) * TILE * 2 * (
+                2 if g["lo_pass"] else 1)
+            rows_in = it["rows"] // g["length"] * g["length_in"]
+            acts += rows_in * g["cin_pad"] * 2
+        acts += g["rows"] * g["N"] * (6 + (14 if g["gn_channels"] else 0))
+    return dict(weight_bytes=weights, activation_bytes=acts,
+                barriers=grid_barriers(net, T),
+                hbm_weight_bytes=layout(net, torch.float16)["stream"]["main"][
+                    "n_tiles"] * TILE * 2)
+
+
+def grid_bytes(net: ConditionalUnet1D, B: int, T: int) -> int:
+    """The grid mode's cost a step in bytes (``grid_traffic``), each phase
+    (one a barrier) counted as the GRID_BARRIER_BYTES L2 moves in its
+    fixed time."""
+    t = grid_traffic(net, B, T)
+    return (t["weight_bytes"] + t["activation_bytes"]
+            + t["barriers"] * GRID_BARRIER_BYTES)
+
+
+def grid_barriers(net: ConditionalUnet1D, T: int) -> int:
+    """Grid-wide barriers a step: one after each GEMM, GroupNorm pass and
+    concat, and one after the step's update (a save needs none)."""
+    n = 1
+    for op in _walk(len(net.down_dims), net.downsample):
+        if op[0] == "film":
+            n += 5 if f"proj.{op[1]}" in layout(net, torch.float16)[
+                "gemm"] else 4
+        elif op[0] in ("concat", "down", "up", "final_conv"):
+            n += 1
+        elif op[0] == "final_block":
+            n += 2
+    return n
+
+
+def ordinary_bytes(net: ConditionalUnet1D, B: int, T: int,
+                   dtype: torch.dtype = WEIGHT_DTYPE,
+                   sms: int = H100_SMS) -> int:
+    """Bytes of weights the ordinary mode's blocks stream a step: each of
+    its blocks the whole main stream."""
+    nb, _ = choose_tile(net, T, B, dtype, sms)
+    return -(-B // nb) * layout(net, dtype)["stream"]["main"]["stages"] * \
+        stage_bytes(dtype)
+
+
+def choose_grid(net: ConditionalUnet1D, T: int, B: int,
+                dtype: torch.dtype = WEIGHT_DTYPE,
+                sms: int = H100_SMS) -> bool:
+    """The grid mode where it fits and costs fewer bytes a step
+    (``grid_bytes``) than the ordinary mode's blocks stream: the default
+    calls at 256 samples (the default LDP planner: 15.6 GB against 9.3);
+    the ordinary mode elsewhere: the bench planner, whose weights fit L2,
+    and LDP-hier's chunk IDM at 1024 samples (4.4 GB against 5.4: its 17
+    MB of weights fit L2 too, and 4000 phases a call cost more than its
+    blocks' stream)."""
+    return _choose_grid(_signature(net), T, B, _check_dtype(dtype), sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _choose_grid(signature: tuple, T: int, B: int, dtype: torch.dtype,
+                 sms: int) -> bool:
+    with torch.device("meta"):
+        net = ConditionalUnet1D(*signature)
+    return (grid_fits(net, B, T, dtype, sms)
+            and ordinary_bytes(net, B, T, dtype, sms)
+            > grid_bytes(net, B, T))
+
+
+def grid_plan(net: ConditionalUnet1D, B: int, T: int,
+              blocks: int = H100_SMS) -> dict:
+    """The grid mode's program (the records and buffer sizes of a tile of
+    all ``B`` samples), its scratch (byte offsets of X32, Y32, Xb, Yb, the
+    skips, the current sample, the statistics and the barrier) and its
+    shared memory: a zero row, the statistics cache, and ``space`` bytes
+    for the ring and the window (``grid_pass``)."""
+    f16 = torch.float16
+    prog = build_program(net, T, B, False, f16)
+    off, o = {}, 0
+    for key, n in (("x32", 4 * prog["max32"]), ("y32", 4 * prog["max32"]),
+                   ("xb", 2 * prog["maxb"]), ("yb", 2 * prog["maxb"]),
+                   ("skip", 2 * prog["skip_total"]
+                    + 4 * prog["skip32_total"]),
+                   ("xcur", 4 * B * T * net.input_dim),
+                   ("stats", 4 * 2 * B * net.n_groups), ("bar", 8)):
+        off[key] = o
+        o = _up(o + n, 256)
+    return dict(program=prog, offsets=off, scratch_bytes=o, blocks=blocks,
+                smem_bytes=SMEM_LIMIT,
+                space=SMEM_LIMIT - 32 - 4 * GRID_STAT_FLOATS)
+
+
 @functools.lru_cache(maxsize=64)
 def _records_on(signature: tuple, T: int, nb: int, wide: bool,
                 dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -818,35 +1090,57 @@ def unet1d_ddim_sample_plain(net: ConditionalUnet1D, global_cond: torch.Tensor,
 def kernel_info(net: ConditionalUnet1D, B: int, T: int, n_steps: int,
                 nb: int | None = None,
                 dtype: torch.dtype = WEIGHT_DTYPE, *,
-                wide: bool | None = None, sms: int = H100_SMS) -> dict:
+                wide: bool | None = None, sms: int = H100_SMS,
+                grid: bool | None = None) -> dict:
     """What a launch at this shape looks like (``n_steps`` 100 for DDPM-100):
     tile, mode, grid, shared memory, the global scratch of wide mode and
     the bytes of weights its blocks stream in all; fp32 also the waves of
-    blocks on ``sms`` SMs. ``nb`` and ``wide`` override the plan as the
-    wrapper takes them."""
+    blocks on ``sms`` SMs; the grid mode its items, barriers and the bytes
+    of ``grid_traffic``. ``nb``, ``wide`` and ``grid`` override the plan as
+    the wrapper takes them."""
+    lay = layout(net, dtype)
+    stage = stage_bytes(dtype)
+    rows = COND_ROWS
+    pro = (n_steps * lay["stream"]["time"]["stages"]
+           + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
+    prologue = dict(film_t_bytes=4 * n_steps * lay["film_ld"],
+                    prologue_cond_rows=rows,
+                    prologue_grid=n_steps + -(-B // rows),
+                    prologue_smem_bytes=prologue_smem_bytes(net, dtype))
+    if grid is None:
+        grid = nb is None and choose_grid(net, T, B, dtype, sms)
+    if grid:
+        plan = grid_plan(net, B, T, sms)
+        t = grid_traffic(net, B, T)
+        return dict(dtype=str(dtype).removeprefix("torch."), mode="grid",
+                    samples_per_block=B, grid=plan["blocks"], wide=False,
+                    smem_bytes=plan["smem_bytes"],
+                    scratch_bytes=plan["scratch_bytes"],
+                    ring_stages=sorted({s for _, _, s, _ in
+                                        grid_table(net, B, T, sms)}),
+                    items_per_step=sum(len(g["items"]) for g in
+                                       grid_schedule(net, B, T, sms)),
+                    barriers=n_steps * t["barriers"],
+                    activation_bytes=n_steps * t["activation_bytes"],
+                    hbm_weight_bytes=n_steps * t["hbm_weight_bytes"] + pro,
+                    weight_bytes_streamed=n_steps * t["weight_bytes"] + pro,
+                    **prologue)
     if nb is None:
         nb, prog = choose_tile(net, T, B, dtype, sms)
     else:
         if wide is None:
             wide = choose_tile(net, T, dtype=dtype)[1]["wide"]
         prog = build_program(net, T, nb, wide, dtype)
-    lay = layout(net, dtype)
     grid = -(-B // nb)
-    stage = stage_bytes(dtype)
     main = lay["stream"]["main"]["stages"] * stage
-    rows = COND_ROWS
-    pro = (n_steps * lay["stream"]["time"]["stages"]
-           + -(-B // rows) * lay["stream"]["cond"]["stages"]) * stage
     extra = {"waves": -(-grid // sms)} if esize(dtype) == 4 else {}
     return dict(dtype=str(dtype).removeprefix("torch."),
+                mode="wide" if prog["wide"] else "ordinary",
                 samples_per_block=nb, grid=grid, smem_bytes=prog["smem_bytes"],
                 wide=prog["wide"], scratch_bytes=grid * prog["scratch_bytes"],
                 operands_global=prog.get("operands_global", False),
                 stage_elems=prog.get("stage_elems", 0),
-                film_t_bytes=4 * n_steps * lay["film_ld"],
-                ring_stages=prog["stages"], prologue_cond_rows=rows,
-                prologue_grid=n_steps + -(-B // rows),
-                prologue_smem_bytes=prologue_smem_bytes(net, dtype),
+                ring_stages=prog["stages"], **prologue,
                 weight_bytes_per_step_and_block=main,
                 weight_bytes_streamed=grid * n_steps * main + pro, **extra)
 
@@ -878,7 +1172,8 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
                              packed: torch.Tensor | None = None,
                              nb: int | None = None,
                              wide: bool | None = None,
-                             dtype: torch.dtype = WEIGHT_DTYPE
+                             dtype: torch.dtype = WEIGHT_DTYPE,
+                             grid: bool | None = None
                              ) -> torch.Tensor:
     """Reverse process: global_cond (B, Dc), x_init (B, T, D) → (B, T, D).
 
@@ -887,10 +1182,11 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     ``noise`` (S, B, T, D), one draw per step (its s_var column scales it).
     CPU tensors run the plain twin (with the net's own weights); CUDA
     tensors launch the kernel with weights of ``dtype`` (bf16, fp16 or
-    fp32; fp32 plans its waves on the card's SMs). ``packed`` is
-    ``pack_params(net, dtype)`` on the device; ``nb`` overrides the samples
-    per block and, with it, ``wide`` the mode (for measurements). A launch
-    the card refuses raises.
+    fp32; fp32 plans its waves on the card's SMs; fp16 runs the grid mode
+    where ``choose_grid`` takes it). ``packed`` is ``pack_params(net,
+    dtype)`` on the device; ``nb`` overrides the samples per block and,
+    with it, ``wide`` the mode, and ``grid`` forces the grid mode on or off
+    (for measurements). A launch the card refuses raises.
     """
     if x_init.device.type == "cpu":
         return unet1d_ddim_sample_plain(net, global_cond, x_init, timesteps,
@@ -903,8 +1199,14 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     if D != net.input_dim or global_cond.shape != (B, net.global_cond_dim):
         raise ValueError("sample or condition width does not match the net")
     dev = x_init.device
-    if nb is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if grid is None:
+        grid = nb is None and choose_grid(net, T, B, dtype, sms)
+    if grid:
+        if not grid_fits(net, B, T, dtype, sms):
+            raise ValueError("the grid mode does not take this call")
+        nb, prog = B, grid_plan(net, B, T, sms)["program"]
+    elif nb is None:
         nb, prog = choose_tile(net, T, B, dtype, sms)
     else:
         if wide is None:
@@ -943,23 +1245,37 @@ def fused_unet1d_ddim_sample(net: ConditionalUnet1D, global_cond: torch.Tensor,
     rows = COND_ROWS
     film_g = torch.empty((_up(B, rows), lay["film_ld"]), device=dev,
                          dtype=torch.float32)
-    grid = -(-B // nb)
-    # wide mode: each block's fp32 buffers and skips
-    scratch = (torch.empty(grid * prog["scratch_bytes"], device=dev,
-                           dtype=torch.uint8) if prog["wide"] else None)
     dims = torch.tensor(_dims(net, B, T, S, nb, prog, dtype),
                         dtype=torch.int32)
     P, I, F = _build.P, _build.I, _build.F
-    entry = ENTRIES[dtype]
-    fn = _build.function(entry, [P] * 12 + [I, F, P])
-    err = fn(gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
-             coefs.data_ptr(), _build.ptr(noise), packed.data_ptr(),
-             recs.data_ptr(), film_t.data_ptr(), film_g.data_ptr(),
-             _build.ptr(scratch), out.data_ptr(), dims.data_ptr(),
-             dims.numel(), float(clip_range), _build.stream_ptr(x_init))
+    args = [gcond.data_ptr(), x_init.data_ptr(), ts.data_ptr(),
+            coefs.data_ptr(), _build.ptr(noise), packed.data_ptr(),
+            recs.data_ptr(), film_t.data_ptr(), film_g.data_ptr()]
+    if grid:
+        plan = grid_plan(net, B, T, sms)
+        scratch = torch.empty(plan["scratch_bytes"], device=dev,
+                              dtype=torch.uint8)
+        gdims = torch.tensor(grid_dims(net, B, T, sms), dtype=torch.int64)
+        entry = GRID_ENTRY
+        fn = _build.function(entry, [P] * 12 + [I, P, I, F, P])
+        err = fn(*args, scratch.data_ptr(), out.data_ptr(), dims.data_ptr(),
+                 dims.numel(), gdims.data_ptr(), gdims.numel(),
+                 float(clip_range), _build.stream_ptr(x_init))
+        fused_unet1d_ddim_sample.grid_launches += 1
+    else:
+        blocks = -(-B // nb)
+        # wide mode: each block's fp32 buffers and skips
+        scratch = (torch.empty(blocks * prog["scratch_bytes"], device=dev,
+                               dtype=torch.uint8) if prog["wide"] else None)
+        entry = ENTRIES[dtype]
+        fn = _build.function(entry, [P] * 12 + [I, F, P])
+        err = fn(*args, _build.ptr(scratch), out.data_ptr(), dims.data_ptr(),
+                 dims.numel(), float(clip_range), _build.stream_ptr(x_init))
     _build.check(entry, err)
     fused_unet1d_ddim_sample.launches += 1
     return out
 
 
 fused_unet1d_ddim_sample.launches = 0
+# of those, the grid mode's (fp16)
+fused_unet1d_ddim_sample.grid_launches = 0

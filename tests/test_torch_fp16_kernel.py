@@ -130,10 +130,16 @@ def test_fp16_twin_matches_jax_fp16_kernel(unet):
 
 
 @pytest.fixture(scope="module")
-def jax_all_points():
+def all_points():
+    """The nets at ``DD_ALL``, where every rounding point shows."""
+    return _nets(DD_ALL)
+
+
+@pytest.fixture(scope="module")
+def jax_all_points(all_points):
     """JAX's fp16 kernel on 16 samples of a net where every rounding point
     shows (``DD_ALL``), the draws, and the port's copy of the net."""
-    params, mine = _nets(DD_ALL)
+    params, mine = all_points
     rng = np.random.default_rng(8)
     g = rng.normal(size=(16, DC)).astype(np.float32)
     x0 = rng.normal(size=(16, T, D)).astype(np.float32)
@@ -171,24 +177,67 @@ def test_fp16_twin_needs_each_rounding_point(jax_all_points, points):
     assert _exact_samples(got, want) == 0
 
 
-def test_fp16_twin_keeps_jax_nonfinite_output(unet):
-    """A sample driven past |x| = 256 (its initial draw times 500): x * x
-    overflows fp16 in JAX's GroupNorm statistics, the variance is inf, and
-    JAX's broadcast turns it into NaN in the sample's other groups; its
-    output is NaN where the fp32 net's is finite. The twin's output is
-    non-finite exactly where JAX's is, and the other sample holds JAX."""
-    params, mine = unet
+def _held(got, want):
+    """(mean error, share within BAR, samples within EXACT) of ``got``
+    against ``want`` over the samples given, and whether that holds the
+    bar the twin holds: mean within BAR, 80% of the elements within BAR,
+    and a fifth of the samples within EXACT."""
+    err = np.abs(got - want)
+    stats = (float(err.mean()), float((err <= BAR).mean()),
+             _exact_samples(got, want))
+    return stats, (stats[0] <= BAR and stats[1] >= 0.8
+                   and stats[2] >= len(got) / 5)
+
+
+def test_fp16_twin_keeps_jax_nonfinite_output(all_points):
+    """Sample 1 of 16 driven past |x| = 256 (its initial draw times 500):
+    x * x overflows fp16 in JAX's GroupNorm statistics, the variance is
+    inf, and JAX's broadcast turns it into NaN in the sample's other
+    groups; its output is NaN where the fp32 net's is finite. The twin's
+    output is non-finite exactly where JAX's is, and the other 15 samples
+    are untouched: bit for bit what the twin gives them with sample 1 at
+    its plain draw (a sample depends on itself alone; the same batch size,
+    since the CPU's convolutions sum a batch of another size in another
+    order), and held to JAX as ``test_fp16_twin_matches_jax_fp16_kernel``
+    holds the twin, on a net where every rounding point shows. One sample
+    alone is no yardstick there: one rounding flip moves it by up to 1e-3,
+    and hosts flip differently. Negative controls: the twin without each
+    of JAX's rounding points, and without all four, misses that bar."""
+    params, mine = all_points
     rng = np.random.default_rng(7)
-    g = rng.normal(size=(2, DC)).astype(np.float32)
-    x0 = rng.normal(size=(2, T, D)).astype(np.float32)
+    g = rng.normal(size=(16, DC)).astype(np.float32)
+    x0 = rng.normal(size=(16, T, D)).astype(np.float32)
+    plain = x0.copy()
     x0[1] *= 500
-    want, (twin, net) = _both(params, mine, g, x0,
-                              [kunet.rounding_twin(mine, F16), mine])
+    smoke = _smoke()
+    less = [smoke.fp16_twin_without(mine, p) for p in (
+        ("groupnorm",), ("film",), ("down",), ("final conv",),
+        smoke.FP16_POINTS)]
+    twin = kunet.rounding_twin(mine, F16)
+    want, (got, net, *controls) = _both(params, mine, g, x0,
+                                        [twin, mine, *less])
     bad = ~np.isfinite(want)
-    assert bad[1].all() and not bad[0].any() and np.isfinite(net).all()
-    np.testing.assert_array_equal(np.isnan(twin), np.isnan(want))
-    np.testing.assert_array_equal(np.isinf(twin), np.isinf(want))
-    assert np.abs(twin[0] - want[0]).mean() <= BAR
+    assert bad[1].all() and not np.delete(bad, 1, 0).any()
+    assert np.isfinite(net).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    ts, coefs = dlib.ddim_coef_table(
+        dlib.DiffusionSchedule.create(12, "squaredcos_cap_v2"), 2)
+    alone = kunet.unet1d_ddim_sample_plain(twin, torch.from_numpy(g),
+                                           torch.from_numpy(plain), ts,
+                                           coefs).numpy()
+    rest = [i for i in range(16) if i != 1]
+    np.testing.assert_array_equal(got[rest], alone[rest])
+    stats, ok = _held(got[rest], want[rest])
+    print(f"twin on the 15 finite samples: mean {stats[0]:.2e}, share "
+          f"{stats[1]:.3f}, exact samples {stats[2]}")
+    assert ok
+    for name, c in zip(("groupnorm", "film", "down", "final conv", "all"),
+                       controls):
+        stats, ok = _held(c[rest], want[rest])
+        print(f"without {name}: mean {stats[0]:.2e}, share {stats[1]:.3f}, "
+              f"exact samples {stats[2]}")
+        assert not ok, name
 
 
 def test_fp16_twin_with_fp64_sums_is_the_same_function(unet):

@@ -7,8 +7,9 @@ short CPU runs of the VAE workspace feeding the LDP workspace.
 Both sides are fp32 on the CPU with JAX's matmuls at "highest" precision.
 Tolerances are stated per test: a decoder is a few dozen fp32 convolutions
 summed in two frameworks' orders (1e-5; 1e-4 at the bench's full widths); an
-update moves each weight by at most the learning rate (1e-5); plan
-visualization runs two reverse processes and the decoder (1e-4).
+update holds its gradients to 1e-4 of each tensor's largest and each weight
+to Adam's first step's sensitivity at them; plan visualization runs two
+reverse processes and the decoder (1e-4).
 """
 
 from pathlib import Path
@@ -179,38 +180,130 @@ def test_vae_model_metrics_match_jax(vae_pair):
     assert float(want["loss_kl"]) > 0
 
 
+# the gradients' bar: each tensor's largest difference over its largest
+# gradient (two frameworks' fp32 sums of one backward pass)
+GRAD_RTOL = 1e-4
+ADAM_EPS = 1e-8
+F32_ULP = float(np.finfo(np.float32).eps)
+# Adam's constants in fp32: 1 - fp32(0.999) is 1.3e-5 off 1e-3, so either
+# side's first step lr · g / |g| may sit 6.4e-6 of itself off the exact one
+ADAM_REL = 2e-5
+
+
+def _jax_grads(jmodel, batch, rng):
+    """The gradients ``jmodel.update`` applies, from its own loss."""
+    from latent_diffusion_planning_tpu.ops import normalize as jnz
+    nb = jnz.normalize_batch(jax.tree_util.tree_map(jnp.asarray, batch),
+                             jmodel.obs_normalization)
+    grads, _ = jax.jit(jax.grad(jmodel.loss, has_aux=True))(
+        jmodel.vae_state.params, nb, rng)
+    return grads
+
+
+def _first_adam_step(g):
+    """Adam's first update direction m̂ / (sqrt(v̂) + eps) = g / (|g| + eps),
+    in fp64."""
+    return g / (np.abs(g) + ADAM_EPS)
+
+
+def _update_excess(mine, grads, before, want_vae, want_grads, lr, moved):
+    """The largest ratio, over the weights (not the key bias), of the
+    distance to JAX's updated weight over what the gradients' bar allows:
+    how far Adam's first step moves when the port's observed gradient g
+    moves by up to GRAD_RTOL of its tensor's largest JAX gradient,
+    ``moved`` × lr × max |a(g ± Δ) − a(g)|, plus the fp32 rounding of the
+    update (two ulps of the weight, and ADAM_REL of the step). Above 1: the
+    update is not Adam's at gradients within the bar."""
+    worst = 0.0
+    for (name, p), q, gj in zip(mine.named_parameters(),
+                                want_vae.parameters(),
+                                want_grads.parameters()):
+        if name.endswith("attn.k.bias"):
+            continue
+        w = p.detach().numpy().astype(np.float64)
+        g = grads[name].numpy().astype(np.float64)
+        delta = GRAD_RTOL * float(np.abs(gj.detach().numpy()).max())
+        a = _first_adam_step(g)
+        sens = moved * lr * np.maximum(
+            np.abs(_first_adam_step(g + delta) - a),
+            np.abs(_first_adam_step(g - delta) - a))
+        rounding = (2 * F32_ULP * np.maximum(np.abs(w),
+                                             np.abs(before[name].numpy()))
+                    + ADAM_REL * moved * lr * np.abs(a))
+        err = np.abs(w - q.detach().numpy())
+        worst = max(worst, float((err / (sens + rounding + 1e-30)).max()))
+    return worst
+
+
 def test_vae_model_update_matches_jax(vae_pair):
     """One update at step 0 (lr end_lr = 1e-4): metrics, the learning rate
-    and step, the new weights and their EMA. The attention's key bias adds
-    the same q·b to every logit of a row, which the softmax cancels: its
-    true gradient is 0, both sides compute rounding noise, and Adam turns
-    noise into a step of up to the learning rate either way. For it the
-    test holds that bound instead of the values."""
+    and step, the gradients, the new weights and their EMA.
+
+    The gradients hold JAX's to 1e-4 of each tensor's largest. The update
+    holds where it is well defined: Adam's first step is lr · g / (|g| +
+    eps), so where |g| is near eps it magnifies the rounding of g (an
+    element of a conv weight moved 1.06e-5 from JAX's on one host, under
+    1e-5 on another); each weight is held to that step's own sensitivity
+    at the port's gradient over the gradients' bar, plus the update's fp32
+    rounding. The attention's key bias adds the same q·b to every logit of
+    a row, which the softmax cancels: its true gradient is 0, both sides
+    compute rounding noise, and Adam turns noise into a step of up to the
+    learning rate either way. For it the test holds that bound instead.
+    Negative control: the same update at 1.01 × the learning rate leaves
+    the bar."""
     cfg, jmodel = vae_pair
-    model = _ported(jmodel, cfg)
-    before = {k: v.clone() for k, v in model.vae.state_dict().items()}
     batch, rng = _vae_batch(seed=6), jax.random.PRNGKey(9)
+    want_grads = bridge.klvae_from_flax(_np(_jax_grads(jmodel, batch, rng)),
+                                        **cfg["vae"])
     new, want = jmodel.update(jax.tree_util.tree_map(jnp.asarray, batch), rng)
-    got = model.update(_torch_batch(batch), 0,
-                       draws={"eps": _eps(rng, model, 3)})
+    want_vaes = [bridge.klvae_from_flax(_np(t), **cfg["vae"]) for t in (
+        new.vae_state.params, new.vae_state.ema_params)]
+    lr = float(want["vae_lr"])
+
+    def step(lr_scale):
+        model = _ported(jmodel, cfg)
+        before = {k: v.detach().clone()
+                  for k, v in model.vae.named_parameters()}
+        got = model.backward(_torch_batch(batch),
+                             draws={"eps": _eps(rng, model, 3)})
+        grads = {k: v.grad.detach().clone()
+                 for k, v in model.vae.named_parameters()}
+        schedule = model.vae_state.schedule
+        model.vae_state.schedule = lambda c: lr_scale * schedule(c)
+        got.update(model.apply_gradients())
+        excess = [_update_excess(mine, grads, before, want_vae, want_grads,
+                                 lr, moved)
+                  for mine, want_vae, moved in zip(
+                      (model.vae, model.vae_state.ema), want_vaes,
+                      (1.0, 1.0 - cfg["ema_decay"]))]
+        return model, before, got, grads, excess
+
+    model, before, got, grads, excess = step(1.0)
     for k, v in want.items():
         np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5,
                                    atol=1e-7, err_msg=k)
     assert model.vae_state.step == int(new.vae_state.step) == 1
-    lr = float(want["vae_lr"])
-    for mine, theirs, moved in (
-            (model.vae, new.vae_state.params, 1.0),
-            (model.vae_state.ema, new.vae_state.ema_params,
-             1.0 - cfg["ema_decay"])):
-        want_vae = bridge.klvae_from_flax(_np(theirs), **cfg["vae"])
-        for (name, p), q in zip(mine.named_parameters(),
-                                want_vae.parameters()):
+    worst_grad = 0.0
+    for name, gj in want_grads.named_parameters():
+        if name.endswith("attn.k.bias"):
+            continue
+        gj = gj.detach().numpy()
+        rel = float(np.abs(grads[name].numpy() - gj).max()
+                    / max(np.abs(gj).max(), 1e-30))
+        worst_grad = max(worst_grad, rel)
+        assert rel <= GRAD_RTOL, (name, rel)
+    for mine, moved in ((model.vae, 1.0),
+                        (model.vae_state.ema, 1.0 - cfg["ema_decay"])):
+        for name, p in mine.named_parameters():
             if name.endswith("attn.k.bias"):
-                step = (p.detach() - before[name]).abs().max()
-                assert float(step) <= moved * lr * 1.001, name
-                continue
-            np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
-                                       atol=1e-5, rtol=0, err_msg=name)
+                moved_by = (p.detach() - before[name]).abs().max()
+                assert float(moved_by) <= moved * lr * 1.001, name
+    faulty = step(1.01)[4]
+    print(f"gradients: worst {worst_grad:.2e} of a tensor's largest; update "
+          f"/ its bar: weights {excess[0]:.3f}, EMA {excess[1]:.3f}; at "
+          f"1.01 lr {faulty[0]:.1f}, {faulty[1]:.3f}")
+    assert max(excess) <= 1.0, excess
+    assert max(faulty) > 1.0, faulty
 
 
 def test_vae_model_inference_matches_jax(vae_pair):

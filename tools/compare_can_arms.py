@@ -12,7 +12,14 @@ them), also the demo-draw rule: the card carries the gap if its arm is
 below the CPU arm at every draw by at least 0.03 with p < 0.01; the gap is
 the draws' spread if the card arm is at or above the CPU arm at some draw,
 or if the two draws of one device differ by at least as much as the two
-devices at one draw; anything else stays open.
+devices at one draw; anything else stays open. With arms named
+``card_v<S>`` and ``cpu_v<S>`` (the VAE trained and its latents encoded on
+the card or on the CPU at VAE seed S, as ``tools/run_full_length_torch.sh
+can_vae_draws`` names them), the VAE-draw rule on the pooled rates of each
+device: the card's VAE stage carries the gap if every card arm is below
+every CPU arm and the pooled card rate is below the pooled CPU rate by at
+least 0.03 with Fisher's p < 0.01; the gap is the VAE draw's spread if the
+two devices' ranges of rates overlap; anything else stays open.
 """
 
 import argparse
@@ -64,6 +71,31 @@ def verdict(arms: dict) -> str:
     return "open"
 
 
+def vae_verdict(arms: dict) -> str:
+    """The VAE-draw rule over arms ``card_v<S>`` and ``cpu_v<S>``."""
+    dev = {d: {n: arms[n] for n in arms if re.fullmatch(rf"{d}_v\d+", n)}
+           for d in ("card", "cpu")}
+    if not (dev["card"] and dev["cpu"]):
+        return "no card and CPU arms of VAE draws"
+    rate = lambda v: v[0] / v[1]
+    pooled = {d: (sum(v[0] for v in a.values()), sum(v[1] for v in a.values()))
+              for d, a in dev.items()}
+    (kc, nc), (kp, np_) = pooled["card"], pooled["cpu"]
+    p = fisher_exact([[kc, nc - kc], [kp, np_ - kp]])[1]
+    lo = {d: min(map(rate, a.values())) for d, a in dev.items()}
+    hi = {d: max(map(rate, a.values())) for d, a in dev.items()}
+    print(f"VAE draws pooled: card {kc / nc:.4f} ({kc} of {nc}), CPU "
+          f"{kp / np_:.4f} ({kp} of {np_}); card below CPU by "
+          f"{kp / np_ - kc / nc:+.4f}, Fisher p {p:.3g}; ranges card "
+          f"[{lo['card']:.4f}, {hi['card']:.4f}], CPU [{lo['cpu']:.4f}, "
+          f"{hi['cpu']:.4f}]")
+    if hi["card"] < lo["cpu"] and kp / np_ - kc / nc >= 0.03 and p < 0.01:
+        return "the card's VAE stage carries the gap"
+    if lo["card"] <= hi["cpu"] and lo["cpu"] <= hi["card"]:
+        return "spread of the VAE draw"
+    return "open"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--step", type=int, default=30000)
@@ -87,7 +119,10 @@ def main() -> int:
         (ka, na), (kb, nb) = arms[a], arms[b]
         p = fisher_exact([[ka, na - ka], [kb, nb - kb]])[1]
         print(f"{a} against {b}: {ka / na - kb / nb:+.4f}, Fisher p {p:.3g}")
-    print(f"demo-draw rule: {verdict(arms)}")
+    if any(re.fullmatch(r"(?:card|cpu)_d\d+", n) for n in arms):
+        print(f"demo-draw rule: {verdict(arms)}")
+    if any(re.fullmatch(r"(?:card|cpu)_v\d+", n) for n in arms):
+        print(f"VAE-draw rule: {vae_verdict(arms)}")
     return 0
 
 

@@ -7,11 +7,13 @@
 # assets/ (the JAX script snapshots its runs into the tracked tree).
 #
 # Knobs: RUN=can_pipeline  STEPS=30000  DATA=datasets/can  SEED (unset)
-# DEMO_SEED (unset)  ARGS="" (added to every stage, e.g. ARGS=device=cpu)
-# DEMO_ARGS="" (added to the two demo stages only: DEMO_ARGS=device=cpu
-# collects the demos on the CPU and trains on the card).
-# SEED, when set, seeds the VAE's and the LDP's training (their nets' init,
-# batches and draws; unset, the configs' seed 0, as the JAX script).
+# VAE_SEED (SEED)  DEMO_SEED (unset)  ARGS="" (added to every stage, e.g.
+# ARGS=device=cpu)  DEMO_ARGS="" (added to the two demo stages only:
+# DEMO_ARGS=device=cpu collects the demos on the CPU and trains on the
+# card).
+# SEED, when set, seeds the LDP's training (its nets' init, batches and
+# draws; unset, the configs' seed 0, as the JAX script); VAE_SEED seeds
+# the VAE's training the same way, and is SEED unless it is set.
 # DEMO_SEED, when set, draws the demos from seeds DEMO_SEED (train) and
 # DEMO_SEED + 77 (eval); unset, the JAX script's seeds 0 and 77, so runs of
 # several SEEDs then differ only in training. The latents in DATA belong
@@ -23,6 +25,8 @@ RUN=${RUN:-can_pipeline}
 STEPS=${STEPS:-30000}
 DATA=${DATA:-datasets/can}
 SEED_ARGS=${SEED:+seed=$SEED data.seed=$SEED}
+VAE_SEED=${VAE_SEED:-${SEED:-}}
+VAE_SEED_ARGS=${VAE_SEED:+seed=$VAE_SEED data.seed=$VAE_SEED}
 DEMO_SEED=${DEMO_SEED:-0}
 ARGS=${ARGS:-}
 DEMO_ARGS=${DEMO_ARGS:-}
@@ -46,7 +50,7 @@ python tools/train_vae_torch.py data=can/img \
   model.vae.norm_groups=16 \
   batch_size=64 n_grad_steps=4000 warmup_steps=100 lr=3e-4 \
   eval_every=2000 save_every=2000 \
-  experiment_folder=$RUN experiment_name=vae $SEED_ARGS $ARGS
+  experiment_folder=$RUN experiment_name=vae $VAE_SEED_ARGS $ARGS
 fi
 if [ ! -f $DATA/demos_latent.npz ]; then
 python tools/process_latents_torch.py vae_snapshot_path=$VAE \

@@ -23,13 +23,32 @@
 #         experiments/can_<device>_d<draw>) scored as above into
 #         $OUT/can_<device>_d<draw>.json; then
 #         tools/compare_can_demos.py on each draw's two demo sets
+#   can_vae_draws: the Can recipe (SEED 0, STEPS=30000) once per VAE draw
+#         of $VAE_SEEDS (VAE_SEED) and per device of $VAE_DEVICES the VAE
+#         is trained and its latents encoded on (card; cpu: the VAE
+#         snapshot and its latents made off the card beforehand, in
+#         experiments/can_cpu_v<seed>/vae and build/can_cpu_v<seed>), all
+#         on one set of demos collected on the card at draw 0
+#         (build/can_vd, shared), all at once; each run
+#         (build/can_<device>_v<seed>, experiments/can_<device>_v<seed>)
+#         scored as above into $OUT/can_<device>_v<seed>.json, its latents'
+#         spread into $OUT/can_<device>_v<seed>.latents.json
+#         (tools/compare_vae_devices_torch.py latents); the first seed's
+#         snapshot also encodes the demos on the other device
+#         ($OUT/can_<device>_v<seed>.encode.json). With LOCKSTEP > 0 (the
+#         card arms), beside them: tools/compare_vae_devices_torch.py's
+#         lockstep of the VAE trainer on the card against the CPU's over
+#         LOCKSTEP steps (arms cuda, cuda_perm, cpu, cpu_perm; the CPU arms
+#         on 2 threads each), its report (k = 10, the tool's) into
+#         $OUT/vae_lockstep.json
 #   aloha: tools/run_aloha_phys4_torch.sh with STEPS=50000, the length the
 #         JAX phys4 run reached (assets/runs/aloha_phys4: Workspace evals of
 #         64 episodes at 20k/40k, then eval_bc over the 30k/40k/50k
 #         checkpoints, 256 episodes at eval_action_horizon=1, plan_blend=0.7)
 #
 # Knobs: TASKS="lift can"  OUT=chiprun_out/full_length
-# SEEDS="0" (the Can recipe's training seeds), DRAWS="0 1" (can_draws)
+# SEEDS="0" (the Can recipe's training seeds), DRAWS="0 1" (can_draws),
+# VAE_SEEDS="1 2 3" VAE_DEVICES="card" LOCKSTEP=0 (can_vae_draws)
 # Datasets go to build/<task>, runs to experiments/ (both git-ignored).
 # Every stage's command line is echoed beside the Unix time (xtrace), so
 # each stage's wall time is read off the task's log.
@@ -39,6 +58,9 @@ TASKS=${TASKS:-lift can}
 OUT=${OUT:-chiprun_out/full_length}
 SEEDS=${SEEDS:-0}
 DRAWS=${DRAWS:-0 1}
+VAE_SEEDS=${VAE_SEEDS:-1 2 3}
+VAE_DEVICES=${VAE_DEVICES:-card}
+LOCKSTEP=${LOCKSTEP:-0}
 # the mixed study's corpus needs a checkpoint that lifts in 30% of its
 # episodes or more, else it would not be comparable to the JAX study's
 MIN_SUBOPT=0.3
@@ -108,6 +130,83 @@ can_draws() {
     python tools/compare_can_demos.py build/can_card_d$d/demos.npz \
       build/can_cpu_d$d/demos.npz || rc=1
   done
+  echo "+ $(date +%s.%N) done"
+  return $rc
+}
+
+vae_lockstep() {  # DEMOS_DIR: the four lockstep arms, then the report
+  local d=build/vae_lockstep pids=() a rc=0
+  for a in "cuda cuda" "cuda_perm cuda --permute" "cpu cpu --threads 2" \
+           "cpu_perm cpu --permute --threads 2"; do
+    set -- $a
+    local name=$1
+    shift
+    python tools/compare_vae_devices_torch.py run --device "$@" \
+      --train "$DEMOS/demos.npz" --eval "$DEMOS/demos_eval.npz" \
+      --out $d/$name --steps "$LOCKSTEP" > "$OUT/vae_lockstep_$name.log" 2>&1 &
+    pids+=($!)
+  done
+  for a in "${pids[@]}"; do wait "$a" || rc=1; done
+  python tools/compare_vae_devices_torch.py report $d --also cuda_perm > "$OUT/vae_lockstep.log" 2>&1 || rc=1
+  cp $d/report.json "$OUT/vae_lockstep.json" || rc=1
+  rm -rf $d
+  return $rc
+}
+
+vae_arm() {  # NAME DEVICE SEED: one VAE draw's Can arm, its latents' spread
+  local name=$1 dev=$2 seed=$3 other
+  can_run "$name" SEED=0 VAE_SEED="$seed" || return 1
+  python tools/compare_vae_devices_torch.py latents \
+    "build/$name/demos_latent.npz" --vae-run "experiments/$name/vae" \
+    > "$OUT/$name.latents.json" || return 1
+  if [ "$seed" = "${VAE_SEEDS%% *}" ]; then  # (b): the encode on the other
+    other=$([ "$dev" = cpu ] && echo cuda || echo cpu)   # device
+    python tools/process_latents_torch.py \
+      vae_snapshot_path="experiments/$name/vae/ckpt/4000.ckpt" \
+      'vae.block_out_channels=[64,128,128,128]' vae.patch_size=4 \
+      vae.norm_groups=16 \
+      "src_paths=[build/$name/demos.npz,build/$name/demos_eval.npz]" \
+      "dst_paths=[build/$name/$other.npz,build/$name/${other}_eval.npz]" \
+      device=$other > "$OUT/$name.encode.log" 2>&1 || return 1
+    python tools/compare_vae_devices_torch.py latents \
+      "build/$name/demos_latent.npz" "build/$name/$other.npz" \
+      > "$OUT/$name.encode.json" || return 1
+  fi
+}
+
+can_vae_draws() {
+  local pids=() s dev name rc=0 DEMOS=build/can_vd
+  mkdir -p $DEMOS
+  # the demos once, on the card, at the JAX script's seeds (0 / 77)
+  [ -f $DEMOS/demos.npz ] || python tools/collect_demos_torch.py \
+    env._target_=latent_diffusion_planning_tpu.envs.pick_place_physics.CanPhysicsEnv \
+    env.episode_len=300 n_episodes=256 episode_len=300 \
+    out_path=$DEMOS/demos.npz seed=0 || return 1
+  [ -f $DEMOS/demos_eval.npz ] || python tools/collect_demos_torch.py \
+    env._target_=latent_diffusion_planning_tpu.envs.pick_place_physics.CanPhysicsEnv \
+    env.episode_len=300 n_episodes=32 episode_len=300 \
+    out_path=$DEMOS/demos_eval.npz seed=77 || return 1
+  echo "+ $(date +%s.%N) demos"
+  if [ "$LOCKSTEP" -gt 0 ]; then
+    DEMOS=$DEMOS vae_lockstep &
+    pids+=($!)
+  fi
+  for s in $VAE_SEEDS; do
+    for dev in $VAE_DEVICES; do
+      name=can_${dev}_v$s
+      mkdir -p build/$name
+      ln -sf "$PWD/$DEMOS/demos.npz" build/$name/demos.npz
+      ln -sf "$PWD/$DEMOS/demos_eval.npz" build/$name/demos_eval.npz
+      if [ "$dev" = cpu ] && [ ! -f build/$name/demos_latent.npz ]; then
+        echo "$name: no latents of a CPU-trained VAE in build/$name"
+        rc=1
+        continue
+      fi
+      vae_arm $name $dev $s > "$OUT/$name.arm.log" 2>&1 &
+      pids+=($!)
+    done
+  done
+  for s in "${pids[@]}"; do wait "$s" || rc=1; done
   echo "+ $(date +%s.%N) done"
   return $rc
 }
